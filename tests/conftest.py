@@ -23,6 +23,8 @@ def pytest_configure(config):
         "markers",
         "slow: long-running MapReduce/straggler tests; "
         "deselect with -m 'not slow' for the fast lane")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
 
 
 def pytest_generate_tests(metafunc):
