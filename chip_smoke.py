@@ -9,20 +9,29 @@ Phases, any failure exits non-zero:
    (one process per source, in parallel).
 2. Hold each kernel against its plain PyTorch version, bit for bit, on
    random shares with p−1 extremes and ragged shapes (M = 0, N = 0, a
-   K split across blocks, broadcast columns with B-stride 0, row blocks).
-3. Drive the main path through the public entry points at full size: the
+   K split across blocks, broadcast columns with B-stride 0, row blocks;
+   ripple segments of k = 1..13 bits, LSB and carried, lane counts that
+   are not a multiple of the block, per-segment and per-shard slices).
+3. Drive the main paths through the public entry points at full size: the
    README's Employee schema (5 string attributes, word length 8, A = 69,
    degree 1, c = 20 clouds) over ``--tuples`` synthetic rows made from
-   ``--seed`` — 28.9 GB of int32 shares at 131,072 tuples. ``outsource``,
-   ``count``, ``select`` forced to one_tuple / one_round / tree and AUTO,
-   and one ``run_batch`` of 8 mixed plans; every count, address list and
-   row is checked against a plaintext evaluation of the rows, and both
-   kernels' launch counters must have risen during this phase.
-4. Hold every call form the path uses against its plain version again at
-   the path's full shapes, through the same ``ops`` wrappers the path
-   calls: the one-column count stack, the distinct-column count and a tree
-   round's 16 row blocks (``aa_match_rows``), the fetch and the one_tuple
-   contraction; time kernel and plain version there (CUDA events).
+   ``--seed`` — 28.9 GB of int32 shares at 131,072 tuples — with Salary
+   (hundreds of dollars, 100..2000) also outsourced in 13-bit binary form.
+   Slice 1: ``outsource``, ``count``, ``select`` forced to one_tuple /
+   one_round / tree and AUTO, and one ``run_batch`` of 8 mixed plans.
+   Slice 2: ``range_count`` at ``reduce_every`` 8 and 1, a narrow
+   ``range_select``, SUM / conditional AVG / MIN / verified conditional
+   MAX, and one ``run_batch`` of 2 ranges, 3 aggregates and a count.
+   Every count, address list, row and value is checked against a plaintext
+   evaluation of the rows; each path's kernel launch counters are zeroed
+   just before it and must have risen for every kernel it runs.
+4. Hold every call form the paths use against its plain version again at
+   the paths' full shapes, through the same ``ops`` wrappers: the
+   one-column count stack, the distinct-column count and a tree round's 16
+   row blocks (``aa_match_rows``), the fetch, the one_tuple and the
+   conditional-SUM contractions, the range's first ripple segment, a
+   carried k = 1 step and the tournament's first level; time kernel and
+   plain version there (CUDA events).
 
 Prints the kernels JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
@@ -81,7 +90,8 @@ def _words(rng, k: int, lo: int, hi: int, taken) -> np.ndarray:
 
 def make_rows(n: int, seed: int) -> np.ndarray:
     """(n, 5) str array; FirstName plants ℓ = 3 (Zorro), ℓ = 16 (Quinn) and
-    ℓ = 0 (Nobody); EmployeeId is unique."""
+    ℓ = 0 (Nobody); EmployeeId is unique; Salary is in hundreds of dollars,
+    uniform in 100..2000 (USD 10k–200k)."""
     rng = np.random.default_rng(seed)
     taken = set(PLANT.values())
     first = _words(rng, 300, 3, 8, taken)
@@ -92,7 +102,7 @@ def make_rows(n: int, seed: int) -> np.ndarray:
     rows[:, 0] = [f"E{i:07d}" for i in rng.permutation(n)]
     rows[:, 1] = first[rng.integers(0, len(first), n)]
     rows[:, 2] = last[rng.integers(0, len(last), n)]
-    rows[:, 3] = [str(v) for v in rng.integers(1000, 99999, n)]
+    rows[:, 3] = [str(v) for v in rng.integers(100, 2001, n)]
     rows[:, 4] = dept[rng.integers(0, len(dept), n)]
     planted = rng.choice(n, ELL["Zorro"] + ELL["Quinn"], replace=False)
     rows[planted[:ELL["Zorro"]], 1] = "Zorro"
@@ -164,10 +174,93 @@ def compare_small(torch, dev, errs) -> None:
     want = aa.aa_match_rows_plain(rel, pat=pat, height=500, **blocks)
     check(torch.equal(got, want), "aa_match_rows differs")
     torch.cuda.synchronize()
+    compare_ripple(torch, gen, dev, errs)
+
+
+def _ripple_name(k: int) -> str:
+    return "ripple_carry" if k == 1 else "ripple_segment"
+
+
+def same_ripple(torch, got, want, k, errs, what) -> None:
+    """Kernel (rb, carry') against the plain version's, bit for bit."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and torch.equal(g, w),
+              f"{what} differs from ripple_segment_plain")
+        errs[_ripple_name(k)] = max(errs[_ripple_name(k)],
+                                    max_err(torch, g, w))
+
+
+def compare_ripple(torch, gen, dev, errs) -> None:
+    """The ripple kernel through ``ops.ripple_segment`` / ``ops.ripple_carry``
+    vs ``ripple_segment_plain``: k = 1..13, LSB (init) and carried steps,
+    p−1 extremes, 15,405 lanes (not a multiple of the 256-thread block),
+    and the strided views the range engine and the tournament pass."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ripple as rip
+    lanes = (3, 5, 1027)
+    for k in (1, 2, 5, 8, 13):
+        for init in (True, False):
+            a = rand_field(torch, gen, lanes + (k,), dev)
+            b = rand_field(torch, gen, lanes + (k,), dev)
+            carry = None if init else rand_field(torch, gen, lanes, dev)
+            same_ripple(torch, ops.ripple_segment(a, b, carry),
+                        rip.ripple_segment_plain(a, b, carry), k, errs,
+                        f"ripple k={k} init={init}")
+    a, b = rand_field(torch, gen, lanes, dev), rand_field(torch, gen, lanes,
+                                                           dev)
+    same_ripple(torch, ops.ripple_carry(a, b, b),
+                rip.ripple_segment_plain(a[..., None], b[..., None], b), 1,
+                errs, "ripple_carry 1-D form")
+    for fill in (0, 1, P - 1):
+        a = torch.full(lanes + (5,), fill, dtype=torch.int32, device=dev)
+        b = torch.full_like(a, P - 1 - fill)
+        carry = torch.full(lanes, P - 1, dtype=torch.int32, device=dev)
+        same_ripple(torch, ops.ripple_segment(a, b, carry),
+                    rip.ripple_segment_plain(a, b, carry), 5, errs,
+                    f"ripple all-{fill}")
+    # a shard's segment slice lhs[:, :, lo:hi, s0:s1] with its carry slice
+    full = rand_field(torch, gen, (3, 4, 600, 13), dev)
+    other = rand_field(torch, gen, (3, 4, 600, 13), dev)
+    carry = rand_field(torch, gen, (3, 4, 700), dev)[:, :, 100:400]
+    a, b = full[:, :, 77:377, 8:13], other[:, :, 77:377, 8:13]
+    same_ripple(torch, ops.ripple_segment(a, b, carry),
+                rip.ripple_segment_plain(a, b, carry), 5, errs,
+                "ripple shard/segment slice")
+    # a binary column broadcast across B (B-stride 0) and a tournament
+    # level's every-other-tuple view (tuple stride 2t)
+    col = rand_field(torch, gen, (3, 600, 8), dev)[:, None].expand(
+        3, 2, 600, 8)
+    same_ripple(torch, ops.ripple_segment(col, other[:, :2, :, :8]),
+                rip.ripple_segment_plain(col, other[:, :2, :, :8]), 8, errs,
+                "ripple B-stride-0 column")
+    x1, x2 = full[:, :, 0:600:2, :8], full[:, :, 1:600:2, :8]
+    same_ripple(torch, ops.ripple_segment(x1, x2),
+                rip.ripple_segment_plain(x1, x2), 8, errs,
+                "ripple tournament pair view")
+
+
+#: kernels each path runs (its launch counters must rise during it).
+SLICE1_KERNELS = ("aa_match_batch", "ss_matmul")
+SLICE2_KERNELS = ("aa_match_batch", "ss_matmul", "ripple_segment",
+                  "ripple_carry")
+SALARY_BITS = 13        # SUM needs n·2^(t−1) < 2^30 at n = 131,072
+
+
+def check_launches(torch, ops, path: str, kernels, timings):
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"{path} launches {launches}; host seconds "
+        + json.dumps({k: round(v, 4) for k, v in timings.items()}))
+    for name in kernels:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the {path}")
+    return launches
 
 
 def main_path(torch, args, expect_strategy):
-    """Phase 3: the full-size main path through the public entry points."""
+    """Phase 3, slice 1: outsourcing, count and selection at full size
+    through the public entry points."""
     from repro_torch.api import Count, Eq, Padding, QueryClient, Select
     from repro_torch.core import Codec, outsource
     from repro_torch.kernels import ops
@@ -196,7 +289,8 @@ def main_path(torch, args, expect_strategy):
     timings = {}
     t0 = time.perf_counter()
     db = outsource(rows.tolist(), n_shares=20, column_names=NAMES,
-                   codec=Codec(word_length=8), degree=1, seed=args.seed)
+                   codec=Codec(word_length=8), degree=1, seed=args.seed,
+                   numeric_columns={NAMES.index("Salary"): SALARY_BITS})
     torch.cuda.synchronize()
     timings["outsource_s"] = time.perf_counter() - t0
     rel = db.relation.values
@@ -240,13 +334,100 @@ def main_path(torch, args, expect_strategy):
     for i, (plan, res) in enumerate(zip(plans, outs)):
         check_rows(res, plan.where.column, plan.where.pattern, f"batch[{i}]")
     check(outs[7].strategy == "one_tuple", "batch AUTO ℓ=1 -> one_tuple")
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    log(f"main path launches {launches}; host seconds "
-        + json.dumps({k: round(v, 4) for k, v in timings.items()}))
-    for name, k in launches.items():
-        check(k > 0, f"kernel {name} was not launched on the main path")
-    return db, launches
+    launches = check_launches(torch, ops, "slice-1 path", SLICE1_KERNELS,
+                              timings)
+    return db, client, rows, launches
+
+
+def range_agg_path(torch, client, rows):
+    """Phase 3, slice 2: range count/selection and SUM/AVG/MIN/MAX at full
+    size through the same client, against numpy on the rows."""
+    from repro_torch.api import (Aggregate, Between, Count, Eq, RangeCount,
+                                 RangeSelect)
+    from repro_torch.kernels import ops
+
+    salary = rows[:, NAMES.index("Salary")].astype(np.int64)
+    legal = rows[:, NAMES.index("Department")] == "Legal"
+    vals, mult = np.unique(salary, return_counts=True)
+    planted = int(vals[np.argmax(np.where(mult <= 150, mult, 0))])
+
+    def in_range(lo, hi):
+        return [int(i) for i in np.nonzero((salary >= lo)
+                                           & (salary <= hi))[0]]
+
+    def check_range(res, lo, hi, tag):
+        addrs = in_range(lo, hi)
+        check(res.count == len(addrs), f"{tag}: count {res.count} != "
+              f"{len(addrs)}")
+        if res.addresses is not None:
+            check(res.addresses == addrs, f"{tag}: addresses differ")
+            check(res.rows == [list(rows[a]) for a in addrs],
+                  f"{tag}: rows differ")
+
+    def check_agg(res, op, where_legal, tag):
+        sel = salary[legal] if where_legal else salary
+        want = {"sum": int(sel.sum()), "avg": float(sel.mean()),
+                "min": int(sel.min()), "max": int(sel.max())}[op]
+        ok = (abs(res.value - want) <= 1e-9 * abs(want) if op == "avg"
+              else res.value == want)
+        check(ok, f"{tag}: {op} {res.value} != {want}")
+        if where_legal and op != "sum":
+            check(res.count == int(legal.sum()), f"{tag}: count differs")
+
+    timings, peaks = {}, {}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        timings[tag] = time.perf_counter() - t
+        peaks[tag] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return res
+
+    ops.reset_launch_counts()
+    res = timed("range_count_r8", lambda: client.range_count(
+        "Salary", 500, 1500, reduce_every=8))
+    check_range(res, 500, 1500, "range_count r8")
+    res = timed("range_select", lambda: client.range_select(
+        "Salary", planted, planted, reduce_every=8))
+    check_range(res, planted, planted, "range_select")
+    res = timed("range_count_r1", lambda: client.range_count(
+        "Salary", 500, 1500, reduce_every=1))
+    check_range(res, 500, 1500, "range_count r1")
+    res = timed("sum", lambda: client.aggregate("sum", "Salary"))
+    check_agg(res, "sum", False, "sum")
+    res = timed("avg_legal", lambda: client.aggregate(
+        "avg", "Salary", where=Eq("Department", "Legal")))
+    check_agg(res, "avg", True, "avg")
+    res = timed("min", lambda: client.aggregate("min", "Salary",
+                                                reduce_every=8))
+    check_agg(res, "min", False, "min")
+    res = timed("max_legal_verify", lambda: client.aggregate(
+        "max", "Salary", where=Eq("Department", "Legal"), verify=True,
+        reduce_every=8))
+    check_agg(res, "max", True, "max verified")
+    plans = [RangeCount(Between("Salary", 700, 900), reduce_every=8),
+             RangeSelect(Between("Salary", planted, planted),
+                         reduce_every=8),
+             Aggregate("sum", "Salary", where=Eq("Department", "Legal")),
+             Aggregate("min", "Salary", where=Eq("Department", "Legal"),
+                       reduce_every=8),
+             Aggregate("avg", "Salary"),
+             Count(Eq("Department", "Legal"))]
+    outs = timed("run_batch_6", lambda: client.run_batch(plans))
+    check_range(outs[0], 700, 900, "batch range_count")
+    check_range(outs[1], planted, planted, "batch range_select")
+    check_agg(outs[2], "sum", True, "batch sum")
+    check_agg(outs[3], "min", True, "batch min")
+    check_agg(outs[4], "avg", False, "batch avg")
+    check(outs[5].count == int(legal.sum()), "batch count differs")
+    log(f"slice-2 peak device memory above the relation, GB: "
+        + json.dumps({k: round(v, 3) for k, v in peaks.items()}))
+    return check_launches(torch, ops, "slice-2 path", SLICE2_KERNELS,
+                          timings)
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -332,12 +513,25 @@ def full_shape_kernels(torch, db, errs, launches):
     check(torch.equal(ops.ss_matmul(bits, flat),
                       ssm.ss_matmul_plain(bits, flat)),
           "ss_matmul one_tuple shape differs")
+    # conditional SUM: match bits (c, 1, n) @ the lifted Salary (c, n, 1)
+    lifted = rand_field(torch, torch.Generator(device=rel.device)
+                        .manual_seed(8), (c, n), rel.device)[:, :, None]
+    check(torch.equal(ops.ss_matmul(bits, lifted),
+                      ssm.ss_matmul_plain(bits, lifted)),
+          "ss_matmul conditional-SUM shape differs")
+    # the narrow range_select's fetch: ℓ ≈ 69 one-hot rows (logged only)
+    wide = rounds._share_one_hot(key, db, list(range(0, n, n // 69))[:69])
+    wide_ms = time_ms(torch, lambda: ops.ss_matmul(wide.values, flat), 3)
+    log(f"ss_matmul range_select fetch {tuple(wide.values.shape)}: "
+        f"{wide_ms} ms")
     ss_ms = time_ms(torch, lambda: ops.ss_matmul(fetch, flat), 10)
     ss_plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(fetch, flat), 2,
                           warmup=0)
     r = fetch.shape[1]
     ss_bytes = 4 * (c * r * n + c * n * m * w * a + c * r * m * w * a)
     ss_ops = 2 * c * r * n * m * w * a
+
+    ripple = ripple_full_shapes(torch, db, errs, key)
 
     def entry(name, source, replaces, ms, plain_ms, nbytes, nops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -354,7 +548,74 @@ def full_shape_kernels(torch, db, errs, launches):
                   aa_bytes, aa_ops),
             entry("ss_matmul", "src/repro_torch/kernels/csrc/ss_matmul.cu",
                   "src/repro/kernels/ss_matmul.py:87", ss_ms, ss_plain_ms,
-                  ss_bytes, ss_ops)]
+                  ss_bytes, ss_ops)] + [
+            entry(name, "src/repro_torch/kernels/csrc/ripple.cu", replaces,
+                  *ripple[name])
+            for name, replaces in (
+                ("ripple_segment", "src/repro/kernels/ripple.py:113"),
+                ("ripple_carry", "src/repro/kernels/ripple.py:66"))]
+
+
+#: operations per lane of one SS-SUB bit step, a mod-p multiply counting
+#: 2: the LSB step does 5 add/sub and 1 multiply, a carried step 8 and 2.
+RIPPLE_INIT_OPS, RIPPLE_STEP_OPS = 7, 12
+
+
+def ripple_full_shapes(torch, db, errs, key):
+    """Phase 4 for the ripple kernel: the range phase's first segment
+    (c, 2, n, 8) as ``range_count(reduce_every=8)`` builds it, a carried
+    k = 1 step of ``reduce_every=1`` and the MIN tournament's first level
+    (c, 1, n/2, 8); each against the plain version, the first two timed.
+    Returns name -> (ms, plain_ms, bytes, operations)."""
+    from repro_torch import _device
+    from repro_torch.core import encoding
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ripple as rip
+
+    x = db.numeric[NAMES.index("Salary")].values        # (c, n, t)
+    c, n, t = x.shape
+    dev = x.device
+    ends = [encoding.share_encoded(
+        encoding.encode_number_bits(v, t), n_shares=c, device=dev,
+        generator=_device.generator(key + (v,), dev)).values[:, None, None]
+        .expand(c, 1, n, t) for v in (500, 1500)]
+    lhs = torch.cat([ends[0], x[:, None]], dim=1)       # (c, 2, n, t)
+    rhs = torch.cat([x[:, None], ends[1]], dim=1)
+    lanes = c * 2 * n
+    out = {}
+
+    a, b = lhs[..., 0:8], rhs[..., 0:8]
+    same_ripple(torch, ops.ripple_segment(a, b),
+                rip.ripple_segment_plain(a, b), 8, errs,
+                "ripple range first segment")
+    out["ripple_segment"] = (
+        time_ms(torch, lambda: ops.ripple_segment(a, b), 20),
+        time_ms(torch, lambda: rip.ripple_segment_plain(a, b), 2),
+        4 * lanes * (2 * 8 + 2),
+        lanes * (RIPPLE_INIT_OPS + 7 * RIPPLE_STEP_OPS))
+
+    _, carry = ops.ripple_segment(lhs[..., 0:1], rhs[..., 0:1])
+    a, b = lhs[..., 1:2], rhs[..., 1:2]
+    same_ripple(torch, ops.ripple_segment(a, b, carry),
+                rip.ripple_segment_plain(a, b, carry), 1, errs,
+                "ripple carried k=1 step")
+    out["ripple_carry"] = (
+        time_ms(torch, lambda: ops.ripple_segment(a, b, carry), 20),
+        time_ms(torch, lambda: rip.ripple_segment_plain(a, b, carry), 2),
+        4 * lanes * (2 + 2 + 1), lanes * RIPPLE_STEP_OPS)
+
+    pairs = n // 2
+    cand = x[:, None]
+    x1, x2 = cand[:, :, 0:2 * pairs:2], cand[:, :, 1:2 * pairs:2]
+    is_min = torch.tensor([True], device=dev)[None, :, None, None]
+    a = torch.where(is_min, x1, x2)[..., 0:8]
+    b = torch.where(is_min, x2, x1)[..., 0:8]
+    same_ripple(torch, ops.ripple_segment(a, b),
+                rip.ripple_segment_plain(a, b), 8, errs,
+                "ripple tournament first level")
+    level_ms = time_ms(torch, lambda: ops.ripple_segment(a, b), 20)
+    log(f"ripple_segment tournament level 1 {tuple(a.shape)}: {level_ms} ms")
+    return out
 
 
 def main() -> int:
@@ -377,7 +638,8 @@ def main() -> int:
         log(f"[{name}] nvcc {info['seconds']:.1f} s\n{info['log'].strip()}")
 
     dev = torch.device("cuda")
-    errs = {"aa_match_batch": 0, "ss_matmul": 0}
+    errs = {"aa_match_batch": 0, "ss_matmul": 0, "ripple_segment": 0,
+            "ripple_carry": 0}
     compare_small(torch, dev, errs)
     log("kernels == plain versions on extremes and ragged shapes")
 
@@ -385,10 +647,13 @@ def main() -> int:
         return planner.choose_select_strategy(client.stats(),
                                               ell=ell).strategy
 
-    db, launches = main_path(torch, args, expect_strategy)
-    log("main path: every answer equals the plaintext evaluation")
+    db, client, rows, path1 = main_path(torch, args, expect_strategy)
+    log("slice-1 path: every answer equals the plaintext evaluation")
+    path2 = range_agg_path(torch, client, rows)
+    log("slice-2 path: every answer equals the plaintext evaluation")
+    launches = {k: path1[k] + path2[k] for k in path1}
     kernels = full_shape_kernels(torch, db, errs, launches)
-    log("kernels == plain versions at the main path's full shapes")
+    log("kernels == plain versions at the main paths' full shapes")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

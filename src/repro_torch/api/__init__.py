@@ -4,24 +4,32 @@
     client = QueryClient(db, seed=7)              # "cuda" kernels on a GPU
     res = client.select("FirstName", "John")      # planner picks strategy
     res.rows, res.count, res.ledger, res.strategy
+    client.range_count("Salary", 500, 1500, reduce_every=8).count
+    client.aggregate("avg", "Salary", where=Eq("Department", "Legal")).value
 """
+from ..core.queries.aggregate import VerificationError
 from .backends import (DEFAULT_BACKEND, Backend, available_backends,
-                       get_backend, register_backend)
+                       get_backend, register_backend, ripple_segmenter)
 from .client import QueryClient
 from .planner import (DEFAULT_ELL, BatchExplanation, CostEstimate, DBStats,
                       GroupEstimate, PlanNotSupported, candidate_estimates,
-                      choose_select_strategy, estimate_batch_group_cost,
-                      estimate_count_cost, estimate_select_cost,
+                      choose_select_strategy, estimate_aggregate_cost,
+                      estimate_batch_group_cost, estimate_count_cost,
+                      estimate_range_cost, estimate_select_cost,
                       explain_batch_groups)
-from .plans import (AUTO, SELECT_STRATEGIES, ColumnRef, Count, Eq, Padding,
-                    Plan, QueryResult, Select, resolve_column)
+from .plans import (AGG_OPS, AUTO, SELECT_STRATEGIES, Aggregate, Between,
+                    ColumnRef, Count, Eq, Padding, Plan, QueryResult,
+                    RangeCount, RangeSelect, Select, resolve_column)
 
 __all__ = [
-    "DEFAULT_BACKEND", "Backend", "available_backends", "get_backend", "register_backend", "QueryClient", "DEFAULT_ELL",
-    "BatchExplanation", "CostEstimate", "DBStats", "GroupEstimate",
-    "PlanNotSupported", "candidate_estimates", "choose_select_strategy",
+    "VerificationError", "DEFAULT_BACKEND", "Backend", "available_backends",
+    "get_backend", "register_backend", "ripple_segmenter", "QueryClient",
+    "DEFAULT_ELL", "BatchExplanation", "CostEstimate", "DBStats",
+    "GroupEstimate", "PlanNotSupported", "candidate_estimates",
+    "choose_select_strategy", "estimate_aggregate_cost",
     "estimate_batch_group_cost", "estimate_count_cost",
-    "estimate_select_cost", "explain_batch_groups", "AUTO",
-    "SELECT_STRATEGIES", "ColumnRef", "Count", "Eq", "Padding", "Plan",
-    "QueryResult", "Select", "resolve_column",
+    "estimate_range_cost", "estimate_select_cost", "explain_batch_groups",
+    "AGG_OPS", "AUTO", "SELECT_STRATEGIES", "Aggregate", "Between",
+    "ColumnRef", "Count", "Eq", "Padding", "Plan", "QueryResult",
+    "RangeCount", "RangeSelect", "Select", "resolve_column",
 ]

@@ -1,7 +1,7 @@
 """Backend registry: named implementations of the cloud-side hot ops.
 
-A :class:`Backend` bundles the share-space hotspots the count/select round
-engine is built from, all on raw int32 share tensors (cloud axis first;
+A :class:`Backend` bundles the share-space hotspots the round engine is
+built from, all on raw int32 share tensors (cloud axis first;
 degree bookkeeping stays at the query layer):
 
   * ``aa_match_batch`` — (c, B, n, W, A), (c, B, W, A) -> (c, B, n): the
@@ -12,7 +12,14 @@ degree bookkeeping stays at the query layer):
                          length -> (c, B, height): distinct columns and tree
                          blocks in one dispatch without a gather;
   * ``ss_matmul``      — ([c,] M, K), ([c,] K, N) -> ([c,] M, N): the
-                         oblivious fetch and the one_tuple contraction.
+                         oblivious fetch, the one_tuple contraction and
+                         the conditional SUM contraction;
+  * ``ripple_segment`` — (..., k), (..., k), carry (...) | None ->
+                         (rb, carry'): k chained §3.4 SS-SUB bit steps
+                         (``None`` starts at the LSB step); the range
+                         engine and the MIN/MAX tournament issue one per
+                         degree-reduction interval;
+  * ``ripple_carry``   — the single bit step, (...) planes.
 
 Two backends are registered. ``"cuda"``, the default, is
 ``repro_torch.kernels.ops``: the one place that decides between kernel and
@@ -24,15 +31,18 @@ and is only taken when asked for by name.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..kernels import aa_match as _aa
 from ..kernels import ops
+from ..kernels import ripple as _rip
 from ..kernels import ss_matmul as _ssm
 
 _Op = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+_RippleOp = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
+                     Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,15 +52,43 @@ class Backend:
     ss_matmul: _Op
     aa_match_batch: _Op
     aa_match_rows: Callable[..., torch.Tensor]
+    ripple_segment: Optional[_RippleOp] = None
+    ripple_carry: Optional[_RippleOp] = None
+
+
+def ripple_segmenter(backend: Backend) -> _RippleOp:
+    """The backend's fused k-bit SS-SUB segment, or its ``ripple_carry``
+    stepped once per bit position (bit-identical, k calls instead of one)."""
+    if backend.ripple_segment is not None:
+        return backend.ripple_segment
+    step = backend.ripple_carry
+    if step is None:
+        raise ValueError(f"backend {backend.name!r} has no ripple op")
+
+    def segment(a, b, carry=None):
+        rb = None
+        for i in range(a.shape[-1]):
+            rb, carry = step(a[..., i], b[..., i], carry)
+        return rb, carry
+
+    return segment
+
+
+def _plain_ripple_carry(a, b, carry=None):
+    return _rip.ripple_segment_plain(a[..., None], b[..., None], carry)
 
 
 _REGISTRY: Dict[str, Backend] = {
     "torch": Backend("torch", ss_matmul=_ssm.ss_matmul_plain,
                      aa_match_batch=_aa.aa_match_batch_plain,
-                     aa_match_rows=_aa.aa_match_rows_plain),
+                     aa_match_rows=_aa.aa_match_rows_plain,
+                     ripple_segment=_rip.ripple_segment_plain,
+                     ripple_carry=_plain_ripple_carry),
     "cuda": Backend("cuda", ss_matmul=ops.ss_matmul,
                     aa_match_batch=ops.aa_match_batch,
-                    aa_match_rows=ops.aa_match_rows),
+                    aa_match_rows=ops.aa_match_rows,
+                    ripple_segment=ops.ripple_segment,
+                    ripple_carry=ops.ripple_carry),
 }
 
 BackendLike = Union[str, Backend]

@@ -9,15 +9,17 @@ the cost-based selection planner. Every query returns a
 
 Every plan runs through the batched round engine
 (``repro_torch.core.queries.rounds``): :meth:`QueryClient.run_batch`
-cost-plans each query, groups Count/Select plans by algorithm, stacks their
+cost-plans each query, groups Count/Select plans by algorithm, ranges by
+(bit width, ``reduce_every``) and aggregates by family, stacks their
 predicates so each protocol round runs once per group (one fused dispatch +
-one interpolation), and sends every oblivious fetch of the batch through
-ONE cross-group ``ss_matmul``. :meth:`QueryClient.run` is the B = 1 case,
-so rows and ``CostLedger`` totals are identical between a batch and the
-equivalent sequential calls.
+one interpolation), and sends every oblivious fetch of the batch (one_round,
+tree and range selects) through ONE cross-group ``ss_matmul``.
+:meth:`QueryClient.run` is the B = 1 case, so rows and ``CostLedger``
+totals are identical between a batch and the equivalent sequential calls.
 
-This slice serves ``Count`` and ``Select`` over ``Eq``; any other plan
-raises :class:`~.planner.PlanNotSupported`.
+The port serves ``Count``/``Select`` over ``Eq``, ``RangeCount``/
+``RangeSelect`` over ``Between`` and ``Aggregate``; any other plan or
+predicate raises :class:`~.planner.PlanNotSupported`.
 """
 from __future__ import annotations
 
@@ -29,18 +31,39 @@ from .. import _device
 from ..core.costs import CostLedger
 from ..core.dataplane import ShardedRelation
 from ..core.engine import SecretSharedDB
-from ..core.queries import CardinalityError, rounds
+from ..core.queries import CardinalityError, aggregate, rounds
 from . import planner as _planner
 from .backends import DEFAULT_BACKEND, BackendLike, get_backend
-from .plans import (AUTO, ColumnRef, Count, Eq, Padding, Plan, QueryResult,
-                    Select, resolve_column)
+from .plans import (AUTO, Aggregate, Between, ColumnRef, Count, Eq, Padding,
+                    Plan, QueryResult, RangeCount, RangeSelect, Select,
+                    resolve_column)
 
 
 def _lower_match(db: SecretSharedDB, where, context: str) -> int:
-    """Lower a Count/Select predicate -> column index (``Eq`` only)."""
+    """Lower a Count/Select/Aggregate predicate -> column index (``Eq``
+    only)."""
     if isinstance(where, Eq):
         return resolve_column(db, where.column)
     raise _planner.PlanNotSupported(where, context)
+
+
+def _binary_column(db: SecretSharedDB, column: ColumnRef) -> int:
+    """Resolve a range/aggregate value column, which must have been
+    outsourced in binary form (as the round engine would insist)."""
+    col = resolve_column(db, column)
+    if col not in db.numeric_bits:
+        raise ValueError(f"column {col} was not outsourced in binary form")
+    return col
+
+
+def _fused_group(family: str, ests: Sequence[_planner.CostEstimate]
+                 ) -> _planner.GroupEstimate:
+    """A lockstep group's estimate: bits add up, rounds and dispatches are
+    the deepest member's."""
+    return _planner.GroupEstimate(family, len(ests), _planner.CostEstimate(
+        family, bits=sum(e.bits for e in ests),
+        rounds=max(e.rounds for e in ests),
+        dispatches=max(e.dispatches for e in ests)))
 
 
 @dataclasses.dataclass
@@ -54,6 +77,8 @@ class _Slot:
     known_count: Optional[int] = None
     column: int = -1
     pattern: str = ""
+    pred_column: Optional[int] = None
+    fetch_key: Optional[_device.Key] = None
 
 
 class QueryClient:
@@ -97,7 +122,8 @@ class QueryClient:
         """Planner predictions without touching shares.
 
         One ``Select`` -> its eligible strategy estimates, cheapest first.
-        A ``Count`` -> its batch-of-one :class:`~.planner.BatchExplanation`.
+        Any other plan -> its batch-of-one
+        :class:`~.planner.BatchExplanation`.
         A sequence of plans -> the :class:`~.planner.BatchExplanation` of
         the groups :meth:`run_batch` would form (bits sum, rounds and
         dispatches fuse, the cross-group fetch priced once).
@@ -128,6 +154,9 @@ class QueryClient:
         group_rounds: Dict[str, int] = {}
         n_counts = 0
         auto_plans: List[Select] = []
+        range_grps: Dict[Tuple[int, int], List[Tuple[bool, Optional[int]]]] \
+            = {}
+        agg_grps: Dict[tuple, List[_planner.CostEstimate]] = {}
 
         def add_select(plan: Select, strategy: str) -> None:
             ell = 1 if strategy == "one_tuple" else plan.expected_matches
@@ -151,6 +180,26 @@ class QueryClient:
                     auto_plans.append(plan)
                 else:
                     add_select(plan, plan.strategy)
+            elif isinstance(plan, (RangeCount, RangeSelect)):
+                col = _binary_column(self.db, plan.where.column)
+                want = isinstance(plan, RangeSelect)
+                range_grps.setdefault(
+                    (self.db.numeric_bits[col], plan.reduce_every), []
+                ).append((want, plan.padding.rows if want else None))
+            elif isinstance(plan, Aggregate):
+                col = _binary_column(self.db, plan.column)
+                if plan.where is not None:
+                    _lower_match(self.db, plan.where, "Aggregate predicate")
+                t_bits = self.db.numeric_bits[col]
+                est = _planner.estimate_aggregate_cost(
+                    stats, plan.op, t_bits=t_bits,
+                    conditional=plan.where is not None,
+                    verify=plan.verify, reduce_every=plan.reduce_every)
+                # as run_batch groups: SUM/AVG per bit width, MIN/MAX per
+                # (bit width, reduce_every)
+                gk = (("agg_sum", t_bits) if plan.op in ("sum", "avg")
+                      else ("agg_minmax", t_bits, plan.reduce_every))
+                agg_grps.setdefault(gk, []).append(est)
             else:
                 raise _planner.PlanNotSupported(plan)
         for plan in auto_plans:
@@ -163,17 +212,24 @@ class QueryClient:
 
         groups: List[_planner.GroupEstimate] = []
         if n_counts:
-            one = _planner.estimate_count_cost(stats)
-            groups.append(_planner.GroupEstimate(
-                "count", n_counts, _planner.CostEstimate(
-                    "count", bits=n_counts * one.bits, rounds=one.rounds,
-                    dispatches=one.dispatches)))
+            groups.append(_fused_group(
+                "count", [_planner.estimate_count_cost(stats)] * n_counts))
         for strategy, ells in sel_ells.items():
             if ells:
                 groups.append(_planner.GroupEstimate(
                     strategy, len(ells), _planner.estimate_batch_group_cost(
                         stats, strategy, ells=ells,
                         padded_rows=sel_pad[strategy])))
+        for (t_bits, reduce_every), members in range_grps.items():
+            ests = [_planner.estimate_range_cost(
+                stats, t_bits=t_bits, reduce_every=reduce_every,
+                want_addresses=want, padded_rows=pad)
+                for want, pad in members]
+            family = ("range_select" if any(w for w, _ in members)
+                      else "range_count")
+            groups.append(_fused_group(family, ests))
+        for ests in agg_grps.values():
+            groups.append(_fused_group("aggregate", ests))
         return _planner.explain_batch_groups(stats, groups)
 
     # -- execution ----------------------------------------------------------
@@ -193,6 +249,14 @@ class QueryClient:
         one_round query adds a 0-row block, a tree query that counted ℓ = 0
         skips the fetch) stacks into ONE cross-group ``ss_matmul``.
 
+        Range plans group by (bit width, ``reduce_every``): the group's
+        SS-SUB bit-vectors ripple in ONE ``(c, 2B, n, t)`` carry chain, and
+        a RangeSelect's fetch joins the cross-group ``ss_matmul``.
+        SUM/AVG numerators share ONE contraction per bit width (a
+        conditional AVG's denominator rides the batch's count phase);
+        MIN/MAX tournaments march in lockstep per (bit width,
+        ``reduce_every``).
+
         A forced ``one_tuple`` whose predicate hits ℓ ≠ 1 tuples raises
         :class:`CardinalityError`; with ``strategy="auto"`` the query
         replans onto one_round/tree inside the batch, reusing the count.
@@ -203,6 +267,9 @@ class QueryClient:
         count_grp: List[_Slot] = []
         sel_grp: Dict[str, List[_Slot]] = {"one_tuple": [], "one_round": [],
                                            "tree": []}
+        range_grps: Dict[Tuple[int, int], List[_Slot]] = {}
+        agg_sum_grps: Dict[int, List[_Slot]] = {}
+        agg_mm_grps: Dict[Tuple[int, int], List[_Slot]] = {}
         auto_slots: List[_Slot] = []
         group_sizes: Dict[str, int] = {s: 0 for s in sel_grp}
         group_rounds: Dict[str, int] = {}
@@ -241,6 +308,23 @@ class QueryClient:
                         "(or auto, which excludes one_tuple when padding is "
                         "requested)")
                 join_group(slot, plan.strategy, plan.expected_matches)
+            elif isinstance(plan, (RangeCount, RangeSelect)):
+                slot.column = resolve_column(db, plan.where.column)
+                gk = (db.numeric_bits.get(slot.column, -1),
+                      plan.reduce_every)
+                range_grps.setdefault(gk, []).append(slot)
+            elif isinstance(plan, Aggregate):
+                slot.column = resolve_column(db, plan.column)
+                if plan.where is not None:
+                    slot.pred_column = _lower_match(db, plan.where,
+                                                    "Aggregate predicate")
+                    slot.pattern = plan.where.pattern
+                t_bits = db.numeric_bits.get(slot.column, -1)
+                if plan.op in ("sum", "avg"):
+                    agg_sum_grps.setdefault(t_bits, []).append(slot)
+                else:
+                    agg_mm_grps.setdefault((t_bits, plan.reduce_every),
+                                           []).append(slot)
             else:
                 raise _planner.PlanNotSupported(plan)
 
@@ -256,13 +340,63 @@ class QueryClient:
         fetch_jobs: List[rounds.FetchJob] = []
         fetch_meta: List[Tuple[_Slot, str, List[int]]] = []
 
-        if count_grp:
+        # conditional AVG denominators ride the batch's §3.1 count phase:
+        # their MatchJobs fuse into the same dispatch as explicit Counts.
+        avg_cnt_slots: List[_Slot] = []
+        for group in agg_sum_grps.values():
+            for s in group:
+                if s.plan.op == "avg" and s.plan.where is not None:
+                    s.key, s.fetch_key = _device.split(s.key)
+                    avg_cnt_slots.append(s)
+
+        if count_grp or avg_cnt_slots:
             counts = rounds.count_phase(be, rel, [
                 rounds.MatchJob(s.column, s.pattern, s.key, s.ledger)
-                for s in count_grp])
+                for s in count_grp] + [
+                rounds.MatchJob(s.pred_column, s.pattern, s.fetch_key,
+                                s.ledger) for s in avg_cnt_slots])
             for s, cnt in zip(count_grp, counts):
                 results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
                                              strategy="count", count=cnt)
+            for s, cnt in zip(avg_cnt_slots, counts[len(count_grp):]):
+                s.known_count = cnt
+
+        # -- aggregation: SUM/AVG numerators fuse per bit width, MIN/MAX
+        # tournaments per (bit width, reduce_every) ------------------------
+        for group in agg_sum_grps.values():
+            sums = aggregate.agg_sum_phase(be, rel, [
+                aggregate.SumJob(
+                    value_column=s.column, key=s.key, ledger=s.ledger,
+                    pred_column=s.pred_column,
+                    pattern=s.pattern if s.plan.where is not None else None,
+                    verify=s.plan.verify) for s in group])
+            for s, total in zip(group, sums):
+                if s.plan.op == "sum":
+                    results[s.idx] = QueryResult(
+                        plan=s.plan, ledger=s.ledger, strategy="agg_sum",
+                        value=total)
+                elif s.plan.where is not None:
+                    results[s.idx] = QueryResult(
+                        plan=s.plan, ledger=s.ledger, strategy="agg_avg",
+                        value=(total / s.known_count
+                               if s.known_count else None),
+                        count=s.known_count)
+                else:                   # the denominator is the public n
+                    results[s.idx] = QueryResult(
+                        plan=s.plan, ledger=s.ledger, strategy="agg_avg",
+                        value=total / db.n_tuples if db.n_tuples else None)
+        for (_, reduce_every), group in agg_mm_grps.items():
+            outs = aggregate.agg_minmax_rounds(be, rel, [
+                aggregate.MinMaxJob(
+                    value_column=s.column, key=s.key, ledger=s.ledger,
+                    pred_column=s.pred_column,
+                    pattern=s.pattern if s.plan.where is not None else None,
+                    verify=s.plan.verify, op=s.plan.op,
+                    reduce_every=reduce_every) for s in group])
+            for s, (val, cnt) in zip(group, outs):
+                results[s.idx] = QueryResult(
+                    plan=s.plan, ledger=s.ledger,
+                    strategy=f"agg_{s.plan.op}", value=val, count=cnt)
 
         # -- one_tuple: batched count phase, then the Alg 3 map round -------
         if sel_grp["one_tuple"]:
@@ -340,6 +474,27 @@ class QueryClient:
                                                       s.plan.padding.rows))
                     fetch_meta.append((s, "tree", a))
 
+        # -- ranges: one fused ripple per (bit width, reduce_every) group ---
+        for (_, reduce_every), group in range_grps.items():
+            jobs = []
+            for s in group:
+                k_ind = s.key
+                if isinstance(s.plan, RangeSelect):
+                    k_ind, s.fetch_key = _device.split(s.key)
+                jobs.append(rounds.RangeJob(
+                    s.column, s.plan.where.lo, s.plan.where.hi, k_ind,
+                    s.ledger, reduce_every=reduce_every,
+                    want_addresses=isinstance(s.plan, RangeSelect)))
+            for s, out in zip(group, rounds.range_rounds(be, rel, jobs)):
+                if isinstance(s.plan, RangeCount):
+                    results[s.idx] = QueryResult(
+                        plan=s.plan, ledger=s.ledger,
+                        strategy="range_count", count=out)
+                else:
+                    fetch_jobs.append(rounds.FetchJob(
+                        s.fetch_key, out, s.ledger, s.plan.padding.rows))
+                    fetch_meta.append((s, "range_select", out))
+
         rows_list, _ = rounds.fetch_fusion(be, rel, fetch_jobs)
         for (s, strat, a), r in zip(fetch_meta, rows_list):
             results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
@@ -357,3 +512,21 @@ class QueryClient:
         return self.run(Select(Eq(column, pattern), strategy=strategy,
                                expected_matches=expected_matches,
                                padding=padding, branching=branching))
+
+    def range_count(self, column: ColumnRef, lo: int, hi: int, *,
+                    reduce_every: int = 0) -> QueryResult:
+        return self.run(RangeCount(Between(column, lo, hi),
+                                   reduce_every=reduce_every))
+
+    def range_select(self, column: ColumnRef, lo: int, hi: int, *,
+                     reduce_every: int = 0,
+                     padding: Padding = Padding.NONE) -> QueryResult:
+        return self.run(RangeSelect(Between(column, lo, hi),
+                                    reduce_every=reduce_every,
+                                    padding=padding))
+
+    def aggregate(self, op: str, column: ColumnRef, *,
+                  where: Optional[Eq] = None, verify: bool = False,
+                  reduce_every: int = 0) -> QueryResult:
+        return self.run(Aggregate(op, column, where=where, verify=verify,
+                                  reduce_every=reduce_every))

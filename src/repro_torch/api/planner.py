@@ -10,6 +10,10 @@ statistics (n, m, w, A, c) and the cardinality hint ℓ alone:
                ℓ address fetches + ℓ'×n fetch;
                rounds ≤ ⌊log_ℓ n⌋ + ⌊log₂ ℓ⌋ + 1 (+ count + fetch).
 
+Range plans (§3.4) and aggregates (SUM/AVG/MIN/MAX) have one algorithm
+each; :func:`estimate_range_cost` and :func:`estimate_aggregate_cost`
+price them in the same units, exactly as their rounds charge the ledger.
+
 The formulas are the reference planner's (``repro.api.planner``), so the
 port picks the same strategy for the same statistics. ``dispatches`` prices
 the per-shard device fan-out, an execution cost that never enters bits or
@@ -134,6 +138,85 @@ def estimate_count_cost(stats: DBStats) -> CostEstimate:
                         dispatches=_shards(stats))
 
 
+def estimate_range_cost(stats: DBStats, *, t_bits: int,
+                        reduce_every: int = 0, want_addresses: bool = False,
+                        ell: int = DEFAULT_ELL,
+                        padded_rows: Optional[int] = None) -> CostEstimate:
+    """§3.4 Algorithms 5/6: the SS-SUB ripple over a t-bit column.
+
+    Both endpoints up (2·c·t elements), one 2c² re-share per
+    degree-reduction boundary (two logical rounds each, one per
+    subtraction), then the count (c) or the n indicator bits plus the
+    oblivious fetch down. Dispatches: one ripple segment per boundary
+    interval per shard, plus the fetch step."""
+    s = stats
+    S = _shards(s)
+    n_red = (t_bits - 1) // reduce_every if reduce_every > 0 else 0
+    elems = s.c * 2 * t_bits + n_red * 2 * s.c * s.c
+    rounds = 1 + 2 * n_red
+    dispatches = (n_red + 1) * S
+    if want_addresses:
+        elems += s.c * s.n + _fetch_elems(s, ell, padded_rows)
+        rounds += 1
+        dispatches += S                              # the oblivious fetch
+        name = "range_select"
+    else:
+        elems += s.c
+        name = "range_count"
+    return CostEstimate(name, elems * WORD_BITS, rounds=rounds,
+                        dispatches=dispatches)
+
+
+def estimate_aggregate_cost(stats: DBStats, op: str, *, t_bits: int,
+                            conditional: bool = False, verify: bool = False,
+                            reduce_every: int = 0) -> CostEstimate:
+    """Aggregation over a t-bit numeric column, exactly as it charges the
+    ledger.
+
+    sum:     one contraction round — pattern up (conditional only), the
+             scalar sum share back from each cloud.
+    avg:     the sum plus (conditional only) the §3.1 count round for the
+             denominator; an unconditional AVG divides by the public n.
+    min/max: ⌈log₂ n⌉ comparator levels — each pays its ``reduce_every``
+             carry reductions (one c² re-share round each) and every level
+             but the last one inter-level re-share; conditional jobs add
+             the sentinel-mask re-share round and open the match count.
+    verify:  +1 round and c checksum elements per opened tensor.
+    """
+    s = stats
+    S = _shards(s)
+    if op in ("sum", "avg"):
+        elems = s.c + (s.c * s.w * s.a if conditional else 0)
+        rounds, dispatches = 1, S
+        if op == "avg" and conditional:
+            elems += _count_elems(s)
+            rounds += 1
+            dispatches += S
+        if verify:
+            rounds += 1
+            elems += s.c
+        return CostEstimate(f"agg_{op}", elems * WORD_BITS, rounds=rounds,
+                            dispatches=dispatches)
+    if op in ("min", "max"):
+        levels = math.ceil(math.log2(s.n)) if s.n > 1 else 0
+        n_red = (t_bits - 1) // reduce_every if reduce_every > 0 else 0
+        elems = (levels * n_red * s.c * s.c          # carry reductions
+                 + max(levels - 1, 0) * s.c * s.c    # inter-level re-shares
+                 + s.c * t_bits)                     # final value opening
+        rounds = 1 + levels * n_red + max(levels - 1, 0)
+        dispatches = levels * (n_red + 1)
+        if conditional:
+            elems += s.c * s.w * s.a + s.c * s.c + s.c
+            rounds += 1
+            dispatches += S
+        if verify:
+            rounds += 1
+            elems += s.c * (2 if conditional else 1)
+        return CostEstimate(f"agg_{op}", elems * WORD_BITS, rounds=rounds,
+                            dispatches=dispatches)
+    raise ValueError(f"unknown aggregate op {op!r}")
+
+
 def candidate_estimates(stats: DBStats, *, ell: Optional[int] = None,
                         padded_rows: Optional[int] = None
                         ) -> List[CostEstimate]:
@@ -200,13 +283,13 @@ def estimate_batch_group_cost(stats: DBStats, strategy: str, *,
 
 #: group families whose oblivious fetch rides the single cross-group
 #: ``ss_matmul`` of ``run_batch`` (the batch pays the fetch step once).
-FETCH_RIDERS = ("one_round", "tree")
+FETCH_RIDERS = ("one_round", "tree", "range_select")
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupEstimate:
     """One ``run_batch`` group's predicted ledger."""
-    family: str                 # count / one_tuple / one_round / tree
+    family: str                 # count/one_tuple/one_round/tree/range_*/…
     size: int                   # member queries
     estimate: CostEstimate      # bits summed, rounds/dispatches fused
 

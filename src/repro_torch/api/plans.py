@@ -3,8 +3,9 @@
 A plan is a small frozen dataclass describing *what* to compute (predicate,
 columns by name, padding policy); :class:`repro_torch.api.QueryClient`
 decides *how* (strategy, backend, random streams) and returns a uniform
-:class:`QueryResult`. This slice carries the count and selection families
-over equality predicates.
+:class:`QueryResult`. The port carries the count and selection families
+over equality predicates, range count/selection over ``Between`` and
+SUM/AVG/MIN/MAX aggregation.
 
 Padding is a security knob: fetching ``Padding.rows`` fake rows hides the
 true result size ℓ from the clouds (§3.2.2 output-size attack).
@@ -20,6 +21,7 @@ ColumnRef = Union[str, int]
 
 AUTO = "auto"
 SELECT_STRATEGIES = ("one_tuple", "one_round", "tree")
+AGG_OPS = ("sum", "avg", "min", "max")
 
 
 def resolve_column(db, column: ColumnRef) -> int:
@@ -42,6 +44,18 @@ class Eq:
     """Equality predicate: ``column = pattern`` (exact word, §3.1.2)."""
     column: ColumnRef
     pattern: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Between:
+    """Inclusive range predicate: ``lo <= column <= hi`` (§3.4)."""
+    column: ColumnRef
+    lo: int
+    hi: int
+
+    def __post_init__(self):
+        if self.lo > self.hi:
+            raise ValueError(f"empty range: lo={self.lo} > hi={self.hi}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,16 +110,67 @@ class Select(Plan):
 
 
 @dataclasses.dataclass(frozen=True)
+class RangeCount(Plan):
+    """COUNT(*) WHERE lo <= col <= hi (§3.4, Algorithm 5). reduce_every > 0
+    inserts a degree-reduction (re-sharing) round every that many SS-SUB
+    bit positions, trading rounds for the clouds an opening needs."""
+    where: Between
+    reduce_every: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeSelect(Plan):
+    """Fetch all tuples with col in [lo, hi] (§3.4 + the §3.2 fetch)."""
+    where: Between
+    reduce_every: int = 0
+    padding: Padding = Padding.NONE
+
+
+@dataclasses.dataclass(frozen=True)
+class Aggregate(Plan):
+    """SUM/AVG/MIN/MAX(column) [WHERE col = pattern] (OBSCURE-style).
+
+    column: the numeric value column (outsourced in binary form via
+            ``numeric_columns``).
+    where:  optional equality predicate restricting the aggregate to the
+            matching tuples (None = the whole relation).
+    verify: run the consistency round on every opened aggregate tensor and
+            raise ``VerificationError`` on an inconsistent cloud share;
+            needs c >= degree + 2 clouds.
+    reduce_every: MIN/MAX only — a degree-reduction round every this many
+            comparator bit positions (the range plans' knob).
+    """
+    op: str
+    column: ColumnRef
+    where: Optional[Eq] = None
+    verify: bool = False
+    reduce_every: int = 0
+
+    def __post_init__(self):
+        if self.op not in AGG_OPS:
+            raise ValueError(f"unknown aggregate op {self.op!r}; choose "
+                             f"from {AGG_OPS}")
+        if self.reduce_every < 0:
+            raise ValueError("reduce_every must be >= 0")
+        if self.reduce_every and self.op in ("sum", "avg"):
+            raise ValueError("reduce_every is a MIN/MAX comparator knob; "
+                             "SUM/AVG run in one contraction round")
+
+
+@dataclasses.dataclass(frozen=True)
 class QueryResult:
     """Uniform result: ``rows``/``addresses`` are None for counts; ``count``
-    is the number of satisfying tuples whenever it is known; ``strategy``
-    echoes the executed algorithm and ``plan`` the logical plan."""
+    is the number of satisfying tuples whenever it is known; ``value`` is
+    an aggregate's opened scalar (int for SUM/MIN/MAX, float for AVG; None
+    when a conditional MIN/MAX/AVG matched nothing); ``strategy`` echoes
+    the executed algorithm and ``plan`` the logical plan."""
     plan: Plan
     ledger: CostLedger
     strategy: str
     rows: Optional[List[List[str]]] = None
     count: Optional[int] = None
     addresses: Optional[List[int]] = None
+    value: Optional[float] = None
 
     def __post_init__(self):
         if self.count is None and self.rows is not None:

@@ -8,7 +8,10 @@ bundles one step's dispatches with the reduction that reassembles them:
 
   * ``"concat"`` — per-tuple outputs concatenate along the tuple axis;
   * ``"sum"``    — partial mod-p sums combine additively; F_p addition is
-    exact, so results are bit-identical to the unsharded computation.
+    exact, so results are bit-identical to the unsharded computation;
+  * ``"list"``   — the raw per-shard results, for callers that thread
+    shard-local state from one step to the next (the range ripple's
+    per-shard carries).
 
 Execution is a placement policy, not part of the protocol. This slice has
 the serial :class:`Dispatcher`; the threaded pool comes with serving.
@@ -80,10 +83,12 @@ class ShardDispatch:
 class DispatchSet:
     """All shards' dispatches for one cloud step + the reduction rule."""
     dispatches: Tuple[ShardDispatch, ...]
-    reduce: str = "concat"          # "concat" | "sum"
+    reduce: str = "concat"          # "concat" | "sum" | "list"
     axis: int = -1                  # concat axis
 
     def combine(self, parts: List[Any]):
+        if self.reduce == "list":
+            return parts
         if len(parts) == 1:
             return parts[0]
         if self.reduce == "concat":
@@ -181,6 +186,9 @@ class ShardedRelation:
 
     def run_sum(self, build):
         return self.execute(self.dispatch_set(build, reduce="sum"))
+
+    def run_list(self, build) -> List[Any]:
+        return self.execute(self.dispatch_set(build, reduce="list"))
 
 
 RelationLike = Union[SecretSharedDB, ShardedRelation]

@@ -155,7 +155,15 @@ def encode_number_bits(x: int, n_bits: int) -> np.ndarray:
 
 
 def encode_number_column(xs: Sequence[int], n_bits: int) -> np.ndarray:
-    return np.stack([encode_number_bits(int(x), n_bits) for x in xs])
+    """Two's-complement bits of every value, LSB first -> uint32[n, n_bits]
+    (one vectorised pass; a whole column at once)."""
+    x = np.asarray(xs, dtype=np.int64).reshape(-1)
+    bad = (x < -(1 << (n_bits - 1))) | (x >= 1 << (n_bits - 1))
+    if bad.any():
+        raise ValueError(f"{int(x[bad][0])} out of range for {n_bits}-bit "
+                         f"two's complement")
+    ux = x & ((1 << n_bits) - 1)
+    return ((ux[:, None] >> np.arange(n_bits)) & 1).astype(np.uint32)
 
 
 def decode_number_bits(bits: np.ndarray) -> int:

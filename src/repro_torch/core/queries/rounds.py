@@ -14,8 +14,14 @@ sequential queries execute the same code and give identical rows and
   * :func:`tree_rounds`     — §3.2.2 Alg 4 Q&A rounds in lockstep over the
     batch; each round's blocks run as ONE ``aa_match_rows`` dispatch that
     reads the relation in place (no gather of the blocks).
+  * :func:`range_phase` / :func:`range_rounds` — §3.4 Alg 5/6 over B range
+    predicates: both subtractions of every query (Eq. 2) stack into ONE
+    ``(c, 2B, n, t)`` SS-SUB carry chain, one ``ripple_segment`` dispatch
+    per shard per degree-reduction interval and one re-share per boundary
+    for the whole batch.
   * :func:`fetch_fusion`    — the cross-group oblivious fetch: every one-hot
-    matrix of the round stacks into one ``ss_matmul`` against the relation.
+    matrix of the round (one_round, tree and range selects) stacks into one
+    ``ss_matmul`` against the relation.
 
 This is the exact-match path of the reference engine
 (``repro.core.queries.rounds``). A job carrying a pattern ``spec``
@@ -26,7 +32,7 @@ the padding a fused dispatch adds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -74,6 +80,21 @@ class FetchJob:
 
 
 @dataclasses.dataclass
+class RangeJob:
+    """One query's slot in the batched §3.4 ripple (Algorithms 5/6).
+    ``want_addresses`` marks a RangeSelect (all n indicator bits open)
+    against a RangeCount (only the summed count opens). Jobs fused into one
+    :func:`range_phase` share the column bit width and ``reduce_every``."""
+    column: int
+    lo: int
+    hi: int
+    key: Key
+    ledger: CostLedger
+    reduce_every: int = 0
+    want_addresses: bool = False
+
+
+@dataclasses.dataclass
 class FetchEntry:
     """One raw row-block (c, r, n) of the fused fetch matmul, with its
     sharing degree (join match matrices ride here in a later slice)."""
@@ -84,6 +105,13 @@ class FetchEntry:
 # ---------------------------------------------------------------------------
 # shared user/cloud helpers
 # ---------------------------------------------------------------------------
+
+def _ripple_segmenter(be):
+    """Backend's fused SS-SUB segment (deferred registry import keeps core
+    below ``repro_torch.api`` in the layering)."""
+    from ...api import backends as _registry
+    return _registry.ripple_segmenter(be)
+
 
 def _require_exact(jobs: Sequence[MatchJob]) -> None:
     if any(getattr(j, "spec", None) is not None for j in jobs):
@@ -145,6 +173,19 @@ def _stack_columns(db: SecretSharedDB, column: int, b: int) -> Shares:
     one = db.relation.values[:, :, column]                 # (c, n, W, A)
     return Shares(one[:, None].expand(one.shape[0], b, *one.shape[1:]),
                   db.relation.degree)
+
+
+def _stack_numeric(db: SecretSharedDB, columns: Sequence[int]) -> Shares:
+    """Cloud-local view of binary-form columns -> (c, B, n, t_bits); one
+    column for the whole stack is an ``expand`` view with B-stride 0."""
+    first = db.numeric[columns[0]]
+    if len(set(columns)) == 1:
+        one = first.values                                 # (c, n, t)
+        stacked = one[:, None].expand(one.shape[0], len(columns),
+                                      *one.shape[1:])
+    else:
+        stacked = torch.stack([db.numeric[c].values for c in columns], dim=1)
+    return Shares(stacked, first.degree)
 
 
 def _match_columns(be, db: SecretSharedDB, columns: Sequence[int],
@@ -387,6 +428,145 @@ def tree_rounds(be, db: RelationLike, jobs: Sequence[TreeJob]
                     one_shot.discard(i)
 
     return [sorted(a) for a in addresses]
+
+
+# ---------------------------------------------------------------------------
+# §3.4 — batched range predicates (Algorithms 5 & 6)
+# ---------------------------------------------------------------------------
+
+def _segment_edges(t_bits: int, reduce_every: int) -> List[Tuple[int, int]]:
+    """[start, end) bit segments between degree-reduction boundaries."""
+    if not reduce_every:
+        return [(0, t_bits)]
+    edges = list(range(0, t_bits, reduce_every)) + [t_bits]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def range_phase(be, db: RelationLike, jobs: Sequence[RangeJob]) -> Shares:
+    """Secret-shared in-range indicator for B range predicates: (c, B, n).
+
+    Each query contributes ``sign(x − lo)`` and ``sign(hi − x)`` (Eq. 2),
+    so the batch's bit-vectors stack into one ``(c, 2B, n, t)`` carry
+    chain. The bits between two degree-reduction boundaries run as ONE
+    ``ripple_segment`` dispatch per shard (the kernel reads the shard's
+    ``[..., s0:s1]`` slice through its strides); each boundary is ONE
+    re-share of the whole stacked carry, reassembled across shards, reduced
+    and re-sliced. A reduction is two logical rounds per query (one per
+    subtraction), as in the sequential transcript."""
+    plane = dataplane.as_dataplane(db)
+    db = plane.db
+    t_bits_all = []
+    for j in jobs:
+        if j.column not in db.numeric:
+            raise ValueError(
+                f"column {j.column} was not outsourced in binary form")
+        t_bits_all.append(db.numeric_bits[j.column])
+    if len(set(t_bits_all)) != 1 or len({j.reduce_every for j in jobs}) != 1:
+        raise ValueError("a fused range_phase needs uniform t_bits and "
+                         "reduce_every across its jobs (group them)")
+    t_bits = t_bits_all[0]
+    reduce_every = jobs[0].reduce_every
+    b = len(jobs)
+    n = db.n_tuples
+    c = db.n_shares
+    dev = db.device
+
+    # -- user round: share both endpoints of every job --------------------
+    a_vals, b_vals = [], []
+    red_key = None
+    for j in jobs:
+        k_a, k_b, k_s1, _ = _device.split(j.key, 4)
+        if red_key is None:
+            red_key = k_s1              # seeds the fused reduction chain
+        for val, k, out in ((j.lo, k_a, a_vals), (j.hi, k_b, b_vals)):
+            out.append(encoding.share_encoded(
+                encoding.encode_number_bits(val, t_bits), n_shares=c,
+                degree=db.base_degree, device=dev,
+                generator=_device.generator(k, dev)).values)
+        j.ledger.round()
+        j.ledger.send(c * 2 * t_bits)
+
+    x = _stack_numeric(db, [j.column for j in jobs])       # (c, B, n, t)
+    d = db.base_degree
+    assert x.degree == d, "binary-form columns share the base degree"
+    shape = x.values.shape
+    a_all = torch.stack(a_vals, dim=1)[:, :, None, :].expand(shape)
+    b_all = torch.stack(b_vals, dim=1)[:, :, None, :].expand(shape)
+    # rows [0, B) ripple sign(x − lo): SS-SUB(A=lo, B=x); rows [B, 2B)
+    # ripple sign(hi − x): SS-SUB(A=x, B=hi) — one chain for both.
+    lhs = torch.cat([a_all, x.values], dim=1)               # (c, 2B, n, t)
+    rhs = torch.cat([x.values, b_all], dim=1)
+
+    segment = _ripple_segmenter(be)
+    shards = plane.shards
+    carries: List[Optional[torch.Tensor]] = [None] * len(shards)
+    rb_parts: List[torch.Tensor] = []
+    carry_deg = 0
+    for seg_i, (s0, s1) in enumerate(_segment_edges(t_bits, reduce_every)):
+        if seg_i > 0 and carry_deg > 1:
+            # the explicit re-sharing round: reassemble the carry across
+            # shards, reduce ONCE, re-slice per shard.
+            carry_full = (carries[0] if len(shards) == 1
+                          else torch.cat(carries, dim=2))
+            red_key, sub = _device.split(red_key)
+            carry_full = shamir.reduce_degree(
+                Shares(carry_full, carry_deg), target_degree=1,
+                generator=_device.generator(sub, dev)).values
+            carry_deg = 1
+            carries = [carry_full[:, :, sh.lo:sh.hi] for sh in shards]
+            for j in jobs:
+                j.ledger.round(2)
+                j.ledger.send(2 * c * c)
+        # the result bit leaves each step at the carry's (post-step)
+        # degree, +2d per bit position.
+        outs = plane.run_list(
+            lambda v, sh, s0=s0, s1=s1: segment(
+                lhs[:, :, sh.lo:sh.hi, s0:s1], rhs[:, :, sh.lo:sh.hi, s0:s1],
+                carries[sh.index]))
+        rb_parts = [o[0] for o in outs]
+        carries = [o[1] for o in outs]
+        carry_deg = carry_deg + 2 * d * (s1 - s0)
+    for j in jobs:
+        j.ledger.cloud(2 * n * t_bits)
+
+    rb = rb_parts[0] if len(shards) == 1 else torch.cat(rb_parts, dim=2)
+    # Eq. 2: in-range ⟺ 1 − sign(x−lo) − sign(hi−x) = 1
+    ones = torch.ones((c, b, n), dtype=field.DTYPE, device=dev)
+    ind = field.sub(field.sub(ones, rb[:, :b]), rb[:, b:])
+    return Shares(ind, carry_deg)
+
+
+def range_rounds(be, db: RelationLike, jobs: Sequence[RangeJob]
+                 ) -> List[Union[int, List[int]]]:
+    """COUNT / address discovery for B range predicates, rounds fused.
+
+    Returns, aligned with ``jobs``: the count (``want_addresses=False``) or
+    the sorted satisfying addresses (``want_addresses=True``, ready for the
+    shared :func:`fetch_fusion` matmul). One interpolation serves all count
+    jobs and one serves all address jobs."""
+    if not jobs:
+        return []
+    ind = range_phase(be, db, jobs)
+    c, n = ind.n_shares, ind.shape[1]
+    out: List[Union[int, List[int], None]] = [None] * len(jobs)
+    cnt_idx = [i for i, j in enumerate(jobs) if not j.want_addresses]
+    sel_idx = [i for i, j in enumerate(jobs) if j.want_addresses]
+    if cnt_idx:
+        totals = Shares(field.sum_(ind.values[:, cnt_idx], dim=2),
+                        ind.degree)                         # (c, Bc)
+        vals = field.to_numpy(shamir.interpolate(totals))
+        for i, v in zip(cnt_idx, vals):
+            jobs[i].ledger.recv(c)
+            jobs[i].ledger.user(ind.degree + 1)
+            out[i] = int(v)
+    if sel_idx:
+        bits = Shares(ind.values[:, sel_idx], ind.degree)   # (c, Bs, n)
+        vals = field.to_numpy(shamir.interpolate(bits))
+        for k, i in enumerate(sel_idx):
+            jobs[i].ledger.recv(c * n)
+            jobs[i].ledger.user((ind.degree + 1) * n)
+            out[i] = [int(t) for t in np.nonzero(vals[k])[0]]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,11 @@ class Shares:
         return Shares(field.mul(self.values, other.values),
                       self.degree + other.degree)
 
+    def mul_public(self, const) -> "Shares":
+        """Multiply by a public constant (degree unchanged)."""
+        return Shares(field.mul(self.values, field.to_field(
+            torch.as_tensor(const), device=self.values.device)), self.degree)
+
     def sum(self, dim=None) -> "Shares":
         """Modular sum over secret-data axes (``dim`` indexes self.shape)."""
         nd = self.values.ndim - 1
@@ -175,11 +180,14 @@ def lagrange_coeffs(n_points: int, points: Optional[tuple] = None,
 
 
 def _weighted_sum(vals: torch.Tensor, lam_np: np.ndarray) -> torch.Tensor:
-    """Σ_k λ_k · vals[k] mod p over the leading axis."""
-    lam = torch.from_numpy(lam_np.astype(np.int64)).to(vals.device)
-    lam = lam.reshape((-1,) + (1,) * (vals.ndim - 1))
-    prod = field._fold(vals.to(torch.int64) * lam)
-    return field.sum_(prod, dim=0)
+    """Σ_k λ_k · vals[k] mod p over the leading axis, one slice at a time,
+    so the int64 transients stay the size of one slice (a degree-17
+    re-share at full size would otherwise hold several 5 GB tensors)."""
+    acc = None
+    for k, lam in enumerate(lam_np.tolist()):
+        term = field._fold(vals[k].to(torch.int64) * int(lam))
+        acc = term if acc is None else acc + term       # < 2**63 exactly
+    return field._fold(acc).to(DTYPE)
 
 
 def interpolate(shares: Shares, *, points: Optional[tuple] = None

@@ -8,11 +8,12 @@ not build or launch raises. Launches are counted by the kernel modules
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from . import aa_match as _aa
+from . import ripple as _rip
 from . import ss_matmul as _ssm
 
 
@@ -60,11 +61,44 @@ def aa_match_rows(rel: torch.Tensor, columns: Sequence[int],
     return _aa.aa_match_rows_cuda(rel, columns, starts, lengths, pat, height)
 
 
+def ripple_segment(a: torch.Tensor, b: torch.Tensor,
+                   carry: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k chained SS-SUB bit steps (Alg 6): a, b (..., k) bit planes with
+    the bit positions on the last axis (read through their strides),
+    carry (...) or ``None`` to start at the LSB step -> the final
+    ``(rb, carry')``, each (...)."""
+    if a.ndim < 1 or tuple(a.shape) != tuple(b.shape) or a.shape[-1] < 1:
+        raise ValueError(f"bit planes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} must agree, with k >= 1 bits "
+                         f"on the last axis")
+    if carry is not None and tuple(carry.shape) != tuple(a.shape[:-1]):
+        raise ValueError(f"carry {tuple(carry.shape)} does not match the "
+                         f"lanes {tuple(a.shape[:-1])}")
+    if _on_cpu(a):
+        return _rip.ripple_segment_plain(a, b, carry)
+    return _rip.ripple_segment_cuda(a, b, carry)
+
+
+def ripple_carry(a: torch.Tensor, b: torch.Tensor,
+                 carry: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SS-SUB bit step: a, b, carry (...) -> ``(rb, carry')``; the
+    segment kernel at k = 1."""
+    return ripple_segment(a[..., None], b[..., None], carry)
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"aa_match_batch": _aa.launches, "ss_matmul": _ssm.launches}
+    """Kernel launches since the last :func:`reset_launch_counts`
+    (``ripple_carry`` counts the ripple kernel's k = 1 launches,
+    ``ripple_segment`` its k >= 2 launches)."""
+    return {"aa_match_batch": _aa.launches, "ss_matmul": _ssm.launches,
+            "ripple_segment": _rip.launches,
+            "ripple_carry": _rip.carry_launches}
 
 
 def reset_launch_counts() -> None:
     _aa.launches = 0
     _ssm.launches = 0
+    _rip.launches = 0
+    _rip.carry_launches = 0

@@ -186,7 +186,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.ss_matmul(_t(_elems(1, (2, 3))), _t(_elems(2, (3, 2))))
     ops.aa_match_batch(_t(_elems(3, (1, 1, 4, 2, 3))),
                        _t(_elems(4, (1, 1, 2, 3))))
-    assert ops.launch_counts() == {"aa_match_batch": 0, "ss_matmul": 0}
+    ops.ripple_segment(_t(_elems(5, (2, 3, 4))), _t(_elems(6, (2, 3, 4))))
+    assert ops.launch_counts() == {"aa_match_batch": 0, "ss_matmul": 0,
+                                   "ripple_segment": 0, "ripple_carry": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -207,7 +209,7 @@ def test_backend_registry():
         backends.register_backend(backends.get_backend("torch"))
 
 
-@pytest.mark.parametrize("kernel", ["aa_match", "ss_matmul"])
+@pytest.mark.parametrize("kernel", ["aa_match", "ripple", "ss_matmul"])
 def test_kernel_sources_build_into_the_ignored_build_dir(kernel):
     from repro_torch.kernels import _build
     lib = _build._lib_path(kernel)

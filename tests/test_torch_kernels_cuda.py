@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import aa_match, ops, ss_matmul  # noqa: E402
+from repro_torch.kernels import aa_match, ops, ripple, ss_matmul  # noqa: E402,E501
 
 P = 2**31 - 1
 pytestmark = pytest.mark.cuda
@@ -68,3 +68,37 @@ def test_aa_match_rows_kernel_equals_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, aa_match.aa_match_rows_plain(
         rel, pat=pat, height=500, **blocks))
+
+
+@pytest.mark.parametrize("init", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 13])
+def test_ripple_segment_kernel_equals_plain(cuda, k, init):
+    lanes = (3, 4, 1027)                     # not a multiple of the block
+    a, b = _field(lanes + (k,), 7, cuda), _field(lanes + (k,), 8, cuda)
+    carry = None if init else _field(lanes, 9, cuda)
+    ops.reset_launch_counts()
+    got = ops.ripple_segment(a, b, carry)
+    torch.cuda.synchronize()
+    want = ripple.ripple_segment_plain(a, b, carry)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    counts = ops.launch_counts()
+    assert (counts["ripple_carry"], counts["ripple_segment"]) \
+        == ((1, 0) if k == 1 else (0, 1))
+
+
+def test_ripple_kernel_reads_strided_views(cuda):
+    full, other = _field((3, 4, 600, 13), 10, cuda), _field((3, 4, 600, 13),
+                                                           11, cuda)
+    a, b = full[:, :, 77:377, 8:13], other[:, :, 77:377, 8:13]
+    carry = _field((3, 4, 700), 12, cuda)[:, :, 100:400]
+    got = ops.ripple_segment(a, b, carry)
+    want = ripple.ripple_segment_plain(a, b, carry)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    col = _field((3, 600, 8), 13, cuda)[:, None].expand(3, 2, 600, 8)
+    carry = _field((3, 2, 600), 14, cuda)
+    got = ops.ripple_carry(col[..., 0], other[:, :2, :, 0], carry)
+    want = ripple.ripple_segment_plain(col[..., :1], other[:, :2, :, :1],
+                                       carry)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    empty = ops.ripple_segment(a[:, :, :0], b[:, :, :0])
+    assert empty[0].shape == (3, 4, 0)
