@@ -11,7 +11,9 @@ Phases, any failure exits non-zero:
    random shares with p−1 extremes and ragged shapes (M = 0, N = 0, a
    K split across blocks, broadcast columns with B-stride 0, row blocks;
    ripple segments of k = 1..13 bits, LSB and carried, lane counts that
-   are not a multiple of the block, per-segment and per-shard slices).
+   are not a multiple of the block, per-segment and per-shard slices;
+   sliding windows for k = 1..W, the tall-skinny matmul at M = 1, 17, 255
+   and 256, K not a multiple of its tile, N = 1).
 3. Drive the main paths through the public entry points at full size: the
    README's Employee schema (5 string attributes, word length 8, A = 69,
    degree 1, c = 20 clouds) over ``--tuples`` synthetic rows made from
@@ -22,6 +24,10 @@ Phases, any failure exits non-zero:
    Slice 2: ``range_count`` at ``reduce_every`` 8 and 1, a narrow
    ``range_select``, SUM / conditional AVG / MIN / verified conditional
    MAX, and one ``run_batch`` of 2 ranges, 3 aggregates and a count.
+   Slice 3: pattern counts of every kind (masked, prefix, suffix,
+   contains, a wildcard-free LIKE on the Eq path), one_round selects
+   (masked ℓ = 4, suffix ℓ = 13, a prefix with ℓ = 1,000), a tree select
+   (contains, ℓ = 12), an AUTO select and one mixed ``run_batch``.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows; each path's kernel launch counters are zeroed
    just before it and must have risen for every kernel it runs.
@@ -30,8 +36,10 @@ Phases, any failure exits non-zero:
    one-column count stack, the distinct-column count and a tree round's 16
    row blocks (``aa_match_rows``), the fetch, the one_tuple and the
    conditional-SUM contractions, the range's first ripple segment, a
-   carried k = 1 step and the tournament's first level; time kernel and
-   plain version there (CUDA events).
+   carried k = 1 step and the tournament's first level, the sliding-window
+   match of the suffix and substring counts, the tall-skinny fetch at
+   R = 3, 69 and 256 rows and the ℓ = 1,000 fetch on the general kernel;
+   time kernel and plain version there (CUDA events).
 
 Prints the kernels JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
@@ -175,6 +183,74 @@ def compare_small(torch, dev, errs) -> None:
     check(torch.equal(got, want), "aa_match_rows differs")
     torch.cuda.synchronize()
     compare_ripple(torch, gen, dev, errs)
+    compare_slide(torch, gen, dev, errs)
+    compare_tall(torch, gen, dev, errs)
+
+
+def compare_slide(torch, gen, dev, errs) -> None:
+    """``ops.aa_slide_batch`` / ``ops.aa_slide_rows`` vs the plain version:
+    every tile length k = 1..W (M = 1 included), p−1 extremes, a ragged
+    tuple count, a B-stride-0 column and relation rows with distinct
+    columns."""
+    from repro_torch.kernels import aa_match as aa
+    from repro_torch.kernels import ops
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{what} differs from its plain version")
+        errs["aa_slide_batch"] = max(errs["aa_slide_batch"],
+                                     max_err(torch, got, want))
+
+    c, b, n, w, a = 3, 2, 1001, 8, 69
+    col = rand_field(torch, gen, (c, b, n, w, a), dev)
+    for k in range(1, w + 1):
+        pat = rand_field(torch, gen, (c, b, k, a), dev)
+        same(ops.aa_slide_batch(col, pat), aa.aa_slide_batch_plain(col, pat),
+             f"aa_slide_batch k={k}")
+        one = col[:, :1].expand(c, b, n, w, a)
+        same(ops.aa_slide_batch(one, pat), aa.aa_slide_batch_plain(one, pat),
+             f"aa_slide_batch B-stride-0 k={k}")
+    full = torch.full((2, 1, 77, w, a), P - 1, dtype=torch.int32,
+                      device=dev)
+    tile = torch.full((2, 1, 3, a), P - 1, dtype=torch.int32, device=dev)
+    same(ops.aa_slide_batch(full, tile), aa.aa_slide_batch_plain(full, tile),
+         "aa_slide_batch all-(p-1)")
+    rel = rand_field(torch, gen, (3, 500, 4, w, a), dev)
+    pat = rand_field(torch, gen, (3, 5, 2, a), dev)
+    blocks = dict(columns=[0, 3, 3, 1, 2], starts=[0, 17, 250, 499, 100],
+                  lengths=[500, 40, 250, 1, 0])
+    same(ops.aa_slide_rows(rel, pat=pat, height=500, **blocks),
+         aa.aa_slide_rows_plain(rel, pat=pat, height=500, **blocks),
+         "aa_slide_rows")
+
+
+def compare_tall(torch, gen, dev, errs) -> None:
+    """``ops.ss_matmul`` on tall-skinny shapes (the tall kernel) vs
+    ``ss_matmul_plain``: M = 1, 17, 255, 256, K not a multiple of the
+    32-wide K chunk, N = 1, the (3, 2) and (3, 3) ranks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+    cases = [((3, 1, 4099), (3, 4099, 129)), ((3, 17, 4099), (4099, 129)),
+             ((2, 255, 8195), (2, 8195, 300)), ((2, 256, 8195), (8195, 1)),
+             ((4, 3, 70001), (4, 70001, 1)), ((1, 69, 9000), (1, 9000, 1000))]
+    for sa, sb in cases:
+        check(ssm.is_tall_skinny(sa[-2], sa[-1], sb[-1]), f"{sa} not tall")
+        a, b = rand_field(torch, gen, sa, dev), rand_field(torch, gen, sb, dev)
+        before = ops.launch_counts()["ss_matmul_tall"]
+        got, want = ops.ss_matmul(a, b), ssm.ss_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()["ss_matmul_tall"] == before + 1,
+              f"{sa} @ {sb} did not take the tall kernel")
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"ss_matmul_tall {sa} @ {sb} differs from plain")
+        errs["ss_matmul_tall"] = max(errs["ss_matmul_tall"],
+                                     max_err(torch, got, want))
+    full = torch.full((2, 256, 3000), P - 1, dtype=torch.int32, device=dev)
+    other = torch.full((2, 3000, 40), P - 1, dtype=torch.int32, device=dev)
+    check(torch.equal(ssm.ss_matmul_tall_cuda(full, other),
+                      ssm.ss_matmul_plain(full, other)),
+          "ss_matmul_tall all-(p-1) differs")
 
 
 def _ripple_name(k: int) -> str:
@@ -240,10 +316,15 @@ def compare_ripple(torch, gen, dev, errs) -> None:
                 "ripple tournament pair view")
 
 
-#: kernels each path runs (its launch counters must rise during it).
-SLICE1_KERNELS = ("aa_match_batch", "ss_matmul")
-SLICE2_KERNELS = ("aa_match_batch", "ss_matmul", "ripple_segment",
+#: kernels each path runs (its launch counters must rise during it). Every
+#: fetch, one_tuple and conditional-SUM contraction of slices 1 and 2 is
+#: tall-skinny (M <= 256 rows); the general ss_matmul runs on slice 3's
+#: ℓ = 1,000 fetch.
+SLICE1_KERNELS = ("aa_match_batch", "ss_matmul_tall")
+SLICE2_KERNELS = ("aa_match_batch", "ss_matmul_tall", "ripple_segment",
                   "ripple_carry")
+SLICE3_KERNELS = ("aa_match_batch", "aa_slide_batch", "ss_matmul_tall",
+                  "ss_matmul")
 SALARY_BITS = 13        # SUM needs n·2^(t−1) < 2^30 at n = 131,072
 
 
@@ -430,6 +511,123 @@ def range_agg_path(torch, client, rows):
                           timings)
 
 
+def like_oracle(word: str, pattern: str, w: int = 8) -> bool:
+    """Plaintext LIKE as the engine defines it (``_`` also matches past
+    the end of the word; ``%`` only at the ends)."""
+    lead, trail = pattern.startswith("%"), pattern.endswith("%")
+    body = pattern[1 if lead else 0:len(pattern) - 1 if trail else None]
+    if lead and trail:
+        return body in word
+    if lead:
+        return word.endswith(body)
+    padded = word + "\0" * w
+    ok = all(ch == "_" or padded[i] == ch for i, ch in enumerate(body))
+    return ok if trail else ok and all(padded[i] == "\0"
+                                       for i in range(len(body), w))
+
+
+def pattern_path(torch, client, rows):
+    """Phase 3, slice 3: LIKE / prefix / suffix / substring counts and
+    selects at full size through the same client, against the plaintext
+    rows."""
+    from repro_torch.api import (AUTO, Contains, Count, Eq, Like, Prefix,
+                                 RangeCount, Select, Suffix, Between,
+                                 choose_pattern_strategy)
+    from repro_torch.core.encoding import PatternSpec
+    from repro_torch.kernels import ops
+
+    def source(where):
+        for cls, fmt in ((Prefix, "{}%"), (Suffix, "%{}"),
+                         (Contains, "%{}%")):
+            if isinstance(where, cls):
+                return fmt.format(where.literal)
+        return where.pattern
+
+    def truth(where):
+        col = rows[:, NAMES.index(where.column)]
+        pat = source(where)
+        return [i for i, word in enumerate(col) if like_oracle(word, pat)]
+
+    def check_res(res, where, tag):
+        addrs = truth(where)
+        check(res.count == len(addrs), f"{tag}: count {res.count} != "
+              f"{len(addrs)}")
+        if res.addresses is not None:
+            check(res.addresses == addrs, f"{tag}: addresses differ")
+            check(res.rows == [list(rows[a]) for a in addrs],
+                  f"{tag}: rows differ")
+
+    timings, peaks = {}, {}
+
+    def timed(tag, plan):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        res = client.run_batch(plan) if isinstance(plan, list) \
+            else client.run(plan)
+        torch.cuda.synchronize()
+        timings[tag] = time.perf_counter() - t
+        peaks[tag] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return res
+
+    counts = {"count_masked": Like("FirstName", "Zo_ro"),
+              "count_prefix": Like("FirstName", "Qu%"),
+              "count_suffix": Suffix("FirstName", "nn"),
+              "count_contains": Contains("FirstName", "inn")}
+    # at 131,072 tuples: ℓ = 4, 13 and 1,000 (the last takes the general
+    # ss_matmul kernel, M > 256; it is 1,000 from 2,000 tuples up)
+    selects = {"select_masked": Like("EmployeeId", "E01_0000"),
+               "select_suffix": Suffix("EmployeeId", "7777"),
+               "select_prefix_1000": Like("EmployeeId", "E0001%")}
+    ops.reset_launch_counts()
+    for tag, where in counts.items():
+        check_res(timed(tag, Count(where)), where, tag)
+    res = timed("count_like_exact", Count(Like("FirstName", "Quinn")))
+    check_res(res, Eq("FirstName", "Quinn"), "count_like_exact")
+    eq = client.run(Count(Eq("FirstName", "Quinn")))
+    check(res.ledger.as_dict() == eq.ledger.as_dict(),
+          "a wildcard-free LIKE did not take the Eq path")
+    for tag, where in selects.items():
+        res = timed(tag, Select(where, strategy="one_round"))
+        check(res.strategy == "one_round", f"{tag}: {res.strategy}")
+        check_res(res, where, tag)
+    where = Contains("EmployeeId", "12345")                # ℓ = 12
+    res = timed("select_tree_contains", Select(where, strategy="tree"))
+    check(res.strategy == "tree", f"tree select ran {res.strategy}")
+    check_res(res, where, "select_tree_contains")
+    tail = str(rows[0, NAMES.index("LastName")])[-3:]
+    where = Suffix("LastName", tail)
+    res = timed("select_auto", Select(where, strategy=AUTO))
+    want = choose_pattern_strategy(client.stats(), PatternSpec(
+        "suffix", tail), ell=None).strategy
+    check(res.strategy == want, f"auto chose {res.strategy}, not {want}")
+    check_res(res, where, "select_auto")
+    log(f"slice-3 AUTO select {where}: ℓ = {res.count}, {res.strategy}")
+    plans = [Count(Like("FirstName", "Zo_ro")),
+             Count(Contains("LastName", "inn")),
+             Count(Suffix("Department", "gal")),
+             Count(Eq("Department", "Legal")),
+             RangeCount(Between("Salary", 700, 900), reduce_every=8),
+             Select(Like("EmployeeId", "E01_0000"), strategy="one_round"),
+             Select(Suffix("EmployeeId", "7777"), strategy="tree"),
+             Select(Prefix("FirstName", "Quin"), strategy=AUTO)]
+    outs = timed("run_batch_8", plans)
+    salary = rows[:, NAMES.index("Salary")].astype(np.int64)
+    for i, (plan, res) in enumerate(zip(plans, outs)):
+        if isinstance(plan, RangeCount):
+            check(res.count == int(((salary >= 700) & (salary <= 900))
+                                   .sum()), "batch range count differs")
+        else:
+            check_res(res, plan.where, f"batch[{i}]")
+    log("slice-3 counts: " + json.dumps(
+        {tag: len(truth(wh)) for tag, wh in {**counts, **selects}.items()}))
+    log("slice-3 peak device memory above the relation, GB: "
+        + json.dumps({k: round(v, 3) for k, v in peaks.items()}))
+    return check_launches(torch, ops, "slice-3 path", SLICE3_KERNELS,
+                          timings)
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -502,58 +700,158 @@ def full_shape_kernels(torch, db, errs, launches):
     aa_ops = 2 * c * n * w * a + c * n * (w - 1)
 
     flat = rel.reshape(c, n, m * w * a)                # fetch: (c,R,n)@...
-    onehot = rounds._share_one_hot(key, db, list(range(0, n, n // 3))[:3])
-    fetch = onehot.values
-    got, want = ops.ss_matmul(fetch, flat), ssm.ss_matmul_plain(fetch, flat)
-    check(torch.equal(got, want), "ss_matmul full fetch shape differs")
-    errs["ss_matmul"] = max(errs["ss_matmul"], max_err(torch, got, want))
     bits = rand_field(torch,                           # one_tuple: (c,1,n)
                       torch.Generator(device=rel.device).manual_seed(7),
                       (c, 1, n), rel.device)
-    check(torch.equal(ops.ss_matmul(bits, flat),
-                      ssm.ss_matmul_plain(bits, flat)),
-          "ss_matmul one_tuple shape differs")
     # conditional SUM: match bits (c, 1, n) @ the lifted Salary (c, n, 1)
     lifted = rand_field(torch, torch.Generator(device=rel.device)
                         .manual_seed(8), (c, n), rel.device)[:, :, None]
-    check(torch.equal(ops.ss_matmul(bits, lifted),
-                      ssm.ss_matmul_plain(bits, lifted)),
-          "ss_matmul conditional-SUM shape differs")
-    # the narrow range_select's fetch: ℓ ≈ 69 one-hot rows (logged only)
-    wide = rounds._share_one_hot(key, db, list(range(0, n, n // 69))[:69])
-    wide_ms = time_ms(torch, lambda: ops.ss_matmul(wide.values, flat), 3)
-    log(f"ss_matmul range_select fetch {tuple(wide.values.shape)}: "
-        f"{wide_ms} ms")
-    ss_ms = time_ms(torch, lambda: ops.ss_matmul(fetch, flat), 10)
-    ss_plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(fetch, flat), 2,
-                          warmup=0)
-    r = fetch.shape[1]
-    ss_bytes = 4 * (c * r * n + c * n * m * w * a + c * r * m * w * a)
-    ss_ops = 2 * c * r * n * m * w * a
+    for rhs, what in ((flat, "one_tuple"), (lifted, "conditional-SUM")):
+        got, want = ops.ss_matmul(bits, rhs), ssm.ss_matmul_plain(bits, rhs)
+        check(torch.equal(got, want), f"ss_matmul_tall {what} differs")
+        errs["ss_matmul_tall"] = max(errs["ss_matmul_tall"],
+                                     max_err(torch, got, want))
+    del bits, lifted
 
+    def fetch_rows(rows):
+        """A select's one-hot fetch matrix of ``rows`` addresses."""
+        return rounds._share_one_hot(
+            key, db, list(range(0, n, n // rows))[:rows]).values
+
+    def fetch_cost(r):
+        return (4 * (c * r * n + c * n * m * w * a + c * r * m * w * a),
+                2 * c * r * n * m * w * a)
+
+    # the tall kernel at R = 3 (slice 1's one_round fetch), 69 (the
+    # Salary tree and the range_select) and 256 (its largest M), beside
+    # the general kernel at the same shapes, in turns
+    tall = {}
+    for r, reps in ((3, 10), (69, 3), (256, 1)):
+        fetch = fetch_rows(r)
+        got, want = ops.ss_matmul(fetch, flat), ssm.ss_matmul_plain(fetch,
+                                                                    flat)
+        check(torch.equal(got, want), f"ss_matmul_tall fetch R={r} differs")
+        check(torch.equal(ssm.ss_matmul_cuda(fetch, flat), want),
+              f"general ss_matmul fetch R={r} differs")
+        errs["ss_matmul_tall"] = max(errs["ss_matmul_tall"],
+                                     max_err(torch, got, want))
+        del got, want
+        gen_ms = time_ms(torch, lambda: ssm.ss_matmul_cuda(fetch, flat),
+                         reps)
+        tall_ms = time_ms(torch, lambda: ops.ss_matmul(fetch, flat), reps)
+        gen_ms2 = time_ms(torch, lambda: ssm.ss_matmul_cuda(fetch, flat),
+                          reps)
+        tall_ms2 = time_ms(torch, lambda: ops.ss_matmul(fetch, flat), reps)
+        plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(fetch, flat),
+                           1, warmup=0)
+        nbytes, nops = fetch_cost(r)
+        tall[r] = (tall_ms, plain_ms, nbytes, nops)
+        log(f"fetch {tuple(fetch.shape)} @ {tuple(flat.shape)}: tall "
+            f"{tall_ms} / {tall_ms2} ms, general {gen_ms} / {gen_ms2} ms, "
+            f"plain {plain_ms} ms, bound "
+            f"{bound(nbytes, nops)[0]} ms ({bound(nbytes, nops)[1]})")
+        del fetch
+    # the general kernel on the path: the ℓ = 1,000 prefix select's fetch
+    fetch = fetch_rows(1000)
+    got, want = ops.ss_matmul(fetch, flat), ssm.ss_matmul_plain(fetch, flat)
+    check(torch.equal(got, want), "ss_matmul ℓ=1000 fetch differs")
+    errs["ss_matmul"] = max(errs["ss_matmul"], max_err(torch, got, want))
+    del got, want
+    ss_ms = time_ms(torch, lambda: ops.ss_matmul(fetch, flat), 1)
+    ss_plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(fetch, flat), 1,
+                          warmup=0)
+    del fetch
+
+    slide = slide_full_shapes(torch, db, errs, key)
     ripple = ripple_full_shapes(torch, db, errs, key)
 
     def entry(name, source, replaces, ms, plain_ms, nbytes, nops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / INT32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, nops)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None}
 
-    return [entry("aa_match_batch", "src/repro_torch/kernels/csrc/aa_match.cu",
+    aa_src = "src/repro_torch/kernels/csrc/aa_match.cu"
+    ss_src = "src/repro_torch/kernels/csrc/ss_matmul.cu"
+    return [entry("aa_match_batch", aa_src,
                   "src/repro/kernels/aa_match.py:81", aa_ms, aa_plain_ms,
                   aa_bytes, aa_ops),
-            entry("ss_matmul", "src/repro_torch/kernels/csrc/ss_matmul.cu",
-                  "src/repro/kernels/ss_matmul.py:87", ss_ms, ss_plain_ms,
-                  ss_bytes, ss_ops)] + [
+            entry("aa_slide_batch", aa_src,
+                  "src/repro/kernels/aa_match.py:146", *slide),
+            entry("ss_matmul", ss_src, "src/repro/kernels/ss_matmul.py:87",
+                  ss_ms, ss_plain_ms, *fetch_cost(1000)),
+            entry("ss_matmul_tall", ss_src,
+                  "src/repro/kernels/ss_matmul.py:145", *tall[3])] + [
             entry(name, "src/repro_torch/kernels/csrc/ripple.cu", replaces,
                   *ripple[name])
             for name, replaces in (
                 ("ripple_segment", "src/repro/kernels/ripple.py:113"),
                 ("ripple_carry", "src/repro/kernels/ripple.py:66"))]
+
+
+def bound(nbytes: int, nops: int):
+    """-> (least ms, "bytes" | "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its int32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def slide_full_shapes(torch, db, errs, key):
+    """Phase 4 for the slide kernel: the suffix count's (k = 2) and the
+    substring count's (k = 3) windows over FirstName, a B-stride-0 view of
+    the relation, the tree's k = 5 windows over EmployeeId, and the mixed
+    batch's distinct-column group (LastName and Department, k = 3) through
+    ``aa_slide_rows``; each against the plain version, k = 2 timed.
+    Returns (ms, plain_ms, bytes, operations) at k = 2."""
+    from repro_torch import _device
+    from repro_torch.core import encoding
+    from repro_torch.core.encoding import PatternSpec
+    from repro_torch.kernels import aa_match as aa
+    from repro_torch.kernels import ops
+
+    rel = db.relation.values
+    c, n, _, w, a = rel.shape
+
+    def tile(kind, body, salt):
+        return encoding.share_pattern(
+            db.codec, PatternSpec(kind, body), n_shares=c,
+            device=rel.device,
+            generator=_device.generator(key + (salt,), rel.device)).values
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{what} differs from its plain version")
+        errs["aa_slide_batch"] = max(errs["aa_slide_batch"],
+                                     max_err(torch, got, want))
+
+    first = rel[:, :, NAMES.index("FirstName")][:, None]    # (c,1,n,W,A)
+    for k, body in ((2, "nn"), (3, "inn")):
+        pat = tile("suffix", body, k)[:, None]
+        same(ops.aa_slide_batch(first, pat), aa.aa_slide_batch_plain(first,
+                                                                     pat),
+             f"aa_slide_batch FirstName k={k}")
+    ids = rel[:, :, NAMES.index("EmployeeId")][:, None]
+    pat5 = tile("contains", "12345", 5)[:, None]
+    same(ops.aa_slide_batch(ids, pat5), aa.aa_slide_batch_plain(ids, pat5),
+         "aa_slide_batch EmployeeId k=5")
+    cols = [NAMES.index("LastName"), NAMES.index("Department")]
+    pats = torch.stack([tile("contains", "inn", 6),
+                        tile("suffix", "gal", 7)], dim=1)
+    rows = dict(columns=cols, starts=[0, 0], lengths=[n, n], pat=pats,
+                height=n)
+    same(ops.aa_slide_rows(rel, **rows), aa.aa_slide_rows_plain(rel, **rows),
+         "aa_slide_rows distinct-column group")
+    pat = tile("suffix", "nn", 2)[:, None]
+    ms = time_ms(torch, lambda: ops.aa_slide_batch(first, pat), 20)
+    plain_ms = time_ms(torch, lambda: aa.aa_slide_batch_plain(first, pat), 2)
+    m_win = w - 1
+    return (ms, plain_ms, 4 * (c * n * w * a + c * 2 * a + c * n * m_win),
+            2 * c * n * m_win * 2 * a + c * n * m_win)
 
 
 #: operations per lane of one SS-SUB bit step, a mod-p multiply counting
@@ -638,8 +936,9 @@ def main() -> int:
         log(f"[{name}] nvcc {info['seconds']:.1f} s\n{info['log'].strip()}")
 
     dev = torch.device("cuda")
-    errs = {"aa_match_batch": 0, "ss_matmul": 0, "ripple_segment": 0,
-            "ripple_carry": 0}
+    errs = {name: 0 for name in ("aa_match_batch", "aa_slide_batch",
+                                 "ss_matmul", "ss_matmul_tall",
+                                 "ripple_segment", "ripple_carry")}
     compare_small(torch, dev, errs)
     log("kernels == plain versions on extremes and ragged shapes")
 
@@ -651,7 +950,9 @@ def main() -> int:
     log("slice-1 path: every answer equals the plaintext evaluation")
     path2 = range_agg_path(torch, client, rows)
     log("slice-2 path: every answer equals the plaintext evaluation")
-    launches = {k: path1[k] + path2[k] for k in path1}
+    path3 = pattern_path(torch, client, rows)
+    log("slice-3 path: every answer equals the plaintext evaluation")
+    launches = {k: path1[k] + path2[k] + path3[k] for k in path1}
     kernels = full_shape_kernels(torch, db, errs, launches)
     log("kernels == plain versions at the main paths' full shapes")
 

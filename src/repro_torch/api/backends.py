@@ -11,9 +11,14 @@ degree bookkeeping stays at the query layer):
   * ``aa_match_rows``  — relation (c, n, m, W, A) + per-row column / start /
                          length -> (c, B, height): distinct columns and tree
                          blocks in one dispatch without a gather;
+  * ``aa_slide_batch`` — (c, B, n, W, A), (c, B, k, A) -> (c, B, n, W−k+1):
+                         the sliding-window match of suffix and substring
+                         predicates (raw window-chain products);
+  * ``aa_slide_rows``  — its relation form, as ``aa_match_rows``;
   * ``ss_matmul``      — ([c,] M, K), ([c,] K, N) -> ([c,] M, N): the
                          oblivious fetch, the one_tuple contraction and
-                         the conditional SUM contraction;
+                         the conditional SUM contraction (tall-skinny
+                         shapes take their own kernel);
   * ``ripple_segment`` — (..., k), (..., k), carry (...) | None ->
                          (rb, carry'): k chained §3.4 SS-SUB bit steps
                          (``None`` starts at the LSB step); the range
@@ -54,6 +59,18 @@ class Backend:
     aa_match_rows: Callable[..., torch.Tensor]
     ripple_segment: Optional[_RippleOp] = None
     ripple_carry: Optional[_RippleOp] = None
+    aa_slide_batch: Optional[_Op] = None
+    aa_slide_rows: Optional[Callable[..., torch.Tensor]] = None
+
+
+def slide_matcher(backend: Backend) -> Tuple[_Op, Callable[..., torch.Tensor]]:
+    """The backend's sliding-window ops ``(aa_slide_batch, aa_slide_rows)``;
+    a backend without them cannot run suffix/substring predicates and
+    raises (there is no fallback to another implementation)."""
+    if backend.aa_slide_batch is None or backend.aa_slide_rows is None:
+        raise ValueError(f"backend {backend.name!r} has no aa_slide_batch "
+                         f"op; suffix/substring predicates need one")
+    return backend.aa_slide_batch, backend.aa_slide_rows
 
 
 def ripple_segmenter(backend: Backend) -> _RippleOp:
@@ -83,12 +100,16 @@ _REGISTRY: Dict[str, Backend] = {
                      aa_match_batch=_aa.aa_match_batch_plain,
                      aa_match_rows=_aa.aa_match_rows_plain,
                      ripple_segment=_rip.ripple_segment_plain,
-                     ripple_carry=_plain_ripple_carry),
+                     ripple_carry=_plain_ripple_carry,
+                     aa_slide_batch=_aa.aa_slide_batch_plain,
+                     aa_slide_rows=_aa.aa_slide_rows_plain),
     "cuda": Backend("cuda", ss_matmul=ops.ss_matmul,
                     aa_match_batch=ops.aa_match_batch,
                     aa_match_rows=ops.aa_match_rows,
                     ripple_segment=ops.ripple_segment,
-                    ripple_carry=ops.ripple_carry),
+                    ripple_carry=ops.ripple_carry,
+                    aa_slide_batch=ops.aa_slide_batch,
+                    aa_slide_rows=ops.aa_slide_rows),
 }
 
 BackendLike = Union[str, Backend]

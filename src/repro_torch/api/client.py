@@ -17,9 +17,11 @@ tree and range selects) through ONE cross-group ``ss_matmul``.
 :meth:`QueryClient.run` is the B = 1 case, so rows and ``CostLedger``
 totals are identical between a batch and the equivalent sequential calls.
 
-The port serves ``Count``/``Select`` over ``Eq``, ``RangeCount``/
-``RangeSelect`` over ``Between`` and ``Aggregate``; any other plan or
-predicate raises :class:`~.planner.PlanNotSupported`.
+The port serves ``Count``/``Select`` over ``Eq`` and the pattern
+predicates ``Like``/``Prefix``/``Suffix``/``Contains``, ``RangeCount``/
+``RangeSelect`` over ``Between`` and ``Aggregate`` (with an ``Eq``
+predicate); any other plan or predicate raises
+:class:`~.planner.PlanNotSupported`.
 """
 from __future__ import annotations
 
@@ -28,23 +30,69 @@ import itertools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from .. import _device
+from ..core import encoding
 from ..core.costs import CostLedger
 from ..core.dataplane import ShardedRelation
 from ..core.engine import SecretSharedDB
-from ..core.queries import CardinalityError, aggregate, rounds
+from ..core.queries import CardinalityError, aggregate, like_spec, rounds
 from . import planner as _planner
 from .backends import DEFAULT_BACKEND, BackendLike, get_backend
-from .plans import (AUTO, Aggregate, Between, ColumnRef, Count, Eq, Padding,
-                    Plan, QueryResult, RangeCount, RangeSelect, Select,
-                    resolve_column)
+from .plans import (AUTO, Aggregate, Between, ColumnRef, Contains, Count,
+                    Eq, Like, Padding, Plan, Prefix, QueryResult, RangeCount,
+                    RangeSelect, Select, Suffix, resolve_column)
+
+#: surface shapes of the literal-tile predicates (for error display).
+_TILE_SOURCES = {Prefix: "{0}%", Suffix: "%{0}", Contains: "%{0}%"}
 
 
-def _lower_match(db: SecretSharedDB, where, context: str) -> int:
-    """Lower a Count/Select/Aggregate predicate -> column index (``Eq``
-    only)."""
+def _lower_match(db: SecretSharedDB, where, context: str
+                 ) -> Tuple[int, str, Optional[encoding.PatternSpec]]:
+    """Lower a Count/Select predicate -> (column, body, spec).
+
+    ``Eq`` and any wildcard-free ``Like`` lower to the exact path
+    (``spec=None``); the other shapes build their
+    :class:`~repro_torch.core.encoding.PatternSpec` and validate it against
+    the relation's codec here, at plan time, so malformed patterns
+    (interior ``%``, ``_`` under a shifted window, tiles longer than the
+    word, empty bodies, characters outside the alphabet) raise a typed
+    :class:`~.planner.PlanNotSupported` before any share moves."""
+    if isinstance(where, Eq):
+        return resolve_column(db, where.column), where.pattern, None
+    if isinstance(where, Like):
+        try:
+            spec = like_spec(db.codec, where.pattern)
+            column = resolve_column(db, where.column)
+        except (KeyError, ValueError) as e:
+            raise _planner.PlanNotSupported(
+                where, f"{context} ({e})") from None
+        return column, where.pattern if spec is None else spec.body, spec
+    if isinstance(where, (Prefix, Suffix, Contains)):
+        source = _TILE_SOURCES[type(where)].format(where.literal)
+        try:
+            spec = encoding.PatternSpec(type(where).__name__.lower(),
+                                        where.literal, (), source)
+            encoding.encode_pattern_tile(db.codec, spec)
+        except (KeyError, ValueError) as e:
+            raise _planner.PlanNotSupported(
+                where, f"{context} ({e})") from None
+        return resolve_column(db, where.column), where.literal, spec
+    raise _planner.PlanNotSupported(where, context)
+
+
+def _lower_eq(db: SecretSharedDB, where, context: str) -> int:
+    """An aggregate's predicate -> column index (``Eq`` only)."""
     if isinstance(where, Eq):
         return resolve_column(db, where.column)
     raise _planner.PlanNotSupported(where, context)
+
+
+def _refuse_pattern_one_tuple(plan: Select,
+                              spec: Optional[encoding.PatternSpec]) -> None:
+    if spec is not None and plan.strategy == "one_tuple":
+        raise _planner.PlanNotSupported(
+            plan.where, "one_tuple select (the §3.2.1 single-tuple map is "
+            "the exact-equality special case — pattern predicates run "
+            "one_round or tree)")
 
 
 def _binary_column(db: SecretSharedDB, column: ColumnRef) -> int:
@@ -77,6 +125,7 @@ class _Slot:
     known_count: Optional[int] = None
     column: int = -1
     pattern: str = ""
+    spec: Optional[encoding.PatternSpec] = None
     pred_column: Optional[int] = None
     fetch_key: Optional[_device.Key] = None
 
@@ -129,10 +178,16 @@ class QueryClient:
         dispatches fuse, the cross-group fetch priced once).
         """
         if isinstance(plan, Select):
-            _lower_match(self.db, plan.where, "Select predicate")
-            cands = _planner.candidate_estimates(
-                self.stats(), ell=plan.expected_matches,
-                padded_rows=plan.padding.rows)
+            spec = _lower_match(self.db, plan.where, "Select predicate")[2]
+            _refuse_pattern_one_tuple(plan, spec)
+            if spec is not None:
+                cands = _planner.candidate_pattern_estimates(
+                    self.stats(), spec, ell=plan.expected_matches,
+                    padded_rows=plan.padding.rows)
+            else:
+                cands = _planner.candidate_estimates(
+                    self.stats(), ell=plan.expected_matches,
+                    padded_rows=plan.padding.rows)
             return sorted(cands, key=lambda e: (e.score(self.round_cost_bits),
                                                 e.rounds))
         if isinstance(plan, Plan):
@@ -149,37 +204,40 @@ class QueryClient:
         stats = self.stats()
         sel_ells: Dict[str, List[Optional[int]]] = {
             s: [] for s in ("one_tuple", "one_round", "tree")}
+        sel_specs: Dict[str, List[Optional[encoding.PatternSpec]]] = {
+            s: [] for s in sel_ells}
         sel_pad: Dict[str, Optional[int]] = {s: None for s in sel_ells}
         group_sizes: Dict[str, int] = {s: 0 for s in sel_ells}
         group_rounds: Dict[str, int] = {}
-        n_counts = 0
-        auto_plans: List[Select] = []
+        count_ests: List[_planner.CostEstimate] = []
+        auto_plans: List[Tuple[Select, Optional[encoding.PatternSpec]]] = []
         range_grps: Dict[Tuple[int, int], List[Tuple[bool, Optional[int]]]] \
             = {}
         agg_grps: Dict[tuple, List[_planner.CostEstimate]] = {}
 
-        def add_select(plan: Select, strategy: str) -> None:
+        def add_select(plan: Select, strategy: str,
+                       spec: Optional[encoding.PatternSpec]) -> None:
             ell = 1 if strategy == "one_tuple" else plan.expected_matches
             sel_ells[strategy].append(ell)
+            sel_specs[strategy].append(spec)
             sel_pad[strategy] = sel_pad[strategy] or plan.padding.rows
             group_sizes[strategy] += 1
-            est = _planner.estimate_select_cost(
-                strategy, stats,
-                ell=_planner.DEFAULT_ELL if ell is None else max(ell, 1),
-                padded_rows=plan.padding.rows)
-            group_rounds[strategy] = max(group_rounds.get(strategy, 0),
-                                         est.rounds)
+            group_rounds[strategy] = max(
+                group_rounds.get(strategy, 0),
+                self._select_estimate(stats, strategy, spec, ell,
+                                      plan.padding.rows).rounds)
 
         for plan in plans:
             if isinstance(plan, Count):
-                _lower_match(self.db, plan.where, "Count predicate")
-                n_counts += 1
+                spec = _lower_match(self.db, plan.where, "Count predicate")[2]
+                count_ests.append(_planner.estimate_pattern_cost(stats, spec))
             elif isinstance(plan, Select):
-                _lower_match(self.db, plan.where, "Select predicate")
+                spec = _lower_match(self.db, plan.where, "Select predicate")[2]
+                _refuse_pattern_one_tuple(plan, spec)
                 if plan.strategy == AUTO:
-                    auto_plans.append(plan)
+                    auto_plans.append((plan, spec))
                 else:
-                    add_select(plan, plan.strategy)
+                    add_select(plan, plan.strategy, spec)
             elif isinstance(plan, (RangeCount, RangeSelect)):
                 col = _binary_column(self.db, plan.where.column)
                 want = isinstance(plan, RangeSelect)
@@ -189,7 +247,7 @@ class QueryClient:
             elif isinstance(plan, Aggregate):
                 col = _binary_column(self.db, plan.column)
                 if plan.where is not None:
-                    _lower_match(self.db, plan.where, "Aggregate predicate")
+                    _lower_eq(self.db, plan.where, "Aggregate predicate")
                 t_bits = self.db.numeric_bits[col]
                 est = _planner.estimate_aggregate_cost(
                     stats, plan.op, t_bits=t_bits,
@@ -202,24 +260,21 @@ class QueryClient:
                 agg_grps.setdefault(gk, []).append(est)
             else:
                 raise _planner.PlanNotSupported(plan)
-        for plan in auto_plans:
-            add_select(plan, _planner.choose_select_strategy(
-                stats, ell=plan.expected_matches,
-                padded_rows=plan.padding.rows,
-                round_cost_bits=self.round_cost_bits,
-                group_sizes=group_sizes,
-                group_rounds=group_rounds).strategy)
+        for plan, spec in auto_plans:
+            add_select(plan, self._choose(
+                stats, spec, plan.expected_matches, plan.padding.rows,
+                group_sizes, group_rounds), spec)
 
         groups: List[_planner.GroupEstimate] = []
-        if n_counts:
-            groups.append(_fused_group(
-                "count", [_planner.estimate_count_cost(stats)] * n_counts))
+        if count_ests:
+            groups.append(_fused_group("count", count_ests))
         for strategy, ells in sel_ells.items():
             if ells:
                 groups.append(_planner.GroupEstimate(
                     strategy, len(ells), _planner.estimate_batch_group_cost(
                         stats, strategy, ells=ells,
-                        padded_rows=sel_pad[strategy])))
+                        padded_rows=sel_pad[strategy],
+                        specs=sel_specs[strategy])))
         for (t_bits, reduce_every), members in range_grps.items():
             ests = [_planner.estimate_range_cost(
                 stats, t_bits=t_bits, reduce_every=reduce_every,
@@ -231,6 +286,35 @@ class QueryClient:
         for ests in agg_grps.values():
             groups.append(_fused_group("aggregate", ests))
         return _planner.explain_batch_groups(stats, groups)
+
+    @staticmethod
+    def _select_estimate(stats, strategy: str,
+                         spec: Optional[encoding.PatternSpec],
+                         ell: Optional[int], padded_rows: Optional[int]
+                         ) -> _planner.CostEstimate:
+        """One select's estimate in its group (the group tracks the
+        deepest member's rounds)."""
+        ell_eff = (1 if strategy == "one_tuple" else
+                   _planner.DEFAULT_ELL if ell is None else max(ell, 1))
+        if spec is not None:
+            return _planner.estimate_pattern_cost(
+                stats, spec, select=strategy, ell=ell_eff,
+                padded_rows=padded_rows)
+        return _planner.estimate_select_cost(strategy, stats, ell=ell_eff,
+                                             padded_rows=padded_rows)
+
+    def _choose(self, stats, spec: Optional[encoding.PatternSpec],
+                ell: Optional[int], padded_rows: Optional[int],
+                group_sizes, group_rounds) -> str:
+        """AUTO's strategy: pattern predicates choose among their eligible
+        strategies only."""
+        kw = dict(ell=ell, padded_rows=padded_rows,
+                  round_cost_bits=self.round_cost_bits,
+                  group_sizes=group_sizes, group_rounds=group_rounds)
+        if spec is not None:
+            return _planner.choose_pattern_strategy(stats, spec,
+                                                    **kw).strategy
+        return _planner.choose_select_strategy(stats, **kw).strategy
 
     # -- execution ----------------------------------------------------------
     def run(self, plan: Plan) -> QueryResult:
@@ -280,24 +364,22 @@ class QueryClient:
             so later AUTO riders are priced at their marginal depth."""
             slot.strategy = strategy
             group_sizes[strategy] += 1
-            ell_eff = (1 if strategy == "one_tuple" else
-                       _planner.DEFAULT_ELL if ell is None else max(ell, 1))
-            est = _planner.estimate_select_cost(
-                strategy, stats, ell=ell_eff,
-                padded_rows=slot.plan.padding.rows)
-            group_rounds[strategy] = max(group_rounds.get(strategy, 0),
-                                         est.rounds)
+            group_rounds[strategy] = max(
+                group_rounds.get(strategy, 0),
+                self._select_estimate(stats, strategy, slot.spec, ell,
+                                      slot.plan.padding.rows).rounds)
             sel_grp[strategy].append(slot)
 
         for idx, plan in enumerate(plans):
             slot = _Slot(idx, plan, self._next_key())
             if isinstance(plan, Count):
-                slot.column = _lower_match(db, plan.where, "Count predicate")
-                slot.pattern = plan.where.pattern
+                slot.column, slot.pattern, slot.spec = _lower_match(
+                    db, plan.where, "Count predicate")
                 count_grp.append(slot)
             elif isinstance(plan, Select):
-                slot.column = _lower_match(db, plan.where, "Select predicate")
-                slot.pattern = plan.where.pattern
+                slot.column, slot.pattern, slot.spec = _lower_match(
+                    db, plan.where, "Select predicate")
+                _refuse_pattern_one_tuple(plan, slot.spec)
                 if plan.strategy == AUTO:
                     auto_slots.append(slot)   # assigned once groups known
                     continue
@@ -316,8 +398,8 @@ class QueryClient:
             elif isinstance(plan, Aggregate):
                 slot.column = resolve_column(db, plan.column)
                 if plan.where is not None:
-                    slot.pred_column = _lower_match(db, plan.where,
-                                                    "Aggregate predicate")
+                    slot.pred_column = _lower_eq(db, plan.where,
+                                                 "Aggregate predicate")
                     slot.pattern = plan.where.pattern
                 t_bits = db.numeric_bits.get(slot.column, -1)
                 if plan.op in ("sum", "avg"):
@@ -329,11 +411,10 @@ class QueryClient:
                 raise _planner.PlanNotSupported(plan)
 
         for slot in auto_slots:
-            chosen = _planner.choose_select_strategy(
-                stats, ell=slot.plan.expected_matches,
-                padded_rows=slot.plan.padding.rows,
-                round_cost_bits=self.round_cost_bits,
-                group_sizes=group_sizes, group_rounds=group_rounds).strategy
+            chosen = self._choose(stats, slot.spec,
+                                  slot.plan.expected_matches,
+                                  slot.plan.padding.rows, group_sizes,
+                                  group_rounds)
             join_group(slot, chosen, slot.plan.expected_matches)
 
         be = self.backend
@@ -351,7 +432,7 @@ class QueryClient:
 
         if count_grp or avg_cnt_slots:
             counts = rounds.count_phase(be, rel, [
-                rounds.MatchJob(s.column, s.pattern, s.key, s.ledger)
+                rounds.MatchJob(s.column, s.pattern, s.key, s.ledger, s.spec)
                 for s in count_grp] + [
                 rounds.MatchJob(s.pred_column, s.pattern, s.fetch_key,
                                 s.ledger) for s in avg_cnt_slots])
@@ -437,7 +518,7 @@ class QueryClient:
             group = sel_grp["one_round"]
             keys = [_device.split(s.key) for s in group]
             addrs = rounds.match_all_round(be, rel, [
-                rounds.MatchJob(s.column, s.pattern, kp, s.ledger)
+                rounds.MatchJob(s.column, s.pattern, kp, s.ledger, s.spec)
                 for s, (kp, _) in zip(group, keys)])
             for s, (_, kf), a in zip(group, keys, addrs):
                 fetch_jobs.append(rounds.FetchJob(kf, a, s.ledger,
@@ -451,7 +532,7 @@ class QueryClient:
             need = [(s, kc) for s, (kc, _, _) in zip(group, keys)
                     if s.known_count is None]
             ells = rounds.count_phase(be, rel, [
-                rounds.MatchJob(s.column, s.pattern, kc, s.ledger)
+                rounds.MatchJob(s.column, s.pattern, kc, s.ledger, s.spec)
                 for s, kc in need])
             for (s, _), ell in zip(need, ells):
                 s.known_count = ell
@@ -465,7 +546,7 @@ class QueryClient:
                     live.append((s, kp, kf))
             if live:
                 addrs = rounds.tree_rounds(be, rel, [
-                    rounds.TreeJob(s.column, s.pattern, kp, s.ledger,
+                    rounds.TreeJob(s.column, s.pattern, kp, s.ledger, s.spec,
                                    ell=s.known_count,
                                    branching=s.plan.branching)
                     for s, kp, _ in live])
@@ -512,6 +593,21 @@ class QueryClient:
         return self.run(Select(Eq(column, pattern), strategy=strategy,
                                expected_matches=expected_matches,
                                padding=padding, branching=branching))
+
+    def like(self, column: ColumnRef, pattern: str, *,
+             count_only: bool = False, strategy: str = AUTO,
+             expected_matches: Optional[int] = None,
+             padding: Padding = Padding.NONE) -> QueryResult:
+        """``column LIKE pattern``: a pattern Select (or Count with
+        ``count_only=True``). Wildcard-free patterns lower to the exact Eq
+        path; ``lit%``/``%lit``/``%lit%``/``l_t`` run the prefix / suffix /
+        substring / masked matchers."""
+        where = Like(column, pattern)
+        if count_only:
+            return self.run(Count(where))
+        return self.run(Select(where, strategy=strategy,
+                               expected_matches=expected_matches,
+                               padding=padding))
 
     def range_count(self, column: ColumnRef, lo: int, hi: int, *,
                     reduce_every: int = 0) -> QueryResult:

@@ -13,6 +13,9 @@ statistics (n, m, w, A, c) and the cardinality hint ℓ alone:
 Range plans (§3.4) and aggregates (SUM/AVG/MIN/MAX) have one algorithm
 each; :func:`estimate_range_cost` and :func:`estimate_aggregate_cost`
 price them in the same units, exactly as their rounds charge the ledger.
+Pattern predicates price their match phase with the round engine's own
+``match_phase_cost`` (:func:`estimate_pattern_cost`) and choose between
+one_round and tree only.
 
 The formulas are the reference planner's (``repro.api.planner``), so the
 port picks the same strategy for the same statistics. ``dispatches`` prices
@@ -27,6 +30,8 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 
 from ..core.costs import WORD_BITS
 from ..core.dataplane import ShardedRelation
+from ..core.encoding import PatternSpec
+from ..core.queries.rounds import match_phase_cost
 
 #: ℓ assumed when a plan carries no ``expected_matches`` hint: the smallest
 #: multi-match cardinality (keeps one_tuple out of the running).
@@ -136,6 +141,69 @@ def estimate_count_cost(stats: DBStats) -> CostEstimate:
     """§3.1 Algorithm 2: one round, O(1) comm, one count step per shard."""
     return CostEstimate("count", _count_elems(stats) * WORD_BITS, rounds=1,
                         dispatches=_shards(stats))
+
+
+def estimate_pattern_cost(stats: DBStats, spec: Optional[PatternSpec], *,
+                          select: Optional[str] = None,
+                          ell: int = DEFAULT_ELL,
+                          padded_rows: Optional[int] = None) -> CostEstimate:
+    """Price a pattern COUNT (``select=None``) or SELECT (``select=
+    "one_round" | "tree"``) from the atoms the round engine charges
+    (``match_phase_cost``), so the prediction is exact against the
+    measured ledger for pattern counts and one-round selects, and a
+    Theorem-4-style bound for the tree.
+
+    ``spec=None`` is a wildcard-free predicate lowered to the exact path:
+    the estimate equals :func:`estimate_count_cost` /
+    :func:`estimate_select_cost` field for field. The CONTAINS re-share
+    adds its round and c² + n·M elements wherever the match phase runs
+    (count, one_round Phase 1, and tree Phase 0 and prelude — twice for a
+    CONTAINS tree)."""
+    s = stats
+    S = _shards(s)
+    cost = match_phase_cost(spec, n=s.n, c=s.c, w=s.w, a=s.a)
+    match_elems = cost["send"] + cost["reduce_send"]
+    rr = cost["reduce_rounds"]
+    if select is None:
+        return CostEstimate("count", (match_elems + s.c) * WORD_BITS,
+                            rounds=1 + rr, dispatches=S)
+    ell = max(ell, 1)
+    if select == "one_round":
+        elems = match_elems + s.c * s.n + _fetch_elems(s, ell, padded_rows)
+        return CostEstimate("one_round", elems * WORD_BITS,
+                            rounds=2 + rr, dispatches=2 * S)
+    if select == "tree":
+        count_elems = match_elems + s.c          # Phase 0 runs the pattern
+        if ell <= 1:
+            elems = (count_elems + match_elems + s.c
+                     + _fetch_elems(s, 1, padded_rows))
+            return CostEstimate("tree", elems * WORD_BITS,
+                                rounds=3 + 2 * rr, dispatches=3 * S)
+        qa_rounds = (math.floor(math.log(max(s.n, 2), ell))
+                     + math.floor(math.log2(ell)) + 1)       # Theorem 4
+        elems = (count_elems + match_elems
+                 + qa_rounds * ell * s.c                     # block counts
+                 + ell * s.c                                 # address fetches
+                 + _fetch_elems(s, ell, padded_rows))
+        return CostEstimate("tree", elems * WORD_BITS,
+                            rounds=1 + qa_rounds + 1 + 2 * rr,
+                            dispatches=(2 + qa_rounds + 1) * S)
+    raise ValueError(f"pattern selects support one_round/tree, "
+                     f"not {select!r}")
+
+
+def candidate_pattern_estimates(stats: DBStats,
+                                spec: Optional[PatternSpec], *,
+                                ell: Optional[int] = None,
+                                padded_rows: Optional[int] = None
+                                ) -> List[CostEstimate]:
+    """Eligible strategies for a pattern select: ``one_round`` and
+    ``tree`` only (``one_tuple`` is the exact-equality special case, even
+    at an ℓ = 1 hint)."""
+    ell_eff = DEFAULT_ELL if ell is None else max(ell, 1)
+    return [estimate_pattern_cost(stats, spec, select=strat, ell=ell_eff,
+                                  padded_rows=padded_rows)
+            for strat in ("one_round", "tree")]
 
 
 def estimate_range_cost(stats: DBStats, *, t_bits: int,
@@ -265,15 +333,41 @@ def choose_select_strategy(stats: DBStats, *, ell: Optional[int] = None,
                                       group_rounds))
 
 
+def choose_pattern_strategy(stats: DBStats, spec: Optional[PatternSpec], *,
+                            ell: Optional[int] = None,
+                            padded_rows: Optional[int] = None,
+                            round_cost_bits: int = 0,
+                            group_sizes: Optional[Mapping[str, int]] = None,
+                            group_rounds: Optional[Mapping[str, int]] = None
+                            ) -> CostEstimate:
+    """:func:`choose_select_strategy` for a pattern predicate: the same
+    scoring over the pattern-eligible candidates (one_round / tree)."""
+    cands = candidate_pattern_estimates(stats, spec, ell=ell,
+                                        padded_rows=padded_rows)
+    return min(cands, key=_riding_key(round_cost_bits, group_sizes,
+                                      group_rounds))
+
+
 def estimate_batch_group_cost(stats: DBStats, strategy: str, *,
                               ells: Sequence[Optional[int]],
-                              padded_rows: Optional[int] = None
+                              padded_rows: Optional[int] = None,
+                              specs: Optional[Sequence[
+                                  Optional[PatternSpec]]] = None
                               ) -> CostEstimate:
     """Price a whole ``run_batch`` selection group: bits add up query by
-    query; rounds and dispatches are the deepest member's."""
-    ests = [estimate_select_cost(
-        strategy, stats, ell=DEFAULT_ELL if e is None else max(e, 1),
-        padded_rows=padded_rows) for e in ells]
+    query; rounds and dispatches are the deepest member's. ``specs``
+    aligns with ``ells`` and prices pattern members through
+    :func:`estimate_pattern_cost` (``None`` is an exact member)."""
+    specs = specs if specs is not None else [None] * len(ells)
+    ests = [estimate_pattern_cost(
+        stats, spec, select=strategy,
+        ell=DEFAULT_ELL if e is None else max(e, 1),
+        padded_rows=padded_rows)
+        if spec is not None and strategy != "one_tuple"
+        else estimate_select_cost(
+            strategy, stats, ell=DEFAULT_ELL if e is None else max(e, 1),
+            padded_rows=padded_rows)
+        for e, spec in zip(ells, specs)]
     return CostEstimate(strategy,
                         bits=sum(e.bits for e in ests),
                         rounds=max((e.rounds for e in ests), default=0),

@@ -4,8 +4,9 @@ A plan is a small frozen dataclass describing *what* to compute (predicate,
 columns by name, padding policy); :class:`repro_torch.api.QueryClient`
 decides *how* (strategy, backend, random streams) and returns a uniform
 :class:`QueryResult`. The port carries the count and selection families
-over equality predicates, range count/selection over ``Between`` and
-SUM/AVG/MIN/MAX aggregation.
+over equality and pattern predicates (``Like``/``Prefix``/``Suffix``/
+``Contains``), range count/selection over ``Between`` and SUM/AVG/MIN/MAX
+aggregation.
 
 Padding is a security knob: fetching ``Padding.rows`` fake rows hides the
 true result size ℓ from the clouds (§3.2.2 output-size attack).
@@ -59,6 +60,52 @@ class Between:
 
 
 @dataclasses.dataclass(frozen=True)
+class Like:
+    """SQL-ish pattern predicate: ``column LIKE pattern`` (§3.1 general AA).
+
+    ``%`` matches any run of characters at either end of the pattern
+    (``lit%`` / ``%lit`` / ``%lit%``); ``_`` matches any ONE symbol —
+    including the pad terminator, so ``_`` is a don't-care, not a length
+    constraint (a documented deviation from SQL). A wildcard-free pattern
+    lowers to the exact-match :class:`Eq` path; interior ``%`` runs and
+    ``_`` under a ``%``-shifted window raise ``PlanNotSupported``.
+    """
+    column: ColumnRef
+    pattern: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Prefix:
+    """``column`` starts with ``literal`` (verbatim, no wildcards; use
+    :class:`Like` for ``_``). Lowers to a truncated k-position AA chain."""
+    column: ColumnRef
+    literal: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Suffix:
+    """``column`` ends with ``literal`` (verbatim). Lowers to the
+    sliding-window automata step with a terminator factor."""
+    column: ColumnRef
+    literal: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Contains:
+    """``column`` contains ``literal`` (verbatim). Lowers to the
+    sliding-window automata step, a degree-reduction re-share and the
+    window-count zero test."""
+    column: ColumnRef
+    literal: str
+
+
+#: predicate classes the pattern engine lowers (besides plain Eq).
+PATTERN_PREDICATES = (Like, Prefix, Suffix, Contains)
+#: every predicate class Count/Select accept.
+MATCH_PREDICATES = (Eq,) + PATTERN_PREDICATES
+
+
+@dataclasses.dataclass(frozen=True)
 class Padding:
     """Output-size-attack resistance: pad the oblivious fetch to ``rows``
     rows (≥ true ℓ); the extra rows are all-zero one-hots."""
@@ -82,8 +129,10 @@ class Plan:
 
 @dataclasses.dataclass(frozen=True)
 class Count(Plan):
-    """COUNT(*) WHERE <predicate> (§3.1, Algorithm 2)."""
-    where: Eq
+    """COUNT(*) WHERE <predicate> (§3.1, Algorithm 2): ``where`` is
+    :class:`Eq` or any pattern predicate; other predicate types raise
+    ``PlanNotSupported`` at plan time."""
+    where: Union[Eq, Like, Prefix, Suffix, Contains]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +143,10 @@ class Select(Plan):
     three algorithms, or force ``"one_tuple" | "one_round" | "tree"``.
     ``expected_matches`` is the planner's cardinality hint (ℓ); one_tuple
     is eligible only when the hint says ℓ = 1 (the algorithm verifies).
+    A pattern predicate runs ``one_round`` or ``tree`` (``one_tuple`` is
+    the §3.2.1 exact-equality special case).
     """
-    where: Eq
+    where: Union[Eq, Like, Prefix, Suffix, Contains]
     strategy: str = AUTO
     expected_matches: Optional[int] = None
     padding: Padding = Padding.NONE

@@ -14,7 +14,7 @@ crosses from the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -117,6 +117,134 @@ def onehot(idx, alphabet_size: int, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Pattern predicates (§3.1 general matching): spec, LIKE parser, encoders
+# ---------------------------------------------------------------------------
+
+#: matcher strategies a PatternSpec can name. "masked" rides the full-width
+#: AA chain (the same dispatch stack as exact equality); "prefix" the
+#: truncated k-chain; "suffix"/"contains" the sliding-window automata step.
+PATTERN_KINDS = ("masked", "prefix", "suffix", "contains")
+
+
+@dataclasses.dataclass(frozen=True)
+class PatternSpec:
+    """A lowered pattern predicate: k literal positions + matcher kind.
+
+    ``body`` holds the k pattern characters; indices in ``wild`` are
+    wildcard (all-ones) positions, legal only where windows cannot shift
+    (``masked`` / ``prefix``): a wildcard matches the terminator too, so
+    inside a sliding window it would break the mutual exclusivity of window
+    matches. ``source`` is the surface pattern, for display and errors.
+    """
+    kind: str
+    body: str
+    wild: Tuple[int, ...] = ()
+    source: str = ""
+
+    def __post_init__(self):
+        if self.kind not in PATTERN_KINDS:
+            raise ValueError(f"unknown pattern kind {self.kind!r}")
+        if not self.body:
+            raise ValueError(
+                f"pattern {self.source!r} has an empty literal body")
+        if TERMINATOR in self.body:
+            raise ValueError("pattern bodies may not contain the terminator")
+        if self.wild and self.kind in ("suffix", "contains"):
+            raise ValueError(
+                f"wildcard positions are not supported in {self.kind} "
+                "patterns (a window could match padding)")
+        if any(i < 0 or i >= len(self.body) for i in self.wild):
+            raise ValueError("wildcard index out of range")
+
+    @property
+    def length(self) -> int:
+        """k — the AA chain length of this pattern."""
+        return len(self.body)
+
+    def windows(self, word_length: int) -> int:
+        """M — number of sliding windows at a given word length."""
+        return word_length - self.length + 1
+
+
+def parse_like(pattern: str) -> Tuple[str, str, Tuple[int, ...]]:
+    """Parse a SQL-ish LIKE pattern -> (kind, body, wildcard positions).
+
+    ``%`` is any run, ``_`` any one symbol; no escapes:
+
+      ``lit``   -> ("exact", lit, ())     — rewritten to the Eq path
+      ``l_t``   -> ("masked", l_t, (1,))  — fixed positions, full chain
+      ``lit%``  -> ("prefix", lit, wilds) — ``_`` allowed in lit
+      ``%lit``  -> ("suffix", lit, ())    — ``_`` unsupported
+      ``%lit%`` -> ("contains", lit, ())  — ``_`` unsupported
+
+    Interior or bare ``%`` and ``_`` under a shifted window raise
+    ``ValueError`` (the client surfaces ``PlanNotSupported``).
+    """
+    if not pattern or pattern.strip("%") == "":
+        raise ValueError(f"LIKE pattern {pattern!r} has no literal body")
+    lead = pattern.startswith("%")
+    trail = pattern.endswith("%")
+    body = pattern[1 if lead else 0:len(pattern) - 1 if trail else len(pattern)]
+    if "%" in body:
+        raise ValueError(
+            f"LIKE pattern {pattern!r}: interior '%' is not supported")
+    wild = tuple(i for i, ch in enumerate(body) if ch == "_")
+    if lead and wild:
+        raise ValueError(
+            f"LIKE pattern {pattern!r}: '_' under a '%'-shifted window is "
+            "not supported")
+    if lead and trail:
+        return "contains", body, ()
+    if lead:
+        return "suffix", body, ()
+    if trail:
+        return "prefix", body, wild
+    return ("masked", body, wild) if wild else ("exact", body, ())
+
+
+def encode_pattern_tile(codec: Codec, spec: PatternSpec) -> np.ndarray:
+    """-> uint32[k, alphabet_size] one-hot rows; wildcards are all-ones.
+    The user-shared object of prefix/suffix/contains specs."""
+    if spec.length > codec.word_length:
+        raise ValueError(
+            f"pattern {spec.source or spec.body!r} longer than word_length "
+            f"{codec.word_length}")
+    out = np.zeros((spec.length, codec.alphabet_size), dtype=np.uint32)
+    wild = set(spec.wild)
+    for j, ch in enumerate(spec.body):
+        if j in wild:
+            out[j, :] = 1
+        else:
+            out[j, codec.char_index(ch)] = 1
+    return out
+
+
+def encode_pattern_word(codec: Codec, spec: PatternSpec) -> np.ndarray:
+    """-> uint32[word_length, alphabet_size]: the ``masked`` encoding, the
+    k-tile padded with terminator one-hots, so the full-width chain
+    enforces the literal positions and the trailing terminators. A
+    wildcard dot is 1 against the terminator too, so ``a_`` also matches
+    ``a`` (a don't-care, not SQL's exact-length ``_``)."""
+    tile = encode_pattern_tile(codec, spec)
+    out = np.zeros((codec.word_length, codec.alphabet_size), dtype=np.uint32)
+    out[:spec.length] = tile
+    out[spec.length:, 0] = 1          # terminator one-hots
+    return out
+
+
+def encode_predicate(codec: Codec, pattern: Union[str, PatternSpec]
+                     ) -> np.ndarray:
+    """What a user shares for one predicate: an exact word's full one-hot
+    encoding, a ``masked`` spec's full-width masked word, or any other
+    spec's k-position tile."""
+    if isinstance(pattern, str):
+        return codec.encode_word(pattern)
+    if pattern.kind == "masked":
+        return encode_pattern_word(codec, pattern)
+    return encode_pattern_tile(codec, pattern)
+
+
+# ---------------------------------------------------------------------------
 # Secret-shared encodings
 # ---------------------------------------------------------------------------
 
@@ -133,13 +261,17 @@ def share_encoded(encoded, *, n_shares: int, degree: int = 1,
                         coeffs=coeffs, generator=generator)
 
 
-def share_pattern(codec: Codec, pattern: str, *, n_shares: int,
-                  degree: int = 1,
+def share_pattern(codec: Codec, pattern: Union[str, PatternSpec], *,
+                  n_shares: int, degree: int = 1,
                   generator: Optional[torch.Generator] = None,
+                  coeffs: Optional[torch.Tensor] = None,
                   device=None) -> Shares:
-    """User-side: encode + secret-share a query predicate (count/select)."""
-    return share_encoded(codec.encode_word(pattern), n_shares=n_shares,
-                         degree=degree, generator=generator, device=device)
+    """User-side: encode + secret-share a query predicate (count/select):
+    an exact word, or a :class:`PatternSpec` (see :func:`encode_predicate`).
+    ``coeffs`` injects the polynomial coefficients."""
+    return share_encoded(encode_predicate(codec, pattern),
+                         n_shares=n_shares, degree=degree,
+                         generator=generator, coeffs=coeffs, device=device)
 
 
 # ---------------------------------------------------------------------------

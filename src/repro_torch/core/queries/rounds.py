@@ -23,11 +23,14 @@ sequential queries execute the same code and give identical rows and
     matrix of the round (one_round, tree and range selects) stacks into one
     ``ss_matmul`` against the relation.
 
-This is the exact-match path of the reference engine
-(``repro.core.queries.rounds``). A job carrying a pattern ``spec``
-(LIKE/prefix/suffix/substring) raises ``NotImplementedError``: the pattern
-engine is a later slice of the port. Ledgers record protocol cost only, never
-the padding a fused dispatch adds.
+A job carrying a pattern ``spec`` (LIKE/prefix/suffix/substring) runs
+through :class:`_MatcherPlan`: masked patterns ride the full-width chain,
+prefixes a truncated chain, suffixes and substrings the sliding-window
+kernel (``aa_slide_batch``), one dispatch per group and shard.
+:func:`match_phase_cost` is both what the rounds charge and what the planner
+prices. This mirrors the reference engine (``repro.core.queries.rounds``)
+without joins. Ledgers record protocol cost only, never the padding a fused
+dispatch adds.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from ... import _device
-from .. import dataplane, encoding, field, shamir
+from .. import automata, dataplane, encoding, field, shamir
 from ..costs import CostLedger
 from ..dataplane import RelationLike
 from ..engine import SecretSharedDB
@@ -55,12 +58,17 @@ Key = _device.Key
 @dataclasses.dataclass
 class MatchJob:
     """One query's slot in a predicate-match phase (count / select).
-    ``spec`` must be ``None`` (exact-word equality) in this slice."""
+
+    ``spec`` selects the matcher: ``None`` is the exact-word chain; a
+    :class:`~repro_torch.core.encoding.PatternSpec` lowers the job onto the
+    pattern engine (``masked`` rides the same full-width chain with another
+    encoding, ``prefix`` a truncated k-chain, ``suffix``/``contains`` the
+    sliding-window step)."""
     column: int
     pattern: str
     key: Key                # stream for sharing this query's predicate
     ledger: CostLedger
-    spec: Optional[Any] = None
+    spec: Optional[encoding.PatternSpec] = None
 
 
 @dataclasses.dataclass
@@ -113,12 +121,11 @@ def _ripple_segmenter(be):
     return _registry.ripple_segmenter(be)
 
 
-def _require_exact(jobs: Sequence[MatchJob]) -> None:
-    if any(getattr(j, "spec", None) is not None for j in jobs):
-        raise NotImplementedError(
-            "pattern predicates (LIKE/prefix/suffix/substring) come with "
-            "the port's pattern-predicate slice (ROADMAP Queue 1 item 12); "
-            "this slice runs exact-word equality only")
+def _slide_matcher(be):
+    """Backend's sliding-window ops (deferred import, as above); raises
+    for a backend without them."""
+    from ...api import backends as _registry
+    return _registry.slide_matcher(be)
 
 
 def _share_one_hot(key: Key, db: SecretSharedDB, addresses: Sequence[int],
@@ -158,13 +165,205 @@ def _fused_interpolate(parts: Sequence[Shares]) -> List[np.ndarray]:
 
 
 def _share_patterns(db: SecretSharedDB, jobs: Sequence[MatchJob]) -> Shares:
-    """User step: encode + share every job's predicate -> (c, B, W, A)."""
-    _require_exact(jobs)
-    vals = [encoding.share_encoded(
-        db.codec.encode_word(j.pattern), n_shares=db.n_shares,
-        degree=db.base_degree, device=db.device,
+    """User step: encode + share every job's predicate -> (c, B, W|k, A).
+
+    Exact jobs share the terminator-padded word, ``masked`` specs the
+    full-width masked word, tile specs (prefix/suffix/contains) the k-row
+    tile. One stack shares one width; the engine groups jobs so."""
+    vals = [encoding.share_pattern(
+        db.codec, j.pattern if getattr(j, "spec", None) is None else j.spec,
+        n_shares=db.n_shares, degree=db.base_degree, device=db.device,
         generator=_device.generator(j.key, db.device)).values for j in jobs]
     return Shares(torch.stack(vals, dim=1), db.base_degree)
+
+
+def _needs_pattern_engine(jobs: Sequence[MatchJob]) -> bool:
+    """True if any job leaves the full-width chain (``masked`` rides the
+    exact-match stack unchanged; the tile kinds do not)."""
+    return any(getattr(j, "spec", None) is not None
+               and j.spec.kind in ("prefix", "suffix", "contains")
+               for j in jobs)
+
+
+def match_phase_cost(spec: Optional[encoding.PatternSpec], *, n: int, c: int,
+                     w: int, a: int, col_degree: int = 1,
+                     pat_degree: int = 1) -> Dict[str, int]:
+    """Table-1-style cost atoms for one predicate's match phase.
+
+    ``send``/``cloud`` are the pattern upload and the per-tuple automata
+    work; ``degree`` the final match-bit degree (the user interpolates
+    ``degree + 1`` shares per opened element); the ``reduce_*`` atoms are
+    the CONTAINS degree-reduction re-share round (zero unless M > 1).
+    ``spec=None`` (exact equality) and ``masked`` price the full-width
+    chain. The rounds charge these atoms and the planner prices with the
+    same function, so ``explain()`` is exact for the pattern family."""
+    t2 = col_degree + pat_degree
+    none = dict(reduce_rounds=0, reduce_send=0, reduce_cloud=0)
+    if spec is None or spec.kind == "masked":
+        return dict(send=c * w * a, cloud=n * w * a, degree=t2 * w, **none)
+    k = spec.length
+    m = w - k + 1
+    if spec.kind == "prefix" or m == 1:
+        # truncated k-chain; a single-window slide degenerates to the same
+        return dict(send=c * k * a, cloud=n * k * a, degree=t2 * k, **none)
+    if spec.kind == "suffix":
+        return dict(send=c * k * a, cloud=n * m * k * a + n * m,
+                    degree=t2 * k + col_degree, **none)
+    if spec.kind != "contains":
+        raise ValueError(f"unknown pattern kind: {spec.kind!r}")
+    return dict(send=c * k * a, cloud=n * m * k * a, degree=m,
+                reduce_rounds=1, reduce_send=c * c, reduce_cloud=n * m)
+
+
+def _job_cost(db: SecretSharedDB, job: MatchJob) -> Dict[str, int]:
+    codec = db.codec
+    return match_phase_cost(getattr(job, "spec", None), n=db.n_tuples,
+                            c=db.n_shares, w=codec.word_length,
+                            a=codec.alphabet_size,
+                            col_degree=db.relation.degree,
+                            pat_degree=db.base_degree)
+
+
+def _charge_match_phase(db: SecretSharedDB, job: MatchJob
+                        ) -> Dict[str, int]:
+    """Charge one job's match-phase atoms (round + send + cloud + the
+    CONTAINS reduction round if any); returns the atoms for the caller's
+    recv/user charges."""
+    cost = _job_cost(db, job)
+    job.ledger.round()
+    job.ledger.send(cost["send"])
+    job.ledger.cloud(cost["cloud"])
+    if cost["reduce_rounds"]:
+        job.ledger.round(cost["reduce_rounds"])
+        job.ledger.send(cost["reduce_send"])
+        job.ledger.cloud(cost["reduce_cloud"])
+    return cost
+
+
+def _suffix_bits(win: torch.Tensor, term: torch.Tensor) -> torch.Tensor:
+    """Σ_o win[..., o] · term[..., o] + win[..., M−1]: window o matches AND
+    every position after it is terminator padding (term[o] is the
+    terminator coordinate of position o + k; past the word it is 1).
+    Windows are mutually exclusive for a wildcard-free tile, so the sum is
+    the exact 0/1 bit."""
+    return field.add(field.sum_(field.mul(win[..., :-1], term), dim=-1),
+                     win[..., -1])
+
+
+class _MatcherPlan:
+    """Strategy layer of the matcher pipeline: groups a mixed batch of
+    :class:`MatchJob` so each group's per-tuple match bits cost ONE backend
+    dispatch per shard:
+
+      * ``("full", W)``   — exact + masked patterns: the full-width
+        ``aa_match_batch`` chain;
+      * ``("prefix", k)`` — truncated k-chains over ``col[..., :k, :]``,
+        the same kernel at width k (a strided view, no copy);
+      * ``("slide", k)``  — suffix + substring patterns of length k: raw
+        window products from ONE ``aa_slide_batch`` dispatch. The suffix
+        terminator factor and the CONTAINS window count are linear
+        share-local post-processing, so both kinds of one k share the
+        dispatch; CONTAINS (M > 1) then runs one degree-reduction re-share
+        of its window count — the family's only extra round — before the
+        share-local zero test.
+    """
+
+    def __init__(self, db: SecretSharedDB, jobs: Sequence[MatchJob]):
+        self.db = db
+        self.jobs = list(jobs)
+        self.w = db.codec.word_length
+        full: List[int] = []
+        prefix: Dict[int, List[int]] = {}
+        slide: Dict[int, List[int]] = {}
+        for i, j in enumerate(self.jobs):
+            s = getattr(j, "spec", None)
+            if s is None or s.kind == "masked":
+                full.append(i)
+            elif s.kind == "prefix":
+                prefix.setdefault(s.length, []).append(i)
+            else:
+                slide.setdefault(s.length, []).append(i)
+        self.groups: List[Tuple[str, int, List[int]]] = []
+        if full:
+            self.groups.append(("full", self.w, full))
+        for k in sorted(prefix):
+            self.groups.append(("prefix", k, prefix[k]))
+        for k in sorted(slide):
+            self.groups.append(("slide", k, slide[k]))
+        self.pats = [_share_patterns(db, [self.jobs[i] for i in idxs])
+                     for _, _, idxs in self.groups]
+
+    def _shard_values(self, be, v: SecretSharedDB, sh):
+        """Cloud step on one shard: per group ``(job idxs, bits, contains
+        job idxs, contains window counts)``. Bits are complete on the
+        shard; window counts still need the cross-shard reduction."""
+        out = []
+        for (kind, k, idxs), pats in zip(self.groups, self.pats):
+            cols = [self.jobs[i].column for i in idxs]
+            if kind != "slide":
+                out.append((idxs, _match_columns(be, v, cols, pats.values,
+                                                 width=k), [], None))
+                continue
+            win = _slide_columns(be, v, cols, pats.values)   # (c,Bg,ns,M)
+            if self.w - k + 1 == 1:
+                # one window: the chain product IS the bit, either kind
+                out.append((idxs, win[..., 0], [], None))
+                continue
+            suf = [b for b, i in enumerate(idxs)
+                   if self.jobs[i].spec.kind == "suffix"]
+            con = [b for b, i in enumerate(idxs)
+                   if self.jobs[i].spec.kind == "contains"]
+            bits = None
+            if suf:
+                rel = v.relation.values                    # (c,ns,m,W,A)
+                bits = torch.stack([_suffix_bits(
+                    win[:, b], rel[:, :, cols[b], k:, 0]) for b in suf],
+                    dim=1)
+            p_cnt = field.sum_(win[:, con], dim=-1) if con else None
+            out.append(([idxs[b] for b in suf], bits,
+                        [idxs[b] for b in con], p_cnt))
+        return out
+
+    def _local_degree(self, kind: str, k: int) -> int:
+        t2 = self.db.relation.degree + self.db.base_degree
+        if kind == "full":
+            return t2 * self.w
+        if kind == "prefix" or self.w - k + 1 == 1:
+            return t2 * k
+        return t2 * k + self.db.relation.degree      # suffix, M > 1
+
+    def bit_shares(self, be, plane) -> List[Tuple[List[int], Shares]]:
+        """Every job's per-tuple match bits: ``[(job idxs, Shares
+        (c, Bg, n))]``, concatenated across shards. One dispatch wave
+        serves all groups; CONTAINS window counts reassemble across shards,
+        reduce ONCE per group (the explicit re-share round) and finish with
+        the share-local zero test."""
+        shard_outs = plane.run_list(
+            lambda v, sh: self._shard_values(be, v, sh))
+
+        def cat(gi, slot):
+            parts = [so[gi][slot] for so in shard_outs]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+        t2 = self.db.relation.degree + self.db.base_degree
+        dev = self.db.device
+        result: List[Tuple[List[int], Shares]] = []
+        for gi, (kind, k, _) in enumerate(self.groups):
+            local_idx = shard_outs[0][gi][0]
+            con_idx = shard_outs[0][gi][2]
+            if local_idx:
+                result.append((local_idx, Shares(
+                    cat(gi, 1), self._local_degree(kind, k))))
+            if con_idx:
+                m = self.w - k + 1
+                red_key = _device.fold(self.jobs[con_idx[0]].key, 1)
+                p_red = shamir.reduce_degree(
+                    Shares(cat(gi, 3), t2 * k), target_degree=1,
+                    generator=_device.generator(red_key, dev))
+                z = automata.zero_indicator(p_red.values, m)
+                result.append((con_idx, Shares(
+                    field.sub(torch.ones_like(z), z), m)))
+        return result
 
 
 def _stack_columns(db: SecretSharedDB, column: int, b: int) -> Shares:
@@ -189,18 +388,36 @@ def _stack_numeric(db: SecretSharedDB, columns: Sequence[int]) -> Shares:
 
 
 def _match_columns(be, db: SecretSharedDB, columns: Sequence[int],
-                   pats: torch.Tensor) -> torch.Tensor:
+                   pats: torch.Tensor, width: Optional[int] = None
+                   ) -> torch.Tensor:
     """Every job's per-tuple match bits in ONE dispatch -> (c, B, n).
 
     One column for the whole stack reads it through a broadcast view;
     distinct columns pass the relation itself with a column index per batch
-    row, so neither case copies the column stack."""
+    row, so neither case copies the column stack. ``width`` k < W chains
+    only the first k positions (a prefix), through a ``[..., :k, :]``
+    view."""
+    cut = slice(None, width)
     if len(set(columns)) == 1:
         return be.aa_match_batch(
+            _stack_columns(db, columns[0], len(columns)).values[..., cut, :],
+            pats)
+    n, b = db.n_tuples, len(columns)
+    return be.aa_match_rows(db.relation.values[..., cut, :], list(columns),
+                            [0] * b, [n] * b, pats, n)
+
+
+def _slide_columns(be, db: SecretSharedDB, columns: Sequence[int],
+                   pats: torch.Tensor) -> torch.Tensor:
+    """Every job's raw window products in ONE ``aa_slide_batch`` dispatch
+    -> (c, B, n, M); columns are read as in :func:`_match_columns`."""
+    slide_batch, slide_rows = _slide_matcher(be)
+    if len(set(columns)) == 1:
+        return slide_batch(
             _stack_columns(db, columns[0], len(columns)).values, pats)
     n, b = db.n_tuples, len(columns)
-    return be.aa_match_rows(db.relation.values, list(columns), [0] * b,
-                            [n] * b, pats, n)
+    return slide_rows(db.relation.values, list(columns), [0] * b, [n] * b,
+                      pats, n)
 
 
 def _block_sums(be, plane: "dataplane.ShardedRelation", p_all: Shares,
@@ -244,29 +461,37 @@ def _block_sums(be, plane: "dataplane.ShardedRelation", p_all: Shares,
 # ---------------------------------------------------------------------------
 
 def count_phase(be, db: RelationLike, jobs: Sequence[MatchJob]) -> List[int]:
-    """COUNT for B predicates: one cloud dispatch per shard, partial count
-    sums combining additively, one interpolation."""
+    """COUNT for B predicates: one cloud dispatch per matcher group and
+    shard, one interpolation per degree class."""
     if not jobs:
         return []
     plane = dataplane.as_dataplane(db)
     db = plane.db
-    codec = db.codec
-    columns = [j.column for j in jobs]
-    p_all = _share_patterns(db, jobs)
-    w = db.relation.values.shape[-2]
-    deg = (db.relation.degree + p_all.degree) * w
-    counts = Shares(plane.run_sum(
-        lambda v, sh: field.sum_(_match_columns(be, v, columns, p_all.values),
-                                 dim=2)), deg)                 # (c, B)
-    out = field.to_numpy(shamir.interpolate(counts))
-    per_q = codec.word_length * codec.alphabet_size
-    for j in jobs:
-        j.ledger.round()
-        j.ledger.send(db.n_shares * per_q)
-        j.ledger.cloud(db.n_tuples * per_q)
+    # per-group fused match bits, summed and interpolated in one fused user
+    # pass per degree class
+    parts = _MatcherPlan(db, jobs).bit_shares(be, plane)
+    vals = _fused_interpolate([Shares(field.sum_(sh.values, dim=2),
+                                      sh.degree) for _, sh in parts])
+    out, deg_of = _scatter(parts, vals, len(jobs), int)
+    for i, j in enumerate(jobs):
+        cost = _charge_match_phase(db, j)
+        assert cost["degree"] == deg_of[i], (cost["degree"], deg_of[i])
         j.ledger.recv(db.n_shares)
-        j.ledger.user(counts.degree + 1)
-    return [int(v) for v in out]
+        j.ledger.user(cost["degree"] + 1)
+    return out
+
+
+def _scatter(parts: Sequence[Tuple[List[int], Shares]],
+             vals: Sequence[np.ndarray], n_jobs: int, fn):
+    """Opened group values back in job order: ``fn`` of each job's row,
+    and each job's bit degree (to check against ``match_phase_cost``)."""
+    out: List[Any] = [None] * n_jobs
+    deg_of: Dict[int, int] = {}
+    for (idxs, sh), v in zip(parts, vals):
+        for b, i in enumerate(idxs):
+            out[i] = fn(v[b])
+            deg_of[i] = sh.degree
+    return out, deg_of
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +506,10 @@ def one_tuple_round(be, db: RelationLike, jobs: Sequence[MatchJob]
     against the relation viewed as (c, n, m·W·A) — a view, never a copy."""
     if not jobs:
         return []
+    if _needs_pattern_engine(jobs):
+        raise ValueError(
+            "one_tuple is the §3.2.1 exact-equality special case; "
+            "prefix/suffix/substring selects run one_round or tree")
     plane = dataplane.as_dataplane(db)
     db = plane.db
     codec = db.codec
@@ -319,22 +548,19 @@ def match_all_round(be, db: RelationLike, jobs: Sequence[MatchJob]
         return []
     plane = dataplane.as_dataplane(db)
     db = plane.db
-    codec = db.codec
-    columns = [j.column for j in jobs]
-    p_all = _share_patterns(db, jobs)
-    w = db.relation.values.shape[-2]
-    bits = Shares(plane.run_concat(
-        lambda v, sh: _match_columns(be, v, columns, p_all.values), axis=2),
-        (db.relation.degree + p_all.degree) * w)               # (c, B, n)
-    v = field.to_numpy(shamir.interpolate(bits))               # (B, n)
-    per_q = codec.word_length * codec.alphabet_size
-    for j in jobs:
-        j.ledger.round()
-        j.ledger.send(db.n_shares * per_q)
-        j.ledger.cloud(db.n_tuples * per_q)
-        j.ledger.recv(db.n_shares * db.n_tuples)
-        j.ledger.user((bits.degree + 1) * db.n_tuples)
-    return [[int(i) for i in np.nonzero(v[b])[0]] for b in range(len(jobs))]
+    n = db.n_tuples
+    # grouped dispatches, one fused interpolation pass per degree class;
+    # the fetch then rides the cross-group fetch_fusion
+    parts = _MatcherPlan(db, jobs).bit_shares(be, plane)
+    vals = _fused_interpolate([sh for _, sh in parts])
+    out, deg_of = _scatter(parts, vals, len(jobs),
+                           lambda row: [int(t) for t in np.nonzero(row)[0]])
+    for i, j in enumerate(jobs):
+        cost = _charge_match_phase(db, j)
+        assert cost["degree"] == deg_of[i], (cost["degree"], deg_of[i])
+        j.ledger.recv(db.n_shares * n)
+        j.ledger.user((cost["degree"] + 1) * n)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +574,13 @@ def tree_rounds(be, db: RelationLike, jobs: Sequence[TreeJob]
     Each iteration runs at most one count Q&A round (all active blocks of
     all queries in one dispatch set + one interpolation) and at most one
     address-fetch round (all blocks whose count came back 1). A query's
-    ledger records only its own rounds, blocks and bits."""
+    ledger records only its own rounds, blocks and bits.
+
+    Exact and masked jobs recompute their block matches each round
+    (:func:`_block_sums`); tile-pattern jobs run their window match (and the
+    CONTAINS re-share) ONCE in a prelude, and every later round sums the
+    cached per-tuple bits over the public blocks (:func:`_block_sums_cached`,
+    charged one element per tuple)."""
     if not jobs:
         return []
     plane = dataplane.as_dataplane(db)
@@ -356,10 +588,39 @@ def tree_rounds(be, db: RelationLike, jobs: Sequence[TreeJob]
     codec = db.codec
     per_q = codec.word_length * codec.alphabet_size
     n = db.n_tuples
-    columns = [j.column for j in jobs]
-    p_all = _share_patterns(db, jobs)
-    for j in jobs:
-        j.ledger.send(db.n_shares * per_q)
+
+    pat_pos = [i for i, j in enumerate(jobs)
+               if getattr(j, "spec", None) is not None
+               and j.spec.kind in ("prefix", "suffix", "contains")]
+    exact_pos = [i for i in range(len(jobs)) if i not in set(pat_pos)]
+    exact_slot = {i: s for s, i in enumerate(exact_pos)}
+    columns = [jobs[i].column for i in exact_pos]
+    p_all = (_share_patterns(db, [jobs[i] for i in exact_pos])
+             if exact_pos else None)
+    cached: Dict[int, Shares] = {}
+    if pat_pos:
+        mp = _MatcherPlan(db, [jobs[i] for i in pat_pos])
+        for idxs, sh in mp.bit_shares(be, plane):
+            for b, local in enumerate(idxs):
+                cached[pat_pos[local]] = Shares(sh.values[:, b], sh.degree)
+    for i, j in enumerate(jobs):
+        cost = _job_cost(db, j)
+        j.ledger.send(cost["send"])
+        if i in cached:
+            # the one-off window match and the explicit CONTAINS re-share
+            j.ledger.cloud(cost["cloud"])
+            if cost["reduce_rounds"]:
+                j.ledger.round(cost["reduce_rounds"])
+                j.ledger.send(cost["reduce_send"])
+                j.ledger.cloud(cost["reduce_cloud"])
+
+    def per_tuple(i: int) -> int:
+        return per_q if i in exact_slot else 1
+
+    def block_round(entries, address_weights=False):
+        return _tree_block_round(be, plane, p_all, columns, exact_slot,
+                                 cached, entries,
+                                 address_weights=address_weights)
 
     addresses: List[List[int]] = [[] for _ in jobs]
     active: List[List[Tuple[int, int]]] = []
@@ -391,18 +652,17 @@ def tree_rounds(be, db: RelationLike, jobs: Sequence[TreeJob]
 
         # -- count Q&A round: ONE dispatch set + ONE interpolation ----------
         if entries:
-            sums = _block_sums(be, plane, p_all, columns, entries)
-            vals = _fused_interpolate([sums])[0]
+            vals, deg_by_job = block_round(entries)
             n_blocks: Dict[int, int] = {}
             for (i, s, e) in entries:
-                jobs[i].ledger.cloud((e - s) * per_q)
+                jobs[i].ledger.cloud((e - s) * per_tuple(i))
                 n_blocks[i] = n_blocks.get(i, 0) + 1
             for i, k_i in n_blocks.items():
                 jobs[i].ledger.round()
                 jobs[i].ledger.recv(db.n_shares * k_i)
-                jobs[i].ledger.user((sums.degree + 1) * k_i)
-            for (i, s, e), v in zip(entries, vals):
-                v = int(v)
+                jobs[i].ledger.user((deg_by_job[i] + 1) * k_i)
+            for (i, s, e) in entries:
+                v = vals[(i, s, e)]
                 if v == 0:                     # Case 1: dead block
                     continue
                 if v == 1:                     # Case 2: Address_fetch
@@ -415,19 +675,66 @@ def tree_rounds(be, db: RelationLike, jobs: Sequence[TreeJob]
         # -- address-fetch round: ONE dispatch set + ONE interpolation ------
         if pending_addr:
             addr_entries, pending_addr = pending_addr, []
-            sums = _block_sums(be, plane, p_all, columns, addr_entries,
-                               address_weights=True)
-            vals = _fused_interpolate([sums])[0]
-            for (i, s, e), v in zip(addr_entries, vals):
-                jobs[i].ledger.cloud((e - s) * per_q)
+            vals, deg_by_job = block_round(addr_entries, True)
+            for (i, s, e) in addr_entries:
+                jobs[i].ledger.cloud((e - s) * per_tuple(i))
                 jobs[i].ledger.recv(db.n_shares)
-                jobs[i].ledger.user(sums.degree + 1)
-                addresses[i].append(int(v) - 1)
+                jobs[i].ledger.user(deg_by_job[i] + 1)
+                addresses[i].append(vals[(i, s, e)] - 1)
                 if i in one_shot:
                     jobs[i].ledger.round()
                     one_shot.discard(i)
 
     return [sorted(a) for a in addresses]
+
+
+def _block_sums_cached(cached: Dict[int, Shares],
+                       entries: Sequence[Tuple[int, int, int]],
+                       *, address_weights: bool = False) -> List[Shares]:
+    """Tree Q&A block sums over pre-computed per-tuple match bits: plain
+    block counts, or line-number sums weighted by ``global index + 1``
+    under ``address_weights``. One scalar Shares per entry, so jobs of
+    different degrees fuse per degree class at interpolation."""
+    out: List[Shares] = []
+    for (i, s, e) in entries:
+        vec = cached[i]                                    # (c, n)
+        seg = vec.values[:, s:e]
+        if address_weights:
+            seg = field.mul(seg, torch.arange(s + 1, e + 1, dtype=field.DTYPE,
+                                              device=seg.device)[None])
+        out.append(Shares(field.sum_(seg, dim=1), vec.degree))
+    return out
+
+
+def _tree_block_round(be, plane, p_all, columns, exact_slot, cached,
+                      entries, *, address_weights: bool = False
+                      ) -> Tuple[Dict[Tuple[int, int, int], int],
+                                 Dict[int, int]]:
+    """One fused tree Q&A round over exact and cached-pattern entries; all
+    results interpolate in one user pass per degree class. Returns the
+    opened value per (job, start, end) entry and each job's bit degree."""
+    ex_meta = [t for t in entries if t[0] in exact_slot]
+    pat_meta = [t for t in entries if t[0] not in exact_slot]
+    parts: List[Shares] = []
+    if ex_meta:
+        parts.append(_block_sums(
+            be, plane, p_all, columns,
+            [(exact_slot[i], s, e) for (i, s, e) in ex_meta],
+            address_weights=address_weights))
+    parts += _block_sums_cached(cached, pat_meta,
+                                address_weights=address_weights)
+    vals = _fused_interpolate(parts)
+    vals_by_entry: Dict[Tuple[int, int, int], int] = {}
+    deg_by_job: Dict[int, int] = {}
+    metas = ([(t, x, parts[0].degree) for t, x in zip(ex_meta, vals[0])]
+             if ex_meta else [])
+    metas += [(t, x, p.degree) for t, x, p in
+              zip(pat_meta, vals[1 if ex_meta else 0:],
+                  parts[1 if ex_meta else 0:])]
+    for t, x, deg in metas:
+        vals_by_entry[t] = int(x)
+        deg_by_job[t[0]] = deg
+    return vals_by_entry, deg_by_job
 
 
 # ---------------------------------------------------------------------------

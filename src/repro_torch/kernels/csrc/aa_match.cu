@@ -33,6 +33,24 @@
 // the 62-bit product folds once to < 2^32 ((x & p) + (x >> 31)) and sums
 // exactly in 64 bits, and one final fold + conditional subtract per
 // output reduces mod p. Both are exact mod p, hence bit-identical.
+//
+// The second entry, aa_slide_rows_u32, is the sliding-window automaton of
+// suffix and substring predicates: a (k, A) pattern tile against every
+// window of M = W - k + 1 positions,
+//
+//     out[z, b, i, o] = prod_{r<k} ( sum_{a<A} col[z, b, i, o+r, a] * pat[z, b, r, a] )
+//
+// replacing the Pallas TPU kernel src/repro/kernels/aa_match.py:146
+// aa_slide_batch_pallas (body _slide_body, cell _slide_batch_kernel).
+// Bound on an H100: device-memory bytes, as for the match: each tuple row's
+// W·A words are read once (5.8 GB per column at 131,072 tuples) and only
+// the (c, B, n, M) window products are written. Design: rows addressed as
+// above; one warp per tuple row copies the row's W·A words into its slice
+// of shared memory with all loads in flight (coalesced), then walks the W
+// positions. Position p is dotted against each tile row r it meets
+// (o = p - r in [0, M)) with the (k, A) tile in shared memory, the lanes'
+// partial sums meet in a shuffle reduction, and window o's chain lives in
+// a register of lane o mod 32. Same arithmetic as the match.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -101,6 +119,82 @@ aa_match_rows_kernel(const uint32_t* __restrict__ base,
   }
 }
 
+constexpr int kSlideWarps = 8;         // keep equal to _SLIDE_WARPS
+constexpr int kSlideRowsPerWarp = 4;
+constexpr int kSlideRowsPerBlock = kSlideWarps * kSlideRowsPerWarp;
+constexpr int kWindowRegs = 4;         // windows per lane: M <= 128
+
+__global__ void __launch_bounds__(kSlideWarps * 32)
+aa_slide_rows_kernel(const uint32_t* __restrict__ base,
+                     const long long* __restrict__ offsets,
+                     const int* __restrict__ lengths,
+                     long long stride_c, long long stride_n,
+                     const uint32_t* __restrict__ pat,
+                     uint32_t* __restrict__ out,
+                     int n_batch, int height, int w, int a, int k) {
+  extern __shared__ uint32_t smem[];
+  const int b = blockIdx.y;
+  const int z = blockIdx.z;
+  const int ka = k * a;
+  const int wa = w * a;
+  const int m = w - k + 1;
+  const long long zb = static_cast<long long>(z) * n_batch + b;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  uint32_t* pat_s = smem;                          // (k, A) tile
+  uint32_t* row_s = smem + ka + warp * wa;         // this warp's row
+  const uint32_t* pat_g = pat + zb * ka;
+  for (int e = threadIdx.x; e < ka; e += blockDim.x) pat_s[e] = pat_g[e];
+  __syncthreads();
+
+  const int len = lengths[b];
+  const uint32_t* col = base + z * stride_c + offsets[b];
+  uint32_t* out_zb = out + zb * height * m;
+
+  for (int rr = 0; rr < kSlideRowsPerWarp; ++rr) {
+    const int i = blockIdx.x * kSlideRowsPerBlock + warp * kSlideRowsPerWarp
+                  + rr;
+    if (i >= height) break;                        // warp-uniform
+    uint32_t* o_row = out_zb + static_cast<long long>(i) * m;
+    if (i >= len) {
+      for (int o = lane; o < m; o += 32) o_row[o] = 0u;
+      continue;
+    }
+    const uint32_t* row = col + static_cast<long long>(i) * stride_n;
+    __syncwarp();
+#pragma unroll 8
+    for (int e = lane; e < wa; e += 32) row_s[e] = __ldg(row + e);
+    __syncwarp();
+
+    uint32_t acc[kWindowRegs];
+#pragma unroll
+    for (int j = 0; j < kWindowRegs; ++j) acc[j] = 0u;
+    for (int p = 0; p < w; ++p) {
+      const int r_lo = p - (m - 1) > 0 ? p - (m - 1) : 0;
+      const int r_hi = p < k - 1 ? p : k - 1;
+      for (int r = r_lo; r <= r_hi; ++r) {
+        uint64_t s = 0;
+        for (int al = lane; al < a; al += 32)
+          s += fold(static_cast<uint64_t>(row_s[p * a + al]) *
+                    pat_s[r * a + al]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        const uint32_t d = mod_p(s);
+        const int o = p - r;                       // window of this dot
+#pragma unroll
+        for (int j = 0; j < kWindowRegs; ++j)
+          if (o == lane + 32 * j)
+            acc[j] = (r == 0) ? d : mod_p(static_cast<uint64_t>(acc[j]) * d);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWindowRegs; ++j)
+      if (lane + 32 * j < m) o_row[lane + 32 * j] = acc[j];
+  }
+}
+
 }  // namespace
 
 // base:    first share element of the strided column source
@@ -108,11 +202,13 @@ aa_match_rows_kernel(const uint32_t* __restrict__ base,
 // lengths: device int32[B], tuples of batch row b (<= height)
 // pat:     device (c, B, W, A) contiguous
 // out:     device (c, B, height) contiguous
+// k:       unused (the slide entry's tile height; one argument list)
 extern "C" int aa_match_rows_u32(const void* base, const void* offsets,
                                  const void* lengths, long long stride_c,
                                  long long stride_n, const void* pat,
                                  void* out, int n_clouds, int n_batch,
-                                 int height, int w, int a, void* stream) {
+                                 int height, int w, int a, int k,
+                                 void* stream) {
   if (n_clouds <= 0 || n_batch <= 0 || height <= 0) return 0;
   dim3 grid((height + kRowsPerBlock - 1) / kRowsPerBlock, n_batch, n_clouds);
   const size_t smem = static_cast<size_t>(w) * a * sizeof(uint32_t);
@@ -123,5 +219,31 @@ extern "C" int aa_match_rows_u32(const void* base, const void* offsets,
       static_cast<const int*>(lengths), stride_c, stride_n,
       static_cast<const uint32_t*>(pat), static_cast<uint32_t*>(out),
       n_batch, height, w, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As aa_match_rows_u32, with pat a device (c, B, k, A) tile stack and out a
+// device (c, B, height, W - k + 1) tensor, 1 <= k <= W, W - k + 1 <= 128.
+extern "C" int aa_slide_rows_u32(const void* base, const void* offsets,
+                                 const void* lengths, long long stride_c,
+                                 long long stride_n, const void* pat,
+                                 void* out, int n_clouds, int n_batch,
+                                 int height, int w, int a, int k,
+                                 void* stream) {
+  if (n_clouds <= 0 || n_batch <= 0 || height <= 0) return 0;
+  if (k < 1 || k > w || w - k + 1 > 32 * kWindowRegs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((height + kSlideRowsPerBlock - 1) / kSlideRowsPerBlock, n_batch,
+            n_clouds);
+  const size_t smem =
+      (static_cast<size_t>(k) * a + static_cast<size_t>(kSlideWarps) * w * a)
+      * sizeof(uint32_t);
+  aa_slide_rows_kernel<<<grid, kSlideWarps * 32, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(base),
+      static_cast<const long long*>(offsets),
+      static_cast<const int*>(lengths), stride_c, stride_n,
+      static_cast<const uint32_t*>(pat), static_cast<uint32_t*>(out),
+      n_batch, height, w, a, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,9 +26,14 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def ss_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched mod-p matmul: a ([c,] M, K), b ([c,] K, N) -> ([c,] M, N)."""
+    """Batched mod-p matmul: a ([c,] M, K), b ([c,] K, N) -> ([c,] M, N).
+    Shapes that ``is_tall_skinny`` accepts take the tall kernel (the
+    reference's routing); both kernels compute the same function."""
     if _on_cpu(a):
         return _ssm.ss_matmul_plain(a, b)
+    _, m, k, n = _ssm._shapes(a, b)
+    if _ssm.is_tall_skinny(m, k, n):
+        return _ssm.ss_matmul_tall_cuda(a, b)
     return _ssm.ss_matmul_cuda(a, b)
 
 
@@ -61,6 +66,42 @@ def aa_match_rows(rel: torch.Tensor, columns: Sequence[int],
     return _aa.aa_match_rows_cuda(rel, columns, starts, lengths, pat, height)
 
 
+def _check_slide(pat: torch.Tensor, c: int, b: int, w: int, a: int) -> None:
+    if pat.ndim != 4 or (pat.shape[0], pat.shape[1], pat.shape[3]) \
+            != (c, b, a) or not 1 <= pat.shape[2] <= w:
+        raise ValueError(f"pattern tile {tuple(pat.shape)} does not match "
+                         f"({c}, {b}, 1..{w}, {a})")
+
+
+def aa_slide_batch(col: torch.Tensor, pat: torch.Tensor) -> torch.Tensor:
+    """Stacked sliding-window AA match: col (c, B, n, W, A) (read through
+    its strides), pat (c, B, k, A) -> (c, B, n, M) raw window-chain
+    products, M = W − k + 1."""
+    if col.ndim != 5:
+        raise ValueError(f"unsupported rank: {tuple(col.shape)}")
+    c, b, _, w, a = col.shape
+    _check_slide(pat, c, b, w, a)
+    if _on_cpu(col):
+        return _aa.aa_slide_batch_plain(col, pat)
+    return _aa.aa_slide_batch_cuda(col, pat)
+
+
+def aa_slide_rows(rel: torch.Tensor, columns: Sequence[int],
+                  starts: Sequence[int], lengths: Sequence[int],
+                  pat: torch.Tensor, height: int) -> torch.Tensor:
+    """Sliding-window match over row blocks of the relation (c, n, m, W, A),
+    as :func:`aa_match_rows` with a (c, B, k, A) tile stack ->
+    (c, B, height, M)."""
+    if not len(columns) == len(starts) == len(lengths):
+        raise ValueError("columns, starts and lengths differ in length")
+    c, _, _, w, a = rel.shape
+    _check_slide(pat, c, len(columns), w, a)
+    if _on_cpu(rel):
+        return _aa.aa_slide_rows_plain(rel, columns, starts, lengths, pat,
+                                       height)
+    return _aa.aa_slide_rows_cuda(rel, columns, starts, lengths, pat, height)
+
+
 def ripple_segment(a: torch.Tensor, b: torch.Tensor,
                    carry: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,15 +131,20 @@ def ripple_carry(a: torch.Tensor, b: torch.Tensor,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`
-    (``ripple_carry`` counts the ripple kernel's k = 1 launches,
-    ``ripple_segment`` its k >= 2 launches)."""
-    return {"aa_match_batch": _aa.launches, "ss_matmul": _ssm.launches,
+    (``ss_matmul`` counts the general kernel, ``ss_matmul_tall`` the
+    tall-skinny one; ``ripple_carry`` counts the ripple kernel's k = 1
+    launches, ``ripple_segment`` its k >= 2 launches)."""
+    return {"aa_match_batch": _aa.launches,
+            "aa_slide_batch": _aa.slide_launches,
+            "ss_matmul": _ssm.launches, "ss_matmul_tall": _ssm.tall_launches,
             "ripple_segment": _rip.launches,
             "ripple_carry": _rip.carry_launches}
 
 
 def reset_launch_counts() -> None:
     _aa.launches = 0
+    _aa.slide_launches = 0
     _ssm.launches = 0
+    _ssm.tall_launches = 0
     _rip.launches = 0
     _rip.carry_launches = 0

@@ -1,10 +1,14 @@
 """Share-space mod-p matmul kernel (CUDA) and its plain PyTorch version.
 
 ``a @ b mod p`` for int32 field tensors of ranks (2, 2), (3, 3) (cloud
-batch) and (3, 2) (a shared right operand). The CUDA kernel
-(``csrc/ss_matmul.cu``) replaces the Pallas ``ss_matmul_pallas``; the plain
-version (:func:`ss_matmul_plain`, 16-bit-limb dots in ``core.field``) runs
-on any device and is what the CPU path and the tests use.
+batch) and (3, 2) (a shared right operand). ``csrc/ss_matmul.cu`` holds two
+CUDA kernels for it: the general one (:func:`ss_matmul_cuda`, replacing the
+Pallas ``ss_matmul_pallas``) and the tall-skinny one
+(:func:`ss_matmul_tall_cuda`, replacing ``ss_matmul_tall_pallas``), which
+takes every shape :func:`is_tall_skinny` accepts. The plain version
+(:func:`ss_matmul_plain`, 16-bit-limb dots in ``core.field``) is the plain
+version of both; it runs on any device and is what the CPU path and the
+tests use.
 """
 from __future__ import annotations
 
@@ -22,8 +26,26 @@ from . import _build
 _TARGET_BLOCKS = 16 * 132
 _TN, _TM, _TK = 128, 16, 128
 
-#: kernel launches since the last reset (read by chip_smoke.py).
+#: blocks the tall kernel should put in flight before K is split (8 per
+#: SM of an H100: up to 256 threads each).
+_TALL_TARGET_BLOCKS = 8 * 132
+_TALL_TK = 16
+
+#: the reference's gate for the tall-skinny tiling: M small enough to keep
+#: every row resident in one block, K dwarfing both other dims.
+TALL_MAX_M = 256
+TALL_MIN_K = 1024
+
+#: general and tall kernel launches since the last reset (read by
+#: chip_smoke.py).
 launches = 0
+tall_launches = 0
+
+
+def is_tall_skinny(m: int, k: int, n: int) -> bool:
+    """Does (M,K)@(K,N) take the tall-skinny kernel? Small M, K >= 1024
+    and K at least 8x both other dims (the reference's routing rule)."""
+    return m <= TALL_MAX_M and k >= TALL_MIN_K and k >= 8 * max(m, n)
 
 
 def _shapes(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int, int, int]:
@@ -83,35 +105,88 @@ def _ksplit(batch: int, m: int, k: int, n: int) -> int:
     return int(max(1, min(want, k // (8 * _TK), 65535 // max(1, batch))))
 
 
-def ss_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel; M = 0, N = 0 or K = 0 return without a launch."""
-    global launches
+def _tall_lib():
+    fn = _build.library("ss_matmul").ss_matmul_tall_u32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+                       ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tall_layout(m: int) -> Tuple[int, int, int]:
+    """-> (rw, wr, wc): rows per warp, row warps (wr·rw >= M, wr <= 8) and
+    column warps of the tall kernel's block. Picks the fewest padded rows,
+    then the most rows per warp (fewer shared-memory reads per product)."""
+    rw, wr = min(((r, -(-m // r)) for r in (32, 16, 8, 4, 2, 1)
+                  if -(-m // r) <= 8), key=lambda t: (t[0] * t[1], -t[0]))
+    return rw, wr, max(1, 8 // wr)
+
+
+def _tall_ksplit(batch: int, m: int, k: int, n: int) -> int:
+    _, wr, wc = tall_layout(m)
+    blocks = -(-n // (32 * wc)) * batch
+    want = -(-_TALL_TARGET_BLOCKS // max(1, blocks))
+    return int(max(1, min(want, k // (8 * _TALL_TK), 65535 // max(1, batch))))
+
+
+def _prepare(a: torch.Tensor, b: torch.Tensor):
+    """Checks shared by both kernels -> (a, b, batch, m, k, n, out, live):
+    ``out`` holds zeros and ``live`` is False when there is nothing to
+    launch."""
     batch, m, k, n = _shapes(a, b)
     if a.dtype != DTYPE or b.dtype != DTYPE:
-        raise TypeError("ss_matmul kernel takes int32 field tensors")
+        raise TypeError("ss_matmul kernels take int32 field tensors")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if max(batch, m, k, n) >= 2**31:
         raise ValueError("ss_matmul kernel dims must fit int32")
     shape = _out_shape(a, b, batch, m, n)
     if m == 0 or n == 0 or k == 0 or batch == 0:
-        return torch.zeros(shape, dtype=DTYPE, device=a.device)
+        return a, b, batch, m, k, n, torch.zeros(shape, dtype=DTYPE,
+                                                 device=a.device), False
     if a.stride(-1) != 1:
         a = a.contiguous()
     if b.stride(-1) != 1:
         b = b.contiguous()
-    a_sb = a.stride(0) if a.ndim == 3 else 0
-    b_sb = b.stride(0) if b.ndim == 3 else 0
-    ksplit = _ksplit(batch, m, k, n)
-    out = torch.empty(shape, dtype=DTYPE, device=a.device)
+    return a, b, batch, m, k, n, torch.empty(shape, dtype=DTYPE,
+                                             device=a.device), True
+
+
+def _run(fn, a, b, batch, m, k, n, out, ksplit, *extra) -> None:
     part = (torch.empty((ksplit, batch, m, n), dtype=DTYPE, device=a.device)
             if ksplit > 1 else out)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib()(a.data_ptr(), a_sb, a.stride(-2), b.data_ptr(), b_sb,
-                 b.stride(-2), part.data_ptr(), out.data_ptr(), batch, m, k,
-                 n, ksplit, stream)
+    err = fn(a.data_ptr(), a.stride(0) if a.ndim == 3 else 0, a.stride(-2),
+             b.data_ptr(), b.stride(0) if b.ndim == 3 else 0, b.stride(-2),
+             part.data_ptr(), out.data_ptr(), batch, m, k, n, ksplit, *extra,
+             stream)
     if err != 0:
         raise RuntimeError(f"ss_matmul kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+
+
+def ss_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The general CUDA kernel; M = 0, N = 0 or K = 0 return without a
+    launch."""
+    global launches
+    a, b, batch, m, k, n, out, live = _prepare(a, b)
+    if live:
+        _run(_lib(), a, b, batch, m, k, n, out, _ksplit(batch, m, k, n))
+        launches += 1
+    return out
+
+
+def ss_matmul_tall_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The tall-skinny CUDA kernel (M <= 256 rows, all resident in each
+    block); M = 0, N = 0 or K = 0 return without a launch."""
+    global tall_launches
+    a, b, batch, m, k, n, out, live = _prepare(a, b)
+    if m > TALL_MAX_M:
+        raise ValueError(f"the tall kernel takes M <= {TALL_MAX_M}, got {m}")
+    if live:
+        _run(_tall_lib(), a, b, batch, m, k, n, out,
+             _tall_ksplit(batch, m, k, n), *tall_layout(m))
+        tall_launches += 1
     return out

@@ -184,10 +184,14 @@ def test_match_words_matches_reference_automaton():
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.reset_launch_counts()
     ops.ss_matmul(_t(_elems(1, (2, 3))), _t(_elems(2, (3, 2))))
+    ops.ss_matmul(_t(_elems(1, (2, 2048))), _t(_elems(2, (2048, 3))))
     ops.aa_match_batch(_t(_elems(3, (1, 1, 4, 2, 3))),
                        _t(_elems(4, (1, 1, 2, 3))))
+    ops.aa_slide_batch(_t(_elems(3, (1, 1, 4, 2, 3))),
+                       _t(_elems(4, (1, 1, 1, 3))))
     ops.ripple_segment(_t(_elems(5, (2, 3, 4))), _t(_elems(6, (2, 3, 4))))
-    assert ops.launch_counts() == {"aa_match_batch": 0, "ss_matmul": 0,
+    assert ops.launch_counts() == {"aa_match_batch": 0, "aa_slide_batch": 0,
+                                   "ss_matmul": 0, "ss_matmul_tall": 0,
                                    "ripple_segment": 0, "ripple_carry": 0}
 
 

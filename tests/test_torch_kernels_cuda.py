@@ -43,7 +43,11 @@ def test_ss_matmul_kernel_equals_plain(cuda, sa, sb):
     torch.cuda.synchronize()
     assert torch.equal(got, ss_matmul.ss_matmul_plain(a, b))
     empty = 0 in sa or 0 in sb
-    assert ops.launch_counts()["ss_matmul"] == (0 if empty else 1)
+    tall = ss_matmul.is_tall_skinny(sa[-2], sa[-1], sb[-1])
+    counts = ops.launch_counts()
+    assert counts["ss_matmul_tall" if tall else "ss_matmul"] \
+        == (0 if empty else 1)
+    assert counts["ss_matmul" if tall else "ss_matmul_tall"] == 0
 
 
 @pytest.mark.parametrize("c,b,n,w,a", [(3, 1, 1000, 8, 69), (2, 3, 77, 5, 33),
@@ -102,3 +106,66 @@ def test_ripple_kernel_reads_strided_views(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     empty = ops.ripple_segment(a[:, :, :0], b[:, :, :0])
     assert empty[0].shape == (3, 4, 0)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+def test_aa_slide_batch_kernel_equals_plain(cuda, k):
+    c, b, n, w, a = 3, 2, 1001, 8, 69            # ragged n
+    col = _field((c, b, n, w, a), 15, cuda)
+    pat = _field((c, b, k, a), 16, cuda)
+    ops.reset_launch_counts()
+    got = ops.aa_slide_batch(col, pat)
+    torch.cuda.synchronize()
+    assert got.shape == (c, b, n, w - k + 1)
+    assert torch.equal(got, aa_match.aa_slide_batch_plain(col, pat))
+    assert ops.launch_counts()["aa_slide_batch"] == 1
+    one = col[:, :1].expand(c, b, n, w, a)       # B-stride 0
+    assert torch.equal(ops.aa_slide_batch(one, pat),
+                       aa_match.aa_slide_batch_plain(one, pat))
+
+
+def test_aa_slide_rows_kernel_equals_plain(cuda):
+    rel = _field((3, 500, 4, 8, 69), 17, cuda)
+    pat = _field((3, 5, 3, 69), 18, cuda)
+    blocks = dict(columns=[0, 3, 3, 1, 2], starts=[0, 17, 250, 499, 100],
+                  lengths=[500, 40, 250, 1, 0])
+    got = ops.aa_slide_rows(rel, pat=pat, height=500, **blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aa_match.aa_slide_rows_plain(
+        rel, pat=pat, height=500, **blocks))
+    full = torch.full((2, 1, 40, 5, 7), P - 1, dtype=torch.int32,
+                      device=cuda)
+    tile = torch.full((2, 1, 2, 7), P - 1, dtype=torch.int32, device=cuda)
+    assert torch.equal(ops.aa_slide_batch(full, tile),
+                       aa_match.aa_slide_batch_plain(full, tile))
+
+
+@pytest.mark.parametrize("m", [1, 3, 17, 69, 255, 256])
+@pytest.mark.parametrize("form", ["3x3", "3x2"])
+def test_ss_matmul_tall_kernel_equals_plain(cuda, m, form):
+    k, n = 4099, 129                             # K not a multiple of 32
+    a = _field((3, m, k), 19, cuda)
+    b = _field((3, k, n) if form == "3x3" else (k, n), 20, cuda)
+    assert ss_matmul.is_tall_skinny(m, k, n)
+    ops.reset_launch_counts()
+    got = ops.ss_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ss_matmul.ss_matmul_plain(a, b))
+    counts = ops.launch_counts()
+    assert (counts["ss_matmul_tall"], counts["ss_matmul"]) == (1, 0)
+
+
+def test_ss_matmul_tall_kernel_edges(cuda):
+    for sa, sb in [((2, 1, 70000), (2, 70000, 1)),        # N = 1, K split
+                   ((1, 256, 8192), (1, 8192, 1000)),
+                   ((2, 0, 2048), (2, 2048, 5))]:
+        a, b = _field(sa, 21, cuda), _field(sb, 22, cuda)
+        assert torch.equal(ss_matmul.ss_matmul_tall_cuda(a, b),
+                           ss_matmul.ss_matmul_plain(a, b))
+    full = torch.full((2, 256, 3000), P - 1, dtype=torch.int32, device=cuda)
+    other = torch.full((2, 3000, 40), P - 1, dtype=torch.int32, device=cuda)
+    assert torch.equal(ss_matmul.ss_matmul_tall_cuda(full, other),
+                       ss_matmul.ss_matmul_plain(full, other))
+    big = torch.full((1, 4, 2048), 2**31 - 1, dtype=torch.int32, device=cuda)
+    assert torch.equal(ss_matmul.ss_matmul_tall_cuda(big, big[0].T),
+                       ss_matmul.ss_matmul_plain(big, big[0].T))

@@ -23,6 +23,7 @@ from repro_torch import api  # noqa: E402
 from repro_torch.core import Codec, ShardedRelation, from_arrays, outsource  # noqa: E402,E501
 from repro_torch.core import shamir  # noqa: E402
 from repro_torch.core.costs import CostLedger  # noqa: E402
+from repro_torch.core.encoding import PatternSpec  # noqa: E402
 from repro_torch.core.queries import CardinalityError, rounds  # noqa: E402
 from repro_torch.core.queries import select as tselect  # noqa: E402
 
@@ -271,9 +272,9 @@ def test_unsupported_plans_and_predicates_raise(dbs):
         tc.run(api.Count(where=("Name", "dd")))
     with pytest.raises(api.PlanNotSupported):
         tc.explain(42)
-    with pytest.raises(NotImplementedError):
-        rounds.count_phase(tc.backend, tdb, [rounds.MatchJob(
-            1, "d%", (0,), CostLedger(), spec="prefix")])
+    with pytest.raises(ValueError):                # pattern one_tuple
+        rounds.one_tuple_round(tc.backend, tdb, [rounds.MatchJob(
+            1, "d", (0,), CostLedger(), spec=PatternSpec("prefix", "d"))])
     with pytest.raises(ValueError):
         tc.select("Name", "ab", strategy="one_tuple",
                   padding=api.Padding.to_rows(2))
