@@ -13,7 +13,9 @@ Phases, any failure exits non-zero:
    ripple segments of k = 1..13 bits, LSB and carried, lane counts that
    are not a multiple of the block, per-segment and per-shard slices;
    sliding windows for k = 1..W, the tall-skinny matmul at M = 1, 17, 255
-   and 256, K not a multiple of its tile, N = 1).
+   and 256, K not a multiple of its tile, N = 1, and at vocab-shard
+   offsets that are not a multiple of 4; the fused one-hot sharing at
+   M = 1..300, V = 1..151,936, c = 1, 4, 20 with −1 padding tokens).
 3. Drive the main paths through the public entry points at full size: the
    README's Employee schema (5 string attributes, word length 8, A = 69,
    degree 1, c = 20 clouds) over ``--tuples`` synthetic rows made from
@@ -28,9 +30,16 @@ Phases, any failure exits non-zero:
    contains, a wildcard-free LIKE on the Eq path), one_round selects
    (masked ℓ = 4, suffix ℓ = 13, a prefix with ℓ = 1,000), a tree select
    (contains, ℓ = 12), an AUTO select and one mixed ``run_batch``.
+   Slice 4: the oblivious embedding lookup at Qwen1.5-4B width
+   (V = 151,936, D = 2,560) over a synthetic table from ``--seed``, shared
+   over c = 4 clouds (6.22 GB): ``setup_private_embed``, ``EmbedLookup``
+   through a client at S = 1 and at S = 2 (a 256-token prefill, 4 decode
+   steps of 8, a batch of 4 with one verified), ``private_lookup_batched``
+   and ``private_lookup``.
    Every count, address list, row and value is checked against a plaintext
-   evaluation of the rows; each path's kernel launch counters are zeroed
-   just before it and must have risen for every kernel it runs.
+   evaluation of the rows, every embedding against the quantized table;
+   each path's kernel launch counters are zeroed just before it and must
+   have risen for every kernel it runs.
 4. Hold every call form the paths use against its plain version again at
    the paths' full shapes, through the same ``ops`` wrappers: the
    one-column count stack, the distinct-column count and a tree round's 16
@@ -38,8 +47,10 @@ Phases, any failure exits non-zero:
    conditional-SUM contractions, the range's first ripple segment, a
    carried k = 1 step and the tournament's first level, the sliding-window
    match of the suffix and substring counts, the tall-skinny fetch at
-   R = 3, 69 and 256 rows and the ℓ = 1,000 fetch on the general kernel;
-   time kernel and plain version there (CUDA events).
+   R = 3, 69 and 256 rows and the ℓ = 1,000 fetch on the general kernel,
+   the one-hot sharing of a 256-token prefill and the embedding
+   contraction at M = 8 and 256; time kernel and plain version there
+   (CUDA events).
 
 Prints the kernels JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
@@ -185,6 +196,7 @@ def compare_small(torch, dev, errs) -> None:
     compare_ripple(torch, gen, dev, errs)
     compare_slide(torch, gen, dev, errs)
     compare_tall(torch, gen, dev, errs)
+    compare_onehot(torch, gen, dev, errs)
 
 
 def compare_slide(torch, gen, dev, errs) -> None:
@@ -251,6 +263,57 @@ def compare_tall(torch, gen, dev, errs) -> None:
     check(torch.equal(ssm.ss_matmul_tall_cuda(full, other),
                       ssm.ss_matmul_plain(full, other)),
           "ss_matmul_tall all-(p-1) differs")
+
+
+def compare_onehot(torch, gen, dev, errs) -> None:
+    """``ops.share_onehot`` vs ``share_onehot_plain``: M = 1, 17, 256, 300,
+    V = 1, 1000, 1003 and 151,936 (V not a multiple of 4 or of the
+    1,024-wide tile), c = 1, 4, 20; tokens at 0, V−1, repeated and −1; a1
+    with p−1 extremes and as a strided view. Then the embedding lookup's
+    shard contraction on the tall kernel at S = 3 over 151,936 ids, whose
+    second and third vocab slices start at offsets that are not a multiple
+    of 4 (the kernel's 4-byte copy route)."""
+    from repro_torch.core.partition import split_bounds
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{what} differs from its plain version")
+        errs["share_onehot"] = max(errs["share_onehot"],
+                                   max_err(torch, got, want))
+
+    for m in (1, 17, 256, 300):
+        for v in (1, 1000, 1003, QWEN_VOCAB):
+            toks = torch.randint(0, v, (m,), generator=gen, device=dev)
+            if m >= 4:
+                toks[:4] = torch.tensor([0, v - 1, int(toks[m - 1]), -1])
+            a1 = rand_field(torch, gen, (m, v), dev)
+            for c in (1, 4, 20):
+                same(ops.share_onehot(toks, a1, n_shares=c),
+                     ssm.share_onehot_plain(toks, a1, n_shares=c),
+                     f"share_onehot M={m} V={v} c={c}")
+    wide = rand_field(torch, gen, (6, 1030), dev)
+    for view in (wide[:, 3:1027], wide[::2, 1:9]):
+        toks = torch.arange(view.shape[0], device=dev) * 3
+        same(ops.share_onehot(toks, view, n_shares=4),
+             ssm.share_onehot_plain(toks, view, n_shares=4),
+             "share_onehot strided a1")
+
+    stacked = rand_field(torch, gen, (4, 8, QWEN_VOCAB), dev)
+    table = rand_field(torch, gen, (4, QWEN_VOCAB, 64), dev)
+    for lo, hi in split_bounds(0, QWEN_VOCAB, 3):
+        a, b = stacked[:, :, lo:hi], table[:, lo:hi]
+        before = ops.launch_counts()["ss_matmul_tall"]
+        got, want = ops.ss_matmul(a, b), ssm.ss_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()["ss_matmul_tall"] == before + 1,
+              f"vocab shard [{lo}, {hi}) did not take the tall kernel")
+        check(torch.equal(got, want),
+              f"ss_matmul_tall vocab shard [{lo}, {hi}) differs")
+        errs["ss_matmul_tall"] = max(errs["ss_matmul_tall"],
+                                     max_err(torch, got, want))
 
 
 def _ripple_name(k: int) -> str:
@@ -326,6 +389,11 @@ SLICE2_KERNELS = ("aa_match_batch", "ss_matmul_tall", "ripple_segment",
 SLICE3_KERNELS = ("aa_match_batch", "aa_slide_batch", "ss_matmul_tall",
                   "ss_matmul")
 SALARY_BITS = 13        # SUM needs n·2^(t−1) < 2^30 at n = 131,072
+#: slice 4 runs at the embedding width of Qwen1.5-4B (vocab_size, d_model of
+#: src/repro/configs/qwen1_5_4b.py) with the reference's default sharing:
+#: c = 4 clouds, table degree 1 (lookups open at degree 2; verify needs 4).
+QWEN_VOCAB, QWEN_DIM, EMBED_SHARES = 151936, 2560, 4
+SLICE4_KERNELS = ("share_onehot", "ss_matmul_tall")
 
 
 def check_launches(torch, ops, path: str, kernels, timings):
@@ -626,6 +694,170 @@ def pattern_path(torch, client, rows):
         + json.dumps({k: round(v, 3) for k, v in peaks.items()}))
     return check_launches(torch, ops, "slice-3 path", SLICE3_KERNELS,
                           timings)
+
+
+def embed_path(torch, args, vocab: int = QWEN_VOCAB, dim: int = QWEN_DIM):
+    """Phase 3, slice 4: the oblivious embedding lookup at Qwen1.5-4B width
+    through the public entry points: a synthetic (V, D) table from
+    ``--seed`` shared over c = 4 clouds, a client over the table at S = 1
+    and one over a 2-shard ``ShardedRelation``, a 256-token prefill, 4
+    decode steps of 8 tokens, a batch of 4 lookups (one verified), and the
+    standalone batched and per-call lookups. Every opened embedding must
+    equal the quantized table's row exactly. Returns (launches, table)."""
+    from repro_torch import _device
+    from repro_torch.api import EmbedLookup, QueryClient
+    from repro_torch.core import ShardedRelation
+    from repro_torch.core.queries import embed as eq
+    from repro_torch.kernels import ops
+    from repro_torch.models import private_embed as pe
+
+    dev = _device.resolve(None)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    timings, peaks, top = {}, {}, [0]
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        timings[tag] = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        peaks[tag] = (peak - base) / 1e9
+        top[0] = max(top[0], peak)
+        return res
+
+    ops.reset_launch_counts()
+    plain = torch.randn((vocab, dim), generator=gen, device=dev)  # |x| << 64
+    table = timed("setup_private_embed", lambda: pe.setup_private_embed(
+        args.seed, plain, n_shares=EMBED_SHARES))
+    quant = eq.dequantize_from_field(eq.quantize_to_field(plain))
+    del plain
+    log(f"shared a {vocab} x {dim} table over {EMBED_SHARES} clouds: "
+        f"{table.values.numel() * 4 / 1e9:.2f} GB of int32 shares in "
+        f"{timings['setup_private_embed']:.2f} s")
+    rel = pe.as_embed_relation(table)
+    one = QueryClient(rel, seed=args.seed)
+    plane = ShardedRelation(rel, shards=2)
+    two = QueryClient(plane, seed=args.seed + 1)
+    rng = np.random.default_rng(args.seed + 4)
+
+    def want(toks):
+        idx = torch.as_tensor(np.asarray(toks).reshape(-1), device=dev)
+        return quant[idx].cpu().numpy()
+
+    def lookup(tag, toks, verify=False):
+        plan = EmbedLookup(tokens=np.asarray(toks).reshape(-1),
+                           verify=verify)
+        res = timed(tag, lambda: one.run(plan))
+        check(np.array_equal(res.embeddings, want(toks)),
+              f"{tag}: embeddings differ from the quantized table")
+        exp = one.explain([plan])
+        check((exp.bits, exp.rounds) == (res.ledger.communication_bits,
+                                         res.ledger.rounds),
+              f"{tag}: explain differs from the ledger")
+        res2 = timed(tag + "_s2", lambda: two.run(plan))
+        check(np.array_equal(res2.embeddings, res.embeddings),
+              f"{tag}: S = 2 embeddings differ from S = 1")
+        check(res2.ledger.as_dict() == res.ledger.as_dict(),
+              f"{tag}: S = 2 ledger differs")
+
+    prefill = rng.integers(0, vocab, (8, 32))
+    prefill[0, :4] = [0, vocab - 1, 17, 17]
+    lookup("prefill_256", prefill)
+    for step in range(4):
+        lookup(f"decode_8_{step}", rng.integers(0, vocab, 8))
+    toks = [rng.integers(0, vocab, n) for n in (8, 32, 1, 8)]
+    plans = [EmbedLookup(tokens=t, verify=i == 1) for i, t in enumerate(toks)]
+    d0 = plane.stats.dispatches
+    outs = timed("run_batch_4_s2", lambda: two.run_batch(plans))
+    check(plane.stats.dispatches - d0 == 2, "the batch of 4 took "
+          f"{plane.stats.dispatches - d0} dispatches, not 2")
+    for i, (t, res) in enumerate(zip(toks, outs)):
+        check(np.array_equal(res.embeddings, want(t)), f"batch[{i}] differs")
+    exp = two.explain(plans)
+    check((exp.bits, exp.rounds) == (
+        sum(r.ledger.communication_bits for r in outs),
+        max(r.ledger.rounds for r in outs)), "batch explain differs")
+    grid = rng.integers(0, vocab, (2, 4))
+    got = timed("private_lookup_batched", lambda: pe.private_lookup_batched(
+        (args.seed, 5), table, grid, verify=True))
+    check(got.shape == (2, 4, dim) and np.array_equal(
+        got.cpu().numpy().reshape(8, dim), want(grid)),
+        "private_lookup_batched differs")
+    got = timed("private_lookup", lambda: pe.private_lookup(
+        (args.seed, 6), table, grid[0, :3]))
+    check(np.array_equal(got.cpu().numpy(), want(grid[0, :3])),
+          "private_lookup differs")
+    del quant
+    log("slice-4 peak device memory above both tables, GB: "
+        + json.dumps({k: round(v, 3) for k, v in peaks.items()}))
+    log(f"slice-4 device memory: {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB held after the path, {top[0] / 1e9:.2f} GB peak during it (the "
+        f"Employee relation resident)")
+    return check_launches(torch, ops, "slice-4 path", SLICE4_KERNELS,
+                          timings), table
+
+
+def embed_full_shapes(torch, table, errs, launches):
+    """Phase 4 for slice 4: ``share_onehot`` at the prefill shape (M = 256,
+    V = 151,936, c = 4) and the lookup's tall contraction at M = 8 (a
+    decode step) and M = 256 against the (4, 151,936, 2,560) table, each
+    against its plain version and timed. Returns the kernels-line entry of
+    ``share_onehot``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+
+    vals = table.values
+    c, v, d = vals.shape
+    dev = vals.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    entry = None
+    for m, reps in ((8, 10), (256, 3)):
+        toks = torch.randint(0, v, (m,), generator=gen, device=dev)
+        a1 = rand_field(torch, gen, (m, v), dev)
+        shared = ops.share_onehot(toks, a1, n_shares=c)
+        want = ssm.share_onehot_plain(toks, a1, n_shares=c)
+        torch.cuda.synchronize()
+        check(torch.equal(shared, want), f"share_onehot M={m} differs")
+        errs["share_onehot"] = max(errs["share_onehot"],
+                                   max_err(torch, shared, want))
+        del want
+        if m == 256:
+            ms = time_ms(torch, lambda: ops.share_onehot(toks, a1,
+                                                         n_shares=c), 20)
+            plain_ms = time_ms(torch, lambda: ssm.share_onehot_plain(
+                toks, a1, n_shares=c), 2)
+            nbytes = 4 * (m * v + m + c * m * v)
+            nops = (c + 1) * m * v               # one compare, c adds
+            bound_ms, bound_by = bound(nbytes, nops)
+            entry = {"name": "share_onehot", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/share_onehot.cu",
+                     "replaces": "src/repro/kernels/ss_matmul.py:186",
+                     "launches": launches["share_onehot"],
+                     "max_abs_err": errs["share_onehot"], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+            log(f"share_onehot {(c, m, v)}: {ms} ms, plain {plain_ms} ms, "
+                f"bound {bound_ms} ms ({bound_by})")
+        got, want = ops.ss_matmul(shared, vals), ssm.ss_matmul_plain(shared,
+                                                                     vals)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"embedding contraction M={m} differs")
+        errs["ss_matmul_tall"] = max(errs["ss_matmul_tall"],
+                                     max_err(torch, got, want))
+        del got, want
+        tall_ms = time_ms(torch, lambda: ops.ss_matmul(shared, vals), reps)
+        plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(shared, vals),
+                           1, warmup=0)
+        nbytes = 4 * (c * m * v + c * v * d + c * m * d)
+        bound_ms, bound_by = bound(nbytes, 2 * c * m * v * d)
+        log(f"embedding contraction {(c, m, v)} @ {(c, v, d)}: tall "
+            f"{tall_ms} ms, plain {plain_ms} ms, bound {bound_ms} ms "
+            f"({bound_by})")
+        del shared, a1
+    return entry
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -938,7 +1170,8 @@ def main() -> int:
     dev = torch.device("cuda")
     errs = {name: 0 for name in ("aa_match_batch", "aa_slide_batch",
                                  "ss_matmul", "ss_matmul_tall",
-                                 "ripple_segment", "ripple_carry")}
+                                 "ripple_segment", "ripple_carry",
+                                 "share_onehot")}
     compare_small(torch, dev, errs)
     log("kernels == plain versions on extremes and ragged shapes")
 
@@ -952,8 +1185,11 @@ def main() -> int:
     log("slice-2 path: every answer equals the plaintext evaluation")
     path3 = pattern_path(torch, client, rows)
     log("slice-3 path: every answer equals the plaintext evaluation")
-    launches = {k: path1[k] + path2[k] + path3[k] for k in path1}
-    kernels = full_shape_kernels(torch, db, errs, launches)
+    path4, table = embed_path(torch, args)
+    log("slice-4 path: every embedding equals the quantized table's row")
+    launches = {k: path1[k] + path2[k] + path3[k] + path4[k] for k in path1}
+    onehot = embed_full_shapes(torch, table, errs, launches)
+    kernels = full_shape_kernels(torch, db, errs, launches) + [onehot]
     log("kernels == plain versions at the main paths' full shapes")
 
     print(json.dumps({"kernels": kernels}), flush=True)

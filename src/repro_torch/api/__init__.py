@@ -7,37 +7,44 @@
     client.range_count("Salary", 500, 1500, reduce_every=8).count
     client.aggregate("avg", "Salary", where=Eq("Department", "Legal")).value
     client.like("FirstName", "Jo%").rows          # LIKE / prefix / suffix
+
+    from repro_torch.models import as_embed_relation, setup_private_embed
+    table = setup_private_embed(0, embed)         # (V, D) float table
+    emb = QueryClient(as_embed_relation(table), seed=1)
+    emb.run(EmbedLookup(tokens=(17, 4, 17))).embeddings   # (3, D) float32
 """
 from ..core.queries.aggregate import VerificationError
 from .backends import (DEFAULT_BACKEND, Backend, available_backends,
-                       get_backend, register_backend, ripple_segmenter,
-                       slide_matcher)
+                       get_backend, onehot_sharer, register_backend,
+                       ripple_segmenter, slide_matcher)
 from .client import QueryClient
 from .planner import (DEFAULT_ELL, BatchExplanation, CostEstimate, DBStats,
                       GroupEstimate, PlanNotSupported, candidate_estimates,
                       candidate_pattern_estimates, choose_pattern_strategy,
                       choose_select_strategy, estimate_aggregate_cost,
                       estimate_batch_group_cost, estimate_count_cost,
-                      estimate_pattern_cost, estimate_range_cost,
-                      estimate_select_cost, explain_batch_groups)
+                      estimate_embed_cost, estimate_pattern_cost,
+                      estimate_range_cost, estimate_select_cost,
+                      explain_batch_groups)
 from .plans import (AGG_OPS, AUTO, MATCH_PREDICATES, PATTERN_PREDICATES,
                     SELECT_STRATEGIES, Aggregate, Between, ColumnRef,
-                    Contains, Count, Eq, Like, Padding, Plan, Prefix,
-                    QueryResult, RangeCount, RangeSelect, Select, Suffix,
-                    resolve_column)
+                    Contains, Count, EmbedLookup, Eq, Like, Padding, Plan,
+                    Prefix, QueryResult, RangeCount, RangeSelect, Select,
+                    Suffix, resolve_column)
 
 __all__ = [
     "VerificationError", "DEFAULT_BACKEND", "Backend", "available_backends",
-    "get_backend", "register_backend", "ripple_segmenter", "slide_matcher",
-    "QueryClient", "DEFAULT_ELL", "BatchExplanation", "CostEstimate",
-    "DBStats", "GroupEstimate", "PlanNotSupported", "candidate_estimates",
-    "candidate_pattern_estimates", "choose_pattern_strategy",
-    "choose_select_strategy", "estimate_aggregate_cost",
-    "estimate_batch_group_cost", "estimate_count_cost",
-    "estimate_pattern_cost", "estimate_range_cost", "estimate_select_cost",
-    "explain_batch_groups", "AGG_OPS", "AUTO", "MATCH_PREDICATES",
-    "PATTERN_PREDICATES", "SELECT_STRATEGIES", "Aggregate", "Between",
-    "ColumnRef", "Contains", "Count", "Eq", "Like", "Padding", "Plan",
-    "Prefix", "QueryResult", "RangeCount", "RangeSelect", "Select",
-    "Suffix", "resolve_column",
+    "get_backend", "onehot_sharer", "register_backend", "ripple_segmenter",
+    "slide_matcher", "QueryClient", "DEFAULT_ELL", "BatchExplanation",
+    "CostEstimate", "DBStats", "GroupEstimate", "PlanNotSupported",
+    "candidate_estimates", "candidate_pattern_estimates",
+    "choose_pattern_strategy", "choose_select_strategy",
+    "estimate_aggregate_cost", "estimate_batch_group_cost",
+    "estimate_count_cost", "estimate_embed_cost", "estimate_pattern_cost",
+    "estimate_range_cost", "estimate_select_cost", "explain_batch_groups",
+    "AGG_OPS", "AUTO", "MATCH_PREDICATES", "PATTERN_PREDICATES",
+    "SELECT_STRATEGIES", "Aggregate", "Between", "ColumnRef", "Contains",
+    "Count", "EmbedLookup", "Eq", "Like", "Padding", "Plan", "Prefix",
+    "QueryResult", "RangeCount", "RangeSelect", "Select", "Suffix",
+    "resolve_column",
 ]

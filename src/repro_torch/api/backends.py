@@ -24,7 +24,10 @@ degree bookkeeping stays at the query layer):
                          (``None`` starts at the LSB step); the range
                          engine and the MIN/MAX tournament issue one per
                          degree-reduction interval;
-  * ``ripple_carry``   — the single bit step, (...) planes.
+  * ``ripple_carry``   — the single bit step, (...) planes;
+  * ``share_onehot``   — tokens (M,), a1 (M, V) -> (c, M, V): the fused
+                         degree-1 sharing of a step's token one-hots that
+                         feeds the embedding lookup's contraction.
 
 Two backends are registered. ``"cuda"``, the default, is
 ``repro_torch.kernels.ops``: the one place that decides between kernel and
@@ -61,6 +64,16 @@ class Backend:
     ripple_carry: Optional[_RippleOp] = None
     aa_slide_batch: Optional[_Op] = None
     aa_slide_rows: Optional[Callable[..., torch.Tensor]] = None
+    share_onehot: Optional[Callable[..., torch.Tensor]] = None
+
+
+def onehot_sharer(backend: Backend) -> Callable[..., torch.Tensor]:
+    """The backend's fused one-hot share op; a backend without it cannot
+    run embedding lookups and raises (there is no fallback)."""
+    if backend.share_onehot is None:
+        raise ValueError(f"backend {backend.name!r} has no share_onehot "
+                         f"op; embedding lookups need one")
+    return backend.share_onehot
 
 
 def slide_matcher(backend: Backend) -> Tuple[_Op, Callable[..., torch.Tensor]]:
@@ -102,14 +115,16 @@ _REGISTRY: Dict[str, Backend] = {
                      ripple_segment=_rip.ripple_segment_plain,
                      ripple_carry=_plain_ripple_carry,
                      aa_slide_batch=_aa.aa_slide_batch_plain,
-                     aa_slide_rows=_aa.aa_slide_rows_plain),
+                     aa_slide_rows=_aa.aa_slide_rows_plain,
+                     share_onehot=_ssm.share_onehot_plain),
     "cuda": Backend("cuda", ss_matmul=ops.ss_matmul,
                     aa_match_batch=ops.aa_match_batch,
                     aa_match_rows=ops.aa_match_rows,
                     ripple_segment=ops.ripple_segment,
                     ripple_carry=ops.ripple_carry,
                     aa_slide_batch=ops.aa_slide_batch,
-                    aa_slide_rows=ops.aa_slide_rows),
+                    aa_slide_rows=ops.aa_slide_rows,
+                    share_onehot=ops.share_onehot),
 }
 
 BackendLike = Union[str, Backend]

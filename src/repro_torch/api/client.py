@@ -19,9 +19,10 @@ totals are identical between a batch and the equivalent sequential calls.
 
 The port serves ``Count``/``Select`` over ``Eq`` and the pattern
 predicates ``Like``/``Prefix``/``Suffix``/``Contains``, ``RangeCount``/
-``RangeSelect`` over ``Between`` and ``Aggregate`` (with an ``Eq``
-predicate); any other plan or predicate raises
-:class:`~.planner.PlanNotSupported`.
+``RangeSelect`` over ``Between``, ``Aggregate`` (with an ``Eq``
+predicate) and ``EmbedLookup`` over an embedding-table relation
+(``models.private_embed.as_embed_relation``); any other plan or predicate
+raises :class:`~.planner.PlanNotSupported`.
 """
 from __future__ import annotations
 
@@ -34,12 +35,13 @@ from ..core import encoding
 from ..core.costs import CostLedger
 from ..core.dataplane import ShardedRelation
 from ..core.engine import SecretSharedDB
-from ..core.queries import CardinalityError, aggregate, like_spec, rounds
+from ..core.queries import (CardinalityError, EmbedJob, aggregate,
+                             embed_phase, like_spec, rounds)
 from . import planner as _planner
 from .backends import DEFAULT_BACKEND, BackendLike, get_backend
 from .plans import (AUTO, Aggregate, Between, ColumnRef, Contains, Count,
-                    Eq, Like, Padding, Plan, Prefix, QueryResult, RangeCount,
-                    RangeSelect, Select, Suffix, resolve_column)
+                    EmbedLookup, Eq, Like, Padding, Plan, Prefix, QueryResult,
+                    RangeCount, RangeSelect, Select, Suffix, resolve_column)
 
 #: surface shapes of the literal-tile predicates (for error display).
 _TILE_SOURCES = {Prefix: "{0}%", Suffix: "%{0}", Contains: "%{0}%"}
@@ -214,6 +216,7 @@ class QueryClient:
         range_grps: Dict[Tuple[int, int], List[Tuple[bool, Optional[int]]]] \
             = {}
         agg_grps: Dict[tuple, List[_planner.CostEstimate]] = {}
+        embed_ests: List[_planner.CostEstimate] = []
 
         def add_select(plan: Select, strategy: str,
                        spec: Optional[encoding.PatternSpec]) -> None:
@@ -258,6 +261,9 @@ class QueryClient:
                 gk = (("agg_sum", t_bits) if plan.op in ("sum", "avg")
                       else ("agg_minmax", t_bits, plan.reduce_every))
                 agg_grps.setdefault(gk, []).append(est)
+            elif isinstance(plan, EmbedLookup):
+                embed_ests.append(_planner.estimate_embed_cost(
+                    stats, n_tokens=len(plan.tokens), verify=plan.verify))
             else:
                 raise _planner.PlanNotSupported(plan)
         for plan, spec in auto_plans:
@@ -285,6 +291,8 @@ class QueryClient:
             groups.append(_fused_group(family, ests))
         for ests in agg_grps.values():
             groups.append(_fused_group("aggregate", ests))
+        if embed_ests:          # one fused contraction: dispatches don't stack
+            groups.append(_fused_group("embed", embed_ests))
         return _planner.explain_batch_groups(stats, groups)
 
     @staticmethod
@@ -339,7 +347,9 @@ class QueryClient:
         SUM/AVG numerators share ONE contraction per bit width (a
         conditional AVG's denominator rides the batch's count phase);
         MIN/MAX tournaments march in lockstep per (bit width,
-        ``reduce_every``).
+        ``reduce_every``). Every ``EmbedLookup`` of the batch shares its
+        one-hots in ONE ``share_onehot`` launch and contracts in ONE
+        ``ss_matmul`` per shard.
 
         A forced ``one_tuple`` whose predicate hits ℓ ≠ 1 tuples raises
         :class:`CardinalityError`; with ``strategy="auto"`` the query
@@ -354,6 +364,7 @@ class QueryClient:
         range_grps: Dict[Tuple[int, int], List[_Slot]] = {}
         agg_sum_grps: Dict[int, List[_Slot]] = {}
         agg_mm_grps: Dict[Tuple[int, int], List[_Slot]] = {}
+        embed_grp: List[_Slot] = []
         auto_slots: List[_Slot] = []
         group_sizes: Dict[str, int] = {s: 0 for s in sel_grp}
         group_rounds: Dict[str, int] = {}
@@ -407,6 +418,8 @@ class QueryClient:
                 else:
                     agg_mm_grps.setdefault((t_bits, plan.reduce_every),
                                            []).append(slot)
+            elif isinstance(plan, EmbedLookup):
+                embed_grp.append(slot)
             else:
                 raise _planner.PlanNotSupported(plan)
 
@@ -441,6 +454,17 @@ class QueryClient:
                                              strategy="count", count=cnt)
             for s, cnt in zip(avg_cnt_slots, counts[len(count_grp):]):
                 s.known_count = cnt
+
+        # -- embedding lookups: every job's one-hots share in one launch and
+        # the whole group contracts in ONE ss_matmul per shard ---------------
+        if embed_grp:
+            embs = embed_phase(be, rel, [
+                EmbedJob(tokens=s.plan.tokens, key=s.key, ledger=s.ledger,
+                         verify=s.plan.verify) for s in embed_grp])
+            for s, emb in zip(embed_grp, embs):
+                results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
+                                             strategy="embed",
+                                             embeddings=emb)
 
         # -- aggregation: SUM/AVG numerators fuse per bit width, MIN/MAX
         # tournaments per (bit width, reduce_every) ------------------------

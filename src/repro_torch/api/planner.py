@@ -10,9 +10,10 @@ statistics (n, m, w, A, c) and the cardinality hint ℓ alone:
                ℓ address fetches + ℓ'×n fetch;
                rounds ≤ ⌊log_ℓ n⌋ + ⌊log₂ ℓ⌋ + 1 (+ count + fetch).
 
-Range plans (§3.4) and aggregates (SUM/AVG/MIN/MAX) have one algorithm
-each; :func:`estimate_range_cost` and :func:`estimate_aggregate_cost`
-price them in the same units, exactly as their rounds charge the ledger.
+Range plans (§3.4), aggregates (SUM/AVG/MIN/MAX) and embedding lookups
+have one algorithm each; :func:`estimate_range_cost`,
+:func:`estimate_aggregate_cost` and :func:`estimate_embed_cost` price them
+in the same units, exactly as their rounds charge the ledger.
 Pattern predicates price their match phase with the round engine's own
 ``match_phase_cost`` (:func:`estimate_pattern_cost`) and choose between
 one_round and tree only.
@@ -283,6 +284,26 @@ def estimate_aggregate_cost(stats: DBStats, op: str, *, t_bits: int,
         return CostEstimate(f"agg_{op}", elems * WORD_BITS, rounds=rounds,
                             dispatches=dispatches)
     raise ValueError(f"unknown aggregate op {op!r}")
+
+
+def estimate_embed_cost(stats: DBStats, *, n_tokens: int,
+                        verify: bool = False) -> CostEstimate:
+    """§3.2.1 as the LM embedding layer: one fused lookup round.
+
+    The relation is the shared ``(c, V, D)`` table (``n`` = V vocab rows,
+    ``m`` = D model dims). The step's ``n_tokens`` shared one-hots go up
+    (c·n_tok·V), the picked embedding share rows come down (c·n_tok·D),
+    all in ONE contraction — dispatches = S (one ``ss_matmul`` per shard).
+    ``verify=`` adds the consistency round and c checksum elements.
+    """
+    s = stats
+    elems = s.c * n_tokens * s.n + s.c * n_tokens * s.m
+    rounds = 1
+    if verify:
+        rounds += 1
+        elems += s.c
+    return CostEstimate("embed", elems * WORD_BITS, rounds=rounds,
+                        dispatches=_shards(s))
 
 
 def candidate_estimates(stats: DBStats, *, ell: Optional[int] = None,

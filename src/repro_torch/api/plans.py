@@ -14,7 +14,7 @@ true result size ℓ from the clouds (§3.2.2 output-size attack).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 from ..core.costs import CostLedger
 
@@ -209,12 +209,37 @@ class Aggregate(Plan):
 
 
 @dataclasses.dataclass(frozen=True)
+class EmbedLookup(Plan):
+    """Oblivious embedding lookup of a step's token ids (§3.2.1 as an LM
+    layer; the embedding-table relation is built with
+    ``repro_torch.models.private_embed.as_embed_relation``).
+
+    tokens: the step's token ids (batch×seq, flattened to a tuple — plans
+            are plain hashable data; the result keeps the flat order).
+    verify: consistency round over the opened embeddings (needs
+            c >= degree+3 clouds); priced in ``explain()``.
+    """
+    tokens: Tuple[int, ...]
+    verify: bool = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "tokens",
+                           tuple(int(t) for t in self.tokens))
+        if not self.tokens:
+            raise ValueError("EmbedLookup needs at least one token id")
+        if min(self.tokens) < 0:
+            raise ValueError("token ids must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class QueryResult:
     """Uniform result: ``rows``/``addresses`` are None for counts; ``count``
     is the number of satisfying tuples whenever it is known; ``value`` is
     an aggregate's opened scalar (int for SUM/MIN/MAX, float for AVG; None
-    when a conditional MIN/MAX/AVG matched nothing); ``strategy`` echoes
-    the executed algorithm and ``plan`` the logical plan."""
+    when a conditional MIN/MAX/AVG matched nothing); ``embeddings`` an
+    ``EmbedLookup``'s opened float32 ``(n_tokens, D)`` numpy matrix;
+    ``strategy`` echoes the executed algorithm and ``plan`` the logical
+    plan."""
     plan: Plan
     ledger: CostLedger
     strategy: str
@@ -222,6 +247,8 @@ class QueryResult:
     count: Optional[int] = None
     addresses: Optional[List[int]] = None
     value: Optional[float] = None
+    embeddings: Optional[object] = None     # np.ndarray; typed loosely to
+    #                                         keep plans free of numpy
 
     def __post_init__(self):
         if self.count is None and self.rows is not None:

@@ -22,6 +22,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"aa_match": CSRC / "aa_match.cu",
            "ripple": CSRC / "ripple.cu",
+           "share_onehot": CSRC / "share_onehot.cu",
            "ss_matmul": CSRC / "ss_matmul.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

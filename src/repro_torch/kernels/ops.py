@@ -129,6 +129,16 @@ def ripple_carry(a: torch.Tensor, b: torch.Tensor,
     return ripple_segment(a[..., None], b[..., None], carry)
 
 
+def share_onehot(tokens: torch.Tensor, a1: torch.Tensor, *,
+                 n_shares: int) -> torch.Tensor:
+    """Fused degree-1 one-hot sharing: tokens (M,), a1 (M, V) -> (c, M, V)
+    shares ``[v == tok_i] + a1[i, v]·(k+1) mod p`` (a token outside
+    [0, V) gives a zero one-hot row)."""
+    if _on_cpu(a1):
+        return _ssm.share_onehot_plain(tokens, a1, n_shares=n_shares)
+    return _ssm.share_onehot_cuda(tokens, a1, n_shares=n_shares)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`
     (``ss_matmul`` counts the general kernel, ``ss_matmul_tall`` the
@@ -137,6 +147,7 @@ def launch_counts() -> Dict[str, int]:
     return {"aa_match_batch": _aa.launches,
             "aa_slide_batch": _aa.slide_launches,
             "ss_matmul": _ssm.launches, "ss_matmul_tall": _ssm.tall_launches,
+            "share_onehot": _ssm.share_onehot_launches,
             "ripple_segment": _rip.launches,
             "ripple_carry": _rip.carry_launches}
 
@@ -146,5 +157,6 @@ def reset_launch_counts() -> None:
     _aa.slide_launches = 0
     _ssm.launches = 0
     _ssm.tall_launches = 0
+    _ssm.share_onehot_launches = 0
     _rip.launches = 0
     _rip.carry_launches = 0

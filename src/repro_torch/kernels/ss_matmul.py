@@ -9,6 +9,11 @@ takes every shape :func:`is_tall_skinny` accepts. The plain version
 (:func:`ss_matmul_plain`, 16-bit-limb dots in ``core.field``) is the plain
 version of both; it runs on any device and is what the CPU path and the
 tests use.
+
+The module also holds the user-side sharing step that feeds the embedding
+lookup's contraction: :func:`share_onehot_cuda` (``csrc/share_onehot.cu``,
+replacing the Pallas ``share_onehot_pallas``) and its plain version
+:func:`share_onehot_plain`, as the reference keeps them beside the matmul.
 """
 from __future__ import annotations
 
@@ -36,10 +41,11 @@ _TALL_TK = 16
 TALL_MAX_M = 256
 TALL_MIN_K = 1024
 
-#: general and tall kernel launches since the last reset (read by
-#: chip_smoke.py).
+#: general, tall and share_onehot kernel launches since the last reset
+#: (read by chip_smoke.py).
 launches = 0
 tall_launches = 0
+share_onehot_launches = 0
 
 
 def is_tall_skinny(m: int, k: int, n: int) -> bool:
@@ -189,4 +195,74 @@ def ss_matmul_tall_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _run(_tall_lib(), a, b, batch, m, k, n, out,
              _tall_ksplit(batch, m, k, n), *tall_layout(m))
         tall_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused degree-1 one-hot sharing (the embedding lookup's share step)
+# ---------------------------------------------------------------------------
+
+def _check_onehot(tokens: torch.Tensor, a1: torch.Tensor,
+                  n_shares: int) -> Tuple[int, int]:
+    """-> (M, V); raises on what neither version takes."""
+    if tokens.ndim != 1 or a1.ndim != 2 or tokens.shape[0] != a1.shape[0]:
+        raise ValueError(f"tokens {tuple(tokens.shape)} and a1 "
+                         f"{tuple(a1.shape)} must be (M,) and (M, V)")
+    if tokens.dtype not in (torch.int32, torch.int64) or a1.dtype != DTYPE:
+        raise TypeError("share_onehot takes int32/int64 tokens and an int32 "
+                        "field tensor a1")
+    if tokens.device != a1.device:
+        raise ValueError(f"tokens on {tokens.device}, a1 on {a1.device}")
+    if n_shares < 1:
+        raise ValueError(f"n_shares must be >= 1, got {n_shares}")
+    return a1.shape[0], a1.shape[1]
+
+
+def share_onehot_plain(tokens: torch.Tensor, a1: torch.Tensor, *,
+                       n_shares: int) -> torch.Tensor:
+    """Degree-1 shares of the tokens' one-hot rows: tokens (M,), a1 (M, V)
+    in [0, p) -> int32 (c, M, V) with ``o[k, i, v] = [v == tok_i] +
+    a1[i, v]·(k+1) mod p``; a token outside [0, V) gives a zero one-hot
+    row. Written cloud by cloud (int64 transients of one (M, V) slice)."""
+    m, v = _check_onehot(tokens, a1, n_shares)
+    onehot = (tokens.to(torch.int64)[:, None]
+              == torch.arange(v, device=a1.device)).to(torch.int64)
+    a = a1.to(torch.int64)
+    out = torch.empty((n_shares, m, v), dtype=DTYPE, device=a1.device)
+    for k in range(n_shares):
+        out[k] = field._fold(a * (k + 1) + onehot).to(DTYPE)
+    return out
+
+
+def _onehot_lib():
+    fn = _build.library("share_onehot").share_onehot_u32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def share_onehot_cuda(tokens: torch.Tensor, a1: torch.Tensor, *,
+                      n_shares: int) -> torch.Tensor:
+    """The CUDA kernel (see :func:`share_onehot_plain`); M = 0 or V = 0
+    return without a launch. ``a1`` is read through its row stride."""
+    global share_onehot_launches
+    m, v = _check_onehot(tokens, a1, n_shares)
+    if max(m, v, n_shares) >= 2**31:
+        raise ValueError("share_onehot kernel dims must fit int32")
+    out = torch.empty((n_shares, m, v), dtype=DTYPE, device=a1.device)
+    if m == 0 or v == 0:
+        return out
+    if a1.stride(-1) != 1:
+        a1 = a1.contiguous()
+    # ids past int32 are out of range either way: clamp keeps them so
+    tok = tokens.clamp(-1, v).to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(a1.device).cuda_stream
+    err = _onehot_lib()(tok.data_ptr(), a1.data_ptr(), a1.stride(0),
+                        out.data_ptr(), m, v, n_shares, stream)
+    if err != 0:
+        raise RuntimeError(f"share_onehot kernel launch failed: CUDA error "
+                           f"{err}")
+    share_onehot_launches += 1
     return out

@@ -1,0 +1,160 @@
+"""Private embedding lookup — the paper's §3.2.1 selection as an LM layer.
+
+A token id is a one-hot row over the vocabulary: exactly the paper's unary
+encoding. Secret-share the one-hot (degree 1, fresh polynomials per query),
+hold Shamir shares of the fixed-point-quantized embedding table at each
+cloud, and the lookup is the oblivious selection
+``Σ_v onehot_share[v] · E_share[v, :]`` — a share-space matmul. The serving
+cloud learns neither the token id (every vocab row is touched identically)
+nor the embedding row.
+
+Two paths:
+
+* :func:`private_lookup` — the per-call reference: one ``shamir.share`` of
+  the plaintext one-hots + one contraction per invocation. Kept as the
+  correctness oracle.
+* :func:`private_lookup_batched` — the serving fast path on the batched
+  engine (``core.queries.embed``): all one-hots share in ONE
+  ``share_onehot`` launch and contract in ONE ``ss_matmul`` of shape
+  ``(c, B·n, V)·(c, V, D)``, with opt-in ``verify=``.
+
+:func:`as_embed_relation` wraps the shared table as a relation so it runs
+behind a ``QueryClient`` like any other (``EmbedLookup`` plans, sharded
+over the vocab axis). :func:`table_from_arrays` carries a table shared
+elsewhere (for example by the reference package) into the port.
+
+Fixed-point: values quantized at scale 2¹², range ±2¹⁸ ≪ p/2, so the signed
+round-trip through F_p is exact (out-of-range tables raise). Degree after
+lookup = 2 ⇒ 3 clouds suffice (4 with ``verify=``). Every entry point
+rejects token ids outside [0, V).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _device
+from ..core import encoding, shamir
+from ..core.engine import SecretSharedDB
+from ..core.costs import CostLedger
+from ..core.queries.aggregate import _verify_openings
+from ..core.queries.embed import (QUANT_RANGE, QUANT_SCALE, EmbedJob,
+                                  check_tokens, dequantize_from_field,
+                                  lookup_shares, quantize_to_field)
+from ..core.shamir import Shares
+
+__all__ = [
+    "QUANT_SCALE", "QUANT_RANGE", "quantize_to_field",
+    "dequantize_from_field", "setup_private_embed", "table_from_arrays",
+    "as_embed_relation", "private_lookup", "private_lookup_batched",
+]
+
+
+def setup_private_embed(key, embed, *, n_shares: int = 4, degree: int = 1,
+                        device=None,
+                        coeffs: Optional[torch.Tensor] = None) -> Shares:
+    """DB-owner side, one time: share the quantized (V, D) embedding table
+    -> Shares (c, V, D) on ``device`` (default CUDA, wherever ``embed``
+    lies; pass ``device="cpu"`` for the CPU). ``coeffs`` (degree, V, D)
+    injects the polynomial coefficients; otherwise they are drawn from
+    ``key``."""
+    dev = _device.resolve(device)
+    table = quantize_to_field(embed, device=dev)
+    gen = None if coeffs is not None else _device.generator(
+        _device.as_key(key), dev)
+    return shamir.share(table, n_shares=n_shares, degree=degree,
+                        coeffs=coeffs, generator=gen)
+
+
+def table_from_arrays(values, degree: int, device=None) -> Shares:
+    """A (c, V, D) uint32 share array made elsewhere (for example
+    ``np.asarray(table_sh.values)`` of a reference-package table) -> port
+    ``Shares`` on ``device`` (default CUDA), as ``core.engine.from_arrays``
+    does for relations; both packages then contract identical shares."""
+    dev = _device.resolve(device)
+    arr = np.asarray(values)
+    if arr.ndim != 3:
+        raise ValueError(f"expected a (c, V, D) share array, got shape "
+                         f"{arr.shape}")
+    if arr.size and int(arr.max()) >= 2**31 - 1:
+        raise ValueError("share values must lie in [0, p)")
+    return Shares(torch.from_numpy(arr.astype(np.int32)).to(dev), degree)
+
+
+def as_embed_relation(embed_shares: Shares) -> SecretSharedDB:
+    """Wrap a shared ``(c, V, D)`` table so it runs like any relation.
+
+    ``n_tuples = V`` (the axis ``ShardedRelation`` splits — vocab shards),
+    ``n_attrs = D``. The codec is a placeholder: embedding relations carry
+    no encoded string columns, only the raw share tensor participates.
+    """
+    if embed_shares.values.ndim != 3:
+        raise ValueError(f"expected a (c, V, D) share tensor, got shape "
+                         f"{tuple(embed_shares.values.shape)}")
+    return SecretSharedDB(relation=embed_shares, codec=encoding.Codec(),
+                          column_names=(), numeric={}, numeric_bits={},
+                          base_degree=embed_shares.degree)
+
+
+def _backend(backend):
+    from ..api.backends import DEFAULT_BACKEND, get_backend  # api sits above
+    return get_backend(DEFAULT_BACKEND if backend is None else backend)
+
+
+def _token_shape(tokens):
+    return tuple(tokens.shape) if hasattr(tokens, "shape") \
+        else np.shape(tokens)
+
+
+def private_lookup(key, embed_shares: Shares, tokens, *, backend=None,
+                   coeffs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-call reference lookup of ``tokens`` (any shape) -> float32
+    (*tokens.shape, D) on the table's device.
+
+    The plaintext one-hots share with ``shamir.share`` at the table's
+    degree (``coeffs`` injects the coefficients) and contract in one
+    ``ss_matmul``: the oracle the batched fast path is held to."""
+    be = _backend(backend)
+    vals = embed_shares.values
+    v = vals.shape[1]
+    flat = torch.from_numpy(check_tokens(tokens, v)).to(vals.device)
+    onehot = (flat[:, None] == torch.arange(v, device=vals.device)).to(
+        torch.int32)
+    gen = None if coeffs is not None else _device.generator(
+        _device.as_key(key), vals.device)
+    q_sh = shamir.share(onehot, n_shares=embed_shares.n_shares,
+                        degree=embed_shares.degree, coeffs=coeffs,
+                        generator=gen)                          # (c, n, V)
+    picked = be.ss_matmul(q_sh.values, vals)                    # (c, n, D)
+    out = shamir.interpolate(Shares(picked,
+                                    q_sh.degree + embed_shares.degree))
+    return dequantize_from_field(out).reshape(*_token_shape(tokens), -1)
+
+
+def private_lookup_batched(key, embed_shares: Shares, tokens, *,
+                           backend=None, verify: bool = False,
+                           a1: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Serving fast path: ONE ``share_onehot`` launch + ONE ``ss_matmul``.
+
+    All one-hots of ``tokens`` (any shape) share in a single launch (``a1``
+    (N, V) injects the coefficients; otherwise one draw from ``key``), then
+    contract against the table in one share-space matmul. ``verify=True``
+    cross-checks the redundant shares of the opened result (needs
+    ``n_shares >= degree+3`` clouds) and raises
+    ``core.queries.VerificationError`` on inconsistency. Returns float32
+    (*tokens.shape, D) on the table's device.
+
+    For the sharded, billed path, wrap the table with
+    :func:`as_embed_relation` and issue ``api.EmbedLookup`` plans through a
+    ``QueryClient``.
+    """
+    job = EmbedJob(tokens, key, CostLedger(), verify, a1)
+    out_sh, _ = lookup_shares(_backend(backend),
+                              as_embed_relation(embed_shares), [job])
+    if verify:
+        _verify_openings(job, [out_sh], "embedding lookup")
+    out = dequantize_from_field(shamir.interpolate(out_sh))
+    return out.reshape(*_token_shape(tokens), -1)

@@ -190,9 +190,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ops.aa_slide_batch(_t(_elems(3, (1, 1, 4, 2, 3))),
                        _t(_elems(4, (1, 1, 1, 3))))
     ops.ripple_segment(_t(_elems(5, (2, 3, 4))), _t(_elems(6, (2, 3, 4))))
+    ops.share_onehot(torch.tensor([0, 2]), _t(_elems(7, (2, 5))), n_shares=3)
     assert ops.launch_counts() == {"aa_match_batch": 0, "aa_slide_batch": 0,
                                    "ss_matmul": 0, "ss_matmul_tall": 0,
-                                   "ripple_segment": 0, "ripple_carry": 0}
+                                   "share_onehot": 0, "ripple_segment": 0,
+                                   "ripple_carry": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -207,13 +209,15 @@ def test_backend_registry():
     assert default.aa_match_batch is ops.aa_match_batch
     assert default.aa_match_rows is ops.aa_match_rows
     assert default.ss_matmul is ops.ss_matmul
+    assert default.share_onehot is ops.share_onehot
     with pytest.raises(ValueError):
         backends.get_backend("nope")
     with pytest.raises(ValueError):
         backends.register_backend(backends.get_backend("torch"))
 
 
-@pytest.mark.parametrize("kernel", ["aa_match", "ripple", "ss_matmul"])
+@pytest.mark.parametrize("kernel", ["aa_match", "ripple", "share_onehot",
+                                    "ss_matmul"])
 def test_kernel_sources_build_into_the_ignored_build_dir(kernel):
     from repro_torch.kernels import _build
     lib = _build._lib_path(kernel)

@@ -169,3 +169,46 @@ def test_ss_matmul_tall_kernel_edges(cuda):
     big = torch.full((1, 4, 2048), 2**31 - 1, dtype=torch.int32, device=cuda)
     assert torch.equal(ss_matmul.ss_matmul_tall_cuda(big, big[0].T),
                        ss_matmul.ss_matmul_plain(big, big[0].T))
+
+
+def test_ss_matmul_tall_kernel_reads_shard_slices(cuda):
+    """An embedding lookup's vocab shard: A is a column slice
+    ``stacked[:, :, lo:hi]`` (unit last stride, row stride V), B a row
+    slice of the table; lo % 4 != 0 takes the 4-byte copy route."""
+    stacked = _field((4, 8, 6001), 23, cuda)
+    table = _field((4, 6001, 96), 24, cuda)
+    for lo, hi in ((0, 2000), (2000, 4001), (4001, 6001), (3, 3003)):
+        a, b = stacked[:, :, lo:hi], table[:, lo:hi]
+        assert ss_matmul.is_tall_skinny(8, hi - lo, 96)
+        assert torch.equal(ops.ss_matmul(a, b),
+                           ss_matmul.ss_matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("c", [1, 4, 20])
+@pytest.mark.parametrize("m,v", [(0, 1000), (1, 1), (17, 1000), (300, 1003),
+                                 (256, 4096)])
+def test_share_onehot_kernel_equals_plain(cuda, m, v, c):
+    g = torch.Generator(device=cuda).manual_seed(25)
+    toks = torch.randint(0, v, (m,), generator=g, device=cuda)
+    if m >= 4:                       # first, last, a repeat and the padding
+        toks[:4] = torch.tensor([0, v - 1, int(toks[5 % m]), -1])
+    a1 = _field((m, v), 26, cuda)
+    ops.reset_launch_counts()
+    got = ops.share_onehot(toks, a1, n_shares=c)
+    torch.cuda.synchronize()
+    assert got.shape == (c, m, v)
+    assert torch.equal(got, ss_matmul.share_onehot_plain(toks, a1,
+                                                         n_shares=c))
+    assert ops.launch_counts()["share_onehot"] == (0 if m == 0 else 1)
+
+
+def test_share_onehot_kernel_extremes_and_strides(cuda):
+    a1 = torch.full((5, 1024), P - 1, dtype=torch.int32, device=cuda)
+    toks = torch.tensor([0, 1023, -1, 5000, 7], device=cuda)
+    assert torch.equal(ops.share_onehot(toks, a1, n_shares=20),
+                       ss_matmul.share_onehot_plain(toks, a1, n_shares=20))
+    wide = _field((6, 1030), 27, cuda)       # rows 4-byte but not 16-byte
+    for view in (wide[:, 3:1027], wide[:, :1024], wide[::2, 1:9]):
+        t = torch.arange(view.shape[0], device=cuda) * 3
+        assert torch.equal(ops.share_onehot(t, view, n_shares=4),
+                           ss_matmul.share_onehot_plain(t, view, n_shares=4))
