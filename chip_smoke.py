@@ -15,7 +15,10 @@ Phases, any failure exits non-zero:
    sliding windows for k = 1..W, the tall-skinny matmul at M = 1, 17, 255
    and 256, K not a multiple of its tile, N = 1, and at vocab-shard
    offsets that are not a multiple of 4; the fused one-hot sharing at
-   M = 1..300, V = 1..151,936, c = 1, 4, 20 with −1 padding tokens).
+   M = 1..300, V = 1..151,936, c = 1, 4, 20 with −1 padding tokens; both
+   matmul kernels where their byte-limb arithmetic is tightest: all-(p−1)
+   and all-(2³¹−1) operands at K = 2·8,192 + 1 and the 8,192-term
+   K-chunk boundary at M = 1, 9, 33 and 257).
 3. Drive the main paths through the public entry points at full size: the
    README's Employee schema (5 string attributes, word length 8, A = 69,
    degree 1, c = 20 clouds) over ``--tuples`` synthetic rows made from
@@ -49,8 +52,12 @@ Phases, any failure exits non-zero:
    match of the suffix and substring counts, the tall-skinny fetch at
    R = 3, 69 and 256 rows and the ℓ = 1,000 fetch on the general kernel,
    the one-hot sharing of a 256-token prefill and the embedding
-   contraction at M = 8 and 256; time kernel and plain version there
-   (CUDA events).
+   contraction at M = 8 and 256 (on the tall and on the general kernel);
+   time kernel and plain version there (CUDA events), each beside its
+   bound: bytes at 3.35 TB/s or operations, at the int32 rate, or for the
+   two matmul kernels at the tensor cores' int8 rate (32 int8 operations
+   per modular multiply-accumulate). Prints the phase's peak device
+   memory.
 
 Prints the kernels JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
@@ -60,6 +67,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +83,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 #: half the 128 FP32 lanes behind the 67 TFLOP/s fp32 figure; a mod-p
 #: multiply-accumulate counts as 2 operations.
 INT32_OPS_PER_S = 33.5e12
+#: H100 SXM dense int8 rate of the tensor cores. The two matmul kernels
+#: make each exact mod-p multiply-accumulate from 16 int8 ones (4 x 4 byte
+#: limbs of two 31-bit operands), so c·M·K·N of them count 32·c·M·K·N
+#: operations at this rate.
+INT8_TENSOR_OPS_PER_S = 1.979e15
 
 NAMES = ["EmployeeId", "FirstName", "LastName", "Salary", "Department"]
 PLANT = {"one_round": "Zorro", "tree": "Quinn", "absent": "Nobody"}
@@ -197,6 +210,39 @@ def compare_small(torch, dev, errs) -> None:
     compare_slide(torch, gen, dev, errs)
     compare_tall(torch, gen, dev, errs)
     compare_onehot(torch, gen, dev, errs)
+    compare_limb_edges(torch, gen, dev, errs)
+
+
+def compare_limb_edges(torch, gen, dev, errs) -> None:
+    """Both matmul kernels (called directly) vs ``ss_matmul_plain`` where
+    their byte-limb arithmetic is tightest: all-(p−1) and all-(2³¹−1)
+    operands at K = 2·K_CHUNK + 1 (three s32 chunks, the last of one term),
+    and random operands at K = K_CHUNK − 1, K_CHUNK and K_CHUNK + 1, with
+    M = 1, 9, 33 (tall) and 257 (general) and N = 70 (not a multiple of
+    the 64-column tile)."""
+    from repro_torch.kernels import ss_matmul as ssm
+    tall = ("ss_matmul_tall", ssm.ss_matmul_tall_cuda)
+    general = ("ss_matmul", ssm.ss_matmul_cuda)
+
+    def same(name, fn, a, b, what):
+        got, want = fn(a, b), ssm.ss_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{name} {what} differs from its plain version")
+        errs[name] = max(errs[name], max_err(torch, got, want))
+
+    k = 2 * ssm.K_CHUNK + 1
+    for value in (P - 1, 2**31 - 1):
+        for (name, fn), m in ((tall, 8), (general, 300)):
+            a = torch.full((2, m, k), value, dtype=torch.int32, device=dev)
+            b = torch.full((2, k, 70), value, dtype=torch.int32, device=dev)
+            same(name, fn, a, b, f"all-{value} at K={k}")
+    for k in (ssm.K_CHUNK - 1, ssm.K_CHUNK, ssm.K_CHUNK + 1):
+        for (name, fn), m in ((tall, 1), (tall, 9), (tall, 33),
+                              (general, 257)):
+            a = rand_field(torch, gen, (2, m, k), dev)
+            b = rand_field(torch, gen, (k, 70), dev)
+            same(name, fn, a, b, f"M={m} K={k}")
 
 
 def compare_slide(torch, gen, dev, errs) -> None:
@@ -849,13 +895,14 @@ def embed_full_shapes(torch, table, errs, launches):
                                      max_err(torch, got, want))
         del got, want
         tall_ms = time_ms(torch, lambda: ops.ss_matmul(shared, vals), reps)
+        gen_ms = time_ms(torch, lambda: ssm.ss_matmul_cuda(shared, vals),
+                         reps)
         plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(shared, vals),
                            1, warmup=0)
         nbytes = 4 * (c * m * v + c * v * d + c * m * d)
-        bound_ms, bound_by = bound(nbytes, 2 * c * m * v * d)
         log(f"embedding contraction {(c, m, v)} @ {(c, v, d)}: tall "
-            f"{tall_ms} ms, plain {plain_ms} ms, bound {bound_ms} ms "
-            f"({bound_by})")
+            f"{tall_ms} ms, general {gen_ms} ms, plain {plain_ms} ms, bound "
+            f"{bound_note(nbytes, 32 * c * m * v * d, INT8_TENSOR_OPS_PER_S)}")
         del shared, a1
     return entry
 
@@ -951,8 +998,9 @@ def full_shape_kernels(torch, db, errs, launches):
             key, db, list(range(0, n, n // rows))[:rows]).values
 
     def fetch_cost(r):
+        """-> (bytes, int8 tensor operations, their rate) of the fetch."""
         return (4 * (c * r * n + c * n * m * w * a + c * r * m * w * a),
-                2 * c * r * n * m * w * a)
+                32 * c * r * n * m * w * a, INT8_TENSOR_OPS_PER_S)
 
     # the tall kernel at R = 3 (slice 1's one_round fetch), 69 (the
     # Salary tree and the range_select) and 256 (its largest M), beside
@@ -976,12 +1024,10 @@ def full_shape_kernels(torch, db, errs, launches):
         tall_ms2 = time_ms(torch, lambda: ops.ss_matmul(fetch, flat), reps)
         plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(fetch, flat),
                            1, warmup=0)
-        nbytes, nops = fetch_cost(r)
-        tall[r] = (tall_ms, plain_ms, nbytes, nops)
+        tall[r] = (tall_ms, plain_ms) + fetch_cost(r)
         log(f"fetch {tuple(fetch.shape)} @ {tuple(flat.shape)}: tall "
             f"{tall_ms} / {tall_ms2} ms, general {gen_ms} / {gen_ms2} ms, "
-            f"plain {plain_ms} ms, bound "
-            f"{bound(nbytes, nops)[0]} ms ({bound(nbytes, nops)[1]})")
+            f"plain {plain_ms} ms, bound {bound_note(*fetch_cost(r))}")
         del fetch
     # the general kernel on the path: the ℓ = 1,000 prefix select's fetch
     fetch = fetch_rows(1000)
@@ -992,13 +1038,17 @@ def full_shape_kernels(torch, db, errs, launches):
     ss_ms = time_ms(torch, lambda: ops.ss_matmul(fetch, flat), 1)
     ss_plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(fetch, flat), 1,
                           warmup=0)
+    log(f"fetch {tuple(fetch.shape)} @ {tuple(flat.shape)}: general "
+        f"{ss_ms} ms, plain {ss_plain_ms} ms, bound "
+        f"{bound_note(*fetch_cost(1000))}")
     del fetch
 
     slide = slide_full_shapes(torch, db, errs, key)
     ripple = ripple_full_shapes(torch, db, errs, key)
 
-    def entry(name, source, replaces, ms, plain_ms, nbytes, nops):
-        bound_ms, bound_by = bound(nbytes, nops)
+    def entry(name, source, replaces, ms, plain_ms, nbytes, nops,
+              rate=INT32_OPS_PER_S):
+        bound_ms, bound_by = bound(nbytes, nops, rate)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
@@ -1023,11 +1073,44 @@ def full_shape_kernels(torch, db, errs, launches):
                 ("ripple_carry", "src/repro/kernels/ripple.py:66"))]
 
 
-def bound(nbytes: int, nops: int):
+def sass_igmma(build) -> dict:
+    """Tensor-core int8 MMA instructions (IGMMA) per kernel of the built
+    ss_matmul library, from ``cuobjdump -sass``; {} without cuobjdump."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("ss_matmul"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(ss_matmul_kernel|ss_matmul_reduce_kernel)"
+                          r"(?:ILi(\d+)ELi(\d+)E)?", line)
+            if m is None:
+                name = line.split(":")[-1].strip()
+            elif m.group(2):                     # <rows a warpgroup, groups>
+                name = f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+            else:
+                name = m.group(1)
+            counts[name] = 0
+        elif name is not None and "IGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def bound_note(nbytes: int, nops: int, rate: float) -> str:
+    """The bound and its basis, for a log line."""
+    ms, by = bound(nbytes, nops, rate)
+    basis = "int8 tensor" if rate == INT8_TENSOR_OPS_PER_S else "int32"
+    return f"{ms} ms ({by}; {nops:.4g} {basis} operations, {nbytes:.4g} B)"
+
+
+def bound(nbytes: int, nops: int, rate: float = INT32_OPS_PER_S):
     """-> (least ms, "bytes" | "operations"): the larger of the bytes over
-    the card's memory rate and the operations over its int32 rate."""
+    the card's memory rate and the operations over ``rate`` (the int32
+    rate; the tensor cores' int8 rate for the matmul kernels)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
+    t_ops = nops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1166,6 +1249,12 @@ def main() -> int:
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, info in _build.BUILD_INFO.items():
         log(f"[{name}] nvcc {info['seconds']:.1f} s\n{info['log'].strip()}")
+    igmma = sass_igmma(_build)
+    log(f"[ss_matmul] SASS IGMMA instructions per kernel (cuobjdump): "
+        f"{json.dumps(igmma) if igmma else 'cuobjdump not found'}")
+    check(not igmma or all(v > 0 for k, v in igmma.items()
+                           if k.startswith("ss_matmul_kernel<")),
+          "an ss_matmul kernel issues no int8 tensor-core instruction")
 
     dev = torch.device("cuda")
     errs = {name: 0 for name in ("aa_match_batch", "aa_slide_batch",
@@ -1188,8 +1277,11 @@ def main() -> int:
     path4, table = embed_path(torch, args)
     log("slice-4 path: every embedding equals the quantized table's row")
     launches = {k: path1[k] + path2[k] + path3[k] + path4[k] for k in path1}
+    torch.cuda.reset_peak_memory_stats()
     onehot = embed_full_shapes(torch, table, errs, launches)
     kernels = full_shape_kernels(torch, db, errs, launches) + [onehot]
+    log(f"phase 4 peak device memory {torch.cuda.max_memory_allocated() / 1e9}"
+        f" GB (the relation and the table included)")
     log("kernels == plain versions at the main paths' full shapes")
 
     print(json.dumps({"kernels": kernels}), flush=True)

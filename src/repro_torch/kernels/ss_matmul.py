@@ -1,14 +1,16 @@
 """Share-space mod-p matmul kernel (CUDA) and its plain PyTorch version.
 
 ``a @ b mod p`` for int32 field tensors of ranks (2, 2), (3, 3) (cloud
-batch) and (3, 2) (a shared right operand). ``csrc/ss_matmul.cu`` holds two
-CUDA kernels for it: the general one (:func:`ss_matmul_cuda`, replacing the
-Pallas ``ss_matmul_pallas``) and the tall-skinny one
-(:func:`ss_matmul_tall_cuda`, replacing ``ss_matmul_tall_pallas``), which
-takes every shape :func:`is_tall_skinny` accepts. The plain version
-(:func:`ss_matmul_plain`, 16-bit-limb dots in ``core.field``) is the plain
-version of both; it runs on any device and is what the CPU path and the
-tests use.
+batch) and (3, 2) (a shared right operand). ``csrc/ss_matmul.cu`` computes
+it on the H100's int8 tensor cores (``wgmma`` on byte limbs, exact mod p;
+see LIMB_BITS and K_CHUNK) through two entry points over one device body:
+the general one (:func:`ss_matmul_cuda`, replacing the Pallas
+``ss_matmul_pallas``) and the tall-skinny one (:func:`ss_matmul_tall_cuda`,
+replacing ``ss_matmul_tall_pallas``), which takes every shape
+:func:`is_tall_skinny` accepts; each counts its own launches. The plain
+version (:func:`ss_matmul_plain`, 16-bit-limb dots in ``core.field``) is the
+plain version of both; it runs on any device and is what the CPU path and
+the tests use.
 
 The module also holds the user-side sharing step that feeds the embedding
 lookup's contraction: :func:`share_onehot_cuda` (``csrc/share_onehot.cu``,
@@ -26,15 +28,19 @@ from ..core import field
 from ..core.field import DTYPE
 from . import _build
 
-#: blocks the kernel should put in flight before K is split across blocks
-#: (16 per SM of an H100, about one full wave of 128-thread blocks).
-_TARGET_BLOCKS = 16 * 132
-_TN, _TM, _TK = 128, 16, 128
+#: blocks the kernels should put in flight before K is split across blocks
+#: (8 per SM of an H100).
+_TARGET_BLOCKS = 8 * 132
+#: K per pipeline stage of ``csrc/ss_matmul.cu`` (a split is a multiple).
+_KT = 64
 
-#: blocks the tall kernel should put in flight before K is split (8 per
-#: SM of an H100: up to 256 threads each).
-_TALL_TARGET_BLOCKS = 8 * 132
-_TALL_TK = 16
+#: The kernels' arithmetic (``csrc/ss_matmul.cu``): operands split into
+#: LIMB_BITS-bit limbs, the int8 tensor cores sum each diagonal of limb
+#: products in s32 over K_CHUNK terms, then the diagonals fold mod p. The
+#: kernel takes K_CHUNK from here; ``tests/test_torch_ss_limbs.py`` holds
+#: the emulation of that arithmetic, and the s32 bound, to these values.
+LIMB_BITS = 8
+K_CHUNK = 8192
 
 #: the reference's gate for the tall-skinny tiling: M small enough to keep
 #: every row resident in one block, K dwarfing both other dims.
@@ -90,29 +96,8 @@ def ss_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _lib():
-    lib = _build.library("ss_matmul")
-    fn = lib.ss_matmul_u32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _ksplit(batch: int, m: int, k: int, n: int) -> int:
-    """Split K over blocks until about _TARGET_BLOCKS are in flight, keeping
-    at least 8 K-chunks per split."""
-    tm = min(_TM, 1 << max(0, (m - 1).bit_length()))
-    blocks = -(-n // _TN) * -(-m // tm) * batch
-    want = -(-_TARGET_BLOCKS // max(1, blocks))
-    return int(max(1, min(want, k // (8 * _TK), 65535 // max(1, batch))))
-
-
-def _tall_lib():
-    fn = _build.library("ss_matmul").ss_matmul_tall_u32
+def _lib(name: str):
+    fn = getattr(_build.library("ss_matmul"), name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
@@ -121,20 +106,24 @@ def _tall_lib():
     return fn
 
 
-def tall_layout(m: int) -> Tuple[int, int, int]:
-    """-> (rw, wr, wc): rows per warp, row warps (wr·rw >= M, wr <= 8) and
-    column warps of the tall kernel's block. Picks the fewest padded rows,
-    then the most rows per warp (fewer shared-memory reads per product)."""
-    rw, wr = min(((r, -(-m // r)) for r in (32, 16, 8, 4, 2, 1)
-                  if -(-m // r) <= 8), key=lambda t: (t[0] * t[1], -t[0]))
-    return rw, wr, max(1, 8 // wr)
+def row_layout(m: int) -> Tuple[int, int]:
+    """-> (nr, wgs): rows of A a warpgroup takes (wgmma's N, 8..32) and
+    warpgroups a block (1 or 2, sharing one staged tile of B). Picks the
+    fewest padded rows plus a charge of 8 rows per slice (each slice
+    rebuilds the B fragments), so larger slices win ties. Two warpgroups
+    only for an even number of slices: every warpgroup computes."""
+    nr = min((8, 16, 24, 32),
+             key=lambda r: (-(-m // r) * (r + 8), -r))
+    return nr, 2 if -(-m // nr) % 2 == 0 else 1
 
 
-def _tall_ksplit(batch: int, m: int, k: int, n: int) -> int:
-    _, wr, wc = tall_layout(m)
-    blocks = -(-n // (32 * wc)) * batch
-    want = -(-_TALL_TARGET_BLOCKS // max(1, blocks))
-    return int(max(1, min(want, k // (8 * _TALL_TK), 65535 // max(1, batch))))
+def _ksplit(batch: int, m: int, k: int, n: int) -> int:
+    """Split K over blocks until about _TARGET_BLOCKS are in flight, keeping
+    at least 16 stages (1,024 K) per split."""
+    nr, wgs = row_layout(m)
+    blocks = -(-m // (nr * wgs)) * -(-n // 64) * batch
+    want = -(-_TARGET_BLOCKS // max(1, blocks))
+    return int(max(1, min(want, k // (16 * _KT), 65535 // max(1, batch))))
 
 
 def _prepare(a: torch.Tensor, b: torch.Tensor):
@@ -160,14 +149,16 @@ def _prepare(a: torch.Tensor, b: torch.Tensor):
                                              device=a.device), True
 
 
-def _run(fn, a, b, batch, m, k, n, out, ksplit, *extra) -> None:
+def _run(name, a, b, batch, m, k, n, out) -> None:
+    ksplit = _ksplit(batch, m, k, n)
     part = (torch.empty((ksplit, batch, m, n), dtype=DTYPE, device=a.device)
             if ksplit > 1 else out)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), a.stride(0) if a.ndim == 3 else 0, a.stride(-2),
-             b.data_ptr(), b.stride(0) if b.ndim == 3 else 0, b.stride(-2),
-             part.data_ptr(), out.data_ptr(), batch, m, k, n, ksplit, *extra,
-             stream)
+    err = _lib(name)(
+        a.data_ptr(), a.stride(0) if a.ndim == 3 else 0, a.stride(-2),
+        b.data_ptr(), b.stride(0) if b.ndim == 3 else 0, b.stride(-2),
+        part.data_ptr(), out.data_ptr(), batch, m, k, n, ksplit,
+        *row_layout(m), K_CHUNK, stream)
     if err != 0:
         raise RuntimeError(f"ss_matmul kernel launch failed: CUDA error "
                            f"{err}")
@@ -179,21 +170,20 @@ def ss_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global launches
     a, b, batch, m, k, n, out, live = _prepare(a, b)
     if live:
-        _run(_lib(), a, b, batch, m, k, n, out, _ksplit(batch, m, k, n))
+        _run("ss_matmul_u32", a, b, batch, m, k, n, out)
         launches += 1
     return out
 
 
 def ss_matmul_tall_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The tall-skinny CUDA kernel (M <= 256 rows, all resident in each
-    block); M = 0, N = 0 or K = 0 return without a launch."""
+    """The tall-skinny entry (M <= 256 rows): the same tensor-core body,
+    counted apart; M = 0, N = 0 or K = 0 return without a launch."""
     global tall_launches
     a, b, batch, m, k, n, out, live = _prepare(a, b)
     if m > TALL_MAX_M:
         raise ValueError(f"the tall kernel takes M <= {TALL_MAX_M}, got {m}")
     if live:
-        _run(_tall_lib(), a, b, batch, m, k, n, out,
-             _tall_ksplit(batch, m, k, n), *tall_layout(m))
+        _run("ss_matmul_tall_u32", a, b, batch, m, k, n, out)
         tall_launches += 1
     return out
 

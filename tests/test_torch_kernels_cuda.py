@@ -212,3 +212,59 @@ def test_share_onehot_kernel_extremes_and_strides(cuda):
         t = torch.arange(view.shape[0], device=cuda) * 3
         assert torch.equal(ops.share_onehot(t, view, n_shares=4),
                            ss_matmul.share_onehot_plain(t, view, n_shares=4))
+
+
+# ---------------------------------------------------------------------------
+# the int8 tensor-core matmul kernels: byte-limb edges, both entry points
+# ---------------------------------------------------------------------------
+
+_KERNELS = {"tall": ss_matmul.ss_matmul_tall_cuda,
+            "general": ss_matmul.ss_matmul_cuda}
+
+
+@pytest.mark.parametrize("dk", [-1, 0, 1, ss_matmul.K_CHUNK + 1])
+@pytest.mark.parametrize("kernel,m", [("tall", 1), ("tall", 8), ("tall", 9),
+                                      ("tall", 33), ("tall", 256),
+                                      ("general", 257),
+                                      ("general", 1000)])
+def test_ss_matmul_kernels_chunk_boundaries(cuda, kernel, m, dk):
+    """K = K_CHUNK − 1, K_CHUNK, K_CHUNK + 1 and 2·K_CHUNK + 1 (where the
+    s32 diagonal sums fold), N = 70 (not a multiple of the 64-column
+    tile)."""
+    k = ss_matmul.K_CHUNK + dk
+    a, b = _field((2, m, k), 30 + m, cuda), _field((2, k, 70), 31 + dk, cuda)
+    got = _KERNELS[kernel](a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ss_matmul.ss_matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("value", [P - 1, 2**31 - 1])
+@pytest.mark.parametrize("kernel,m", [("tall", 8), ("tall", 33),
+                                      ("general", 300)])
+def test_ss_matmul_kernels_extremes(cuda, kernel, m, value):
+    """Constant operands at K = 2·K_CHUNK + 1: every byte limb at its
+    largest, three chunks, the last of one term."""
+    k = 2 * ss_matmul.K_CHUNK + 1
+    a = torch.full((2, m, k), value, dtype=torch.int32, device=cuda)
+    b = torch.full((2, k, 130), value, dtype=torch.int32, device=cuda)
+    got = _KERNELS[kernel](a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ss_matmul.ss_matmul_plain(a, b))
+    assert (got == (k * value * value) % P).all()
+
+
+@pytest.mark.parametrize("kernel", ["tall", "general"])
+def test_ss_matmul_kernels_shard_slices_and_shared_operand(cuda, kernel):
+    """Vocab-shard column slices of A at offsets that are not a multiple of
+    4 (4-byte copies; ``lo = 3`` and the S = 3 split of 151,936 ids) and
+    the (3, 2) rank (B-stride 0)."""
+    stacked = _field((4, 9, 151936), 32, cuda)
+    table = _field((4, 151936, 70), 33, cuda)
+    for lo, hi in ((3, 3003), (0, 50645), (50645, 101290),
+                   (101290, 151936)):
+        a, b = stacked[:, :, lo:hi], table[:, lo:hi]
+        assert torch.equal(_KERNELS[kernel](a, b),
+                           ss_matmul.ss_matmul_plain(a, b))
+    a, b = _field((3, 69, 9000), 34, cuda), _field((9000, 130), 35, cuda)
+    assert torch.equal(_KERNELS[kernel](a, b),
+                       ss_matmul.ss_matmul_plain(a, b))

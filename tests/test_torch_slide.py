@@ -262,11 +262,16 @@ def test_is_tall_skinny_agrees_with_reference():
 
 
 def test_tall_layout_covers_every_row():
-    for m in range(1, 257):
-        rw, wr, wc = ss_matmul.tall_layout(m)
-        assert rw in (1, 2, 4, 8, 16, 32) and 1 <= wr <= 8
-        assert wr * rw >= m and wr * wc <= 8
-        assert (wr - 1) * rw < m                   # no idle row warp
+    """Both matmul kernels' row layout (``row_layout``): a warpgroup takes
+    nr rows (wgmma's N), a block wgs warpgroups; the slices cover M, none
+    lies wholly past M, and two warpgroups come only with an even number
+    of slices (every warpgroup of a block computes)."""
+    for m in range(1, 1025):
+        nr, wgs = ss_matmul.row_layout(m)
+        slices = -(-m // nr)
+        assert nr in (8, 16, 24, 32) and wgs in (1, 2)
+        assert slices * nr >= m and (slices - 1) * nr < m
+        assert slices % wgs == 0
 
 
 @pytest.mark.parametrize("m,k,n", [(3, 1024, 5), (17, 1100, 1)])
