@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--tuples 131072] [--seed 0]
+    python3 chip_smoke.py --aa-times SRC      # only the match/slide times
 
 Phases, any failure exits non-zero:
 
@@ -18,7 +19,12 @@ Phases, any failure exits non-zero:
    M = 1..300, V = 1..151,936, c = 1, 4, 20 with −1 padding tokens; both
    matmul kernels where their byte-limb arithmetic is tightest: all-(p−1)
    and all-(2³¹−1) operands at K = 2·8,192 + 1 and the 8,192-term
-   K-chunk boundary at M = 1, 9, 33 and 257).
+   K-chunk boundary at M = 1, 9, 33 and 257; the match and slide kernels
+   where their staging is tightest: all-(p−1) and all-(2³¹−1) operands at
+   full W, prefix views of k = 1 and 4 positions, a row of 660 bytes on
+   the 16-byte copy route, zero-length and one-row blocks, a B-stride-0
+   stack cut into two chunks of patterns, and a slide whose 1,173 tile
+   rows take several passes, each one launch).
 3. Drive the main paths through the public entry points at full size: the
    README's Employee schema (5 string attributes, word length 8, A = 69,
    degree 1, c = 20 clouds) over ``--tuples`` synthetic rows made from
@@ -45,18 +51,20 @@ Phases, any failure exits non-zero:
    have risen for every kernel it runs.
 4. Hold every call form the paths use against its plain version again at
    the paths' full shapes, through the same ``ops`` wrappers: the
-   one-column count stack, the distinct-column count and a tree round's 16
-   row blocks (``aa_match_rows``), the fetch, the one_tuple and the
+   one-column count stack, a one-column stack of 8 predicates (one launch),
+   the distinct-column count and a tree round's 16 row blocks
+   (``aa_match_rows``), the fetch, the one_tuple and the
    conditional-SUM contractions, the range's first ripple segment, a
    carried k = 1 step and the tournament's first level, the sliding-window
    match of the suffix and substring counts, the tall-skinny fetch at
    R = 3, 69 and 256 rows and the ℓ = 1,000 fetch on the general kernel,
    the one-hot sharing of a 256-token prefill and the embedding
    contraction at M = 8 and 256 (on the tall and on the general kernel);
-   time kernel and plain version there (CUDA events), each beside its
-   bound: bytes at 3.35 TB/s or operations, at the int32 rate, or for the
-   two matmul kernels at the tensor cores' int8 rate (32 int8 operations
-   per modular multiply-accumulate). Prints the phase's peak device
+   time kernel and plain version there (CUDA events; the match at B = 1
+   and 8 and over the tree round, the slide at k = 2, 3 and 5), each
+   beside its bound: bytes at 3.35 TB/s or operations, at the int32 rate,
+   or for the two matmul kernels at the tensor cores' int8 rate (32 int8
+   operations per modular multiply-accumulate). Prints the phase's peak device
    memory.
 
 Prints the kernels JSON line, the card's name and power limit, and as the
@@ -208,6 +216,7 @@ def compare_small(torch, dev, errs) -> None:
     torch.cuda.synchronize()
     compare_ripple(torch, gen, dev, errs)
     compare_slide(torch, gen, dev, errs)
+    compare_staging_edges(torch, gen, dev, errs)
     compare_tall(torch, gen, dev, errs)
     compare_onehot(torch, gen, dev, errs)
     compare_limb_edges(torch, gen, dev, errs)
@@ -281,6 +290,85 @@ def compare_slide(torch, gen, dev, errs) -> None:
     same(ops.aa_slide_rows(rel, pat=pat, height=500, **blocks),
          aa.aa_slide_rows_plain(rel, pat=pat, height=500, **blocks),
          "aa_slide_rows")
+
+
+def compare_staging_edges(torch, gen, dev, errs) -> None:
+    """The match and the slide (k = 2) vs their plain versions where the
+    staging is tightest: all-(p−1) and all-(2³¹−1) operands at W = 8,
+    A = 69; prefix views of k = 1 and 4 positions (rows of k·276 bytes,
+    a partial last 16-byte copy); a (5, 33) row of 660 bytes at a pitch of
+    168 words on the 16-byte route; zero-length and one-row blocks in the
+    rows form; a B-stride-0 stack larger than one chunk of patterns; a
+    slide whose tile rows take several passes (1,300 one-symbol positions,
+    k = 1,173). Each stack is one launch."""
+    from repro_torch.kernels import aa_match as aa
+    from repro_torch.kernels import ops
+
+    forms = {"aa_match_batch": (ops.aa_match_batch, aa.aa_match_batch_plain),
+             "aa_slide_batch": (ops.aa_slide_batch, aa.aa_slide_batch_plain)}
+
+    def same(col, pat_fn, what, route=16, chunks=None):
+        for name, (fn, plain) in forms.items():
+            w = col.shape[-2]
+            k = w if name == "aa_match_batch" else min(2, w)
+            pat = pat_fn(col.shape[:2] + (k, col.shape[-1]))
+            pl = aa.batch_plan(col, 0 if name == "aa_match_batch" else k)
+            check(pl.copy_bytes == route, f"{what}: {pl.copy_bytes}-byte "
+                  f"copies, not {route}")
+            check(chunks is None or len(pl.chunks) == chunks,
+                  f"{what}: {len(pl.chunks)} chunks, not {chunks}")
+            before = ops.launch_counts()[name]
+            got, want = fn(col, pat), plain(col, pat)
+            torch.cuda.synchronize()
+            check(ops.launch_counts()[name] == before + 1,
+                  f"{name} {what}: not one launch")
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"{name} {what} differs from its plain version")
+            errs[name] = max(errs[name], max_err(torch, got, want))
+
+    def rand(shape):
+        return rand_field(torch, gen, shape, dev)
+
+    for value in (P - 1, 2**31 - 1):
+        col = torch.full((2, 1, 300, 8, 69), value, dtype=torch.int32,
+                         device=dev)
+        same(col, lambda sh: torch.full(sh, value, dtype=torch.int32,
+                                        device=dev), f"all-{value}")
+    rel = rand((3, 700, 5, 8, 69))
+    for k in (1, 4):
+        same(rel[..., :k, :][:, :, 2][:, None], rand, f"prefix k={k}")
+    buf = rand((2, 3, 301, 168))
+    same(buf[..., :165].unflatten(-1, (5, 33)), rand, "(5, 33) at pitch 168")
+    cap = max(aa.tile_layout(8, 69, k, 10**6)[2] for k in (2, 8))
+    same(rel[:, :, 1][:, None].expand(3, cap + 5, 700, 8, 69), rand,
+         f"B-stride-0 stack of {cap + 5}", chunks=2)
+    # 1,300 one-symbol positions against 1,173 tile rows: several passes
+    long_words = rand((1, 2, 37, 1300, 1))
+    tile = rand((1, 2, 1173, 1))
+    check(aa.batch_plan(long_words, 1173).k_pass < 1173,
+          "the 1,173-row tile did not split into passes")
+    got = ops.aa_slide_batch(long_words, tile)
+    want = aa.aa_slide_batch_plain(long_words, tile)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "aa_slide_batch in passes differs")
+    errs["aa_slide_batch"] = max(errs["aa_slide_batch"],
+                                 max_err(torch, got, want))
+    for height, lengths in ((1, [0, 1, 0]), (64, [0, 0, 0]),
+                            (700, [700, 1, 0])):
+        blocks = dict(columns=[1, 1, 3], starts=[0, 699, 5], lengths=lengths,
+                      height=height)
+        for name, fn, plain, k in (
+                ("aa_match_batch", ops.aa_match_rows, aa.aa_match_rows_plain,
+                 8),
+                ("aa_slide_batch", ops.aa_slide_rows, aa.aa_slide_rows_plain,
+                 3)):
+            pat = rand((3, 3, k, 69))
+            got = fn(rel, pat=pat, **blocks)
+            want = plain(rel, pat=pat, **blocks)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} rows form, lengths "
+                  f"{lengths} at height {height}, differs")
+            errs[name] = max(errs[name], max_err(torch, got, want))
 
 
 def compare_tall(torch, gen, dev, errs) -> None:
@@ -969,14 +1057,25 @@ def full_shape_kernels(torch, db, errs, launches):
                 height=max(e - s for s, e in bounds))
     same(ops.aa_match_rows(rel, **tree), aa.aa_match_rows_plain(rel, **tree),
          "aa_match_rows tree round")
-    tree_ms = time_ms(torch, lambda: ops.aa_match_rows(rel, **tree), 10)
-    log(f"aa_match_rows tree round {len(bounds)} x {tree['height']}: "
-        f"{tree_ms} ms")
-    aa_ms = time_ms(torch, lambda: ops.aa_match_batch(col, pat), 20)
+    # a one-column stack of 8 predicates: one launch, one read of the column
+    words = ["Quinn", "Zorro", "Nobody", "Anna", "Bo", "Carla", "Dmitri",
+             "Eve"]
+    pats8 = torch.stack([shared(word, first) for word in words], dim=1)
+    col8 = col.expand(c, len(words), n, w, a)
+    before = ops.launch_counts()["aa_match_batch"]
+    same(ops.aa_match_batch(col8, pats8), aa.aa_match_batch_plain(col8, pats8),
+         "aa_match_batch one-column stack of 8")
+    check(ops.launch_counts()["aa_match_batch"] == before + 1,
+          "the one-column stack of 8 was not one launch")
+    del pats8
+    aa_times = time_aa_shapes(torch, ops, rel)
+    for name, (ms, nbytes, nops) in aa_times.items():
+        bound_ms, _ = bound(nbytes, nops)
+        note = bound_note(nbytes, nops, INT32_OPS_PER_S)
+        log(f"{name}: {ms} ms, bound {note}, {bound_ms / ms:.1%} of the "
+            f"bound")
     aa_plain_ms = time_ms(torch, lambda: aa.aa_match_batch_plain(col, pat),
                           2)
-    aa_bytes = 4 * (c * n * w * a + c * w * a + c * n)
-    aa_ops = 2 * c * n * w * a + c * n * (w - 1)
 
     flat = rel.reshape(c, n, m * w * a)                # fetch: (c,R,n)@...
     bits = rand_field(torch,                           # one_tuple: (c,1,n)
@@ -1043,7 +1142,7 @@ def full_shape_kernels(torch, db, errs, launches):
         f"{bound_note(*fetch_cost(1000))}")
     del fetch
 
-    slide = slide_full_shapes(torch, db, errs, key)
+    slide_plain = slide_full_shapes(torch, db, errs, key)
     ripple = ripple_full_shapes(torch, db, errs, key)
 
     def entry(name, source, replaces, ms, plain_ms, nbytes, nops,
@@ -1057,11 +1156,14 @@ def full_shape_kernels(torch, db, errs, launches):
 
     aa_src = "src/repro_torch/kernels/csrc/aa_match.cu"
     ss_src = "src/repro_torch/kernels/csrc/ss_matmul.cu"
+    match_ms, *match_cost = aa_times[MATCH_TIMED]
+    slide_ms, *slide_cost = aa_times[SLIDE_TIMED]
     return [entry("aa_match_batch", aa_src,
-                  "src/repro/kernels/aa_match.py:81", aa_ms, aa_plain_ms,
-                  aa_bytes, aa_ops),
+                  "src/repro/kernels/aa_match.py:81", match_ms, aa_plain_ms,
+                  *match_cost),
             entry("aa_slide_batch", aa_src,
-                  "src/repro/kernels/aa_match.py:146", *slide),
+                  "src/repro/kernels/aa_match.py:146", slide_ms, slide_plain,
+                  *slide_cost),
             entry("ss_matmul", ss_src, "src/repro/kernels/ss_matmul.py:87",
                   ss_ms, ss_plain_ms, *fetch_cost(1000)),
             entry("ss_matmul_tall", ss_src,
@@ -1120,8 +1222,8 @@ def slide_full_shapes(torch, db, errs, key):
     substring count's (k = 3) windows over FirstName, a B-stride-0 view of
     the relation, the tree's k = 5 windows over EmployeeId, and the mixed
     batch's distinct-column group (LastName and Department, k = 3) through
-    ``aa_slide_rows``; each against the plain version, k = 2 timed.
-    Returns (ms, plain_ms, bytes, operations) at k = 2."""
+    ``aa_slide_rows``; each against the plain version. Returns the plain
+    version's ms at k = 2 (the kernel is timed by time_aa_shapes)."""
     from repro_torch import _device
     from repro_torch.core import encoding
     from repro_torch.core.encoding import PatternSpec
@@ -1162,11 +1264,64 @@ def slide_full_shapes(torch, db, errs, key):
     same(ops.aa_slide_rows(rel, **rows), aa.aa_slide_rows_plain(rel, **rows),
          "aa_slide_rows distinct-column group")
     pat = tile("suffix", "nn", 2)[:, None]
-    ms = time_ms(torch, lambda: ops.aa_slide_batch(first, pat), 20)
-    plain_ms = time_ms(torch, lambda: aa.aa_slide_batch_plain(first, pat), 2)
-    m_win = w - 1
-    return (ms, plain_ms, 4 * (c * n * w * a + c * 2 * a + c * n * m_win),
-            2 * c * n * m_win * 2 * a + c * n * m_win)
+    return time_ms(torch, lambda: aa.aa_slide_batch_plain(first, pat), 2)
+
+
+#: the shapes of time_aa_shapes that stand for the two kernels in the
+#: kernels line (the count stack and the suffix count's windows).
+MATCH_TIMED = "aa_match_batch count stack (c, 1, n, 8, 69)"
+SLIDE_TIMED = "aa_slide_batch k=2 FirstName"
+
+
+def time_aa_shapes(torch, ops, rel, reps: int = 10):
+    """The match and slide kernels at phase 4's shapes over the relation
+    ``rel`` (c, n, m, W, A), with random pattern tiles (the work does not
+    depend on the values): the count stack, a one-column stack of 8
+    predicates, the ℓ = 16 tree round's 16 row blocks, and the windows of
+    k = 2, 3 (FirstName) and 5 (EmployeeId). -> name -> (ms, bytes,
+    operations); the bytes read each column once."""
+    from repro_torch.core.partition import split_bounds
+    c, n, _, w, a = rel.shape
+    gen = torch.Generator(device=rel.device).manual_seed(13)
+
+    def tile(b, k):
+        return rand_field(torch, gen, (c, b, k, a), rel.device)
+
+    def match_cost(b, height=n):
+        return (4 * (c * n * w * a + c * b * w * a + c * b * height),
+                b * (2 * c * n * w * a + c * n * (w - 1)))
+
+    def slide_cost(k):
+        m = w - k + 1
+        return (4 * (c * n * w * a + c * k * a + c * n * m),
+                2 * c * n * m * k * a + c * n * m * (k - 1))
+
+    first = NAMES.index("FirstName")
+    col = rel[:, :, first][:, None]
+    ids = rel[:, :, NAMES.index("EmployeeId")][:, None]
+    bounds = split_bounds(0, n, 16)
+    height = max(e - s for s, e in bounds)
+    tree = dict(columns=[first] * len(bounds), starts=[s for s, _ in bounds],
+                lengths=[e - s for s, e in bounds],
+                pat=tile(1, w).expand(c, len(bounds), w, a), height=height)
+    p1, p8 = tile(1, w), tile(8, w)
+    shapes = {
+        MATCH_TIMED: (lambda: ops.aa_match_batch(col, p1), *match_cost(1)),
+        "aa_match_batch one-column stack (c, 8, n, 8, 69)": (
+            lambda: ops.aa_match_batch(col.expand(c, 8, n, w, a), p8),
+            *match_cost(8)),
+        f"aa_match_rows tree round 16 x {height}": (
+            lambda: ops.aa_match_rows(rel, **tree),
+            4 * (c * n * w * a + c * 16 * w * a + c * 16 * height),
+            match_cost(1)[1])}
+    for k, src, tag in ((2, col, "FirstName"), (3, col, "FirstName"),
+                        (5, ids, "EmployeeId")):
+        pk = tile(1, k)
+        shapes[f"aa_slide_batch k={k} {tag}"] = (
+            lambda src=src, pk=pk: ops.aa_slide_batch(src, pk),
+            *slide_cost(k))
+    return {name: (time_ms(torch, fn, reps), nbytes, nops)
+            for name, (fn, nbytes, nops) in shapes.items()}
 
 
 #: operations per lane of one SS-SUB bit step, a mod-p multiply counting
@@ -1231,16 +1386,47 @@ def ripple_full_shapes(torch, db, errs, key):
     return out
 
 
+def aa_times_only(torch, args) -> int:
+    """``--aa-times SRC``: build SRC's kernels, fill a (20, n, 5, 8, 69)
+    relation with random field elements and print the match and slide
+    kernels' ms at phase 4's shapes (two checkouts compare on one card when
+    both run in one call, in turns)."""
+    import repro_torch
+    from repro_torch.kernels import _build, ops
+    _build.build_all()
+    rel = torch.empty((20, args.tuples, len(NAMES), 8, 69), dtype=torch.int32,
+                      device="cuda")
+    for z in range(rel.shape[0]):
+        rel[z].random_(0, P)
+    times = time_aa_shapes(torch, ops, rel)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print(json.dumps({"src": os.path.dirname(repro_torch.__file__),
+                      "card": smi[0],
+                      "ms": {k: v[0] for k, v in times.items()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tuples", type=int, default=131072)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--aa-times", metavar="SRC",
+                    help="only time the match and slide kernels of the port "
+                         "under SRC (the src/ directory of a checkout) at "
+                         "phase 4's shapes, on random shares of the "
+                         "Employee relation's shape, and print them as JSON")
     args = ap.parse_args()
+    if args.aa_times:
+        sys.path.insert(0, os.path.abspath(args.aa_times))
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.aa_times:
+        return aa_times_only(torch, args)
     from repro_torch.api import planner
     from repro_torch.kernels import _build
 

@@ -20,6 +20,13 @@ Each has two call forms that reach the same kernel:
   tree blocks without a gather). Output (c, B, height[, M]), 0 past each
   row's length.
 
+Both entries run one kernel body (the match is the slide at k = W). The
+launch plan is pure Python (:func:`plan`): batch rows that read the same
+source (equal offset and length, e.g. every B-stride-0 stack) form one
+group, which the kernel stages once a tile and runs every pattern of over;
+groups are cut into chunks that fit in shared memory; copies are 16 bytes
+wide where every tuple row starts 16-byte aligned, else 4.
+
 The ``*_plain`` functions compute the same values with torch ops on any
 device; the CPU path and the tests use them, and ``chip_smoke.py`` holds
 the kernels against them on the card.
@@ -27,7 +34,7 @@ the kernels against them on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -38,12 +45,15 @@ from . import _build
 
 #: elements of int64 work per chunk of the plain version (bounds memory).
 _PLAIN_CHUNK = 1 << 26
-#: shared-memory bytes a block may use without an opt-in.
-_MAX_SMEM_BYTES = 48 * 1024
-#: warps per block of the slide kernel (each stages one (W, A) row), and
-#: the windows M = W − k + 1 it keeps in registers (4 per lane).
-_SLIDE_WARPS = 8
-_MAX_WINDOWS = 128
+#: 62-bit products the kernel's 64-bit dot sums take between Mersenne
+#: folds (keep equal to kFoldEvery in csrc/aa_match.cu).
+FOLD_EVERY = 3
+#: dynamic shared memory a block may use on the H100 (after the opt-in),
+#: the bytes one staged tile of rows aims at (two are staged: one in
+#: flight while the block computes the other) and its most tuples.
+_MAX_SMEM_BYTES = 232448
+_STAGE_BYTES = 72 * 1024
+_MAX_TILE_ROWS = 128
 
 #: match and slide kernel launches since the last reset (read by
 #: chip_smoke.py).
@@ -122,13 +132,133 @@ def aa_slide_rows_plain(rel: torch.Tensor, columns: Sequence[int],
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels
+# CUDA kernels: the launch plan (pure Python) and the launcher
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+class Plan(NamedTuple):
+    """How one launch stages its rows: the staged row pitch in words, the
+    tuples a tile, the batch rows a chunk at most, the pattern rows whose
+    dots one pass holds, the dynamic shared memory in bytes, the copy width
+    in bytes and the chunks (element offset, length, batch rows)."""
+    pitch: int
+    rows: int
+    patterns: int
+    k_pass: int
+    smem: int
+    copy_bytes: int
+    chunks: List[Tuple[int, int, List[int]]]
+
+
+def row_pitch(w: int, a: int) -> int:
+    """Words a staged (W, A) row takes: W·A rounded up to 16 bytes, plus the
+    padding (a multiple of 4 words, under 32) that spreads the first warp's
+    (tuple, position) lanes over the most distinct banks at one alphabet
+    index."""
+    base = -(-w * a // 4) * 4
+    lanes = [divmod(e, w) for e in range(32)]              # (tuple, position)
+
+    def clash(pitch):
+        banks = [(r * pitch + j * a) % 32 for r, j in lanes]
+        return max(banks.count(x) for x in set(banks))
+    return min((base + pad for pad in range(0, 32, 4)), key=clash)
+
+
+def smem_bytes(w: int, a: int, k: int, rows: int, pitch: int,
+               patterns: int, k_pass: int = 0) -> int:
+    """Dynamic shared memory of a block: two staged tiles, then per batch
+    row of a chunk its (k, A) tile, the dots of one pass over ``k_pass``
+    (default k) tile rows (rows · M · (k_pass | 1) words), the windows'
+    running products when a tile takes several passes (rows · M words) and
+    its index (the layout ``launch`` in csrc/aa_match.cu sizes the same
+    way)."""
+    k_pass = k_pass or k
+    m = w - k + 1
+    per = k * a + rows * m * ((k_pass | 1) + (k_pass < k)) + 1
+    return 4 * (2 * rows * pitch + patterns * per)
+
+
+def tile_layout(w: int, a: int, k: int, n_pat: int
+                ) -> Tuple[int, int, int, int]:
+    """-> (pitch, rows, patterns, k_pass): the tuples of a tile (a power of
+    two up to ``_MAX_TILE_ROWS`` whose staged rows fit ``_STAGE_BYTES``,
+    halved until one pattern fits beside two of them), the batch rows of a
+    chunk (as many of ``n_pat`` as fit in ``_MAX_SMEM_BYTES``) and the tile
+    rows a pass (k, halved only where one tuple's dots do not fit: words of
+    hundreds of positions over a tiny alphabet)."""
+    pitch = row_pitch(w, a)
+    rows, k_pass = _MAX_TILE_ROWS, k
+
+    def one():
+        return smem_bytes(w, a, k, rows, pitch, 1, k_pass)
+    while rows > 1 and rows * pitch * 4 > _STAGE_BYTES:
+        rows //= 2
+    while rows > 1 and one() > _MAX_SMEM_BYTES:
+        rows //= 2
+    while k_pass > 1 and one() > _MAX_SMEM_BYTES:
+        k_pass = -(-k_pass // 2)
+    if one() > _MAX_SMEM_BYTES:
+        raise ValueError(f"W·A = {w * a} (k = {k}) exceeds the kernel's "
+                         f"shared memory ({one()} > {_MAX_SMEM_BYTES} bytes)")
+    per = smem_bytes(w, a, k, rows, pitch, 2, k_pass) - one()
+    cap = 1 + (_MAX_SMEM_BYTES - one()) // per
+    return pitch, rows, min(cap, n_pat), k_pass
+
+
+def group_rows(offsets: Sequence[int], lengths: Sequence[int]
+               ) -> Dict[Tuple[int, int], List[int]]:
+    """(offset, length) -> the batch rows that read that source, in order
+    of first appearance."""
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for b, key in enumerate(zip(offsets, lengths)):
+        groups.setdefault(key, []).append(b)
+    return groups
+
+
+def chunk_groups(groups: Dict[Tuple[int, int], List[int]], cap: int
+                 ) -> List[Tuple[int, int, List[int]]]:
+    """Each group cut into chunks (offset, length, batch rows) of at most
+    ``cap`` rows."""
+    return [(off, ln, rows[i:i + cap]) for (off, ln), rows in groups.items()
+            for i in range(0, len(rows), cap)]
+
+
+def pack_chunks(chunks: Sequence[Tuple[int, int, Sequence[int]]]
+                ) -> List[int]:
+    """The kernel's chunk table: offsets, lengths, firsts and counts (one
+    each a chunk), then every chunk's batch rows."""
+    firsts, rows = [], []
+    for _, _, members in chunks:
+        firsts.append(len(rows))
+        rows.extend(members)
+    return ([off for off, _, _ in chunks] + [ln for _, ln, _ in chunks]
+            + firsts + [len(m) for _, _, m in chunks] + rows)
+
+
+def copy_route(ptr: int, stride_c: int, stride_n: int,
+               offsets: Sequence[int]) -> int:
+    """16 when every tuple row starts 16-byte aligned (the base pointer,
+    and every element stride and offset a multiple of 4), else 4."""
+    aligned = ptr % 16 == 0 and all(x % 4 == 0 for x in
+                                    (stride_c, stride_n, *offsets))
+    return 16 if aligned else 4
+
+
+def plan(ptr: int, offsets: Sequence[int], lengths: Sequence[int],
+         stride_c: int, stride_n: int, w: int, a: int, k: int) -> Plan:
+    """The launch plan of a (W, A) source read with a (k, A) tile
+    (k = W for the word match)."""
+    groups = group_rows(offsets, lengths)
+    pitch, rows, patterns, k_pass = tile_layout(
+        w, a, k, max(map(len, groups.values())))
+    return Plan(pitch, rows, patterns, k_pass,
+                smem_bytes(w, a, k, rows, pitch, patterns, k_pass),
+                copy_route(ptr, stride_c, stride_n, offsets),
+                chunk_groups(groups, patterns))
+
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _lib(entry: str):
@@ -143,39 +273,34 @@ def _launch(src: torch.Tensor, offsets: Sequence[int],
             pat: torch.Tensor, height: int, w: int, a: int,
             k: int = 0) -> torch.Tensor:
     """Launch the match (``k = 0``: a (W, A) pattern per row, output
-    (c, B, height)) or the slide kernel (a (k, A) tile, output
+    (c, B, height)) or the slide (a (k, A) tile, output
     (c, B, height, W − k + 1))."""
     global launches, slide_launches
     c, nb = src.shape[0], len(offsets)
     if src.dtype != DTYPE or pat.dtype != DTYPE:
         raise TypeError("aa_match kernels take int32 field tensors")
-    rows = k or w
-    if pat.device != src.device or tuple(pat.shape) != (c, nb, rows, a):
+    tile = k or w
+    if pat.device != src.device or tuple(pat.shape) != (c, nb, tile, a):
         raise ValueError(f"pattern {tuple(pat.shape)} on {pat.device} does "
-                         f"not match ({c}, {nb}, {rows}, {a}) on "
+                         f"not match ({c}, {nb}, {tile}, {a}) on "
                          f"{src.device}")
-    if k and not (1 <= k <= w and w - k < _MAX_WINDOWS):
-        raise ValueError(f"slide tile of {k} positions on words of {w} "
-                         f"(the kernel keeps at most {_MAX_WINDOWS} windows)")
-    # the slide kernel also stages each warp's (W, A) row in shared memory
-    smem = 4 * (rows * a + (_SLIDE_WARPS * w * a if k else 0))
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"W·A = {w * a} exceeds the kernel's shared memory")
-    if nb > 65535 or c > 65535:
-        raise ValueError("aa_match kernel grid: B and c must be <= 65535")
+    if k and not 1 <= k <= w:
+        raise ValueError(f"slide tile of {k} positions on words of {w}")
     shape = (c, nb, height) + ((w - k + 1,) if k else ())
     out = torch.empty(shape, dtype=DTYPE, device=src.device)
     if out.numel() == 0:
         return out
+    pl = plan(src.data_ptr(), offsets, lengths, stride_c, stride_n, w, a,
+              tile)
     pat = pat.contiguous()
     dev = src.device
-    off_t = torch.tensor(list(offsets), dtype=torch.int64).to(dev)
-    len_t = torch.tensor(list(lengths), dtype=torch.int32).to(dev)
+    desc = torch.tensor(pack_chunks(pl.chunks), dtype=torch.int64).to(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry = "aa_slide_rows_u32" if k else "aa_match_rows_u32"
-    err = _lib(entry)(src.data_ptr(), off_t.data_ptr(), len_t.data_ptr(),
+    err = _lib(entry)(src.data_ptr(), desc.data_ptr(), len(pl.chunks),
                       stride_c, stride_n, pat.data_ptr(), out.data_ptr(), c,
-                      nb, height, w, a, k, stream)
+                      nb, height, w, a, tile, pl.rows, pl.pitch, pl.patterns,
+                      pl.k_pass, int(pl.copy_bytes == 16), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     if k:
@@ -202,12 +327,26 @@ def _check_rows_layout(x: torch.Tensor, w: int, a: int) -> torch.Tensor:
     return x
 
 
+def _stack_source(col: torch.Tensor) -> tuple:
+    """(offsets, lengths, stride_c, stride_n) of a (c, B, n, W, A) stack."""
+    _, b, n = col.shape[:3]
+    return ([i * col.stride(1) for i in range(b)], [n] * b, col.stride(0),
+            col.stride(2))
+
+
+def batch_plan(col: torch.Tensor, k: int = 0) -> Plan:
+    """The launch plan of ``aa_match_batch_cuda(col, ·)`` (``k = 0``) or of
+    ``aa_slide_batch_cuda`` with a (k, A) tile, for a (c, B, n, W, A) stack
+    the kernel reads in place."""
+    w, a = col.shape[-2:]
+    return plan(col.data_ptr(), *_stack_source(col), w, a, k or w)
+
+
 def aa_match_batch_cuda(col: torch.Tensor, pat: torch.Tensor) -> torch.Tensor:
     """col (c, B, n, W, A) strided view, pat (c, B, W, A) -> (c, B, n)."""
-    c, b, n, w, a = col.shape
+    n, w, a = col.shape[2:]
     col = _check_rows_layout(col, w, a)
-    return _launch(col, [i * col.stride(1) for i in range(b)], [n] * b,
-                   col.stride(0), col.stride(2), pat, n, w, a)
+    return _launch(col, *_stack_source(col), pat, n, w, a)
 
 
 def aa_match_rows_cuda(rel: torch.Tensor, columns: Sequence[int],
@@ -226,11 +365,9 @@ def aa_match_rows_cuda(rel: torch.Tensor, columns: Sequence[int],
 def aa_slide_batch_cuda(col: torch.Tensor, pat: torch.Tensor
                         ) -> torch.Tensor:
     """col (c, B, n, W, A) strided view, pat (c, B, k, A) -> (c, B, n, M)."""
-    c, b, n, w, a = col.shape
+    n, w, a = col.shape[2:]
     col = _check_rows_layout(col, w, a)
-    return _launch(col, [i * col.stride(1) for i in range(b)], [n] * b,
-                   col.stride(0), col.stride(2), pat, n, w, a,
-                   k=pat.shape[-2])
+    return _launch(col, *_stack_source(col), pat, n, w, a, k=pat.shape[-2])
 
 
 def aa_slide_rows_cuda(rel: torch.Tensor, columns: Sequence[int],

@@ -59,8 +59,10 @@ def test_aa_match_batch_kernel_equals_plain(cuda, c, b, n, w, a):
     torch.cuda.synchronize()
     assert torch.equal(got, aa_match.aa_match_batch_plain(col, pat))
     one = col[:, :1].expand(c, b, n, w, a)
+    ops.reset_launch_counts()
     assert torch.equal(ops.aa_match_batch(one, pat),
                        aa_match.aa_match_batch_plain(one, pat))
+    assert ops.launch_counts()["aa_match_batch"] == 1     # one read of col
 
 
 def test_aa_match_rows_kernel_equals_plain(cuda):
@@ -138,6 +140,93 @@ def test_aa_slide_rows_kernel_equals_plain(cuda):
     tile = torch.full((2, 1, 2, 7), P - 1, dtype=torch.int32, device=cuda)
     assert torch.equal(ops.aa_slide_batch(full, tile),
                        aa_match.aa_slide_batch_plain(full, tile))
+
+
+# ---------------------------------------------------------------------------
+# the match and slide kernels: where their staging is tightest
+# ---------------------------------------------------------------------------
+
+def _staging_edge(case, dev):
+    """-> (column stack (c, B, n, W, A), value of a constant pattern or
+    None for a random one, 16 if the stack must take 16-byte copies)."""
+    if case in ("all-(p-1)", "all-(2^31-1)"):
+        value = P - 1 if case == "all-(p-1)" else 2**31 - 1
+        return torch.full((2, 1, 300, 8, 69), value, dtype=torch.int32,
+                          device=dev), value, 16
+    if case.startswith("prefix-"):         # k·A words: a partial last copy
+        k = int(case[-1])
+        rel = _field((3, 700, 5, 8, 69), 40, dev)
+        return rel[..., :k, :][:, :, 2][:, None], None, 16
+    if case == "tail":                     # W·A·4 = 660 B, pitch 168 words
+        buf = _field((2, 3, 301, 168), 41, dev)
+        return buf[..., :165].unflatten(-1, (5, 33)), None, 16
+    cap = aa_match.tile_layout(8, 69, 2, 10**6)[2]       # "chunked"
+    cap = max(cap, aa_match.tile_layout(8, 69, 8, 10**6)[2])
+    one = _field((2, 1, 300, 8, 69), 42, dev)
+    return one.expand(2, cap + 5, 300, 8, 69), None, 16
+
+
+@pytest.mark.parametrize("kind", ["match", "slide"])
+@pytest.mark.parametrize("case", ["all-(p-1)", "all-(2^31-1)", "prefix-1",
+                                  "prefix-4", "tail", "chunked"])
+def test_aa_kernels_staging_edges(cuda, case, kind):
+    """Extreme operands at full W, prefix views whose rows are not a
+    multiple of 16 bytes, a W·A·4 not a multiple of 16 on the 16-byte
+    route, and a B-stride-0 stack cut into chunks: bit-identical, one
+    launch each."""
+    col, value, route = _staging_edge(case, cuda)
+    c, b, n, w, a = col.shape
+    k = w if kind == "match" else min(2, w)
+    shape = (c, b, k, a)
+    pat = (_field(shape, 43, cuda) if value is None else
+           torch.full(shape, value, dtype=torch.int32, device=cuda))
+    pl = aa_match.batch_plan(col, 0 if kind == "match" else k)
+    assert pl.copy_bytes == route
+    if case == "chunked":
+        assert pl.patterns < b and len(pl.chunks) == 2
+    fn, plain, counter = (
+        (ops.aa_match_batch, aa_match.aa_match_batch_plain, "aa_match_batch")
+        if kind == "match" else
+        (ops.aa_slide_batch, aa_match.aa_slide_batch_plain, "aa_slide_batch"))
+    ops.reset_launch_counts()
+    got = fn(col, pat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(col, pat))
+    assert ops.launch_counts()[counter] == 1
+
+
+def test_aa_slide_kernel_tile_row_passes(cuda):
+    """Words of 1,300 one-symbol positions against a tile of 1,173 rows
+    (M = 128): one tuple's dots exceed shared memory, so a tile's rows
+    take several passes and each window's chain carries between them."""
+    col = _field((1, 2, 37, 1300, 1), 46, cuda)
+    pat = _field((1, 2, 1173, 1), 47, cuda)
+    pl = aa_match.batch_plan(col, 1173)
+    assert 1 < pl.k_pass < 1173
+    ops.reset_launch_counts()
+    got = ops.aa_slide_batch(col, pat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aa_match.aa_slide_batch_plain(col, pat))
+    assert ops.launch_counts()["aa_slide_batch"] == 1
+
+
+@pytest.mark.parametrize("kind", ["match", "slide"])
+@pytest.mark.parametrize("height,lengths", [(1, [0, 1, 0]), (64, [0, 0, 0]),
+                                            (300, [300, 1, 0])])
+def test_aa_rows_zero_and_one_row_blocks(cuda, kind, height, lengths):
+    """Blocks of no tuple and of one, in the rows form: zeros past each
+    block's length, and a launch whose every block is empty."""
+    rel = _field((3, 700, 5, 8, 69), 44, cuda)
+    k = 8 if kind == "match" else 3
+    pat = _field((3, 3, k, 69), 45, cuda)
+    blocks = dict(columns=[1, 1, 3], starts=[0, 699, 5], lengths=lengths,
+                  pat=pat, height=height)
+    fn, plain = ((ops.aa_match_rows, aa_match.aa_match_rows_plain)
+                 if kind == "match" else
+                 (ops.aa_slide_rows, aa_match.aa_slide_rows_plain))
+    got = fn(rel, **blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(rel, **blocks))
 
 
 @pytest.mark.parametrize("m", [1, 3, 17, 69, 255, 256])
