@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--tuples 131072] [--seed 0]
     python3 chip_smoke.py --aa-times SRC      # only the match/slide times
+    python3 chip_smoke.py --ripple-times SRC  # only the ripple times
 
 Phases, any failure exits non-zero:
 
@@ -24,7 +25,11 @@ Phases, any failure exits non-zero:
    full W, prefix views of k = 1 and 4 positions, a row of 660 bytes on
    the 16-byte copy route, zero-length and one-row blocks, a B-stride-0
    stack cut into two chunks of patterns, and a slide whose 1,173 tile
-   rows take several passes, each one launch).
+   rows take several passes, each one launch; both of the ripple kernel's
+   routes — bit-major planes and interleaved rows — at k = 1..13, LSB and
+   carried, on ragged 4-lane tails, carry rows off 16-byte bounds, shard
+   slices at 16- and 4-byte offsets (bit-major, strided) and one-lane
+   rows, each call on the route its plan names).
 3. Drive the main paths through the public entry points at full size: the
    README's Employee schema (5 string attributes, word length 8, A = 69,
    degree 1, c = 20 clouds) over ``--tuples`` synthetic rows made from
@@ -55,13 +60,18 @@ Phases, any failure exits non-zero:
    the distinct-column count and a tree round's 16 row blocks
    (``aa_match_rows``), the fetch, the one_tuple and the
    conditional-SUM contractions, the range's first ripple segment, a
-   carried k = 1 step and the tournament's first level, the sliding-window
+   carried k = 1 step and the tournament's levels 1 and 10 (operands built
+   bit-major by the path's helpers; the range's also interleaved, on the
+   strided route), the sliding-window
    match of the suffix and substring counts, the tall-skinny fetch at
    R = 3, 69 and 256 rows and the ℓ = 1,000 fetch on the general kernel,
    the one-hot sharing of a 256-token prefill and the embedding
    contraction at M = 8 and 256 (on the tall and on the general kernel);
    time kernel and plain version there (CUDA events; the match at B = 1
-   and 8 and over the tree round, the slide at k = 2, 3 and 5), each
+   and 8 and over the tree round, the slide at k = 2, 3 and 5; the ripple
+   kernel on both routes, the median of CUDA-graph replays, beside the
+   launcher's host µs a call, and the ripple operand builds against the
+   interleaved ``torch.cat``/``torch.where``/``torch.stack``), each
    beside its bound: bytes at 3.35 TB/s or operations, at the int32 rate,
    or for the two matmul kernels at the tensor cores' int8 rate (32 int8
    operations per modular multiply-accumulate). Prints the phase's peak device
@@ -511,6 +521,52 @@ def compare_ripple(torch, gen, dev, errs) -> None:
     same_ripple(torch, ops.ripple_segment(x1, x2),
                 rip.ripple_segment_plain(x1, x2), 8, errs,
                 "ripple tournament pair view")
+    compare_ripple_routes(torch, gen, dev, errs)
+
+
+def compare_ripple_routes(torch, gen, dev, errs) -> None:
+    """Both of the ripple kernel's routes at k = 1..13, LSB and carried
+    (carry rows 16-byte aligned and not), at the bit offset 13 − k over
+    1,027 lanes a row (a ragged 4-lane tail): bit-major operands
+    (``ripple.bit_major``) on the bit-major route, interleaved ones on the
+    strided route; then bit-major shard slices at 16- and 4-byte offsets
+    (bit-major, strided), the tournament's operands from
+    ``ripple.bit_major_where`` and one-lane rows. Each call must take the
+    route named."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ripple as rip
+
+    def on(route, a, b, carry):
+        before = ops.ripple_route_counts()[route]
+        got = rip.ripple_segment_cuda(a, b, carry)
+        check(ops.ripple_route_counts()[route] == before + 1,
+              f"ripple {route} case took another route")
+        same_ripple(torch, got, rip.ripple_segment_plain(a, b, carry),
+                    a.shape[-1], errs, f"ripple {route} route k="
+                    f"{a.shape[-1]}")
+
+    src = [rand_field(torch, gen, (3, 2, 1027, 13), dev) for _ in range(3)]
+    bm, inter = rip.bit_major(src, dim=1), torch.cat(src, dim=1)
+    carries = [None, rand_field(torch, gen, (3, 4, 1028), dev)[..., :1027],
+               rand_field(torch, gen, (3, 4, 1027), dev)]
+    for k in range(1, 14):
+        for carry in carries:
+            for route, rows in (("bit_major", bm), ("strided", inter)):
+                on(route, rows[:, :4, :, 13 - k:], rows[:, 2:, :, 13 - k:],
+                   carry)
+    full = rip.bit_major([rand_field(torch, gen, (3, 2, 600, 13), dev)], 1)
+    carry = rand_field(torch, gen, (3, 2, 700), dev)
+    for lo, route in ((4, "bit_major"), (77, "strided")):
+        on(route, full[:, :, lo:lo + 300, 8:13], full[:, :, lo:lo + 300, :5],
+           carry[..., lo:lo + 300])
+    is_min = torch.tensor([True, False], device=dev)[None, :, None, None]
+    x1, x2 = full[:, :, 0:598:2], full[:, :, 1:598:2]      # 299 pairs
+    on("bit_major", rip.bit_major_where(is_min, x1, x2)[..., :8],
+       rip.bit_major_where(is_min, x2, x1)[..., :8], None)
+    for lanes in (1, 2, 3, 5):
+        a = rip.bit_major([rand_field(torch, gen, (3, 2, lanes, 13), dev)], 1)
+        on("bit_major", a[..., :5], a[..., 8:], rand_field(
+            torch, gen, (3, 2, lanes), dev))
 
 
 #: kernels each path runs (its launch counters must rise during it). Every
@@ -709,6 +765,10 @@ def range_agg_path(torch, client, rows):
     check(outs[5].count == int(legal.sum()), "batch count differs")
     log(f"slice-2 peak device memory above the relation, GB: "
         + json.dumps({k: round(v, 3) for k, v in peaks.items()}))
+    routes = ops.ripple_route_counts()
+    log(f"slice-2 ripple launches by route {json.dumps(routes)}")
+    check(routes["strided"] == 0,
+          "a slice-2 ripple launch missed the bit-major route")
     return check_launches(torch, ops, "slice-2 path", SLICE2_KERNELS,
                           timings)
 
@@ -1329,12 +1389,162 @@ def time_aa_shapes(torch, ops, rel, reps: int = 10):
 RIPPLE_INIT_OPS, RIPPLE_STEP_OPS = 7, 12
 
 
+#: CUDA-graph replays before the timed ones, and the replays timed (each
+#: between its own pair of CUDA events; the median is reported).
+GRAPH_WARM, GRAPH_TIMED = 3, 9
+
+
+#: the card's clocks, power and throttle reasons (``nvidia-smi`` fields),
+#: logged before the ripple times: phase 4 reads the range's first segment
+#: slower than a fresh process does.
+CLOCKS = ("clocks.sm,clocks.mem,power.draw,temperature.gpu,"
+          "clocks_throttle_reasons.active")
+
+
+def smi(query: str, check: bool = True) -> str:
+    """``nvidia-smi --query-gpu=QUERY --format=csv,noheader`` of card 0
+    (without ``check``, what it printed, also when it failed)."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=check)
+    return (out.stdout.strip() or out.stderr.strip() or "no output"
+            ).splitlines()[0]
+
+
+def graph_ms(torch, fns):
+    """Device ms per call of ``fns`` (thunks run in turn): a CUDA graph of
+    at least 12 calls, replayed GRAPH_WARM times untimed, then GRAPH_TIMED
+    times each between CUDA events, so the launcher's host time does not
+    bound a 0.03 ms kernel. -> (median ms, host µs a call measured without
+    the graph, least and most ms of the timed replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:                       # warm-up outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for fn in fns:
+        fn()
+    host_us = (time.perf_counter() - t) / len(fns) * 1e6
+    torch.cuda.synchronize()
+    reps = max(1, 12 // len(fns))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+    for _ in range(GRAPH_WARM):
+        graph.replay()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(GRAPH_TIMED)]
+    torch.cuda.synchronize()
+    for start, stop in events:
+        start.record()
+        graph.replay()
+        stop.record()
+    torch.cuda.synchronize()
+    ms = sorted(start.elapsed_time(stop) / (reps * len(fns))
+                for start, stop in events)
+    del graph
+    return ms[len(ms) // 2], host_us, ms[0], ms[-1]
+
+
+def ripple_operands(torch, x, ends, bit_major):
+    """The range phase's operands over one binary column ``x`` (c, n, t)
+    with shared endpoints ``ends`` ((c, 1, 1, t) each): bit-major, as
+    ``range_phase`` builds them (``bit_major`` of the rows [lo, x, hi]),
+    and interleaved, as two ``torch.cat``s build them. -> (lhs, rhs)
+    twice."""
+    c, n, t = x.shape
+    a_all, b_all = (e.expand(c, 1, n, t) for e in ends)
+    rows = bit_major([a_all, x[:, None], b_all], dim=1)
+    inter = (torch.cat([a_all, x[:, None]], dim=1),
+             torch.cat([x[:, None], b_all], dim=1))
+    return (rows[:, :2], rows[:, 1:]), inter
+
+
+def tournament_operands(torch, cand, level: int, bit_major=None):
+    """A MIN tournament level's (lhs, rhs) over ``cand`` (c, 1, n, t):
+    every pair of a level-``level`` bracket, from the candidates' stride-2
+    pair views: with ``bit_major``, copies in the layout (and, for a MIN,
+    of the values) ``ripple.bit_major_where`` gives ``agg_minmax_rounds``;
+    without, interleaved, by ``torch.where`` as the parent built them."""
+    pairs = cand.shape[2] >> level
+    x1, x2 = cand[:, :, 0:2 * pairs:2], cand[:, :, 1:2 * pairs:2]
+    if bit_major is None:
+        is_min = torch.tensor([True], device=cand.device)[None, :, None,
+                                                          None]
+        return torch.where(is_min, x1, x2), torch.where(is_min, x2, x1)
+    return bit_major([x1], dim=1), bit_major([x2], dim=1)
+
+
+def ripple_times(torch, ops, x, ends, bit_major):
+    """The ripple kernel at phase 4's shapes over the column ``x``, each
+    through a CUDA graph (``graph_ms``): the range phase's first segment
+    (c, 2, n, 8) and its carried k = 1 steps (rotating over bit planes
+    1..12, as ``reduce_every=1`` does, so that L2 does not serve the same
+    planes again), bit-major and interleaved, MIN tournament levels 1 and
+    10 (the k = 8 segment, bit-major) and both levels' two segments
+    (k = 8, then 5 carried, as ``reduce_every=8`` runs them), bit-major
+    and interleaved. Interleaved operands take the strided route. ->
+    name -> (median ms, host µs, least ms, most ms, bytes, operations)."""
+    c, n, t = x.shape
+    (lhs, rhs), (ilhs, irhs) = ripple_operands(torch, x, ends, bit_major)
+    call = ops.ripple_segment
+    lanes = c * 2 * n
+    seg_cost = (4 * lanes * (2 * 8 + 2),
+                lanes * (RIPPLE_INIT_OPS + 7 * RIPPLE_STEP_OPS))
+    carry_cost = (4 * lanes * (2 + 2 + 1), lanes * RIPPLE_STEP_OPS)
+    carry = call(lhs[..., 0:1], rhs[..., 0:1])[1]
+    out = {}
+    for tag, (a, b) in (("bit-major", (lhs, rhs)),
+                        ("interleaved", (ilhs, irhs))):
+        out[f"range first segment {tag}"] = graph_ms(
+            torch, [lambda a=a, b=b: call(a[..., 0:8], b[..., 0:8])]) \
+            + seg_cost
+        out[f"carried k=1 step {tag}"] = graph_ms(
+            torch, [lambda j=j, a=a, b=b: call(
+                a[..., j:j + 1], b[..., j:j + 1], carry)
+                for j in range(1, t)]) + carry_cost
+    del lhs, rhs, ilhs, irhs
+    cand = bit_major([x[:, None]], dim=1)
+    icand = x[:, None].contiguous()
+
+    def level(a, b):                       # both segments of one level
+        return call(a[..., 8:], b[..., 8:], call(a[..., :8], b[..., :8])[1])
+
+    for lv in (1, 10):
+        a, b = tournament_operands(torch, cand, lv, bit_major)
+        m = c * a.shape[2]
+        out[f"tournament level {lv} {tuple(a[..., :8].shape)}"] = \
+            graph_ms(torch, [lambda a=a, b=b: call(
+                a[..., 0:8], b[..., 0:8])]) + (
+                4 * m * (2 * 8 + 2),
+                m * (RIPPLE_INIT_OPS + 7 * RIPPLE_STEP_OPS))
+        both = (4 * m * (2 * t + 2 + 3),
+                m * (RIPPLE_INIT_OPS + (t - 1) * RIPPLE_STEP_OPS))
+        ia, ib = tournament_operands(torch, icand, lv)
+        for tag, (a, b) in (("bit-major", (a, b)), ("interleaved", (ia, ib))):
+            out[f"tournament level {lv} both segments {tag}"] = graph_ms(
+                torch, [lambda a=a, b=b: level(a, b)]) + both
+    return out
+
+
 def ripple_full_shapes(torch, db, errs, key):
-    """Phase 4 for the ripple kernel: the range phase's first segment
-    (c, 2, n, 8) as ``range_count(reduce_every=8)`` builds it, a carried
-    k = 1 step of ``reduce_every=1`` and the MIN tournament's first level
-    (c, 1, n/2, 8); each against the plain version, the first two timed.
-    Returns name -> (ms, plain_ms, bytes, operations)."""
+    """Phase 4 for the ripple kernel, through the path's own helpers
+    (``ripple.bit_major``, ``ripple.bit_major_where``): the range phase's
+    first segment (c, 2, n, 8) and a carried k = 1 step as ``range_count``
+    builds them, and the MIN tournament's levels 1 and 10, each held
+    against the plain version on the route the path takes (bit-major)
+    and, for the range's operands laid out interleaved, on the strided
+    route; the operand builds timed against the interleaved
+    ``torch.cat``, ``torch.where`` and ``torch.stack`` they replace; the
+    kernel timed once on each layout (``ripple_times``). Returns name ->
+    (ms, plain_ms, bytes, operations) for the kernels line (bit-major, the
+    median of the timed replays)."""
     from repro_torch import _device
     from repro_torch.core import encoding
     from repro_torch.kernels import ops
@@ -1346,44 +1556,180 @@ def ripple_full_shapes(torch, db, errs, key):
     ends = [encoding.share_encoded(
         encoding.encode_number_bits(v, t), n_shares=c, device=dev,
         generator=_device.generator(key + (v,), dev)).values[:, None, None]
-        .expand(c, 1, n, t) for v in (500, 1500)]
-    lhs = torch.cat([ends[0], x[:, None]], dim=1)       # (c, 2, n, t)
-    rhs = torch.cat([x[:, None], ends[1]], dim=1)
-    lanes = c * 2 * n
-    out = {}
+        for v in (500, 1500)]
+    (lhs, rhs), (ilhs, irhs) = ripple_operands(torch, x, ends,
+                                               rip.bit_major)
 
-    a, b = lhs[..., 0:8], rhs[..., 0:8]
-    same_ripple(torch, ops.ripple_segment(a, b),
-                rip.ripple_segment_plain(a, b), 8, errs,
-                "ripple range first segment")
-    out["ripple_segment"] = (
-        time_ms(torch, lambda: ops.ripple_segment(a, b), 20),
-        time_ms(torch, lambda: rip.ripple_segment_plain(a, b), 2),
-        4 * lanes * (2 * 8 + 2),
-        lanes * (RIPPLE_INIT_OPS + 7 * RIPPLE_STEP_OPS))
+    def on(route, a, b, carry, k, what):
+        before = ops.ripple_route_counts()[route]
+        got = rip.ripple_segment_cuda(a, b, carry)
+        check(ops.ripple_route_counts()[route] == before + 1,
+              f"{what} did not take the {route} route")
+        same_ripple(torch, got, rip.ripple_segment_plain(a, b, carry), k,
+                    errs, f"{what} ({route})")
 
-    _, carry = ops.ripple_segment(lhs[..., 0:1], rhs[..., 0:1])
-    a, b = lhs[..., 1:2], rhs[..., 1:2]
-    same_ripple(torch, ops.ripple_segment(a, b, carry),
-                rip.ripple_segment_plain(a, b, carry), 1, errs,
-                "ripple carried k=1 step")
-    out["ripple_carry"] = (
-        time_ms(torch, lambda: ops.ripple_segment(a, b, carry), 20),
-        time_ms(torch, lambda: rip.ripple_segment_plain(a, b, carry), 2),
-        4 * lanes * (2 + 2 + 1), lanes * RIPPLE_STEP_OPS)
+    first = (lhs[..., 0:8], rhs[..., 0:8])
+    on("bit_major", *first, None, 8, "ripple range first segment")
+    on("strided", ilhs[..., 0:8], irhs[..., 0:8], None, 8,
+       "ripple range first segment")
+    carry = ops.ripple_segment(lhs[..., 0:1], rhs[..., 0:1])[1]
+    step = (lhs[..., 1:2], rhs[..., 1:2])
+    on("bit_major", *step, carry, 1, "ripple carried k=1 step")
+    on("strided", ilhs[..., 1:2], irhs[..., 1:2], carry, 1,
+       "ripple carried k=1 step")
+    plain = {"ripple_segment": time_ms(
+        torch, lambda: rip.ripple_segment_plain(*first), 2),
+        "ripple_carry": time_ms(
+        torch, lambda: rip.ripple_segment_plain(*step, carry), 2)}
 
-    pairs = n // 2
-    cand = x[:, None]
-    x1, x2 = cand[:, :, 0:2 * pairs:2], cand[:, :, 1:2 * pairs:2]
+    a_all, b_all = (e.expand(c, 1, n, t) for e in ends)
+    cand = rip.bit_major([x[:, None]], dim=1)
+    icand = x[:, None].contiguous()
     is_min = torch.tensor([True], device=dev)[None, :, None, None]
-    a = torch.where(is_min, x1, x2)[..., 0:8]
-    b = torch.where(is_min, x2, x1)[..., 0:8]
-    same_ripple(torch, ops.ripple_segment(a, b),
-                rip.ripple_segment_plain(a, b), 8, errs,
-                "ripple tournament first level")
-    level_ms = time_ms(torch, lambda: ops.ripple_segment(a, b), 20)
-    log(f"ripple_segment tournament level 1 {tuple(a.shape)}: {level_ms} ms")
+    x1, x2 = cand[:, :, 0::2], cand[:, :, 1::2]
+    ix1, ix2 = icand[:, :, 0::2], icand[:, :, 1::2]
+    builds = {
+        "range operands, torch.cat x2 (interleaved)": lambda: (
+            torch.cat([a_all, x[:, None]], dim=1),
+            torch.cat([x[:, None], b_all], dim=1)),
+        "range operands, bit_major of [lo, x, hi]": lambda: rip.bit_major(
+            [a_all, x[:, None], b_all], dim=1),
+        "MIN candidates, torch.stack (interleaved)": lambda: torch.stack(
+            [x], dim=1),
+        "MIN candidates, bit_major": lambda: rip.bit_major(
+            [x[:, None]], dim=1),
+        "level 1 operands, torch.where x2 (interleaved candidates)":
+            lambda: (torch.where(is_min, ix1, ix2),
+                     torch.where(is_min, ix2, ix1)),
+        "level 1 operands, bit_major_where x2 (interleaved candidates)":
+            lambda: (rip.bit_major_where(is_min, ix1, ix2),
+                     rip.bit_major_where(is_min, ix2, ix1)),
+        "level 1 operands, bit_major_where x2 (bit-major candidates)":
+            lambda: (rip.bit_major_where(is_min, x1, x2),
+                     rip.bit_major_where(is_min, x2, x1))}
+    for name, fn in builds.items():
+        log(f"ripple operand build, {name}: "
+            f"{time_ms(torch, fn, 10)} ms")
+    del icand, ix1, ix2
+
+    for level in (1, 10):
+        pairs = n >> level
+        a = rip.bit_major_where(is_min, cand[:, :, 0:2 * pairs:2],
+                                cand[:, :, 1:2 * pairs:2])
+        b = rip.bit_major_where(is_min, cand[:, :, 1:2 * pairs:2],
+                                cand[:, :, 0:2 * pairs:2])
+        on("bit_major", a[..., 0:8], b[..., 0:8], None, 8,
+           f"ripple tournament level {level}")
+    del lhs, rhs, ilhs, irhs, cand, x1, x2, a, b
+
+    log(f"before the ripple times: {CLOCKS} {smi(CLOCKS, check=False)}")
+    times = ripple_times(torch, ops, x, ends, rip.bit_major)
+    for name, (ms, host_us, lo, hi, nbytes, nops) in times.items():
+        bound_ms, _ = bound(nbytes, nops)
+        log(f"ripple {name}"
+            + (" (strided route)" if "interleaved" in name else "")
+            + f": {ms} ms (median of {GRAPH_TIMED} CUDA-graph replays, "
+            f"{lo}–{hi}), host {host_us:.1f} µs a call, bound "
+            f"{bound_note(nbytes, nops, INT32_OPS_PER_S)}, "
+            f"{bound_ms / ms:.1%} of the bound")
+    ms_seg, _, _, _, *seg_cost = times["range first segment bit-major"]
+    ms_car, _, _, _, *car_cost = times["carried k=1 step bit-major"]
+    return {"ripple_segment": (ms_seg, plain["ripple_segment"], *seg_cost),
+            "ripple_carry": (ms_car, plain["ripple_carry"], *car_cost)}
+
+
+def tournament_device_ms(torch, x):
+    """One MIN tournament (``reduce_every=8``) over the binary column ``x``
+    (c, n, t) through ``agg_minmax_rounds``: the device time of all its
+    kernels (``torch.profiler``: operand builds, ripple launches,
+    re-shares, the opening), and its time between CUDA events (host gaps
+    included). The values are random shares, so the opened minimum means
+    nothing; the work does not depend on them. -> (device ms or None when
+    the profiler sees no device time, event ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import get_backend
+    from repro_torch.core import Codec
+    from repro_torch.core.costs import CostLedger
+    from repro_torch.core.engine import SecretSharedDB
+    from repro_torch.core.queries import aggregate
+    from repro_torch.core.shamir import Shares
+    c, n, t = x.shape
+    db = SecretSharedDB(
+        relation=Shares(torch.zeros((c, n, 1, 1, 1), dtype=torch.int32,
+                                    device=x.device), 1),
+        codec=Codec(word_length=1), column_names=["v"],
+        numeric={0: Shares(x, 1)}, numeric_bits={0: t})
+
+    def run():
+        aggregate.agg_minmax_rounds(get_backend("cuda"), db, [
+            aggregate.MinMaxJob(value_column=0, key=(5,),
+                                ledger=CostLedger(), op="min",
+                                reduce_every=8)])
+
+    run()                                                    # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    stop.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages())
+    return (dev_us / 1e3 if dev_us else None), start.elapsed_time(stop)
+
+
+def local_bit_major(torch, sources, dim):
+    """``ripple.bit_major`` for a checkout that predates it (``--ripple-
+    times`` on a parent): the same layout, lanes padded to 4."""
+    ref = sources[0]
+    *lead, lanes, t = ref.shape
+    lead[dim] = sum(s.shape[dim] for s in sources)
+    buf = torch.empty((*lead, t, -(-lanes // 4) * 4), dtype=ref.dtype,
+                      device=ref.device)
+    out = buf[..., :lanes].transpose(-1, -2)
+    at = 0
+    for src in sources:
+        out.narrow(dim, at, src.shape[dim]).copy_(src)
+        at += src.shape[dim]
     return out
+
+
+def ripple_times_only(torch, args) -> int:
+    """``--ripple-times SRC``: build SRC's kernels, fill a (20, n, 13)
+    binary column and endpoints with random field elements and print the
+    ripple kernel's ms at phase 4's shapes (``ripple_times``) and one MIN
+    tournament's device ms over the column (``tournament_device_ms``); two
+    checkouts compare on one card when both run in one call, in turns.
+    SRC's ``ripple.bit_major`` builds the bit-major operands where it has
+    one."""
+    import repro_torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ripple as rip
+    _build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    x = rand_field(torch, gen, (20, args.tuples, SALARY_BITS), "cuda")
+    ends = [rand_field(torch, gen, (20, 1, 1, SALARY_BITS), "cuda")
+            for _ in range(2)]
+    bm = getattr(rip, "bit_major", None) or (
+        lambda srcs, dim: local_bit_major(torch, srcs, dim))
+    clocks = smi(CLOCKS, check=False)
+    times = ripple_times(torch, ops, x, ends, bm)
+    tour_ms = tournament_device_ms(torch, x)
+    print(json.dumps({"src": os.path.dirname(repro_torch.__file__),
+                      "card": smi("name,power.limit"),
+                      "ms": {k: v[0] for k, v in times.items()},
+                      "ms_range": {k: v[2:4] for k, v in times.items()},
+                      "host_us": {k: v[1] for k, v in times.items()},
+                      "clocks_before": clocks,
+                      "min_tournament_ms": {"device": tour_ms[0],
+                                            "events": tour_ms[1]}}),
+          flush=True)
+    return 0
 
 
 def aa_times_only(torch, args) -> int:
@@ -1399,11 +1745,8 @@ def aa_times_only(torch, args) -> int:
     for z in range(rel.shape[0]):
         rel[z].random_(0, P)
     times = time_aa_shapes(torch, ops, rel)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
     print(json.dumps({"src": os.path.dirname(repro_torch.__file__),
-                      "card": smi[0],
+                      "card": smi("name,power.limit"),
                       "ms": {k: v[0] for k, v in times.items()}}), flush=True)
     return 0
 
@@ -1417,9 +1760,14 @@ def main() -> int:
                          "under SRC (the src/ directory of a checkout) at "
                          "phase 4's shapes, on random shares of the "
                          "Employee relation's shape, and print them as JSON")
+    ap.add_argument("--ripple-times", metavar="SRC",
+                    help="only time the ripple kernel of the port under SRC "
+                         "at phase 4's shapes, on a random 13-bit column, "
+                         "and print the times as JSON")
     args = ap.parse_args()
-    if args.aa_times:
-        sys.path.insert(0, os.path.abspath(args.aa_times))
+    if args.aa_times or args.ripple_times:
+        sys.path.insert(0, os.path.abspath(args.aa_times or
+                                           args.ripple_times))
 
     import torch
     if not torch.cuda.is_available():
@@ -1427,6 +1775,8 @@ def main() -> int:
         return 1
     if args.aa_times:
         return aa_times_only(torch, args)
+    if args.ripple_times:
+        return ripple_times_only(torch, args)
     from repro_torch.api import planner
     from repro_torch.kernels import _build
 
@@ -1471,10 +1821,7 @@ def main() -> int:
     log("kernels == plain versions at the main paths' full shapes")
 
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    print(smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ... import _device
+from ...kernels import ripple
 from .. import dataplane, encoding, field, shamir
 from ..costs import CostLedger
 from ..dataplane import RelationLike
@@ -319,9 +320,12 @@ def agg_minmax_rounds(be, db: RelationLike, jobs: Sequence[MinMaxJob]
         if not j.conditional:
             j.ledger.cloud(n * t_bits)
 
-    cand = torch.stack(
-        [masked_by_pos[i] if i in masked_by_pos
-         else db.numeric[jobs[i].value_column].values
+    # the candidates bit-major (the ripple kernel's fast route), and kept
+    # so from level to level: each level's operands and re-share write
+    # that layout (ripple.bit_major_where, ripple.on_planes)
+    cand = ripple.bit_major(
+        [masked_by_pos[i][:, None] if i in masked_by_pos
+         else db.numeric[jobs[i].value_column].values[:, None]
          for i in range(b)], dim=1)                         # (c, B, n, t)
     cand_deg = d
 
@@ -340,8 +344,8 @@ def agg_minmax_rounds(be, db: RelationLike, jobs: Sequence[MinMaxJob]
         # SS-SUB(lhs, rhs) opens [rhs < lhs]: min wants s = [x2 < x1]
         # (lhs=x1), max wants s = [x1 < x2] (lhs=x2); either way the
         # winner is x1 + s·(x2 − x1).
-        lhs = torch.where(is_min, x1, x2)
-        rhs = torch.where(is_min, x2, x1)
+        lhs = ripple.bit_major_where(is_min, x1, x2)
+        rhs = ripple.bit_major_where(is_min, x2, x1)
         carry = None
         carry_deg = 0
         s_bits = None
@@ -365,7 +369,7 @@ def agg_minmax_rounds(be, db: RelationLike, jobs: Sequence[MinMaxJob]
         if k > 1:
             # inter-level re-share back to the base degree (one round);
             # the FINAL level opens at its native degree instead.
-            cand = reshare(win, win_deg, d)
+            cand = ripple.on_planes(lambda v: reshare(v, win_deg, d), win)
             cand_deg = d
             for j in jobs:
                 j.ledger.round()

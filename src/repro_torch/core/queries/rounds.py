@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ... import _device
+from ...kernels import ripple
 from .. import automata, dataplane, encoding, field, shamir
 from ..costs import CostLedger
 from ..dataplane import RelationLike
@@ -800,9 +801,11 @@ def range_phase(be, db: RelationLike, jobs: Sequence[RangeJob]) -> Shares:
     a_all = torch.stack(a_vals, dim=1)[:, :, None, :].expand(shape)
     b_all = torch.stack(b_vals, dim=1)[:, :, None, :].expand(shape)
     # rows [0, B) ripple sign(x − lo): SS-SUB(A=lo, B=x); rows [B, 2B)
-    # ripple sign(hi − x): SS-SUB(A=x, B=hi) — one chain for both.
-    lhs = torch.cat([a_all, x.values], dim=1)               # (c, 2B, n, t)
-    rhs = torch.cat([x.values, b_all], dim=1)
+    # ripple sign(hi − x): SS-SUB(A=x, B=hi) — one chain for both. The
+    # rows [lo, x, hi] are written once, bit-major (the kernel's 16-byte
+    # route); lhs and rhs are two overlapping (c, 2B, n, t) views of them.
+    rows = ripple.bit_major([a_all, x.values, b_all], dim=1)  # (c, 3B, n, t)
+    lhs, rhs = rows[:, :2 * b], rows[:, b:]
 
     segment = _ripple_segmenter(be)
     shards = plane.shards

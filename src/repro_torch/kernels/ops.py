@@ -106,9 +106,10 @@ def ripple_segment(a: torch.Tensor, b: torch.Tensor,
                    carry: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k chained SS-SUB bit steps (Alg 6): a, b (..., k) bit planes with
-    the bit positions on the last axis (read through their strides),
-    carry (...) or ``None`` to start at the LSB step -> the final
-    ``(rb, carry')``, each (...)."""
+    the bit positions on the last axis (read through their strides; the
+    kernel is fastest on :func:`ripple.bit_major` views), carry (...) or
+    ``None`` to start at the LSB step -> the final ``(rb, carry')``, each
+    (...)."""
     if a.ndim < 1 or tuple(a.shape) != tuple(b.shape) or a.shape[-1] < 1:
         raise ValueError(f"bit planes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} must agree, with k >= 1 bits "
@@ -160,3 +161,11 @@ def reset_launch_counts() -> None:
     _ssm.share_onehot_launches = 0
     _rip.launches = 0
     _rip.carry_launches = 0
+    _rip.route_launches = dict.fromkeys(_rip.ROUTES, 0)
+
+
+def ripple_route_counts() -> Dict[str, int]:
+    """The ripple kernel's launches (k = 1 and k >= 2 together) by route
+    (``bit_major``, ``strided``) since the last
+    :func:`reset_launch_counts`."""
+    return dict(_rip.route_launches)

@@ -18,12 +18,21 @@ comes back.
   the Pallas ``ripple_segment_pallas`` and, at k = 1,
   ``ripple_carry_pallas``. Operands are read through their strides, so a
   per-segment slice ``[..., s0:s1]``, a per-shard slice and a column
-  broadcast across the batch (stride 0) are never copied.
+  broadcast across the batch (stride 0) are never copied. The pure-Python
+  :func:`plan` picks one of the kernel's two routes from the pointers and
+  strides: ``bit_major`` (lane stride 1, 16-byte planes) or ``strided``
+  (anything else).
+* :func:`bit_major`, :func:`bit_major_where` and :func:`on_planes` build
+  operands in the layout the first route reads: ``(..., t, lanes)``
+  planes seen as ``(..., lanes, t)`` views — what the reference's
+  ``moveaxis`` to ``(k, N)`` planes does before its Pallas call. Callers
+  keep the ``(..., lanes, t)`` shape and never handle the planes.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import torch
 
@@ -35,6 +44,14 @@ from . import _build
 #: ``ripple_carry`` form) since the last reset (read by chip_smoke.py).
 launches = 0
 carry_launches = 0
+#: the same launches by route (ROUTES), since the last reset.
+ROUTES = ("bit_major", "strided")
+route_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+
+#: lanes a bit-major thread covers (one 16-byte load a plane); bit_major
+#: pads each row's lanes to a multiple of it, so every plane of every row
+#: starts 16-byte aligned.
+VEC_LANES = 4
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +97,8 @@ def ripple_segment_plain(a: torch.Tensor, b: torch.Tensor,
 
 _I64x3 = ctypes.c_longlong * 3
 _I64x4 = ctypes.c_longlong * 4
+#: the kernel's route argument (csrc/ripple.cu ripple_segment_u32)
+ROUTES_C = {"strided": 0, "bit_major": 1}
 
 
 def _lib():
@@ -90,7 +109,8 @@ def _lib():
                    ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
                    ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,11 +135,120 @@ def _lane_grid(shape: Sequence[int], strides: Sequence[Sequence[int]]
                                     for i in range(len(strides))]
 
 
+class Plan(NamedTuple):
+    """A launch of the ripple kernel: its route, the collapsed lane grid
+    (d0, d1, d2) with each operand's lane strides, and whether the
+    bit-major route moves the carry (``vec_carry``) and the outputs
+    (``vec_out``) in 16-byte words."""
+    route: str
+    dims: List[int]
+    lane_strides: List[List[int]]
+    vec_carry: bool
+    vec_out: bool
+
+
+def _aligned(ptr: int, strides: Sequence[int]) -> bool:
+    """Every (row, plane) start is 16-byte aligned: the base is, and each
+    stride is a multiple of 4 elements."""
+    return ptr % 16 == 0 and all(s % VEC_LANES == 0 for s in strides)
+
+
+def _row_grid(lanes: Sequence[int], lane_strides: Sequence[Sequence[int]]
+              ) -> Optional[Tuple[List[int], List[List[int]]]]:
+    """The bit-major route's grid: every lane dim but the last collapsed
+    into two row dims, the last kept as d2 (its stride read as 1 when it
+    has one lane), or None when the rows need three dims."""
+    *rows, n = list(lanes) or [1]
+    grid = _lane_grid(rows, [st[:len(rows)] for st in lane_strides])
+    if grid is None or grid[0][0] != 1:
+        return None
+    dims, row_st = grid
+    return dims[1:] + [n], [[r[1], r[2], st[len(rows)] if n > 1 else 1]
+                            for r, st in zip(row_st, lane_strides)]
+
+
+def plan(ptrs: Sequence[int], strides: Sequence[Sequence[int]],
+         lanes: Sequence[int]) -> Optional[Plan]:
+    """The launch plan: the bit-major route where the operands allow it,
+    else the strided route; None when the lanes do not collapse into three
+    dims (the wrapper copies). ``ptrs`` are the byte addresses of a, b
+    and, if given, the carry; ``strides`` their element strides (a's and
+    b's with the bit stride last); ``lanes`` the lane shape."""
+    lane_strides = [s[:len(lanes)] for s in strides]
+    grid = _lane_grid(lanes, lane_strides)
+    if grid is None:
+        return None
+    bit = [strides[0][-1], strides[1][-1]]
+    rows = _row_grid(lanes, lane_strides)
+    if rows is not None and all(st[2] == 1 for st in rows[1]) and all(
+            _aligned(p, [*st[:2], sk])
+            for p, st, sk in zip(ptrs[:2], rows[1], bit)):
+        vec_c = len(ptrs) > 2 and _aligned(ptrs[2], rows[1][2][:2])
+        return Plan("bit_major", rows[0], rows[1], vec_c,
+                    rows[0][2] % VEC_LANES == 0)
+    return Plan("strided", grid[0], grid[1], False, False)
+
+
+def _bit_major_empty(shape: Sequence[int], like: torch.Tensor
+                     ) -> torch.Tensor:
+    """An uninitialised ``(..., lanes, t)`` view of ``(..., t, lanes')``
+    planes, ``lanes'`` rounding ``lanes`` up to a multiple of VEC_LANES so
+    every plane starts 16-byte aligned."""
+    *lead, lanes, t = shape
+    padded = -(-lanes // VEC_LANES) * VEC_LANES
+    buf = torch.empty((*lead, t, padded), dtype=like.dtype,
+                      device=like.device)
+    return buf[..., :lanes].transpose(-1, -2)
+
+
+def bit_major(sources: Sequence[torch.Tensor], dim: int = 0
+              ) -> torch.Tensor:
+    """``torch.cat(sources, dim)`` of ``(..., lanes, t)`` bit planes (``dim``
+    a leading axis), written into one ``(..., t, lanes')`` buffer and
+    returned as its ``(..., lanes, t)`` view: lane stride 1, bit stride
+    ``lanes'``, rows ``t·lanes'`` apart, where ``lanes'`` rounds ``lanes``
+    up to a multiple of VEC_LANES so every plane starts 16-byte aligned.
+    Each row's planes lie together, so the transposing copy re-reads a
+    row's interleaved words from cache, not from device memory."""
+    ref = sources[0]
+    dim = dim % ref.dim()
+    if dim >= ref.dim() - 2:
+        raise ValueError("bit_major stacks along a leading axis")
+    shape = list(ref.shape)
+    shape[dim] = sum(s.shape[dim] for s in sources)
+    out = _bit_major_empty(shape, ref)
+    at = 0
+    for s in sources:
+        out.narrow(dim, at, s.shape[dim]).copy_(s)
+        at += s.shape[dim]
+    return out
+
+
+def bit_major_where(cond: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+                    ) -> torch.Tensor:
+    """``torch.where(cond, x, y)`` of ``(..., lanes, t)`` bit planes
+    (``cond`` broadcasting over them), written bit-major as
+    :func:`bit_major` lays its result out, whatever the layout of x and y
+    (fastest when they are bit-major views too)."""
+    shape = torch.broadcast_shapes(cond.shape, x.shape, y.shape)
+    return torch.where(cond, x, y, out=_bit_major_empty(shape, x))
+
+
+def on_planes(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor
+              ) -> torch.Tensor:
+    """``fn`` of ``(..., lanes, t)`` bit planes, run on their ``(..., t,
+    lanes)`` transpose and transposed back: a function that returns a
+    fresh contiguous tensor of its input's shape and treats every element
+    alike (a re-share) then returns bit-major planes (unpadded), so the
+    next :func:`bit_major_where` over them reads and writes one layout."""
+    return fn(x.transpose(-1, -2)).transpose(-1, -2)
+
+
 def ripple_segment_cuda(a: torch.Tensor, b: torch.Tensor,
                         carry: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel (see :func:`ripple_segment_plain`); zero lanes
-    return without a launch."""
+    """The CUDA kernel (see :func:`ripple_segment_plain`) on the route that
+    :func:`plan` picks; zero lanes return without a launch."""
     global launches, carry_launches
     ops = [a, b] + ([] if carry is None else [carry])
     if any(t.dtype != DTYPE for t in ops):
@@ -131,26 +260,31 @@ def ripple_segment_cuda(a: torch.Tensor, b: torch.Tensor,
     co = torch.empty(lanes, dtype=DTYPE, device=a.device)
     if rb.numel() == 0:
         return rb, co
-    grid = _lane_grid(lanes, [t.stride()[:len(lanes)] for t in ops])
-    if grid is None:                  # more than 3 uneven lane dims: copy
+
+    def planned():
+        return plan([t.data_ptr() for t in ops], [t.stride() for t in ops],
+                    lanes)
+
+    pl = planned()
+    if pl is None:                    # more than 3 uneven lane dims: copy
         ops = [t.contiguous() for t in ops]
-        a, b = ops[0], ops[1]
-        grid = _lane_grid(lanes, [t.stride()[:len(lanes)] for t in ops])
-    dims, lane_strides = grid
-    a_st = _I64x4(*lane_strides[0], a.stride(-1))
-    b_st = _I64x4(*lane_strides[1], b.stride(-1))
+        pl = planned()
+    a_st = _I64x4(*pl.lane_strides[0], ops[0].stride(-1))
+    b_st = _I64x4(*pl.lane_strides[1], ops[1].stride(-1))
     if carry is None:
         c_ptr, c_st = None, _I64x4(0, 0, 0, 0)
     else:
-        c_ptr, c_st = ops[2].data_ptr(), _I64x4(*lane_strides[2], 0)
+        c_ptr, c_st = ops[2].data_ptr(), _I64x4(*pl.lane_strides[2], 0)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib()(a.data_ptr(), a_st, b.data_ptr(), b_st, c_ptr, c_st,
-                 rb.data_ptr(), co.data_ptr(), _I64x3(*dims), k,
-                 int(carry is None), stream)
+    err = _lib()(ops[0].data_ptr(), a_st, ops[1].data_ptr(), b_st, c_ptr,
+                 c_st, rb.data_ptr(), co.data_ptr(), _I64x3(*pl.dims), k,
+                 int(carry is None), ROUTES_C[pl.route], int(pl.vec_carry),
+                 int(pl.vec_out), stream)
     if err != 0:
         raise RuntimeError(f"ripple kernel launch failed: CUDA error {err}")
     if k == 1:
         carry_launches += 1
     else:
         launches += 1
+    route_launches[pl.route] += 1
     return rb, co

@@ -110,6 +110,72 @@ def test_ripple_kernel_reads_strided_views(cuda):
     assert empty[0].shape == (3, 4, 0)
 
 
+def _ripple_equal(a, b, carry):
+    """Kernel vs plain, bit for bit; -> the route that launched."""
+    before = ops.ripple_route_counts()
+    got = ripple.ripple_segment_cuda(a, b, carry)
+    torch.cuda.synchronize()
+    want = ripple.ripple_segment_plain(a, b, carry)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    after = ops.ripple_route_counts()
+    (took,) = [r for r in after if after[r] != before[r]]
+    return took
+
+
+@pytest.mark.parametrize("layout,route", [("bit_major", "bit_major"),
+                                          ("interleaved", "strided")])
+@pytest.mark.parametrize("carry_kind", ["init", "aligned", "unaligned"])
+@pytest.mark.parametrize("k", range(1, 14))
+def test_ripple_routes_equal_plain(cuda, k, carry_kind, layout, route):
+    """Both routes at every k, LSB and carried (a carry whose rows are
+    16-byte aligned, and one whose rows are not), on 1,027 lanes a row (a
+    ragged tail of 4-lane groups), at the bit offset 13 − k: bit-major
+    planes on the bit-major route, interleaved rows on the strided one."""
+    src = [_field((3, 2, 1027, 13), 20 + i, cuda) for i in range(3)]
+    if layout == "bit_major":
+        rows = ripple.bit_major(src, dim=1)                  # (3, 6, n, 13)
+    else:
+        rows = torch.cat(src, dim=1)                         # interleaved
+    a, b = rows[:, :4, :, 13 - k:], rows[:, 2:, :, 13 - k:]
+    carry = {"init": None,
+             "aligned": _field((3, 4, 1028), 23, cuda)[..., :1027],
+             "unaligned": _field((3, 4, 1027), 24, cuda)}[carry_kind]
+    assert _ripple_equal(a, b, carry) == route
+
+
+def test_ripple_views_take_the_planned_route(cuda):
+    """The views the paths and callers pass, each on the route the plan
+    names: bit-major shard slices at 16-byte and 4-byte offsets, a column
+    broadcast across the batch, the tournament's pair views of bit-major
+    and of interleaved candidates and its operands built by
+    bit_major_where, one-lane rows and 4-byte tails."""
+    full = ripple.bit_major([_field((3, 2, 600, 13), 30, cuda)], dim=1)
+    other = ripple.bit_major([_field((3, 2, 600, 13), 31, cuda)], dim=1)
+    carry = _field((3, 2, 700), 32, cuda)
+    for lo, route in ((4, "bit_major"), (77, "strided")):
+        a, b = full[:, :, lo:lo + 300, 8:13], other[:, :, lo:lo + 300, 8:13]
+        assert _ripple_equal(a, b, carry[..., lo:lo + 300]) == route
+    col = ripple.bit_major([_field((3, 1, 600, 8), 33, cuda)], dim=1)
+    wide = col.expand(3, 4, 600, 8)
+    assert wide.stride(1) == 0
+    assert _ripple_equal(wide, other[:, :1, :, :8].expand(3, 4, 600, 8),
+                         None) == "bit_major"
+    x1, x2 = full[:, :, 0::2, :8], full[:, :, 1::2, :8]
+    assert _ripple_equal(x1, x2, None) == "strided"
+    is_min = torch.tensor([True, False], device=cuda)[None, :, None, None]
+    lhs = ripple.bit_major_where(is_min, x1, x2)
+    rhs = ripple.bit_major_where(is_min, x2, x1)
+    assert _ripple_equal(lhs, rhs, None) == "bit_major"
+    inter = _field((3, 2, 601, 13), 34, cuda)
+    x1, x2 = inter[:, :, 0:600:2, :8], inter[:, :, 1:600:2, :8]
+    assert _ripple_equal(x1, x2, None) == "strided"
+    for lanes in (1, 2, 3, 5):
+        a = ripple.bit_major([_field((3, 2, lanes, 13), 35, cuda)], dim=1)
+        b = ripple.bit_major([_field((3, 2, lanes, 13), 36, cuda)], dim=1)
+        c = _field((3, 2, lanes), 37, cuda)
+        assert _ripple_equal(a[..., :5], b[..., :5], c) == "bit_major"
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
 def test_aa_slide_batch_kernel_equals_plain(cuda, k):
     c, b, n, w, a = 3, 2, 1001, 8, 69            # ragged n
