@@ -50,6 +50,15 @@ Phases, any failure exits non-zero:
    through a client at S = 1 and at S = 2 (a 256-token prefill, 4 decode
    steps of 8, a batch of 4 with one verified), ``private_lookup_batched``
    and ``private_lookup``.
+   Slice 5 (run before slice 4, so the table is not resident): PK/FK
+   joins of a synthetic 1,024-row Assignment relation (EmployeeId,
+   Project, Hours; 24 dangling ids) from ``--seed`` against the Employee
+   relation — ``client.join`` (chain), ``Join(match_method=...)``
+   aggregate and auto, one ``run_batch`` of the join, a one_round select
+   and a count, and the chain at S = 2 — and an equijoin on FirstName
+   with a 512-row Visitor relation and ``Padding.fake_values(2)`` (54
+   pairs, 9 rounds); per call host seconds, launches, peak memory and a
+   ``torch.profiler`` device split.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -66,7 +75,11 @@ Phases, any failure exits non-zero:
    match of the suffix and substring counts, the tall-skinny fetch at
    R = 3, 69 and 256 rows and the ℓ = 1,000 fetch on the general kernel,
    the one-hot sharing of a 256-token prefill and the embedding
-   contraction at M = 8 and 256 (on the tall and on the general kernel);
+   contraction at M = 8 and 256 (on the tall and on the general kernel),
+   and the joins' launches (a K = 69 match position in both orientations,
+   the K = 552 aggregate product, the 1,024-row PK/FK fetch and the
+   21-row tall equijoin fetch; the chain's copies, launches and modular
+   products and the equality indicator timed apart);
    time kernel and plain version there (CUDA events; the match at B = 1
    and 8 and over the tree round, the slide at k = 2, 3 and 5; the ripple
    kernel on both routes, the median of CUDA-graph replays, beside the
@@ -83,6 +96,7 @@ last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -890,6 +904,212 @@ def pattern_path(torch, client, rows):
                           timings)
 
 
+#: slice 5's right relations, synthetic from ``--seed`` beside the Employee
+#: relation: an HR / payroll system's month of project assignments joined
+#: against the employee master (PK/FK), and a visitor log joined on first
+#: names (an equijoin: values repeat on both sides).
+ASSIGN_NAMES = ["EmployeeId", "Project", "Hours"]
+VISIT_NAMES = ["FirstName", "City"]
+N_ASSIGN, N_DANGLING, N_VISIT = 1024, 24, 512
+VISIT_COMMON = {"Zorro": 2, "Quinn": 3}             # ℓy beside ELL's ℓx
+EQUI_FAKE = 2
+SLICE5_KERNELS = ("ss_matmul", "ss_matmul_tall")
+
+
+def make_assignments(rows: np.ndarray, seed: int) -> np.ndarray:
+    """(1,024, 3) str array: 1,000 rows carry EmployeeIds drawn from
+    ``rows`` with repeats (an employee may hold several assignments), 24
+    carry ids the relation lacks (dangling children), shuffled."""
+    rng = np.random.default_rng(seed + 5)
+    n = len(rows)
+    out = np.empty((N_ASSIGN, 3), dtype=object)
+    out[:, 0] = np.concatenate([
+        rows[rng.integers(0, n, N_ASSIGN - N_DANGLING), 0],
+        [f"E{n + i:07d}" for i in range(N_DANGLING)]])
+    out[:, 1] = [f"P{v:05d}" for v in rng.integers(0, 400, N_ASSIGN)]
+    out[:, 2] = [str(v) for v in rng.integers(1, 200, N_ASSIGN)]
+    return out[rng.permutation(N_ASSIGN)]
+
+
+def make_visitors(rows: np.ndarray, seed: int) -> np.ndarray:
+    """(512, 2) str array: FirstName Zorro twice and Quinn three times, the
+    other 507 names drawn (with repeats) from words the relation's
+    FirstName column lacks, so exactly k = 2 values are common."""
+    rng = np.random.default_rng(seed + 6)
+    names = _words(rng, 200, 3, 8, set(rows[:, NAMES.index("FirstName")]))
+    cities = np.array(["Paris", "Lima", "Oslo", "Quito", "Accra", "Hanoi",
+                       "Perth", "Dakar"])
+    first = list(names[rng.integers(0, len(names),
+                                    N_VISIT - sum(VISIT_COMMON.values()))])
+    for word, k in VISIT_COMMON.items():
+        first += [word] * k
+    out = np.empty((N_VISIT, 2), dtype=object)
+    out[:, 0] = first
+    out[:, 1] = cities[rng.integers(0, len(cities), N_VISIT)]
+    return out[rng.permutation(N_VISIT)]
+
+
+def device_split(torch, fn) -> dict:
+    """Device ms of one more run of ``fn`` under ``torch.profiler``, by
+    kernel: the ss_matmul kernels (matmul body and K-split reduce) and
+    every other kernel (PyTorch's: the chain's modular products, the
+    transposing copies, sharing, interpolation), with the three slowest
+    of those by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    mm, other = 0.0, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if not us:
+            continue
+        if "ss_matmul" in e.key:
+            mm += us / 1e3
+        else:
+            other[e.key[:60]] = other.get(e.key[:60], 0.0) + us / 1e3
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
+    return {"ss_matmul_ms": round(mm, 3),
+            "other_ms": round(sum(other.values()), 3),
+            "slowest_other": [(k, round(v, 3)) for k, v in top]}
+
+
+def join_path(torch, args, db, rows):
+    """Phase 3, slice 5: PK/FK joins and the equijoin at full size through
+    the public entry points, the Employee relation as the join's left
+    side. Every call is checked against a plaintext join of the rows.
+    Returns (launches, assignment DB)."""
+    from repro_torch.api import Count, Eq, Join, Padding, QueryClient, Select
+    from repro_torch.core import Codec, ShardedRelation, outsource
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+
+    assign, visit = make_assignments(rows, args.seed), make_visitors(
+        rows, args.seed)
+    by_id = {r[0]: list(r) for r in rows}
+    want_pkfk = [by_id[a[0]] + list(a[1:]) for a in assign if a[0] in by_id]
+    first = NAMES.index("FirstName")
+    want_equi = sorted(tuple(list(x) + [v[1]]) for v in visit
+                       for x in rows[rows[:, first] == v[0]])
+    check(len(want_pkfk) == N_ASSIGN - N_DANGLING and len(want_equi) == sum(
+        ELL[w] * k for w, k in VISIT_COMMON.items()), "slice-5 data")
+    timings, peaks, calls, top = {}, {}, {}, [0]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        timings[tag] = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        peaks[tag] = (peak - base) / 1e9
+        top[0] = max(top[0], peak)
+        after = ops.launch_counts()
+        calls[tag] = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+        return res
+
+    ops.reset_launch_counts()
+    codec = Codec(word_length=8)
+    assign_db = timed("outsource_assignment", lambda: outsource(
+        assign.tolist(), n_shares=20, column_names=ASSIGN_NAMES, codec=codec,
+        degree=1, seed=args.seed + 5))
+    visit_db = timed("outsource_visitor", lambda: outsource(
+        visit.tolist(), n_shares=20, column_names=VISIT_NAMES, codec=codec,
+        degree=1, seed=args.seed + 6))
+    client = QueryClient(db, seed=args.seed + 7)
+    on = ("EmployeeId", "EmployeeId")
+
+    def pkfk(method, cl=client):
+        return cl.run(Join(right=assign_db, on=on, match_method=method))
+
+    chain = timed("pkfk_chain", lambda: pkfk("chain"))
+    check(chain.strategy == "pkfk" and chain.rows == want_pkfk,
+          "pkfk chain: rows differ from the plaintext join")
+    check(calls["pkfk_chain"] == {"ss_matmul": 9}, "pkfk chain launched "
+          f"{calls['pkfk_chain']}, not 8 match + 1 fetch general ss_matmul")
+    for method in ("aggregate", "auto"):
+        res = timed(f"pkfk_{method}", lambda: pkfk(method))
+        check(res.rows == chain.rows and res.ledger.as_dict()
+              == chain.ledger.as_dict(), f"pkfk {method} differs from chain")
+        check(calls[f"pkfk_{method}"] == {"ss_matmul": 2},
+              f"pkfk {method} launched {calls[f'pkfk_{method}']}")
+    plans = [Join(right=assign_db, on=on, match_method="auto"),
+             Select(Eq("FirstName", "Zorro"), strategy="one_round"),
+             Count(Eq("FirstName", "Quinn"))]
+    outs = timed("run_batch_3", lambda: client.run_batch(plans))
+    check(outs[0].rows == chain.rows and outs[0].ledger.as_dict()
+          == chain.ledger.as_dict(), "batched join differs from the solo one")
+    zorro = sorted(list(r) for r in rows[rows[:, first] == "Zorro"])
+    check(sorted(outs[1].rows) == zorro, "batched select rows differ")
+    check(outs[2].count == ELL["Quinn"], "batched count differs")
+    check(calls["run_batch_3"].get("ss_matmul") == 2
+          and "ss_matmul_tall" not in calls["run_batch_3"],
+          "the batch's 1,024 match rows and 3 select rows did not share one "
+          f"general fetch: {calls['run_batch_3']}")
+    two = QueryClient(ShardedRelation(db, shards=2), seed=args.seed + 7)
+    res = timed("pkfk_chain_s2", lambda: pkfk("chain", two))
+    check(res.rows == chain.rows and res.ledger.as_dict()
+          == chain.ledger.as_dict(), "pkfk at S = 2 differs from S = 1")
+    check(calls["pkfk_chain_s2"] == {"ss_matmul": 18},
+          f"pkfk at S = 2 launched {calls['pkfk_chain_s2']}")
+    del res, outs
+
+    def equi():
+        return client.join(visit_db, on=("FirstName", "FirstName"),
+                           kind="equi", padding=Padding.fake_values(EQUI_FAKE))
+
+    res = timed("equijoin", equi)
+    check(sorted(map(tuple, res.rows)) == want_equi,
+          "equijoin: rows differ from the plaintext join")
+    want_rounds = 1 + 2 * (len(VISIT_COMMON) + EQUI_FAKE)
+    check(res.ledger.rounds == want_rounds,
+          f"equijoin took {res.ledger.rounds} rounds, not {want_rounds}")
+    # X side: ℓx rows of every common and fake value, tall at full size
+    x_rows = sum(ELL[v] for v in VISIT_COMMON) + EQUI_FAKE
+    tall = ssm.is_tall_skinny(x_rows, db.n_tuples, db.n_attrs * 8 * 69)
+    want = collections.Counter(
+        ["ss_matmul", "ss_matmul_tall" if tall else "ss_matmul"])
+    check(calls["equijoin"] == want,
+          f"equijoin launched {calls['equijoin']}, not {dict(want)}")
+    # host work of the equijoin's column open, measured apart
+    from repro_torch.core.queries import rounds
+    t = time.perf_counter()
+    opened = rounds._fused_interpolate([rounds._column(db, first)])[0]
+    host = {"open_x_column_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    words = [db.codec.decode_word(v) for v in opened]
+    host["decode_131072_words_s"] = time.perf_counter() - t
+    check(words == list(rows[:, first]), "opened FirstName column differs")
+    del opened, words
+    # the path's launches are read before the profiled repeats below
+    launches = check_launches(torch, ops, "slice-5 path", SLICE5_KERNELS,
+                              timings)
+    split = {tag: device_split(torch, fn) for tag, fn in (
+        ("pkfk_chain", lambda: pkfk("chain")),
+        ("pkfk_aggregate", lambda: pkfk("aggregate")),
+        ("run_batch_3", lambda: client.run_batch(plans)),
+        ("pkfk_chain_s2", lambda: pkfk("chain", two)), ("equijoin", equi))}
+    log("slice-5 per call: " + json.dumps({
+        tag: {"host_s": round(timings[tag], 4),
+              "launches": calls.get(tag, {}),
+              "peak_above_resident_gb": round(peaks[tag], 3),
+              "device": split.get(tag)} for tag in timings}))
+    log("slice-5 equijoin host work: " + json.dumps(
+        {k: round(v, 4) for k, v in host.items()}))
+    log(f"slice-5 device memory: {resident / 1e9:.2f} GB resident before "
+        f"the path, {top[0] / 1e9:.2f} GB peak during it")
+    del visit_db
+    return launches, assign_db
+
+
 def embed_path(torch, args, vocab: int = QWEN_VOCAB, dim: int = QWEN_DIM):
     """Phase 3, slice 4: the oblivious embedding lookup at Qwen1.5-4B width
     through the public entry points: a synthetic (V, D) table from
@@ -1233,6 +1453,157 @@ def full_shape_kernels(torch, db, errs, launches):
             for name, replaces in (
                 ("ripple_segment", "src/repro/kernels/ripple.py:113"),
                 ("ripple_carry", "src/repro/kernels/ripple.py:66"))]
+
+
+def join_full_shapes(torch, db, assign_db, errs, launches):
+    """Phase 4 for slice 5: the joins' new launch shapes at the path's full
+    size (c = 20, nx = 131,072, ny = 1,024), through the ``ops`` wrappers,
+    each against ``ss_matmul_plain`` bit for bit and timed beside its
+    bound: one word position's product in the fetch-row orientation
+    (Y_j (ny × 69, a view j·69 words into each row) @ X_jᵀ (69 × nx)), the
+    aggregate form's K = 552 product, the PK/FK fetch of the 1,024 match
+    rows and the equijoin's tall X-side fetch of 21 one-hot rows. The
+    chain's W launches, its transposing copies and its 7 modular products
+    (plain PyTorch, one cloud slice at a time) are timed apart with CUDA
+    events, as is the aggregate form's equality indicator. -> the kernels
+    line's entries for these shapes."""
+    from repro_torch.core import automata, field
+    from repro_torch.core.queries import rounds
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+
+    rel = db.relation.values
+    c, n, m, w, a = rel.shape
+    flat = rel.reshape(c, n, m * w * a)
+    col_x = rel[:, :, 0]                              # EmployeeId
+    col_y = assign_db.relation.values[:, :, 0]        # (c, ny, W, A)
+    ny = col_y.shape[1]
+    rows = {}
+
+    def held(name, fn, args, what, reps):
+        got, want = fn(*args), ssm.ss_matmul_plain(*args)
+        # equal or the check raises; max_err's int64 copies of a 10.74 GB
+        # product would not fit beside the relation
+        check(torch.equal(got, want), f"{what} differs from its plain "
+              f"version")
+        errs[name] = 0
+        del got, want
+        ms = time_ms(torch, lambda: fn(*args), reps)
+        plain_ms = time_ms(torch, lambda: ssm.ss_matmul_plain(*args), 1,
+                           warmup=0)
+        return ms, plain_ms
+
+    def events(k):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(k)]
+
+    # one word position, j = 3: a base 207 words into each row (4-byte
+    # aligned, not 16), K = 69 (not a multiple of the 64-term stage)
+    yj = col_y[:, :, 3]
+    xt = col_x[:, :, 3].transpose(-1, -2).contiguous()
+    name = "ss_matmul[join match position]"
+    rows[name] = held(name, ops.ss_matmul, (yj, xt),
+                      "the join's match position", 5) + (
+        4 * (c * ny * a + c * a * n + c * ny * n), 32 * c * ny * a * n)
+    # the reference's orientation, X_j @ Y_jᵀ -> (c, nx, ny), and the
+    # transposing copy the fetch would then need (checked bit for bit by
+    # tests/test_torch_kernels_cuda.py; timed here for the choice)
+    xj = col_x[:, :, 3]
+    yt = yj.transpose(-1, -2).contiguous()
+    x_copy_ms = time_ms(torch, lambda: xj.transpose(-1, -2).contiguous(), 5)
+    pairs_ms = time_ms(torch, lambda: ops.ss_matmul(xj, yt), 5)
+    pairs = ops.ss_matmul(xj, yt)
+    copy_ms = time_ms(torch, lambda: pairs.transpose(-1, -2).contiguous(), 3)
+    log(f"join match position orientations (ms): fetch-row Y_j @ X_jᵀ "
+        f"{rows[name][0]} (its X_jᵀ copy {x_copy_ms}); reference X_j @ "
+        f"Y_jᵀ {pairs_ms}, then a transposing copy into fetch rows "
+        f"{copy_ms}")
+    del xt, yt, pairs
+    # the chain as the path runs it: per position a transposing copy (made
+    # here, not inside the wrapper, so it is timed apart), one launch, one
+    # modular product into the accumulator
+    copy_ms = kern_ms = mul_ms = 0.0
+    acc = None
+    torch.cuda.synchronize()
+    for j in range(w):
+        e = events(4)
+        e[0].record()
+        xt = col_x[:, :, j].transpose(-1, -2).contiguous()
+        e[1].record()
+        pj = ops.ss_matmul(col_y[:, :, j], xt)
+        e[2].record()
+        del xt
+        if acc is None:
+            acc = pj
+        else:
+            field.mul_(acc, pj)
+        e[3].record()
+        del pj
+        torch.cuda.synchronize()
+        copy_ms += e[0].elapsed_time(e[1])
+        kern_ms += e[1].elapsed_time(e[2])
+        mul_ms += e[2].elapsed_time(e[3])
+    chain = {"transposing_copies_ms": copy_ms, "kernels_ms": kern_ms,
+             "modular_products_ms": mul_ms,
+             "products_bound_ms": (w - 1) * 3 * 4 * c * ny * n
+             / HBM_BYTES_PER_S * 1e3}
+    log("join match chain at full size (CUDA events, 8 positions): "
+        + json.dumps(chain))
+    # the PK/FK fetch of the 1,024 match rows against the relation
+    name = "ss_matmul[pkfk fetch]"
+    rows[name] = held(name, ops.ss_matmul, (acc, flat),
+                      "the PK/FK fetch", 1) + (
+        4 * (c * ny * n + c * n * m * w * a + c * ny * m * w * a),
+        32 * c * ny * n * m * w * a)
+    del acc
+    # the aggregate form: one K = 552 product, then the equality indicator
+    yf = col_y.flatten(-2)
+    xtf = col_x.flatten(-2).transpose(-1, -2).contiguous()
+    name = "ss_matmul[join aggregate match]"
+    rows[name] = held(name, ops.ss_matmul, (yf, xtf),
+                      "the join's aggregate match", 3) + (
+        4 * (c * ny * w * a + c * w * a * n + c * ny * n),
+        32 * c * ny * w * a * n)
+    p_cnt = ops.ss_matmul(yf, xtf)
+    del xtf
+    e = events(2)
+    e[0].record()
+    automata.equality_indicator_(p_cnt, w)
+    e[1].record()
+    torch.cuda.synchronize()
+    log(f"join aggregate equality indicator at full size (CUDA events): "
+        f"{e[0].elapsed_time(e[1])} ms, bound "
+        f"{2 * 4 * c * ny * n / HBM_BYTES_PER_S * 1e3} ms (bytes)")
+    del p_cnt
+    # the equijoin's layer-1 X-side fetch: ℓx = 3 + 16 rows and 2 fake ones
+    onehot = rounds._share_one_hot((98,), db,
+                                   list(range(0, n, n // 21))[:21])
+    name = "ss_matmul_tall[equijoin fetch]"
+    rows[name] = held(name, ops.ss_matmul, (onehot.values, flat),
+                      "the equijoin's X-side fetch", 5) + (
+        4 * (c * 21 * n + c * n * m * w * a + c * 21 * m * w * a),
+        32 * c * 21 * n * m * w * a)
+    del onehot
+    # the equijoin's Y side: 7 one-hot rows against 512 Visitor tuples
+    gen = torch.Generator(device=rel.device).manual_seed(9)
+    ya = rand_field(torch, gen, (c, 7, 512), rel.device)
+    yb = rand_field(torch, gen, (c, 512, 2 * w * a), rel.device)
+    check(torch.equal(ops.ss_matmul(ya, yb), ssm.ss_matmul_plain(ya, yb)),
+          "the equijoin's Y-side fetch differs from its plain version")
+    ss_src = "src/repro_torch/kernels/csrc/ss_matmul.cu"
+    out = []
+    for name, (ms, plain_ms, nbytes, nops) in rows.items():
+        kernel = name.split("[")[0]
+        bound_ms, bound_by = bound(nbytes, nops, INT8_TENSOR_OPS_PER_S)
+        log(f"{name}: {ms} ms, plain {plain_ms} ms, bound "
+            f"{bound_note(nbytes, nops, INT8_TENSOR_OPS_PER_S)}")
+        out.append({"name": name, "route": "cuda", "source": ss_src,
+                    "replaces": ("src/repro/kernels/ss_matmul.py:145"
+                                 if kernel == "ss_matmul_tall" else
+                                 "src/repro/kernels/ss_matmul.py:87"),
+                    "launches": launches[kernel], "max_abs_err": errs[name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+    return out
 
 
 def sass_igmma(build) -> dict:
@@ -1810,14 +2181,19 @@ def main() -> int:
     log("slice-2 path: every answer equals the plaintext evaluation")
     path3 = pattern_path(torch, client, rows)
     log("slice-3 path: every answer equals the plaintext evaluation")
+    path5, assign_db = join_path(torch, args, db, rows)
+    log("slice-5 path: every join equals the plaintext join")
     path4, table = embed_path(torch, args)
     log("slice-4 path: every embedding equals the quantized table's row")
-    launches = {k: path1[k] + path2[k] + path3[k] + path4[k] for k in path1}
+    launches = {k: path1[k] + path2[k] + path3[k] + path4[k] + path5[k]
+                for k in path1}
     torch.cuda.reset_peak_memory_stats()
     onehot = embed_full_shapes(torch, table, errs, launches)
-    kernels = full_shape_kernels(torch, db, errs, launches) + [onehot]
+    del table
+    kernels = full_shape_kernels(torch, db, errs, launches) + [onehot] \
+        + join_full_shapes(torch, db, assign_db, errs, launches)
     log(f"phase 4 peak device memory {torch.cuda.max_memory_allocated() / 1e9}"
-        f" GB (the relation and the table included)")
+        f" GB (the relation included; the table until slice 5's shapes)")
     log("kernels == plain versions at the main paths' full shapes")
 
     print(json.dumps({"kernels": kernels}), flush=True)

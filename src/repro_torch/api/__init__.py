@@ -7,6 +7,9 @@
     client.range_count("Salary", 500, 1500, reduce_every=8).count
     client.aggregate("avg", "Salary", where=Eq("Department", "Legal")).value
     client.like("FirstName", "Jo%").rows          # LIKE / prefix / suffix
+    client.join(orders, on=("EmployeeId", "EmployeeId")).rows   # PK/FK
+    client.join(visitors, on=("FirstName", "FirstName"), kind="equi",
+                padding=Padding.fake_values(2)).rows         # equijoin
 
     from repro_torch.models import as_embed_relation, setup_private_embed
     table = setup_private_embed(0, embed)         # (V, D) float table
@@ -14,37 +17,45 @@
     emb.run(EmbedLookup(tokens=(17, 4, 17))).embeddings   # (3, D) float32
 """
 from ..core.queries.aggregate import VerificationError
-from .backends import (DEFAULT_BACKEND, Backend, available_backends,
-                       get_backend, onehot_sharer, register_backend,
-                       ripple_segmenter, slide_matcher)
+from .backends import (DEFAULT_BACKEND, Backend, aggregate_match_matrix,
+                       available_backends, batched_match_matrix, get_backend,
+                       onehot_sharer, register_backend, ripple_segmenter,
+                       slide_matcher)
 from .client import QueryClient
-from .planner import (DEFAULT_ELL, BatchExplanation, CostEstimate, DBStats,
-                      GroupEstimate, PlanNotSupported, candidate_estimates,
-                      candidate_pattern_estimates, choose_pattern_strategy,
+from .planner import (DEFAULT_ELL, MATCH_METHOD_LAUNCHES, BatchExplanation,
+                      CostEstimate, DBStats, GroupEstimate, PlanNotSupported,
+                      candidate_estimates, candidate_pattern_estimates,
+                      choose_match_method, choose_pattern_strategy,
                       choose_select_strategy, estimate_aggregate_cost,
                       estimate_batch_group_cost, estimate_count_cost,
-                      estimate_embed_cost, estimate_pattern_cost,
-                      estimate_range_cost, estimate_select_cost,
-                      explain_batch_groups)
-from .plans import (AGG_OPS, AUTO, MATCH_PREDICATES, PATTERN_PREDICATES,
-                    SELECT_STRATEGIES, Aggregate, Between, ColumnRef,
-                    Contains, Count, EmbedLookup, Eq, Like, Padding, Plan,
-                    Prefix, QueryResult, RangeCount, RangeSelect, Select,
-                    Suffix, resolve_column)
+                      estimate_embed_cost, estimate_equijoin_cost,
+                      estimate_match_method_launches, estimate_pattern_cost,
+                      estimate_pkfk_cost, estimate_range_cost,
+                      estimate_select_cost, explain_batch_groups)
+from .plans import (AGG_OPS, AUTO, JOIN_KINDS, MATCH_METHODS,
+                    MATCH_PREDICATES, PATTERN_PREDICATES, SELECT_STRATEGIES,
+                    Aggregate, Between, ColumnRef, Contains, Count,
+                    EmbedLookup, Eq, Join, Like, Padding, Plan, Prefix,
+                    QueryResult, RangeCount, RangeSelect, Select, Suffix,
+                    resolve_column)
 
 __all__ = [
-    "VerificationError", "DEFAULT_BACKEND", "Backend", "available_backends",
+    "VerificationError", "DEFAULT_BACKEND", "Backend",
+    "aggregate_match_matrix", "available_backends", "batched_match_matrix",
     "get_backend", "onehot_sharer", "register_backend", "ripple_segmenter",
-    "slide_matcher", "QueryClient", "DEFAULT_ELL", "BatchExplanation",
-    "CostEstimate", "DBStats", "GroupEstimate", "PlanNotSupported",
-    "candidate_estimates", "candidate_pattern_estimates",
-    "choose_pattern_strategy", "choose_select_strategy",
-    "estimate_aggregate_cost", "estimate_batch_group_cost",
-    "estimate_count_cost", "estimate_embed_cost", "estimate_pattern_cost",
-    "estimate_range_cost", "estimate_select_cost", "explain_batch_groups",
-    "AGG_OPS", "AUTO", "MATCH_PREDICATES", "PATTERN_PREDICATES",
+    "slide_matcher", "QueryClient", "DEFAULT_ELL", "MATCH_METHOD_LAUNCHES",
+    "BatchExplanation", "CostEstimate", "DBStats", "GroupEstimate",
+    "PlanNotSupported", "candidate_estimates", "candidate_pattern_estimates",
+    "choose_match_method", "choose_pattern_strategy",
+    "choose_select_strategy", "estimate_aggregate_cost",
+    "estimate_batch_group_cost", "estimate_count_cost",
+    "estimate_embed_cost", "estimate_equijoin_cost",
+    "estimate_match_method_launches", "estimate_pattern_cost",
+    "estimate_pkfk_cost", "estimate_range_cost", "estimate_select_cost",
+    "explain_batch_groups", "AGG_OPS", "AUTO", "JOIN_KINDS",
+    "MATCH_METHODS", "MATCH_PREDICATES", "PATTERN_PREDICATES",
     "SELECT_STRATEGIES", "Aggregate", "Between", "ColumnRef", "Contains",
-    "Count", "EmbedLookup", "Eq", "Like", "Padding", "Plan", "Prefix",
-    "QueryResult", "RangeCount", "RangeSelect", "Select", "Suffix",
-    "resolve_column",
+    "Count", "EmbedLookup", "Eq", "Join", "Like", "Padding", "Plan",
+    "Prefix", "QueryResult", "RangeCount", "RangeSelect", "Select",
+    "Suffix", "resolve_column",
 ]

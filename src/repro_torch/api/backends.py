@@ -19,6 +19,12 @@ degree bookkeeping stays at the query layer):
                          oblivious fetch, the one_tuple contraction and
                          the conditional SUM contraction (tall-skinny
                          shapes take their own kernel);
+  * ``match_matrix``   — (c, nx, W, A), (c, ny, W, A) -> (c, nx, ny): the
+                         §3.3.1 join's all-pairs word match (W chained
+                         ``ss_matmul`` launches);
+  * ``match_matrix_batch`` — (c, B, nx, W, A), (c, B, ny, W, A) ->
+                         (c, B, nx, ny): a join group's B column pairs in
+                         W launches, not W·B;
   * ``ripple_segment`` — (..., k), (..., k), carry (...) | None ->
                          (rb, carry'): k chained §3.4 SS-SUB bit steps
                          (``None`` starts at the LSB step); the range
@@ -43,6 +49,8 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..core import automata
+from ..core.shamir import Shares
 from ..kernels import aa_match as _aa
 from ..kernels import ops
 from ..kernels import ripple as _rip
@@ -65,6 +73,48 @@ class Backend:
     aa_slide_batch: Optional[_Op] = None
     aa_slide_rows: Optional[Callable[..., torch.Tensor]] = None
     share_onehot: Optional[Callable[..., torch.Tensor]] = None
+    match_matrix: Optional[_Op] = None
+    match_matrix_batch: Optional[_Op] = None
+
+
+def batched_match_matrix(backend: Backend) -> _Op:
+    """The backend's stacked all-pairs matcher; a backend without one steps
+    its own ``match_matrix`` over the B column pairs on the same device,
+    and a backend with neither cannot run joins and raises."""
+    if backend.match_matrix_batch is not None:
+        return backend.match_matrix_batch
+    single = backend.match_matrix
+    if single is None:
+        raise ValueError(f"backend {backend.name!r} has no match_matrix "
+                         f"op; joins need one")
+
+    def run(bx: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
+        return torch.stack([single(bx[:, i], by[:, i])
+                            for i in range(bx.shape[1])], dim=1)
+
+    return run
+
+
+def aggregate_match_matrix(backend: Backend) -> _Op:
+    """Batched all-pairs matcher in the AGGREGATE form (§3.1.2): ONE
+    flattened (W·A) ``ss_matmul`` of the (c·B) stack gives P = #matching
+    positions per pair, and the equality indicator ``1[P == W]`` is a
+    share-local elementwise chain (plain PyTorch, one cloud slice at a
+    time). Same secrets and degree as the chain matcher with one launch
+    instead of W, so the planner may pick either per join group
+    (``Join.match_method``). As ``ops.match_matrix_batch``, the product
+    is built in fetch-row order (c·B, ny, nx) and returned as its
+    transposed (c, B, nx, ny) view."""
+    def run(bx: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
+        c, b, nx, w, a = bx.shape
+        ny = by.shape[2]
+        yf = by.reshape(c * b, ny, w * a)
+        xt = bx.flatten(-2).transpose(-1, -2).reshape(c * b, w * a, nx)
+        p_cnt = backend.ss_matmul(yf, xt)                # (c·B, ny, nx)
+        del xt
+        return automata.equality_indicator_(p_cnt, w).view(
+            c, b, ny, nx).transpose(-1, -2)
+    return run
 
 
 def onehot_sharer(backend: Backend) -> Callable[..., torch.Tensor]:
@@ -108,6 +158,10 @@ def _plain_ripple_carry(a, b, carry=None):
     return _rip.ripple_segment_plain(a[..., None], b[..., None], carry)
 
 
+def _plain_match_matrix(col_x, col_y):
+    return automata.match_matrix(Shares(col_x, 0), Shares(col_y, 0)).values
+
+
 _REGISTRY: Dict[str, Backend] = {
     "torch": Backend("torch", ss_matmul=_ssm.ss_matmul_plain,
                      aa_match_batch=_aa.aa_match_batch_plain,
@@ -116,7 +170,8 @@ _REGISTRY: Dict[str, Backend] = {
                      ripple_carry=_plain_ripple_carry,
                      aa_slide_batch=_aa.aa_slide_batch_plain,
                      aa_slide_rows=_aa.aa_slide_rows_plain,
-                     share_onehot=_ssm.share_onehot_plain),
+                     share_onehot=_ssm.share_onehot_plain,
+                     match_matrix=_plain_match_matrix),
     "cuda": Backend("cuda", ss_matmul=ops.ss_matmul,
                     aa_match_batch=ops.aa_match_batch,
                     aa_match_rows=ops.aa_match_rows,
@@ -124,7 +179,9 @@ _REGISTRY: Dict[str, Backend] = {
                     ripple_carry=ops.ripple_carry,
                     aa_slide_batch=ops.aa_slide_batch,
                     aa_slide_rows=ops.aa_slide_rows,
-                    share_onehot=ops.share_onehot),
+                    share_onehot=ops.share_onehot,
+                    match_matrix=ops.match_matrix,
+                    match_matrix_batch=ops.match_matrix_batch),
 }
 
 BackendLike = Union[str, Backend]

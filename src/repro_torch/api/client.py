@@ -13,14 +13,16 @@ cost-plans each query, groups Count/Select plans by algorithm, ranges by
 (bit width, ``reduce_every``) and aggregates by family, stacks their
 predicates so each protocol round runs once per group (one fused dispatch +
 one interpolation), and sends every oblivious fetch of the batch (one_round,
-tree and range selects) through ONE cross-group ``ss_matmul``.
+tree and range selects, and the PK/FK joins' match rows) through ONE
+cross-group ``ss_matmul``.
 :meth:`QueryClient.run` is the B = 1 case, so rows and ``CostLedger``
 totals are identical between a batch and the equivalent sequential calls.
 
 The port serves ``Count``/``Select`` over ``Eq`` and the pattern
 predicates ``Like``/``Prefix``/``Suffix``/``Contains``, ``RangeCount``/
 ``RangeSelect`` over ``Between``, ``Aggregate`` (with an ``Eq``
-predicate) and ``EmbedLookup`` over an embedding-table relation
+predicate), ``Join`` (PK/FK and general equijoins, §3.3) and
+``EmbedLookup`` over an embedding-table relation
 (``models.private_embed.as_embed_relation``); any other plan or predicate
 raises :class:`~.planner.PlanNotSupported`.
 """
@@ -40,8 +42,9 @@ from ..core.queries import (CardinalityError, EmbedJob, aggregate,
 from . import planner as _planner
 from .backends import DEFAULT_BACKEND, BackendLike, get_backend
 from .plans import (AUTO, Aggregate, Between, ColumnRef, Contains, Count,
-                    EmbedLookup, Eq, Like, Padding, Plan, Prefix, QueryResult,
-                    RangeCount, RangeSelect, Select, Suffix, resolve_column)
+                    EmbedLookup, Eq, Join, Like, Padding, Plan, Prefix,
+                    QueryResult, RangeCount, RangeSelect, Select, Suffix,
+                    resolve_column)
 
 #: surface shapes of the literal-tile predicates (for error display).
 _TILE_SOURCES = {Prefix: "{0}%", Suffix: "%{0}", Contains: "%{0}%"}
@@ -104,6 +107,17 @@ def _binary_column(db: SecretSharedDB, column: ColumnRef) -> int:
     if col not in db.numeric_bits:
         raise ValueError(f"column {col} was not outsourced in binary form")
     return col
+
+
+def _validate_join(plan: Join) -> None:
+    if plan.padding.rows:
+        raise ValueError("joins take Padding.fake_values (fake join "
+                         "values), not Padding.rows")
+    if plan.kind == "pkfk" and plan.padding.values:
+        raise ValueError(
+            "pkfk_join's output size is always n_y (one reducer per child "
+            "tuple) — nothing to hide; Padding.fake_values applies to "
+            "kind='equi' only")
 
 
 def _fused_group(family: str, ests: Sequence[_planner.CostEstimate]
@@ -217,6 +231,7 @@ class QueryClient:
             = {}
         agg_grps: Dict[tuple, List[_planner.CostEstimate]] = {}
         embed_ests: List[_planner.CostEstimate] = []
+        joins: Dict[str, List[Join]] = {"pkfk": [], "equi": []}
 
         def add_select(plan: Select, strategy: str,
                        spec: Optional[encoding.PatternSpec]) -> None:
@@ -264,6 +279,9 @@ class QueryClient:
             elif isinstance(plan, EmbedLookup):
                 embed_ests.append(_planner.estimate_embed_cost(
                     stats, n_tokens=len(plan.tokens), verify=plan.verify))
+            elif isinstance(plan, Join):
+                _validate_join(plan)
+                joins[plan.kind].append(plan)
             else:
                 raise _planner.PlanNotSupported(plan)
         for plan, spec in auto_plans:
@@ -293,6 +311,16 @@ class QueryClient:
             groups.append(_fused_group("aggregate", ests))
         if embed_ests:          # one fused contraction: dispatches don't stack
             groups.append(_fused_group("embed", embed_ests))
+        if joins["pkfk"]:       # one group: batched match matrices
+            groups.append(_fused_group("pkfk", [
+                _planner.estimate_pkfk_cost(stats,
+                                            _planner.DBStats.of(p.right))
+                for p in joins["pkfk"]]))
+        if joins["equi"]:       # phases fuse; per-value rounds stay per job
+            groups.append(_fused_group("equi", [
+                _planner.estimate_equijoin_cost(
+                    stats, _planner.DBStats.of(p.right),
+                    fake_values=p.padding.values) for p in joins["equi"]]))
         return _planner.explain_batch_groups(stats, groups)
 
     @staticmethod
@@ -349,7 +377,12 @@ class QueryClient:
         MIN/MAX tournaments march in lockstep per (bit width,
         ``reduce_every``). Every ``EmbedLookup`` of the batch shares its
         one-hots in ONE ``share_onehot`` launch and contracts in ONE
-        ``ss_matmul`` per shard.
+        ``ss_matmul`` per shard. PK/FK joins whose right relations have
+        equal size and match method stack into one batched match (W
+        ``ss_matmul`` launches per shard for the chain, one for the
+        aggregate form) whose rows ride the cross-group fetch; equijoins
+        fuse per phase (one column open, one X-side layer-1 matmul per
+        shard, the Y side per distinct right relation).
 
         A forced ``one_tuple`` whose predicate hits ℓ ≠ 1 tuples raises
         :class:`CardinalityError`; with ``strategy="auto"`` the query
@@ -365,6 +398,8 @@ class QueryClient:
         agg_sum_grps: Dict[int, List[_Slot]] = {}
         agg_mm_grps: Dict[Tuple[int, int], List[_Slot]] = {}
         embed_grp: List[_Slot] = []
+        pkfk_grp: List[_Slot] = []
+        equi_grp: List[_Slot] = []
         auto_slots: List[_Slot] = []
         group_sizes: Dict[str, int] = {s: 0 for s in sel_grp}
         group_rounds: Dict[str, int] = {}
@@ -420,6 +455,9 @@ class QueryClient:
                                            []).append(slot)
             elif isinstance(plan, EmbedLookup):
                 embed_grp.append(slot)
+            elif isinstance(plan, Join):
+                _validate_join(plan)
+                (pkfk_grp if plan.kind == "pkfk" else equi_grp).append(slot)
             else:
                 raise _planner.PlanNotSupported(plan)
 
@@ -600,10 +638,37 @@ class QueryClient:
                         s.fetch_key, out, s.ledger, s.plan.padding.rows))
                     fetch_meta.append((s, "range_select", out))
 
-        rows_list, _ = rounds.fetch_fusion(be, rel, fetch_jobs)
+        # -- pkfk joins: match matrices become rows of the shared fetch -----
+        join_jobs = [rounds.JoinJob(
+            s.plan.right, resolve_column(db, s.plan.on[0]),
+            resolve_column(s.plan.right, s.plan.on[1]), s.key, s.ledger,
+            match_method=_planner.choose_match_method(
+                stats, s.plan.match_method)) for s in pkfk_grp]
+        join_entries = rounds.join_match_round(be, rel, join_jobs)
+
+        rows_list, fetched = rounds.fetch_fusion(be, rel, fetch_jobs,
+                                                 join_entries)
+        del join_entries        # the match rows: 10.74 GB at full size
         for (s, strat, a), r in zip(fetch_meta, rows_list):
             results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
                                          strategy=strat, rows=r, addresses=a)
+        if pkfk_grp:
+            join_rows = rounds.join_emit_round(db, join_jobs, fetched)
+            for s, r in zip(pkfk_grp, join_rows):
+                results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
+                                             strategy="pkfk", rows=r)
+
+        # -- equijoins: phases fused across the group -----------------------
+        if equi_grp:
+            equi_rows = rounds.equijoin_rounds(be, rel, [
+                rounds.EquiJob(
+                    s.plan.right, resolve_column(db, s.plan.on[0]),
+                    resolve_column(s.plan.right, s.plan.on[1]), s.key,
+                    s.ledger, padded_values=s.plan.padding.values)
+                for s in equi_grp])
+            for s, r in zip(equi_grp, equi_rows):
+                results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
+                                             strategy="equi", rows=r)
         return [results[i] for i in range(len(plans))]
 
     # -- conveniences (build the plan, run it) ------------------------------
@@ -650,3 +715,8 @@ class QueryClient:
                   reduce_every: int = 0) -> QueryResult:
         return self.run(Aggregate(op, column, where=where, verify=verify,
                                   reduce_every=reduce_every))
+
+    def join(self, right: SecretSharedDB, on: Tuple[ColumnRef, ColumnRef], *,
+             kind: str = "pkfk", padding: Padding = Padding.NONE
+             ) -> QueryResult:
+        return self.run(Join(right=right, on=on, kind=kind, padding=padding))

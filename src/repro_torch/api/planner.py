@@ -10,10 +10,13 @@ statistics (n, m, w, A, c) and the cardinality hint ℓ alone:
                ℓ address fetches + ℓ'×n fetch;
                rounds ≤ ⌊log_ℓ n⌋ + ⌊log₂ ℓ⌋ + 1 (+ count + fetch).
 
-Range plans (§3.4), aggregates (SUM/AVG/MIN/MAX) and embedding lookups
-have one algorithm each; :func:`estimate_range_cost`,
-:func:`estimate_aggregate_cost` and :func:`estimate_embed_cost` price them
-in the same units, exactly as their rounds charge the ledger.
+Range plans (§3.4), aggregates (SUM/AVG/MIN/MAX), joins (§3.3) and
+embedding lookups have one algorithm each; :func:`estimate_range_cost`,
+:func:`estimate_aggregate_cost`, :func:`estimate_pkfk_cost`,
+:func:`estimate_equijoin_cost` and :func:`estimate_embed_cost` price them
+in the same units. A PK/FK join's match method (chain or aggregate, the
+same secrets and ledger) is priced by launch count
+(:func:`choose_match_method`).
 Pattern predicates price their match phase with the round engine's own
 ``match_phase_cost`` (:func:`estimate_pattern_cost`) and choose between
 one_round and tree only.
@@ -207,6 +210,34 @@ def candidate_pattern_estimates(stats: DBStats,
             for strat in ("one_round", "tree")]
 
 
+#: backend launches one PK/FK match-matrix evaluation takes per method:
+#: the §3.1.2 chain walks the word one dot set per position; the aggregate
+#: form flattens all W·A products into ONE contraction plus the equality
+#: indicator (2 launches, any W).
+MATCH_METHOD_LAUNCHES = {"chain": lambda w: w, "aggregate": lambda w: 2}
+
+
+def estimate_match_method_launches(stats: DBStats, method: str) -> int:
+    """Device launches for one match-matrix evaluation under ``method``."""
+    try:
+        return MATCH_METHOD_LAUNCHES[method](stats.w)
+    except KeyError:
+        raise ValueError(f"unknown match_method {method!r}; choose from "
+                         f"('chain', 'aggregate')") from None
+
+
+def choose_match_method(stats: DBStats, method: str = "auto") -> str:
+    """Resolve a ``Join.match_method``. Both methods open the same match
+    matrix at the same degree with identical ledgers, so bits and rounds
+    never discriminate; AUTO takes the method with fewer launches
+    (``aggregate`` whenever W > 2)."""
+    if method != "auto":
+        estimate_match_method_launches(stats, method)   # validate
+        return method
+    return min(("chain", "aggregate"),
+               key=lambda m: estimate_match_method_launches(stats, m))
+
+
 def estimate_range_cost(stats: DBStats, *, t_bits: int,
                         reduce_every: int = 0, want_addresses: bool = False,
                         ell: int = DEFAULT_ELL,
@@ -306,6 +337,32 @@ def estimate_embed_cost(stats: DBStats, *, n_tokens: int,
                         dispatches=_shards(s))
 
 
+def estimate_pkfk_cost(stats: DBStats, right: DBStats) -> CostEstimate:
+    """§3.3.1: the match-matrix step (per shard), the shared fetch, and one
+    round shipping every reducer's (parent ⊕ child) concatenation."""
+    s = stats
+    elems = s.c * right.n * (s.m + right.m) * s.w * s.a
+    return CostEstimate("pkfk", elems * WORD_BITS, rounds=1,
+                        dispatches=2 * _shards(s))    # match + fetch steps
+
+
+def estimate_equijoin_cost(stats: DBStats, right: DBStats, *,
+                           values: int = 1,
+                           fake_values: int = 0) -> CostEstimate:
+    """§3.3.2 (Thm 6): the column-open round + 2 rounds per (fake) common
+    value. ``values`` is the caller's guess at k (the true count is data
+    the planner cannot see); value groups are assumed singletons.
+    Dispatches: the X-side layer-1 matmul per shard, the Y side against
+    the (unsharded) right relation."""
+    s = stats
+    k = max(0, values) + max(0, fake_values)
+    elems = (s.c * s.n * s.w * s.a + right.c * right.n * s.w * s.a  # open
+             + k * (s.c * s.n + right.c * right.n)       # layer-1 one-hots
+             + k * s.c * (s.m + right.m) * s.w * s.a)    # layer-2 pairs
+    return CostEstimate("equi", elems * WORD_BITS, rounds=1 + 2 * k,
+                        dispatches=_shards(s) + 1)
+
+
 def candidate_estimates(stats: DBStats, *, ell: Optional[int] = None,
                         padded_rows: Optional[int] = None
                         ) -> List[CostEstimate]:
@@ -398,7 +455,7 @@ def estimate_batch_group_cost(stats: DBStats, strategy: str, *,
 
 #: group families whose oblivious fetch rides the single cross-group
 #: ``ss_matmul`` of ``run_batch`` (the batch pays the fetch step once).
-FETCH_RIDERS = ("one_round", "tree", "range_select")
+FETCH_RIDERS = ("one_round", "tree", "range_select", "pkfk")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,11 +5,13 @@ columns by name, padding policy); :class:`repro_torch.api.QueryClient`
 decides *how* (strategy, backend, random streams) and returns a uniform
 :class:`QueryResult`. The port carries the count and selection families
 over equality and pattern predicates (``Like``/``Prefix``/``Suffix``/
-``Contains``), range count/selection over ``Between`` and SUM/AVG/MIN/MAX
-aggregation.
+``Contains``), range count/selection over ``Between``, SUM/AVG/MIN/MAX
+aggregation and PK/FK and general equijoins (``Join``).
 
-Padding is a security knob: fetching ``Padding.rows`` fake rows hides the
-true result size ℓ from the clouds (§3.2.2 output-size attack).
+Padding is a security knob: fetching ``Padding.rows`` fake rows
+(selection) or running ``Padding.values`` fake join values (equijoin)
+hides the true result size from the clouds (the §3.2.2 / §3.3.2
+output-size attack).
 """
 from __future__ import annotations
 
@@ -17,11 +19,14 @@ import dataclasses
 from typing import List, Optional, Tuple, Union
 
 from ..core.costs import CostLedger
+from ..core.engine import SecretSharedDB
 
 ColumnRef = Union[str, int]
 
 AUTO = "auto"
 SELECT_STRATEGIES = ("one_tuple", "one_round", "tree")
+JOIN_KINDS = ("pkfk", "equi")
+MATCH_METHODS = ("chain", "aggregate")
 AGG_OPS = ("sum", "avg", "min", "max")
 
 
@@ -107,17 +112,29 @@ MATCH_PREDICATES = (Eq,) + PATTERN_PREDICATES
 
 @dataclasses.dataclass(frozen=True)
 class Padding:
-    """Output-size-attack resistance: pad the oblivious fetch to ``rows``
-    rows (≥ true ℓ); the extra rows are all-zero one-hots."""
+    """Output-size-attack resistance.
+
+    rows:   pad the oblivious fetch to this many rows (≥ true ℓ); the extra
+            rows are all-zero one-hots and fetch nothing.
+    values: fake (no-op) equijoin values, hiding the number of common join
+            values k.
+    """
     rows: Optional[int] = None
+    values: int = 0
 
     def __post_init__(self):
         if self.rows is not None and self.rows < 0:
             raise ValueError("Padding.rows must be >= 0")
+        if self.values < 0:
+            raise ValueError("Padding.values must be >= 0")
 
     @classmethod
     def to_rows(cls, rows: int) -> "Padding":
         return cls(rows=rows)
+
+    @classmethod
+    def fake_values(cls, values: int) -> "Padding":
+        return cls(values=values)
 
 
 Padding.NONE = Padding()
@@ -158,6 +175,14 @@ class Select(Plan):
                              f"from {(AUTO,) + SELECT_STRATEGIES}")
         if self.expected_matches is not None and self.expected_matches < 0:
             raise ValueError("expected_matches must be >= 0")
+        _refuse_fake_values(self.padding)
+
+
+def _refuse_fake_values(padding: Padding) -> None:
+    if padding.values:
+        raise ValueError("selection hides the result size with "
+                         "Padding.rows (fake fetch rows); "
+                         "Padding.fake_values applies to equijoins")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +200,40 @@ class RangeSelect(Plan):
     where: Between
     reduce_every: int = 0
     padding: Padding = Padding.NONE
+
+    def __post_init__(self):
+        _refuse_fake_values(self.padding)
+
+
+@dataclasses.dataclass(frozen=True)
+class Join(Plan):
+    """Oblivious join of the client's relation with ``right`` (§3.3).
+
+    on:   (left column, right column) — names or indices.
+    kind: ``"pkfk"`` (§3.3.1, the left column is a primary key) or
+          ``"equi"`` (§3.3.2, join values may repeat on both sides).
+    match_method: how the PK/FK match matrix is evaluated — ``"chain"``
+          (W per-position dot sets, §3.1.2, one ``ss_matmul`` launch
+          each), ``"aggregate"`` (ONE flattened W·A dot + the equality
+          indicator) or ``"auto"`` (the planner's pick by launch count).
+          Both give the same secrets at the same degree.
+    """
+    right: SecretSharedDB
+    on: Tuple[ColumnRef, ColumnRef]
+    kind: str = "pkfk"
+    padding: Padding = Padding.NONE
+    match_method: str = "chain"
+
+    def __post_init__(self):
+        if self.kind not in JOIN_KINDS:
+            raise ValueError(f"unknown join kind {self.kind!r}; choose from "
+                             f"{JOIN_KINDS}")
+        if len(self.on) != 2:
+            raise ValueError("Join.on must be a (left, right) column pair")
+        if self.match_method not in (AUTO,) + MATCH_METHODS:
+            raise ValueError(
+                f"unknown match_method {self.match_method!r}; choose from "
+                f"{(AUTO,) + MATCH_METHODS}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,10 @@ chaining per-position one-hot inner products:
 positions hold the terminator one-hot, so equality is exact-word.
 Everything is per-cloud local. These are the plain reference functions;
 the query engine runs the same math through the backend's
-``aa_match_batch`` and ``aa_slide_batch`` (CUDA kernels on the card).
+``aa_match_batch`` and ``aa_slide_batch`` (CUDA kernels on the card) and,
+for the §3.3.1 join's all-pairs :func:`match_matrix`, through the
+backend's ``match_matrix_batch`` (W ``ss_matmul`` launches chained by
+plain modular products).
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ import torch
 from . import field
 from .shamir import Shares
 
-__all__ = ["match_words", "match_column", "count_column", "slide_windows",
-           "match_suffix", "window_count", "zero_indicator"]
+__all__ = ["match_words", "match_column", "count_column", "match_matrix",
+           "slide_windows", "match_suffix", "window_count",
+           "equality_indicator", "equality_indicator_", "zero_indicator"]
 
 
 def _chain(v: torch.Tensor) -> torch.Tensor:
@@ -52,6 +56,55 @@ def count_column(column: Shares, pattern: Shares) -> Shares:
     """§3.1 count: the per-tuple match shares summed over all tuples, so
     the cloud never sees the count."""
     return match_words(column, pattern).sum(dim=0)
+
+
+def match_matrix(col_x: Shares, col_y: Shares, *,
+                 method: str = "chain") -> Shares:
+    """All-pairs word match between two shared columns (the join's inner
+    loop): col_x (c, nx, W, A), col_y (c, ny, W, A) -> Shares (c, nx, ny),
+    a share of 1 where word_i == word_j, degree (t_x + t_y)·W.
+
+    ``method="chain"`` (Table 3): per position a mod-p matmul over the
+    alphabet axis, chained multiplicatively (W dot sets).
+    ``method="aggregate"``: ONE dot over the flattened (W·A) axis gives
+    P = #matching positions in {0..W}; the equality indicator ``1[P == W]``
+    (:func:`equality_indicator`) turns it into the same secret at the same
+    degree."""
+    xv = col_x.values                                 # (c, nx, W, A)
+    yv = col_y.values                                 # (c, ny, W, A)
+    w = xv.shape[-2]
+    out_degree = (col_x.degree + col_y.degree) * w
+    if method == "aggregate":
+        c, nx, ny = xv.shape[0], xv.shape[1], yv.shape[1]
+        p_cnt = field.matmul(xv.reshape(c, nx, -1),
+                             yv.reshape(c, ny, -1).transpose(-1, -2))
+        return Shares(equality_indicator(p_cnt, w), out_degree)
+    if method != "chain":
+        raise ValueError(f"unknown match_method: {method!r}")
+    acc = None
+    for j in range(w):
+        pj = field.matmul(xv[:, :, j, :], yv[:, :, j, :].transpose(-1, -2))
+        acc = pj if acc is None else field.mul(acc, pj)
+    return Shares(acc, out_degree)
+
+
+def equality_indicator(p_cnt: torch.Tensor, w: int) -> torch.Tensor:
+    """1[P == w] = Π_{j=0}^{w-1} (P − j) · (w!)⁻¹ over the domain {0..w}:
+    a share-local elementwise chain, degree ×w."""
+    acc = None
+    for j in range(w):
+        term = field.sub(p_cnt, p_cnt.new_tensor(j))
+        acc = term if acc is None else field.mul(acc, term)
+    return field.mul(acc, acc.new_tensor(_inv_factorial(w)))
+
+
+def equality_indicator_(p_cnt: torch.Tensor, w: int) -> torch.Tensor:
+    """:func:`equality_indicator` in place, one leading-axis slice at a
+    time (the int64 transients stay the size of one slice). Returns
+    ``p_cnt``."""
+    for z in range(p_cnt.shape[0]):
+        p_cnt[z] = equality_indicator(p_cnt[z], w)
+    return p_cnt
 
 
 def zero_indicator(p_cnt: torch.Tensor, m: int) -> torch.Tensor:

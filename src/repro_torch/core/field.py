@@ -18,8 +18,8 @@ P = 2**31 - 1
 DTYPE = torch.int32
 
 __all__ = [
-    "P", "DTYPE", "to_field", "add", "sub", "neg", "mul", "pow_", "inv",
-    "sum_", "dot", "matmul", "uniform", "from_signed", "to_numpy",
+    "P", "DTYPE", "to_field", "add", "sub", "neg", "mul", "mul_", "pow_",
+    "inv", "sum_", "dot", "matmul", "uniform", "from_signed", "to_numpy",
 ]
 
 #: K-chunk of the limb matmul when its partial sums are held in float64:
@@ -69,6 +69,15 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _fold(a.to(torch.int64) * b.to(torch.int64)).to(DTYPE)
+
+
+def mul_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a = a·b mod p`` in place, one leading-axis slice at a time, so the
+    int64 transients stay the size of one slice (a join's match matrix is
+    10.74 GB of int32 at full size). Returns ``a``."""
+    for z in range(a.shape[0]):
+        a[z] = mul(a[z], b[z])
+    return a
 
 
 def sum_(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:

@@ -19,18 +19,27 @@ sequential queries execute the same code and give identical rows and
     ``(c, 2B, n, t)`` SS-SUB carry chain, one ``ripple_segment`` dispatch
     per shard per degree-reduction interval and one re-share per boundary
     for the whole batch.
+  * :func:`join_match_round` / :func:`join_emit_round` — §3.3.1 PK/FK
+    joins: a join group's match matrices (W chained ``ss_matmul`` launches,
+    or one in the aggregate form) become :class:`FetchEntry` rows of the
+    shared fetch; the re-randomized outputs open in one fused user step
+    per degree class.
+  * :func:`equijoin_rounds` — §3.3.2 over B equijoins: one fused column
+    open, every layer-1 X-side fetch matrix in one ``ss_matmul`` (Y side
+    one per distinct right relation), the layer-2 pairs opened in one
+    fused pass per degree class.
   * :func:`fetch_fusion`    — the cross-group oblivious fetch: every one-hot
-    matrix of the round (one_round, tree and range selects) stacks into one
-    ``ss_matmul`` against the relation.
+    matrix of the round (one_round, tree and range selects) and every join
+    match-row block stacks into one ``ss_matmul`` against the relation.
 
 A job carrying a pattern ``spec`` (LIKE/prefix/suffix/substring) runs
 through :class:`_MatcherPlan`: masked patterns ride the full-width chain,
 prefixes a truncated chain, suffixes and substrings the sliding-window
 kernel (``aa_slide_batch``), one dispatch per group and shard.
 :func:`match_phase_cost` is both what the rounds charge and what the planner
-prices. This mirrors the reference engine (``repro.core.queries.rounds``)
-without joins. Ledgers record protocol cost only, never the padding a fused
-dispatch adds.
+prices. This mirrors the reference engine (``repro.core.queries.rounds``).
+Ledgers record protocol cost only, never the padding a fused dispatch
+adds.
 """
 from __future__ import annotations
 
@@ -104,9 +113,39 @@ class RangeJob:
 
 
 @dataclasses.dataclass
+class JoinJob:
+    """One PK/FK join's slot in the batched §3.3.1 rounds.
+
+    ``match_method`` picks how the nx×ny match matrix is evaluated:
+    ``"chain"`` multiplies W per-position dot sets (Table 3 order),
+    ``"aggregate"`` contracts the flattened (W·A) encodings in ONE
+    ``ss_matmul`` and applies the equality indicator. Both give the same
+    secrets at the same degree, so transcripts and ledgers are identical.
+    ``key`` None (the legacy key-less join) skips the re-randomization."""
+    right: SecretSharedDB
+    col_x: int
+    col_y: int
+    key: Optional[Key]
+    ledger: CostLedger
+    match_method: str = "chain"
+
+
+@dataclasses.dataclass
+class EquiJob:
+    """One general equijoin's slot in the batched §3.3.2 rounds."""
+    right: SecretSharedDB
+    col_x: int
+    col_y: int
+    key: Key
+    ledger: CostLedger
+    padded_values: int = 0
+
+
+@dataclasses.dataclass
 class FetchEntry:
     """One raw row-block (c, r, n) of the fused fetch matmul, with its
-    sharing degree (join match matrices ride here in a later slice)."""
+    sharing degree (one-hot fetch rows are base degree; a join's match
+    rows carry the AA product degree)."""
     values: torch.Tensor
     degree: int
 
@@ -127,6 +166,23 @@ def _slide_matcher(be):
     for a backend without them."""
     from ...api import backends as _registry
     return _registry.slide_matcher(be)
+
+
+def _batched_match_matrix(be):
+    """Backend's stacked all-pairs matcher (deferred import, as above)."""
+    from ...api import backends as _registry
+    return _registry.batched_match_matrix(be)
+
+
+def _aggregate_matcher(be):
+    """Backend's aggregate-form all-pairs matcher (deferred import)."""
+    from ...api import backends as _registry
+    return _registry.aggregate_match_matrix(be)
+
+
+def _column(db: SecretSharedDB, col: int) -> Shares:
+    """One attribute column (c, n, W, A) of the relation, a view."""
+    return Shares(db.relation.values[:, :, col], db.relation.degree)
 
 
 def _share_one_hot(key: Key, db: SecretSharedDB, addresses: Sequence[int],
@@ -154,9 +210,11 @@ def _fused_interpolate(parts: Sequence[Shares]) -> List[np.ndarray]:
     for i, s in enumerate(parts):
         by_class.setdefault((s.degree, s.n_shares), []).append(i)
     for (deg, c), idxs in by_class.items():
-        flats = [parts[i].values.reshape(c, -1) for i in idxs]
-        vals = field.to_numpy(shamir.interpolate(
-            Shares(torch.cat(flats, dim=1), deg)))
+        # the opening reads the first deg+1 clouds: copy only those
+        need = min(c, deg + 1)
+        flats = [parts[i].values[:need].reshape(need, -1) for i in idxs]
+        vals = field.to_numpy(shamir.interpolate(Shares(
+            flats[0] if len(flats) == 1 else torch.cat(flats, dim=1), deg)))
         off = 0
         for i in idxs:
             size = int(np.prod(parts[i].shape, dtype=np.int64))
@@ -899,7 +957,9 @@ def _fetch_stack(be, plane, jobs: Sequence[FetchJob],
         ellp = max(j.padded_rows or ell, ell)
         ellps.append(ellp)
         mats.append(_share_one_hot(j.key, db, j.addresses, ellp).values)
-    stacked = torch.cat(mats + [e.values for e in extras], dim=1)  # (c,R,n)
+    blocks = mats + [e.values for e in extras]
+    # one block (a lone join's match rows) is read in place, not copied
+    stacked = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
     c, _, m, w, a = db.relation.values.shape
     ds = plane.dispatch_set(                        # ONE dispatch per shard
         lambda v, sh: be.ss_matmul(
@@ -982,3 +1042,253 @@ def fetch_round(be, db: RelationLike, jobs: Sequence[FetchJob]
                 ) -> List[List[List[str]]]:
     """Fetch every job's tuples with ONE share-space matmul."""
     return fetch_fusion(be, db, jobs)[0]
+
+
+# ---------------------------------------------------------------------------
+# §3.3.1 — PK/FK joins as rounds (match matrix -> shared fetch -> emit)
+# ---------------------------------------------------------------------------
+
+def rerandomize(key: Optional[Key], s: Shares, *,
+                coeffs: Optional[torch.Tensor] = None) -> Shares:
+    """Add a fresh sharing of zero: the same secret under unlinkable share
+    values. ``coeffs`` (degree, *s.shape) injects the zero-sharing's
+    polynomial coefficients (as ``shamir.make_shares(coeffs=)``); without
+    them they are drawn from ``key``'s stream."""
+    dev = s.values.device
+    zero = shamir.share(
+        torch.zeros(s.shape, dtype=field.DTYPE, device=dev),
+        n_shares=s.n_shares, degree=s.degree, coeffs=coeffs,
+        generator=None if coeffs is not None else _device.generator(key, dev))
+    return s + zero
+
+
+def join_match_round(be, db: RelationLike, jobs: Sequence[JoinJob]
+                     ) -> List[FetchEntry]:
+    """Cloud step 1 of B PK/FK joins: match matrices, in fetch-row order,
+    as :class:`FetchEntry` row blocks for the shared :func:`fetch_fusion`
+    matmul (reducer j's Σ_i M[i, j]·X_i is a row of the same fused fetch
+    the selection groups ride).
+
+    Jobs whose right relations have equal size and degree and the same
+    ``match_method`` stack into ONE ``(c, B, nx, ny)`` batched match per
+    shard (W launches for the chain, one for the aggregate form, whatever
+    B). Left columns slice per tuple-axis shard and the rows concatenate
+    back along nx. Ledger charges do not depend on the method: the dot-set
+    volume nx·ny·W·A is the protocol cost either way."""
+    if not jobs:
+        return []
+    plane = dataplane.as_dataplane(db)
+    db = plane.db
+    codec = db.codec
+    w_len, a_len = codec.word_length, codec.alphabet_size
+    entries: List[Optional[FetchEntry]] = [None] * len(jobs)
+    groups: Dict[tuple, List[Tuple[int, Shares]]] = {}
+    for i, j in enumerate(jobs):
+        if j.match_method not in ("chain", "aggregate"):
+            raise ValueError(f"unknown match_method: {j.match_method!r}")
+        by = _column(j.right, j.col_y)
+        groups.setdefault((tuple(by.values.shape), by.degree,
+                           j.match_method), []).append((i, by))
+    for (_, by_deg, method), members in groups.items():
+        matcher = (_aggregate_matcher(be) if method == "aggregate"
+                   else _batched_match_matrix(be))
+        idxs = [i for i, _ in members]
+        by_stack = torch.stack([by.values for _, by in members],
+                               dim=1)                   # (c, B, ny, W, A)
+        cols_x = [jobs[i].col_x for i in idxs]
+
+        def rows(v, sh):
+            bx = (_stack_columns(v, cols_x[0], len(cols_x)).values
+                  if len(set(cols_x)) == 1 else
+                  torch.stack([v.relation.values[:, :, cx] for cx in cols_x],
+                              dim=1))                   # (c, B, ns, W, A)
+            return matcher(bx, by_stack).transpose(-1, -2)
+
+        m_rows = plane.run_concat(rows, axis=-1)        # (c, B, ny, nx)
+        deg = (db.relation.degree + by_deg) * w_len
+        for k, i in enumerate(idxs):
+            j = jobs[i]
+            j.ledger.cloud(db.n_tuples * j.right.n_tuples * w_len * a_len)
+            entries[i] = FetchEntry(m_rows[:, k], deg)
+    return entries
+
+
+def join_emit_round(db: RelationLike, jobs: Sequence[JoinJob],
+                    fetched: Sequence[Shares]) -> List[List[List[str]]]:
+    """User/cloud step 2 of B PK/FK joins: re-randomize the fetched parent
+    halves and the child relations, ship both, open ALL jobs' tuples in one
+    fused user step per degree class, decode, and drop dangling children
+    (an all-zero fetched parent)."""
+    db = dataplane.as_dataplane(db).db
+    codec = db.codec
+    w_len, a_len = codec.word_length, codec.alphabet_size
+    c, nx, mx = db.n_shares, db.n_tuples, db.n_attrs
+    xs_parts: List[Shares] = []
+    ys_parts: List[Shares] = []
+    for j, fx in zip(jobs, fetched):
+        ny, my = j.right.n_tuples, j.right.n_attrs
+        j.ledger.cloud(nx * ny * mx * w_len)
+        y_part = j.right.relation                      # (c, ny, mY, W, A)
+        if j.key is not None:
+            kx, ky = _device.split(j.key)
+            fx = rerandomize(kx, fx)
+            y_part = rerandomize(ky, y_part)
+            j.ledger.cloud(ny * (mx + my) * w_len * a_len)
+        j.ledger.round()
+        j.ledger.recv(c * ny * (mx + my) * w_len * a_len)
+        xs_parts.append(fx)
+        ys_parts.append(y_part)
+    xs_all = _fused_interpolate(xs_parts)
+    ys_all = _fused_interpolate(ys_parts)
+
+    results: List[List[List[str]]] = []
+    for j, fx, yp, xs, ys in zip(jobs, xs_parts, ys_parts, xs_all, ys_all):
+        ny, my = j.right.n_tuples, j.right.n_attrs
+        j.ledger.user((fx.degree + 1) * ny * mx * w_len
+                      + (yp.degree + 1) * ny * my * w_len)
+        rows = []
+        for r in range(ny):
+            x_row = codec.decode_row(xs[r])
+            if all(v == "" for v in x_row):
+                continue                       # dangling child (no parent)
+            y_row = codec.decode_row(ys[r])
+            rows.append(x_row + [v for k, v in enumerate(y_row)
+                                 if k != j.col_y])
+        results.append(rows)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# §3.3.2 — general equijoins as rounds (two cloud layers, fused per phase)
+# ---------------------------------------------------------------------------
+
+def _one_hot_fetch_shares(key: Key, db: SecretSharedDB,
+                          addresses: Sequence[int], ledger: CostLedger
+                          ) -> Shares:
+    """Layer-1 fetch matrix (kept in share form); the ledger records the
+    send and the cloud work exactly as a solo oblivious fetch."""
+    n = db.n_tuples
+    m_sh = _share_one_hot(key, db, addresses)
+    ledger.send(db.n_shares * len(addresses) * n)
+    _, _, m, w, a = db.relation.values.shape
+    ledger.cloud(len(addresses) * n * m * w * a)
+    return m_sh
+
+
+def equijoin_rounds(be, db: RelationLike, jobs: Sequence[EquiJob]
+                    ) -> List[List[List[str]]]:
+    """§3.3.2 equijoins over a batch, every phase fused.
+
+    Phase 1 (one round): both join columns of every job travel to the user
+    and ONE interpolation per degree class opens them all. Phase 2: every
+    (job, common value) pair — and each of the ``padded_values`` fake
+    values that hide k — builds its two layer-1 one-hot matrices; all
+    X-side matrices multiply the client relation in ONE ``ss_matmul`` per
+    tuple-axis shard (partial products add in F_p), the Y-side ones one per
+    distinct right relation. Phase 3: layer 2 emits the ℓx×ℓy pairs and
+    the user opens all real pairs in one fused pass per degree class.
+    Ledgers equal the sequential per-value transcript (Thm 6: 2 rounds per
+    value)."""
+    if not jobs:
+        return []
+    plane = dataplane.as_dataplane(db)
+    db = plane.db
+    codec = db.codec
+    w_len, a_len = codec.word_length, codec.alphabet_size
+    c, nx, mx = db.n_shares, db.n_tuples, db.n_attrs
+
+    # -- phase 1: fused column open ------------------------------------
+    col_parts: List[Shares] = []
+    for j in jobs:
+        j.ledger.round()
+        j.ledger.recv(c * nx * w_len * a_len
+                      + j.right.n_shares * j.right.n_tuples * w_len * a_len)
+        col_parts += [_column(db, j.col_x), _column(j.right, j.col_y)]
+    opened = _fused_interpolate(col_parts)
+    val_lists: List[Tuple[List[str], List[str]]] = []
+    for i, j in enumerate(jobs):
+        bx, by = col_parts[2 * i], col_parts[2 * i + 1]
+        x_vals = [codec.decode_word(v) for v in opened[2 * i]]
+        y_vals = [codec.decode_word(v) for v in opened[2 * i + 1]]
+        j.ledger.user((bx.degree + 1) * nx * w_len
+                      + (by.degree + 1) * j.right.n_tuples * w_len)
+        val_lists.append((x_vals, y_vals))
+    del opened
+
+    # -- phase 2: all layer-1 fetch matrices, X side in ONE matmul -------
+    specs = []          # (job, addr_x, addr_y, real, x_mat, y_mat)
+    for j, (x_vals, y_vals) in zip(jobs, val_lists):
+        common = sorted(set(x_vals) & set(y_vals))
+        key = j.key
+        for idx in range(len(common) + j.padded_values):
+            key, kx, ky = _device.split(key, 3)
+            real = idx < len(common)
+            if real:
+                v = common[idx]
+                addr_x = [i for i, t in enumerate(x_vals) if t == v]
+                addr_y = [i for i, t in enumerate(y_vals) if t == v]
+            else:   # fake value: all-zero rows, the same traffic (hides k)
+                addr_x, addr_y = [0], [0]
+            j.ledger.round(2)       # Thm 6: two rounds per (fake) value
+            xm = _one_hot_fetch_shares(kx, db, addr_x, j.ledger)
+            ym = _one_hot_fetch_shares(ky, j.right, addr_y, j.ledger)
+            specs.append((j, addr_x, addr_y, real, xm, ym))
+
+    if not specs:       # no job had a common value or padding
+        return [[] for _ in jobs]
+    x_stack = torch.cat([s[4].values for s in specs], dim=1)
+    x_fetched = plane.run_sum(          # ONE X-side dispatch per shard
+        lambda v, sh: be.ss_matmul(
+            x_stack[:, :, sh.lo:sh.hi],
+            v.relation.values.reshape(c, sh.n_tuples, -1)))
+    y_by_right: Dict[int, List[int]] = {}
+    for i, s in enumerate(specs):
+        y_by_right.setdefault(id(s[0].right), []).append(i)
+    y_fetched: Dict[int, torch.Tensor] = {}
+    for idxs in y_by_right.values():
+        right = specs[idxs[0]][0].right
+        y_stack = torch.cat([specs[i][5].values for i in idxs], dim=1)
+        out = be.ss_matmul(y_stack, right.relation.values.reshape(
+            right.n_shares, right.n_tuples, -1))     # one per right relation
+        off = 0
+        for i in idxs:
+            rows_i = specs[i][5].values.shape[1]
+            y_fetched[i] = out[:, off:off + rows_i]
+            off += rows_i
+
+    # -- phase 3: layer-2 pairing; fused final interpolation -------------
+    xs_parts, ys_parts, metas = [], [], []
+    x_off = 0
+    _, _, mw, ww, aw = db.relation.values.shape
+    for i, (j, addr_x, addr_y, real, xm, ym) in enumerate(specs):
+        lx, ly = len(addr_x), len(addr_y)
+        my = j.right.n_attrs
+        xp = Shares(x_fetched[:, x_off:x_off + lx].reshape(c, lx, mw, ww, aw),
+                    xm.degree + db.relation.degree)
+        x_off += lx
+        ry = j.right.relation
+        yp = Shares(y_fetched[i].reshape((j.right.n_shares, ly)
+                                         + tuple(ry.values.shape[2:])),
+                    ym.degree + ry.degree)
+        j.ledger.cloud(lx * ly * (mx + my) * w_len * a_len)
+        if not real:
+            continue                # a fake value's output is discarded
+        j.ledger.recv(c * lx * ly * (mx + my) * w_len * a_len)
+        pairs_x = Shares(xp.values.repeat_interleave(ly, dim=1), xp.degree)
+        pairs_y = Shares(yp.values.repeat(1, lx, 1, 1, 1), yp.degree)
+        j.ledger.user((pairs_x.degree + 1) * lx * ly * mx * w_len
+                      + (pairs_y.degree + 1) * lx * ly * my * w_len)
+        xs_parts.append(pairs_x)
+        ys_parts.append(pairs_y)
+        metas.append((j, lx * ly))
+    xs_all = _fused_interpolate(xs_parts)
+    ys_all = _fused_interpolate(ys_parts)
+
+    by_job: Dict[int, List[List[str]]] = {id(j): [] for j in jobs}
+    for (j, n_pairs), xs, ys in zip(metas, xs_all, ys_all):
+        for r in range(n_pairs):
+            x_row = codec.decode_row(xs[r])
+            y_row = codec.decode_row(ys[r])
+            by_job[id(j)].append(
+                x_row + [v for k, v in enumerate(y_row) if k != j.col_y])
+    return [by_job[id(j)] for j in jobs]

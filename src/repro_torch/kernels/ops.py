@@ -12,6 +12,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..core import field
 from . import aa_match as _aa
 from . import ripple as _rip
 from . import ss_matmul as _ssm
@@ -35,6 +36,50 @@ def ss_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _ssm.is_tall_skinny(m, k, n):
         return _ssm.ss_matmul_tall_cuda(a, b)
     return _ssm.ss_matmul_cuda(a, b)
+
+
+def _check_match_matrix(col_x: torch.Tensor, col_y: torch.Tensor) -> None:
+    if col_x.ndim != 5 or col_y.ndim != 5:
+        raise ValueError(f"unsupported ranks: {tuple(col_x.shape)}, "
+                         f"{tuple(col_y.shape)}")
+    cx, bx, _, wx, ax = col_x.shape
+    if (col_y.shape[0], col_y.shape[1], col_y.shape[3], col_y.shape[4]) \
+            != (cx, bx, wx, ax):
+        raise ValueError(f"column stacks {tuple(col_x.shape)} and "
+                         f"{tuple(col_y.shape)} do not pair")
+
+
+def match_matrix_batch(col_x: torch.Tensor, col_y: torch.Tensor
+                       ) -> torch.Tensor:
+    """Stacked all-pairs word match of a join group (§3.3.1): col_x
+    (c, B, nx, W, A), col_y (c, B, ny, W, A) -> (c, B, nx, ny), a share of
+    1 where the words agree (the chain method of
+    ``core.automata.match_matrix``).
+
+    The (c, B) axes flatten into the kernel's batch axis, so a group costs
+    W ``ss_matmul`` launches, one per word position, each (ny × A) @
+    (A × nx): the product lands in fetch-row order (c·B, ny, nx), and the
+    result is its transposed view, so the fetch that follows reads the
+    rows without a copy. Integer products are exact, so the shares equal
+    the (nx × A) @ (A × ny) orientation's. The modular products along the
+    chain are plain PyTorch, one cloud slice at a time (``field.mul_``)."""
+    _check_match_matrix(col_x, col_y)
+    c, b, nx, w, a = col_x.shape
+    ny = col_y.shape[2]
+    acc = None
+    for j in range(w):
+        yj = col_y[..., j, :].reshape(c * b, ny, a)
+        xt = col_x[..., j, :].transpose(-1, -2).reshape(c * b, a, nx)
+        pj = ss_matmul(yj, xt)                           # (c·B, ny, nx)
+        acc = pj if acc is None else field.mul_(acc, pj)
+        del pj
+    return acc.view(c, b, ny, nx).transpose(-1, -2)
+
+
+def match_matrix(col_x: torch.Tensor, col_y: torch.Tensor) -> torch.Tensor:
+    """All-pairs word match: col_x (c, nx, W, A), col_y (c, ny, W, A) ->
+    (c, nx, ny); :func:`match_matrix_batch` at B = 1."""
+    return match_matrix_batch(col_x[:, None], col_y[:, None])[:, 0]
 
 
 def aa_match_batch(col: torch.Tensor, pat: torch.Tensor) -> torch.Tensor:

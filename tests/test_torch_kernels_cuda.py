@@ -423,3 +423,101 @@ def test_ss_matmul_kernels_shard_slices_and_shared_operand(cuda, kernel):
     a, b = _field((3, 69, 9000), 34, cuda), _field((9000, 130), 35, cuda)
     assert torch.equal(_KERNELS[kernel](a, b),
                        ss_matmul.ss_matmul_plain(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the §3.3 joins' operand forms (W = 8, A = 69, relation rows of m·W·A)
+# ---------------------------------------------------------------------------
+
+_JW, _JA = 8, 69
+
+
+def _join_cols(cuda, nx=600, ny=77, seed=40):
+    """Column 0 of a 5-attribute parent and a 3-attribute child relation:
+    strided (c, n, W, A) views whose rows are m·W·A words apart."""
+    rel_x = _field((3, nx, 5, _JW, _JA), seed, cuda)
+    rel_y = _field((3, ny, 3, _JW, _JA), seed + 1, cuda)
+    return rel_x[:, :, 0], rel_y[:, :, 0]
+
+
+@pytest.mark.parametrize("orient", ["fetch_rows", "pairs"])
+@pytest.mark.parametrize("j", range(_JW))
+def test_join_match_position_views(cuda, j, orient):
+    """One word position's K = 69 product on views whose base lies j·69
+    words into a row (4-byte aligned, 16-byte only at j = 0 and 4), in the
+    fetch-row orientation the port uses, Y_j @ X_jᵀ, and in the
+    reference's X_j @ Y_jᵀ; K = 69 is not a multiple of the 64-term stage."""
+    col_x, col_y = _join_cols(cuda)
+    xj, yj = col_x[:, :, j], col_y[:, :, j]
+    a, b = ((yj, xj.transpose(-1, -2)) if orient == "fetch_rows"
+            else (xj, yj.transpose(-1, -2)))
+    ops.reset_launch_counts()
+    got = ops.ss_matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ss_matmul"] == 1
+    assert torch.equal(got, ss_matmul.ss_matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("n", [1, 1023])
+def test_join_match_ragged_sides(cuda, n):
+    """N = 1 and N = 1,023 columns (and as many rows, the other way round),
+    the 552-term aggregate contraction included."""
+    col_x, col_y = _join_cols(cuda, ny=n, seed=42)
+    for a, b in ((col_x[:, :, 3], col_y[:, :, 3].transpose(-1, -2)),
+                 (col_y[:, :, 5], col_x[:, :, 5].transpose(-1, -2)),
+                 (col_y.flatten(-2), col_x.flatten(-2).transpose(-1, -2))):
+        assert torch.equal(ops.ss_matmul(a, b),
+                           ss_matmul.ss_matmul_plain(a, b))
+
+
+def test_join_aggregate_flattened_columns(cuda):
+    """The aggregate form's K = 552 product: the child column flattened as
+    a strided (c, ny, W·A) view, the parent's transposed into a copy."""
+    col_x, col_y = _join_cols(cuda, seed=44)
+    a = col_y.flatten(-2)
+    b = col_x.flatten(-2).transpose(-1, -2)
+    assert a.stride(-2) == 3 * _JW * _JA
+    ops.reset_launch_counts()
+    got = ops.ss_matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ss_matmul"] == 1
+    assert torch.equal(got, ss_matmul.ss_matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("k", [_JA, _JW * _JA])
+def test_join_match_extremes(cuda, k):
+    """All-(p−1) operands at the position and aggregate depths."""
+    a = torch.full((3, 300, k), P - 1, dtype=torch.int32, device=cuda)
+    b = torch.full((3, k, 1025), P - 1, dtype=torch.int32, device=cuda)
+    got = ops.ss_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ss_matmul.ss_matmul_plain(a, b))
+    assert (got == k % P).all()                 # (p−1)² ≡ 1
+
+
+def test_join_match_matrix_on_card_equals_cpu(cuda):
+    """``match_matrix`` and a flattened (c·B) group of 3 joins — two on one
+    parent column (a B-stride-0 view) — on the card: W launches for the
+    chain, one for the aggregate form, and the CPU path's shares exactly."""
+    from repro_torch.api import backends
+    col_x, col_y = _join_cols(cuda, seed=46)
+    got = ops.match_matrix(col_x, col_y)
+    assert torch.equal(got.cpu(), ops.match_matrix(col_x.cpu(),
+                                                   col_y.cpu()))
+    rel_y = _field((3, 77, 3, _JW, _JA), 48, cuda)
+    bx = torch.stack([col_x, col_x, col_x], dim=1)
+    bx_view = col_x[:, None].expand(3, 3, *col_x.shape[1:])
+    by = torch.stack([col_y, rel_y[:, :, 0], rel_y[:, :, 2]], dim=1)
+    ops.reset_launch_counts()
+    chain = ops.match_matrix_batch(bx_view, by)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ss_matmul"] == _JW
+    assert torch.equal(chain, ops.match_matrix_batch(bx, by))
+    assert torch.equal(chain.cpu(), ops.match_matrix_batch(bx.cpu(),
+                                                           by.cpu()))
+    agg = backends.aggregate_match_matrix(backends.get_backend("cuda"))
+    ops.reset_launch_counts()
+    got = agg(bx_view, by)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ss_matmul"] == 1
+    assert torch.equal(got.cpu(), agg(bx.cpu(), by.cpu()))
