@@ -59,6 +59,21 @@ Phases, any failure exits non-zero:
    with a 512-row Visitor relation and ``Padding.fake_values(2)`` (54
    pairs, 9 rounds); per call host seconds, launches, peak memory and a
    ``torch.profiler`` device split.
+   Slice 6 (after slice 5, before slice 4): multi-tenant serving. A
+   ``QueryServer`` (max_batch 8, 20 ms deadline, a 2-worker shard pool)
+   serves the Employee relation at 2 shards (weight 2) and slice 5's
+   Assignment relation at 1 shard: 4 submitter threads send 48 plans
+   (Eq counts at ℓ = 1, 3, 16, 0; one_tuple, one_round and tree selects;
+   a contains count; a range count and a SUM on Salary; counts and
+   selects on Project): each thread parks a burst of nine before
+   ``start()``, so the first scan closes both relations together as one
+   fused wave, then sends its last three alone after an idle pause
+   (deadline closes) while the scheduler runs. Then a
+   ``MapReduceExecutor`` client (4 splits, worker 2 dead, worker 3 slow)
+   runs a count, a one_round select and a range count. Every answer is
+   held to the plaintext and every ledger to a solo replay; logs closes,
+   latency, throughput, pool dispatches, launches, the MapReduce counters
+   and the phase's host seconds and peak memory.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -97,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
 import os
 import re
@@ -1108,6 +1124,301 @@ def join_path(torch, args, db, rows):
         f"the path, {top[0] / 1e9:.2f} GB peak during it")
     del visit_db
     return launches, assign_db
+
+
+#: slice 6 serves the Employee relation (2 shards, weight 2) and slice 5's
+#: Assignment relation (2 shards: a one-shard relation is serial and fuses
+#: with nobody) from one QueryServer: 48 plans from 4 submitter threads,
+#: then a MapReduce-wrapped client with a dead and a slow worker. Every
+#: kernel of the count, select, pattern and range paths launches from pool
+#: or MapReduce threads. Each of the two runs is counted on its own.
+SLICE6_KERNELS = ("aa_match_batch", "aa_slide_batch", "ss_matmul",
+                  "ss_matmul_tall", "ripple_segment")
+SLICE6_MR_KERNELS = ("aa_match_batch", "ss_matmul_tall", "ripple_segment")
+SERVE_THREADS, SERVE_PLANS, SERVE_WAIT_S = 4, 48, 300.0
+
+
+def serve_path(torch, args, db, rows, assign_db):
+    """Phase 3, slice 6: multi-tenant serving at full size. A
+    ``QueryServer`` (max_batch 8, 20 ms deadline, a 2-worker pool) serves
+    48 plans from 4 threads over the Employee relation and the Assignment
+    relation; every answer is held to the plaintext, every ledger to a
+    solo ``QueryClient`` replay of its plan. Then a ``MapReduceExecutor``
+    client (4 splits, worker 2 dead, worker 3 slow) runs a count, a
+    one_round select and a range count, held to the plaintext and to the
+    unwrapped client's ledgers."""
+    import threading
+
+    from repro_torch.api import (Aggregate, Between, Contains, Count, Eq,
+                                 MapReduceExecutor, QueryClient, RangeCount,
+                                 Select)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import QueryServer
+    from repro_torch.runtime import MapReduceRunner, WorkerPool, mapreduce
+
+    assign = make_assignments(rows, args.seed)
+    pick = np.random.default_rng(args.seed + 8)
+    ids = rows[pick.choice(len(rows), 2, replace=False), 0]
+    projects, mult = np.unique(assign[:, 1], return_counts=True)
+    small = projects[(mult >= 2) & (mult <= 4)]
+    projs = list(pick.choice(small, 4, replace=False))
+    salary = rows[:, NAMES.index("Salary")].astype(np.int64)
+    emp_plans = [Count(Eq("EmployeeId", ids[1])),
+                 Count(Eq("FirstName", "Zorro")),
+                 Count(Eq("FirstName", "Quinn")),
+                 Count(Eq("FirstName", PLANT["absent"])),
+                 Select(Eq("EmployeeId", ids[0]), strategy="one_tuple"),
+                 Select(Eq("FirstName", "Zorro"), strategy="one_round"),
+                 Select(Eq("FirstName", "Quinn"), strategy="tree"),
+                 Count(Contains("EmployeeId", "12345")),
+                 RangeCount(Between("Salary", 500, 1500), reduce_every=8),
+                 Aggregate("sum", "Salary")]
+    # thread t sends each Employee kind once and a select and a count on
+    # one Project; its list opens with a fetch on each relation (a
+    # one_round or tree select, then the Project select), so the batches
+    # the first scan closes carry fetch work and fuse into one wave
+    per_thread = []
+    for t in range(SERVE_THREADS):
+        first = emp_plans[5 + t % 2]
+        rest = [("employees", p) for p in emp_plans if p is not first] + [
+            ("assignments", Count(Eq("Project", projs[t])))]
+        per_thread.append(
+            [("employees", first),
+             ("assignments", Select(Eq("Project", projs[t]),
+                                    strategy="one_round"))]
+            + [rest[i] for i in pick.permutation(len(rest))])
+    check(sum(map(len, per_thread)) == SERVE_PLANS, "slice-6 traffic")
+
+    def truth(relation, plan):
+        """Plaintext (count, addresses, rows or None, value or None)."""
+        if isinstance(plan, RangeCount):
+            hit = (salary >= plan.where.lo) & (salary <= plan.where.hi)
+            return int(hit.sum()), None, None, None
+        if isinstance(plan, Aggregate):
+            return None, None, None, int(salary.sum())
+        table, names = ((rows, NAMES) if relation == "employees"
+                        else (assign, ASSIGN_NAMES))
+        col = table[:, names.index(plan.where.column)]
+        if isinstance(plan.where, Contains):
+            hit = np.array([plan.where.literal in w for w in col])
+        else:
+            hit = col == plan.where.pattern
+        addrs = [int(i) for i in np.nonzero(hit)[0]]
+        got_rows = ([list(table[a]) for a in addrs]
+                    if isinstance(plan, Select) else None)
+        return len(addrs), addrs, got_rows, None
+
+    def check_answer(relation, plan, res, tag):
+        count, addrs, want_rows, value = truth(relation, plan)
+        if value is not None:
+            check(res.value == value, f"{tag}: value {res.value} != {value}")
+            return
+        check(res.count == count, f"{tag}: count {res.count} != {count}")
+        if want_rows is not None:
+            check(sorted(res.rows) == sorted(want_rows), f"{tag}: rows")
+            if res.addresses is not None:
+                check(res.addresses == addrs, f"{tag}: addresses")
+
+    def window_counts():
+        """Launches and ripple routes since the last reset, once every
+        queued kernel has run."""
+        torch.cuda.synchronize()
+        return ops.launch_counts(), ops.ripple_route_counts()
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    srv = QueryServer(max_batch=8, max_wait_ms=20, pool_workers=2,
+                      seed=args.seed + 9)
+    srv.attach("employees", db, shards=2, weight=2.0)
+    srv.attach("assignments", assign_db, shards=2)
+    ops.reset_launch_counts()
+    done, lock, errors = [], threading.Lock(), []
+    parked = threading.Barrier(SERVE_THREADS + 1, timeout=SERVE_WAIT_S)
+
+    def submitter(plans):
+        """A burst of nine, parked before the scheduler starts (a backlog
+        at start-up: the first scan finds both relations due, whatever the
+        threads' timing), then, once the burst is served, the last three
+        one at a time after an idle pause (closed by deadline)."""
+        try:
+            burst = [(rel, srv.submit(p, relation=rel))
+                     for rel, p in plans[:-3]]
+            parked.wait()
+            for _, r in burst:
+                r.wait(timeout=SERVE_WAIT_S)
+            tail = []
+            for rel, p in plans[-3:]:
+                time.sleep(0.05)
+                r = srv.submit(p, relation=rel)
+                r.wait(timeout=SERVE_WAIT_S)
+                tail.append((rel, r))
+            with lock:
+                done.extend(burst + tail)
+        except Exception as e:  # noqa: BLE001 — reported by the main thread
+            errors.append(e)
+            parked.abort()
+
+    threads = [threading.Thread(target=submitter, args=(per_thread[t],))
+               for t in range(SERVE_THREADS)]
+    t_serve = time.perf_counter()
+    for th in threads:
+        th.start()
+    parked.wait()
+    time.sleep(0.03)                # past the 20 ms deadline
+    started = time.time()           # the clock of QueryRequest.enqueued_at
+    srv.start()
+    for th in threads:
+        th.join(timeout=2 * SERVE_WAIT_S)
+    serve_s = time.perf_counter() - t_serve
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"slice-6 submitters failed: {errors}")
+    srv.stop()
+    served_launches, served_routes = window_counts()
+    snap = srv.stats.snapshot()
+    planes = {name: copy.copy(srv.dataplane_of(name).stats)
+              for name in ("employees", "assignments")}
+    log(f"slice-6 server launches {json.dumps(served_launches)}; ripple "
+        f"launches by route {json.dumps(served_routes)}")
+    for name in SLICE6_KERNELS:
+        check(served_launches[name] > 0,
+              f"kernel {name} was not launched by the server")
+    check(served_routes["strided"] == 0,
+          f"served ripple launches off the bit-major route: {served_routes}")
+    busy_reader = time_busy_reader(torch, srv, emp_plans[:4])
+    srv.close()
+    check(len(done) == SERVE_PLANS, f"{len(done)} of 48 requests served")
+    failed = [(rel, r.plan, r.error) for rel, r in done if r.error]
+    check(not failed, f"slice-6 requests failed: {failed}")
+    solo = {"employees": QueryClient(db, seed=args.seed + 10),
+            "assignments": QueryClient(assign_db, seed=args.seed + 10)}
+    replay = {}
+    for i, (rel, r) in enumerate(done):
+        check_answer(rel, r.plan, r.result, f"served[{i}] {r.plan}")
+        if (rel, r.plan) not in replay:
+            replay[(rel, r.plan)] = solo[rel].run(r.plan).ledger.as_dict()
+        check(r.result.ledger.as_dict() == replay[(rel, r.plan)],
+              f"served[{i}] {r.plan}: ledger differs from a solo replay")
+    check(snap["closes"].get("full", 0) > 0
+          and snap["closes"].get("deadline", 0) > 0,
+          f"slice-6 closes {snap['closes']}: want full and deadline")
+    check(all(st.fused_steps > 0 for st in planes.values()),
+          "no fused multi-relation wave ran: fused steps "
+          + json.dumps({k: v.fused_steps for k, v in planes.items()}))
+    check(snap["fused_fallbacks"] == 0,
+          f"{snap['fused_fallbacks']} fused waves fell back to solo "
+          f"batches: {snap['last_fused_error']}")
+    # a burst request's clock starts at start(), not while it sat parked
+    parked_s = np.array([max(0.0, started - r.enqueued_at) for _, r in done])
+    lat = np.array([r.latency_s for _, r in done]) - parked_s
+    wait = np.array([r.queue_wait_s for _, r in done]) - parked_s
+    log(f"slice-6 served {snap['served']} requests ({snap['failed']} "
+        f"failed) in {snap['batches']} batches; closes "
+        f"{json.dumps(snap['closes'])}; fills "
+        f"{json.dumps(snap['batch_fill'])}; per relation "
+        + json.dumps({k: {"served": v["served"], "batches": v["batches"],
+                          "closes": v["closes"]}
+                      for k, v in snap["relations"].items()}))
+    log(f"slice-6 from start() or submission: latency p50 "
+        f"{np.percentile(lat, 50)} s, p99 {np.percentile(lat, 99)} s; "
+        f"queue wait p50 {np.percentile(wait, 50)} s; throughput "
+        f"{snap['throughput_qps']} queries/s over {snap['busy_s']} s inside "
+        f"run_batch; the staged window (threads, barrier, 30 ms before "
+        f"start(), 3 x 50 ms pauses a thread) {serve_s} s")
+    log("slice-6 pool: " + json.dumps(
+        {k: {"dispatches": v.dispatches, "steps": v.steps,
+             "fused_steps": v.fused_steps,
+             "dispatch_s": round(v.dispatch_s, 4)}
+         for k, v in planes.items()}))
+
+    # -- MapReduce: the paper's substrate over the same relation ---------
+    runner = MapReduceRunner(WorkerPool(4, slow_workers={3: 0.3},
+                                        dead_workers={2}, seed=args.seed),
+                             lease_s=0.5, max_attempts=8)
+    mr = QueryClient(db, seed=args.seed + 11,
+                     executor=MapReduceExecutor(runner, n_splits=4))
+    plain = QueryClient(db, seed=args.seed + 11)
+    mr_plans = [Count(Eq("FirstName", "Quinn")),
+                Select(Eq("FirstName", "Zorro"), strategy="one_round",
+                       expected_matches=3),
+                RangeCount(Between("Salary", 500, 1500), reduce_every=8)]
+    timings, mr_results = {}, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for plan in mr_plans:
+        t = time.perf_counter()
+        mr_results.append((plan, mr.run(plan)))
+        torch.cuda.synchronize()
+        timings[type(plan).__name__] = time.perf_counter() - t
+    # a straggler's late copy belongs to this run, not to the next one
+    for th in threading.enumerate():
+        if th.name == mapreduce.THREAD_NAME:
+            th.join(timeout=10)
+    mr_launches, mr_routes = window_counts()
+    for plan, res in mr_results:
+        check_answer("employees", plan, res, f"mapreduce {plan}")
+        check(res.ledger.as_dict() == plain.run(plan).ledger.as_dict(),
+              f"mapreduce {plan}: ledger differs from the unwrapped one")
+    counters = {"reexecutions": runner.reexecutions,
+                "speculative_launched": runner.speculative_launched,
+                "worker_deaths": runner.worker_deaths}
+    log(f"slice-6 mapreduce {json.dumps(counters)}; host seconds "
+        + json.dumps(timings) + f"; launches {json.dumps(mr_launches)}; "
+        f"ripple launches by route {json.dumps(mr_routes)}")
+    check(runner.reexecutions > 0, "the dead worker's task was never "
+          "re-executed")
+    for name in SLICE6_MR_KERNELS:
+        check(mr_launches[name] > 0,
+              f"kernel {name} was not launched by the MapReduce client")
+    log(f"slice-6 phase {time.perf_counter() - t_phase:.3f} host s; device "
+        f"memory {resident / 1e9:.2f} GB resident, "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak")
+    launches = {k: served_launches[k] + mr_launches[k]
+                for k in served_launches}
+    log(f"slice-6 path launches {launches}; host seconds "
+        + json.dumps({"serve_s": serve_s, **timings, **busy_reader}))
+    return launches
+
+
+def time_busy_reader(torch, srv, counts, rounds: int = 2):
+    """Host seconds of one batch of eight counts pumped on a stopped
+    server, alone and beside a monitor thread that polls the stats in a
+    tight loop, alternated ``rounds`` times. Not a counted run."""
+    import threading
+
+    def one_batch():
+        reqs = [srv.submit(counts[i % len(counts)], relation="employees")
+                for i in range(8)]
+        t = time.perf_counter()
+        srv.pump(relation="employees")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        check(all(r.done() and r.error is None for r in reqs),
+              "a batch beside the stats monitor failed")
+        return dt
+
+    def monitor():
+        while not stop.is_set():
+            srv.stats.snapshot()
+            srv.stats.latency_quantile(0.99)
+            reads[0] += 1
+
+    times = {"alone_s": [], "monitored_s": []}
+    reads = [0]
+    for _ in range(rounds):
+        times["alone_s"].append(one_batch())
+        stop = threading.Event()
+        mon = threading.Thread(target=monitor)
+        mon.start()
+        try:
+            times["monitored_s"].append(one_batch())
+        finally:
+            stop.set()
+            mon.join(timeout=60)
+    log(f"slice-6 one batch of 8 counts (host s): {json.dumps(times)}; "
+        f"the monitor read the stats {reads[0]} times")
+    return {k: max(v) for k, v in times.items()}
 
 
 def embed_path(torch, args, vocab: int = QWEN_VOCAB, dim: int = QWEN_DIM):
@@ -2183,10 +2494,13 @@ def main() -> int:
     log("slice-3 path: every answer equals the plaintext evaluation")
     path5, assign_db = join_path(torch, args, db, rows)
     log("slice-5 path: every join equals the plaintext join")
+    path6 = serve_path(torch, args, db, rows, assign_db)
+    log("slice-6 path: every served answer equals the plaintext "
+        "evaluation and every ledger a solo replay")
     path4, table = embed_path(torch, args)
     log("slice-4 path: every embedding equals the quantized table's row")
-    launches = {k: path1[k] + path2[k] + path3[k] + path4[k] + path5[k]
-                for k in path1}
+    launches = {k: sum(p[k] for p in (path1, path2, path3, path4, path5,
+                                      path6)) for k in path1}
     torch.cuda.reset_peak_memory_stats()
     onehot = embed_full_shapes(torch, table, errs, launches)
     del table

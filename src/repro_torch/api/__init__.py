@@ -15,15 +15,26 @@
     table = setup_private_embed(0, embed)         # (V, D) float table
     emb = QueryClient(as_embed_relation(table), seed=1)
     emb.run(EmbedLookup(tokens=(17, 4, 17))).embeddings   # (3, D) float32
+
+    client = QueryClient(device="cuda")           # an empty registry
+    client.attach(db, name="employees", shards=2,
+                  dispatcher=ThreadedDispatcher(4).handle())
+    client.attach(orders_db, name="orders")
+    client.run_batch_multi([("employees", plans_a), ("orders", plans_b)])
 """
+from ..core.dataplane import (Dispatcher, PoolHandle, ShardedRelation,
+                              ThreadedDispatcher)
 from ..core.queries.aggregate import VerificationError
 from .backends import (DEFAULT_BACKEND, Backend, aggregate_match_matrix,
                        available_backends, batched_match_matrix, get_backend,
                        onehot_sharer, register_backend, ripple_segmenter,
                        slide_matcher)
-from .client import QueryClient
+from .client import (DEFAULT_RELATION, EXPLAIN_CACHE_MAX, AttachedRelation,
+                     QueryClient)
+from .executor import MapReduceDispatcher, MapReduceExecutor
 from .planner import (DEFAULT_ELL, MATCH_METHOD_LAUNCHES, BatchExplanation,
-                      CostEstimate, DBStats, GroupEstimate, PlanNotSupported,
+                      CostEstimate, DBStats, GroupEstimate,
+                      MultiBatchExplanation, PlanNotSupported,
                       candidate_estimates, candidate_pattern_estimates,
                       choose_match_method, choose_pattern_strategy,
                       choose_select_strategy, estimate_aggregate_cost,
@@ -31,7 +42,8 @@ from .planner import (DEFAULT_ELL, MATCH_METHOD_LAUNCHES, BatchExplanation,
                       estimate_embed_cost, estimate_equijoin_cost,
                       estimate_match_method_launches, estimate_pattern_cost,
                       estimate_pkfk_cost, estimate_range_cost,
-                      estimate_select_cost, explain_batch_groups)
+                      estimate_select_cost, explain_batch_groups,
+                      explain_multi_batches)
 from .plans import (AGG_OPS, AUTO, JOIN_KINDS, MATCH_METHODS,
                     MATCH_PREDICATES, PATTERN_PREDICATES, SELECT_STRATEGIES,
                     Aggregate, Between, ColumnRef, Contains, Count,
@@ -40,7 +52,10 @@ from .plans import (AGG_OPS, AUTO, JOIN_KINDS, MATCH_METHODS,
                     resolve_column)
 
 __all__ = [
-    "VerificationError", "DEFAULT_BACKEND", "Backend",
+    "Dispatcher", "PoolHandle", "ShardedRelation", "ThreadedDispatcher",
+    "DEFAULT_RELATION", "EXPLAIN_CACHE_MAX", "AttachedRelation",
+    "MapReduceDispatcher", "MapReduceExecutor", "MultiBatchExplanation",
+    "explain_multi_batches", "VerificationError", "DEFAULT_BACKEND", "Backend",
     "aggregate_match_matrix", "available_backends", "batched_match_matrix",
     "get_backend", "onehot_sharer", "register_backend", "ripple_segmenter",
     "slide_matcher", "QueryClient", "DEFAULT_ELL", "MATCH_METHOD_LAUNCHES",

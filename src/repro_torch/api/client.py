@@ -25,26 +25,64 @@ predicate), ``Join`` (PK/FK and general equijoins, §3.3) and
 ``EmbedLookup`` over an embedding-table relation
 (``models.private_embed.as_embed_relation``); any other plan or predicate
 raises :class:`~.planner.PlanNotSupported`.
+
+The client fronts a *registry* of attached relations (§2: the owner
+outsources a database — plural relations — once). ``QueryClient(db)``
+registers ``db`` under :data:`DEFAULT_RELATION`; ``attach(other, name=,
+shards=S)`` registers more, each with its own dataplane and its own key
+stream, so one relation's transcript never depends on traffic to another.
+:meth:`QueryClient.run_batch_multi` runs several relations' batches with
+their fetches in one dispatch wave.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import zlib
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 from .. import _device
 from ..core import encoding
 from ..core.costs import CostLedger
-from ..core.dataplane import ShardedRelation
+from ..core.dataplane import Dispatcher, RelationLike, ShardedRelation
 from ..core.engine import SecretSharedDB
 from ..core.queries import (CardinalityError, EmbedJob, aggregate,
                              embed_phase, like_spec, rounds)
+from ..core.shamir import Shares
 from . import planner as _planner
 from .backends import DEFAULT_BACKEND, BackendLike, get_backend
+from .executor import MapReduceExecutor
 from .plans import (AUTO, Aggregate, Between, ColumnRef, Contains, Count,
                     EmbedLookup, Eq, Join, Like, Padding, Plan, Prefix,
                     QueryResult, RangeCount, RangeSelect, Select, Suffix,
                     resolve_column)
+
+#: registry name a bare ``QueryClient(db)`` attaches its relation under.
+DEFAULT_RELATION = "default"
+
+#: explanations kept per client (FIFO eviction): a serving frontend explains
+#: a bounded set of recurring plan shapes; anything beyond recomputes.
+EXPLAIN_CACHE_MAX = 128
+
+
+@dataclasses.dataclass
+class AttachedRelation:
+    """One registered relation: its shares, dataplane and key stream."""
+    name: str
+    db: SecretSharedDB
+    dataplane: Optional[ShardedRelation]
+    root_key: _device.Key
+    counter: Iterator[int]
+
+    @property
+    def rel(self) -> RelationLike:
+        """What the round engine executes against (the plane if any)."""
+        return self.dataplane if self.dataplane is not None else self.db
+
+    @property
+    def n_shards(self) -> int:
+        return self.dataplane.n_shards if self.dataplane is not None else 1
+
 
 #: surface shapes of the literal-tile predicates (for error display).
 _TILE_SOURCES = {Prefix: "{0}%", Suffix: "%{0}", Contains: "%{0}%"}
@@ -120,6 +158,18 @@ def _validate_join(plan: Join) -> None:
             "kind='equi' only")
 
 
+def _plan_signature(plan: Plan) -> tuple:
+    """Structural cache key of one plan (a Join's right relation keys by
+    identity: two share sets are two plans even if their values agree)."""
+    if isinstance(plan, Join):
+        return ("Join", id(plan.right), tuple(plan.on), plan.kind,
+                plan.padding.rows, plan.padding.values, plan.match_method)
+    if not dataclasses.is_dataclass(plan):
+        raise _planner.PlanNotSupported(plan)
+    return (type(plan).__name__,) + tuple(
+        getattr(plan, f.name) for f in dataclasses.fields(plan))
+
+
 def _fused_group(family: str, ests: Sequence[_planner.CostEstimate]
                  ) -> _planner.GroupEstimate:
     """A lockstep group's estimate: bits add up, rounds and dispatches are
@@ -146,44 +196,205 @@ class _Slot:
     fetch_key: Optional[_device.Key] = None
 
 
+@dataclasses.dataclass
+class _BatchWork:
+    """One relation's in-flight ``run_batch`` state, split at the fetch:
+    ``_prepare_batch`` runs every pre-fetch round and parks the cross-group
+    fetch jobs here, ``_finish_batch`` consumes the fetch output and runs
+    the post-fetch rounds, so :meth:`QueryClient.run_batch_multi` can fuse
+    several relations' fetches into one dispatch wave."""
+    plans: Sequence[Plan]
+    db: SecretSharedDB
+    rel: RelationLike
+    results: Dict[int, QueryResult]
+    fetch_jobs: List[rounds.FetchJob]
+    fetch_meta: List[Tuple[_Slot, str, List[int]]]
+    join_jobs: List[rounds.JoinJob]
+    join_entries: Optional[List[rounds.FetchEntry]]
+    pkfk_grp: List[_Slot]
+    equi_grp: List[_Slot]
+
+
 class QueryClient:
-    """Authorized-user facade over one outsourced relation.
+    """Authorized-user facade over the outsourced relation registry.
 
     db:              the secret-shared relation (``core.outsource`` or
-                     ``core.from_arrays``), or a ``ShardedRelation`` of it.
-    seed:            root of the per-query random streams.
+                     ``core.from_arrays``), or a ``ShardedRelation`` of it,
+                     registered under :data:`DEFAULT_RELATION`; ``None``
+                     starts with an empty registry (``attach(..., name=)``
+                     then registers relations).
+    seed:            root of the per-query random streams; the default
+                     relation's stream is this root itself.
     backend:         registered backend name or ``Backend``; default
                      ``"cuda"``, which launches the kernels on a CUDA device
                      and runs their plain versions on the CPU.
+    executor:        a :class:`MapReduceExecutor` fans every cloud-side
+                     map phase out over its fault-tolerant splits.
     device:          where the queries run; default ``"cuda"``, which raises
-                     without a GPU. Must be where ``db`` lives.
+                     without a GPU. Every relation must live there.
     round_cost_bits: planner latency weight (bits one extra round is worth).
     """
 
-    def __init__(self, db: Union[SecretSharedDB, ShardedRelation],
+    def __init__(self, db: Union[SecretSharedDB, ShardedRelation,
+                                 None] = None,
                  seed: int = 0, *, backend: Optional[BackendLike] = None,
+                 executor: Optional[MapReduceExecutor] = None,
                  device=None, round_cost_bits: int = 0):
-        dev = _device.resolve(device)
-        self.rel = db
-        self.db = db.db if isinstance(db, ShardedRelation) else db
-        if self.db.device.type != dev.type:
-            raise ValueError(f"relation lives on {self.db.device}, client "
-                             f"asked for {dev}")
-        self.device = dev
+        self.device = _device.resolve(device)
+        self._root = _device.as_key(seed)
+        self._relations: Dict[str, AttachedRelation] = {}
+        # signature -> (BatchExplanation, the Join right relations pinned
+        # so their id() in the signature cannot be reused)
+        self._explanations: Dict[tuple, tuple] = {}
+        if db is not None:
+            plane = db if isinstance(db, ShardedRelation) else None
+            self._relations[DEFAULT_RELATION] = AttachedRelation(
+                DEFAULT_RELATION, self._on_device(db), plane, self._root,
+                itertools.count())
         self.backend = get_backend(backend if backend is not None
                                    else DEFAULT_BACKEND)
+        if executor is not None:
+            self.backend = executor.wrap(self.backend)
+        self.executor = executor
         self.round_cost_bits = round_cost_bits
-        self._root = _device.as_key(seed)
-        self._counter = itertools.count()
 
-    def _next_key(self) -> _device.Key:
-        return _device.fold(self._root, next(self._counter))
+    def _on_device(self, rel: RelationLike) -> SecretSharedDB:
+        db = rel.db if isinstance(rel, ShardedRelation) else rel
+        if db.device.type != self.device.type:
+            raise ValueError(f"relation lives on {db.device}, client "
+                             f"asked for {self.device}")
+        return db
+
+    # -- registry -----------------------------------------------------------
+    @property
+    def relations(self) -> Tuple[str, ...]:
+        """Attached relation names, in registration order."""
+        return tuple(self._relations)
+
+    def _entry(self, relation: Optional[str] = None) -> AttachedRelation:
+        if relation is None:
+            ent = self._relations.get(DEFAULT_RELATION)
+            if ent is not None:
+                return ent
+            if len(self._relations) == 1:
+                return next(iter(self._relations.values()))
+            if not self._relations:
+                raise ValueError("no relation attached — pass a db to "
+                                 "QueryClient(...) or call attach(db, "
+                                 "name=...)")
+            raise ValueError(f"several relations attached "
+                             f"({list(self._relations)}) and none is "
+                             f"{DEFAULT_RELATION!r} — pass relation=")
+        try:
+            return self._relations[relation]
+        except KeyError:
+            raise KeyError(f"unknown relation {relation!r}; attached: "
+                           f"{list(self._relations)}") from None
+
+    def _default(self) -> Optional[AttachedRelation]:
+        return (self._relations.get(DEFAULT_RELATION)
+                or next(iter(self._relations.values()), None))
+
+    @property
+    def db(self) -> Optional[SecretSharedDB]:
+        """The default relation's shares (None with an empty registry)."""
+        ent = self._default()
+        return ent.db if ent is not None else None
+
+    @property
+    def dataplane(self) -> Optional[ShardedRelation]:
+        """The default relation's dataplane (None until sharded/attached)."""
+        ent = self._default()
+        return ent.dataplane if ent is not None else None
+
+    def dataplane_of(self, relation: str) -> Optional[ShardedRelation]:
+        return self._entry(relation).dataplane
+
+    def _next_key(self, ent: AttachedRelation) -> _device.Key:
+        return _device.fold(ent.root_key, next(ent.counter))
+
+    def attach(self, relation: Union[SecretSharedDB, ShardedRelation,
+                                     None] = None, *,
+               name: Optional[str] = None, shards: int = 1,
+               dispatcher: Optional[Dispatcher] = None,
+               key=None) -> ShardedRelation:
+        """Attach (or re-shard) a relation as a sharded dataplane.
+
+        ``name`` addresses the registry slot (default
+        :data:`DEFAULT_RELATION`). A new name registers ``relation`` as one
+        more tenant with its own key stream: ``key`` (an int seed or a key)
+        seeds it explicitly, so a multi-tenant server can replay a solo
+        client; otherwise the stream derives from the client root and the
+        name alone, so attach order never matters. ``relation`` may be
+        omitted to re-shard an attached name.
+
+        Every cloud step of later queries against the relation fans out as
+        one dispatch per tuple-axis shard, run by ``dispatcher`` (serial by
+        default; a ``ThreadedDispatcher`` or a shared pool's ``handle()``
+        for concurrent shards, ``MapReduceExecutor.dispatcher()`` for
+        fault-tolerant placement). Rows, opened values and ledgers stay
+        bit-identical to the unsharded relation.
+
+        Re-attaching clears the explanation cache: its dispatch estimates
+        were priced at the old shard count.
+        """
+        name = DEFAULT_RELATION if name is None else name
+        ent = self._relations.get(name)
+        if relation is None:
+            if ent is None:
+                raise ValueError(f"no relation registered under {name!r} — "
+                                 f"pass the db to attach")
+            rel = ent.rel
+        else:
+            rel = relation
+        if isinstance(rel, ShardedRelation):
+            if shards <= 1 and dispatcher is None:
+                plane = rel                      # adopt as it is
+            else:
+                # re-shard only on an explicit shards > 1: a new dispatcher
+                # alone keeps the partitioning
+                plane = ShardedRelation(
+                    rel.db, shards=shards if shards > 1 else rel.n_shards,
+                    dispatcher=dispatcher or rel.dispatcher)
+        else:
+            plane = ShardedRelation(rel, shards=shards,
+                                    dispatcher=dispatcher)
+        db = self._on_device(plane)
+        if ent is None:
+            if key is not None:
+                root = _device.as_key(key)
+            else:
+                # two independent 31-bit CRC folds of the NAME alone; the
+                # protocol's masking randomness must be independent across
+                # tenants, so a collision is refused, never shared
+                raw = name.encode()
+                root = _device.fold(
+                    _device.fold(self._root, zlib.crc32(raw) & 0x7fffffff),
+                    zlib.crc32(raw[::-1] + b"\x00") & 0x7fffffff)
+                for other in self._relations.values():
+                    if other.root_key == root:
+                        raise ValueError(
+                            f"derived key stream for {name!r} collides "
+                            f"with relation {other.name!r} — pass an "
+                            f"explicit key= for one of them")
+            self._relations[name] = AttachedRelation(
+                name, db, plane, root, itertools.count())
+        else:
+            ent.db, ent.dataplane = db, plane
+            if key is not None:                  # explicit re-key: restart
+                ent.root_key = _device.as_key(key)
+                ent.counter = itertools.count()
+        self._explanations.clear()
+        return plane
 
     # -- planning -----------------------------------------------------------
-    def stats(self) -> _planner.DBStats:
-        return _planner.DBStats.of(self.rel)
+    def stats(self, relation: Optional[str] = None) -> _planner.DBStats:
+        ent = self._entry(relation)
+        return _planner.DBStats.of(ent.db, shards=ent.n_shards,
+                                   relation=ent.name)
 
-    def explain(self, plan: Union[Plan, Sequence[Plan]]):
+    def explain(self, plan: Union[Plan, Sequence[Plan]], *,
+                relation: Optional[str] = None):
         """Planner predictions without touching shares.
 
         One ``Select`` -> its eligible strategy estimates, cheapest first.
@@ -191,33 +402,57 @@ class QueryClient:
         :class:`~.planner.BatchExplanation`.
         A sequence of plans -> the :class:`~.planner.BatchExplanation` of
         the groups :meth:`run_batch` would form (bits sum, rounds and
-        dispatches fuse, the cross-group fetch priced once).
+        dispatches fuse, the cross-group fetch priced once), cached per
+        (relation, plan signatures) until the next :meth:`attach`.
         """
+        ent = self._entry(relation)
         if isinstance(plan, Select):
-            spec = _lower_match(self.db, plan.where, "Select predicate")[2]
+            spec = _lower_match(ent.db, plan.where, "Select predicate")[2]
             _refuse_pattern_one_tuple(plan, spec)
+            stats = self.stats(ent.name)
             if spec is not None:
                 cands = _planner.candidate_pattern_estimates(
-                    self.stats(), spec, ell=plan.expected_matches,
+                    stats, spec, ell=plan.expected_matches,
                     padded_rows=plan.padding.rows)
             else:
                 cands = _planner.candidate_estimates(
-                    self.stats(), ell=plan.expected_matches,
+                    stats, ell=plan.expected_matches,
                     padded_rows=plan.padding.rows)
             return sorted(cands, key=lambda e: (e.score(self.round_cost_bits),
                                                 e.rounds))
         if isinstance(plan, Plan):
-            return self.explain([plan])
+            return self.explain([plan], relation=ent.name)
         try:
             plans = list(plan)
         except TypeError:
             raise _planner.PlanNotSupported(
                 plan, "explain() argument") from None
-        return self._explain_batch(plans)
+        sig = (ent.name, tuple(_plan_signature(p) for p in plans))
+        hit = self._explanations.get(sig)
+        if hit is not None:
+            return hit[0]
+        exp = self._explain_batch(plans, ent)
+        if len(self._explanations) >= EXPLAIN_CACHE_MAX:
+            self._explanations.pop(next(iter(self._explanations)))
+        self._explanations[sig] = (exp, tuple(
+            p.right for p in plans if isinstance(p, Join)))
+        return exp
 
-    def _explain_batch(self, plans: List[Plan]) -> _planner.BatchExplanation:
+    def explain_multi(self, batches: Sequence[
+            Tuple[Optional[str], Sequence[Plan]]]
+            ) -> _planner.MultiBatchExplanation:
+        """Predicted ledgers of a prospective :meth:`run_batch_multi`: each
+        ``(relation, plans)`` batch priced as :meth:`explain` prices it
+        alone, plus the shared fetch wave."""
+        return _planner.explain_multi_batches(
+            [self.explain(list(plans), relation=relation)
+             for relation, plans in batches])
+
+    def _explain_batch(self, plans: List[Plan], ent: AttachedRelation
+                       ) -> _planner.BatchExplanation:
         """Group ``plans`` as :meth:`run_batch` would and price each group."""
-        stats = self.stats()
+        db = ent.db
+        stats = self.stats(ent.name)
         sel_ells: Dict[str, List[Optional[int]]] = {
             s: [] for s in ("one_tuple", "one_round", "tree")}
         sel_specs: Dict[str, List[Optional[encoding.PatternSpec]]] = {
@@ -247,26 +482,26 @@ class QueryClient:
 
         for plan in plans:
             if isinstance(plan, Count):
-                spec = _lower_match(self.db, plan.where, "Count predicate")[2]
+                spec = _lower_match(db, plan.where, "Count predicate")[2]
                 count_ests.append(_planner.estimate_pattern_cost(stats, spec))
             elif isinstance(plan, Select):
-                spec = _lower_match(self.db, plan.where, "Select predicate")[2]
+                spec = _lower_match(db, plan.where, "Select predicate")[2]
                 _refuse_pattern_one_tuple(plan, spec)
                 if plan.strategy == AUTO:
                     auto_plans.append((plan, spec))
                 else:
                     add_select(plan, plan.strategy, spec)
             elif isinstance(plan, (RangeCount, RangeSelect)):
-                col = _binary_column(self.db, plan.where.column)
+                col = _binary_column(db, plan.where.column)
                 want = isinstance(plan, RangeSelect)
                 range_grps.setdefault(
-                    (self.db.numeric_bits[col], plan.reduce_every), []
+                    (db.numeric_bits[col], plan.reduce_every), []
                 ).append((want, plan.padding.rows if want else None))
             elif isinstance(plan, Aggregate):
-                col = _binary_column(self.db, plan.column)
+                col = _binary_column(db, plan.column)
                 if plan.where is not None:
-                    _lower_eq(self.db, plan.where, "Aggregate predicate")
-                t_bits = self.db.numeric_bits[col]
+                    _lower_eq(db, plan.where, "Aggregate predicate")
+                t_bits = db.numeric_bits[col]
                 est = _planner.estimate_aggregate_cost(
                     stats, plan.op, t_bits=t_bits,
                     conditional=plan.where is not None,
@@ -353,21 +588,25 @@ class QueryClient:
         return _planner.choose_select_strategy(stats, **kw).strategy
 
     # -- execution ----------------------------------------------------------
-    def run(self, plan: Plan) -> QueryResult:
+    def run(self, plan: Plan, *,
+            relation: Optional[str] = None) -> QueryResult:
         """Execute one logical plan (the B = 1 case of :meth:`run_batch`)."""
-        return self.run_batch([plan])[0]
+        return self.run_batch([plan], relation=relation)[0]
 
-    def run_batch(self, plans: Sequence[Plan]) -> List[QueryResult]:
+    def run_batch(self, plans: Sequence[Plan], *,
+                  relation: Optional[str] = None) -> List[QueryResult]:
         """Execute B logical plans, fusing each protocol round per group.
 
-        Per-plan keys derive from the client root in list order. Every plan
-        is cost-planned exactly as :meth:`run` would plan it (AUTO
-        selections see the batch's live group sizes), then Count/Select
-        groups stack their predicates — each match, Q&A and address round
-        is one fused dispatch + one interpolation — and every oblivious
-        fetch of the batch (one_round and tree one-hots; a zero-match
-        one_round query adds a 0-row block, a tree query that counted ℓ = 0
-        skips the fetch) stacks into ONE cross-group ``ss_matmul``.
+        ``relation`` picks the registry entry (the default relation when
+        omitted); per-plan keys derive from THAT relation's stream in list
+        order. Every plan is cost-planned exactly as :meth:`run` would plan
+        it (AUTO selections see the batch's live group sizes), then
+        Count/Select groups stack their predicates — each match, Q&A and
+        address round is one fused dispatch + one interpolation — and every
+        oblivious fetch of the batch (one_round and tree one-hots; a
+        zero-match one_round query adds a 0-row block, a tree query that
+        counted ℓ = 0 skips the fetch) stacks into ONE cross-group
+        ``ss_matmul``.
 
         Range plans group by (bit width, ``reduce_every``): the group's
         SS-SUB bit-vectors ripple in ONE ``(c, 2B, n, t)`` carry chain, and
@@ -388,8 +627,36 @@ class QueryClient:
         :class:`CardinalityError`; with ``strategy="auto"`` the query
         replans onto one_round/tree inside the batch, reusing the count.
         """
-        db, rel = self.db, self.rel
-        stats = self.stats()
+        (out,) = self.run_batch_multi([(relation, plans)])
+        return out
+
+    def run_batch_multi(self, batches: Sequence[
+            Tuple[Optional[str], Sequence[Plan]]]) -> List[List[QueryResult]]:
+        """Execute several relations' batches with ONE fused fetch wave.
+
+        ``batches`` is a sequence of ``(relation, plans)`` pairs. Each batch
+        runs exactly as :meth:`run_batch` would (its relation's key stream,
+        its own grouping and ledgers; batches never mix), but all batches
+        advance to the cross-group fetch first, and their fetch
+        ``ss_matmul`` dispatches execute as ONE wave when the relations'
+        dataplanes share a dispatch pool
+        (:func:`~repro_torch.core.queries.rounds.fetch_fusion_multi`).
+        Results and ledgers are bit-identical to running the batches back
+        to back; one result list per batch, in order."""
+        works = [self._prepare_batch(list(plans), self._entry(relation))
+                 for relation, plans in batches]
+        fetched = rounds.fetch_fusion_multi(
+            self.backend,
+            [(w.rel, w.fetch_jobs, w.join_entries) for w in works])
+        for w in works:
+            w.join_entries = None   # the match rows: 10.74 GB at full size
+        return [self._finish_batch(w, f) for w, f in zip(works, fetched)]
+
+    def _prepare_batch(self, plans: Sequence[Plan],
+                       ent: AttachedRelation) -> _BatchWork:
+        """Group, plan and run every pre-fetch round of one batch."""
+        db, rel = ent.db, ent.rel
+        stats = self.stats(ent.name)
         results: Dict[int, QueryResult] = {}
         count_grp: List[_Slot] = []
         sel_grp: Dict[str, List[_Slot]] = {"one_tuple": [], "one_round": [],
@@ -417,7 +684,7 @@ class QueryClient:
             sel_grp[strategy].append(slot)
 
         for idx, plan in enumerate(plans):
-            slot = _Slot(idx, plan, self._next_key())
+            slot = _Slot(idx, plan, self._next_key(ent))
             if isinstance(plan, Count):
                 slot.column, slot.pattern, slot.spec = _lower_match(
                     db, plan.where, "Count predicate")
@@ -564,7 +831,7 @@ class QueryClient:
                     round_cost_bits=self.round_cost_bits,
                     group_sizes=group_sizes,
                     group_rounds=group_rounds).strategy
-                s.key, s.known_count = self._next_key(), ell
+                s.key, s.known_count = self._next_key(ent), ell
                 join_group(s, chosen, ell)
             if verified:
                 rows = rounds.one_tuple_round(be, rel, [
@@ -645,78 +912,95 @@ class QueryClient:
             match_method=_planner.choose_match_method(
                 stats, s.plan.match_method)) for s in pkfk_grp]
         join_entries = rounds.join_match_round(be, rel, join_jobs)
+        return _BatchWork(plans=plans, db=db, rel=rel, results=results,
+                          fetch_jobs=fetch_jobs, fetch_meta=fetch_meta,
+                          join_jobs=join_jobs, join_entries=join_entries,
+                          pkfk_grp=pkfk_grp, equi_grp=equi_grp)
 
-        rows_list, fetched = rounds.fetch_fusion(be, rel, fetch_jobs,
-                                                 join_entries)
-        del join_entries        # the match rows: 10.74 GB at full size
-        for (s, strat, a), r in zip(fetch_meta, rows_list):
+    def _finish_batch(self, work: _BatchWork,
+                      fetched: Tuple[List[List[List[str]]], List[Shares]]
+                      ) -> List[QueryResult]:
+        """Consume the fused fetch output and run the post-fetch rounds."""
+        db, results = work.db, work.results
+        rows_list, extra = fetched
+        for (s, strat, a), r in zip(work.fetch_meta, rows_list):
             results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
                                          strategy=strat, rows=r, addresses=a)
-        if pkfk_grp:
-            join_rows = rounds.join_emit_round(db, join_jobs, fetched)
-            for s, r in zip(pkfk_grp, join_rows):
+        if work.pkfk_grp:
+            join_rows = rounds.join_emit_round(db, work.join_jobs, extra)
+            for s, r in zip(work.pkfk_grp, join_rows):
                 results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
                                              strategy="pkfk", rows=r)
 
         # -- equijoins: phases fused across the group -----------------------
-        if equi_grp:
-            equi_rows = rounds.equijoin_rounds(be, rel, [
+        if work.equi_grp:
+            equi_rows = rounds.equijoin_rounds(self.backend, work.rel, [
                 rounds.EquiJob(
                     s.plan.right, resolve_column(db, s.plan.on[0]),
                     resolve_column(s.plan.right, s.plan.on[1]), s.key,
                     s.ledger, padded_values=s.plan.padding.values)
-                for s in equi_grp])
-            for s, r in zip(equi_grp, equi_rows):
+                for s in work.equi_grp])
+            for s, r in zip(work.equi_grp, equi_rows):
                 results[s.idx] = QueryResult(plan=s.plan, ledger=s.ledger,
                                              strategy="equi", rows=r)
-        return [results[i] for i in range(len(plans))]
+        return [results[i] for i in range(len(work.plans))]
 
     # -- conveniences (build the plan, run it) ------------------------------
-    def count(self, column: ColumnRef, pattern: str) -> QueryResult:
-        return self.run(Count(Eq(column, pattern)))
+    def count(self, column: ColumnRef, pattern: str, *,
+              relation: Optional[str] = None) -> QueryResult:
+        return self.run(Count(Eq(column, pattern)), relation=relation)
 
     def select(self, column: ColumnRef, pattern: str, *,
                strategy: str = AUTO, expected_matches: Optional[int] = None,
                padding: Padding = Padding.NONE,
-               branching: Optional[int] = None) -> QueryResult:
+               branching: Optional[int] = None,
+               relation: Optional[str] = None) -> QueryResult:
         return self.run(Select(Eq(column, pattern), strategy=strategy,
                                expected_matches=expected_matches,
-                               padding=padding, branching=branching))
+                               padding=padding, branching=branching),
+                        relation=relation)
 
     def like(self, column: ColumnRef, pattern: str, *,
              count_only: bool = False, strategy: str = AUTO,
              expected_matches: Optional[int] = None,
-             padding: Padding = Padding.NONE) -> QueryResult:
+             padding: Padding = Padding.NONE,
+             relation: Optional[str] = None) -> QueryResult:
         """``column LIKE pattern``: a pattern Select (or Count with
         ``count_only=True``). Wildcard-free patterns lower to the exact Eq
         path; ``lit%``/``%lit``/``%lit%``/``l_t`` run the prefix / suffix /
         substring / masked matchers."""
         where = Like(column, pattern)
         if count_only:
-            return self.run(Count(where))
+            return self.run(Count(where), relation=relation)
         return self.run(Select(where, strategy=strategy,
                                expected_matches=expected_matches,
-                               padding=padding))
+                               padding=padding), relation=relation)
 
     def range_count(self, column: ColumnRef, lo: int, hi: int, *,
-                    reduce_every: int = 0) -> QueryResult:
+                    reduce_every: int = 0,
+                    relation: Optional[str] = None) -> QueryResult:
         return self.run(RangeCount(Between(column, lo, hi),
-                                   reduce_every=reduce_every))
+                                   reduce_every=reduce_every),
+                        relation=relation)
 
     def range_select(self, column: ColumnRef, lo: int, hi: int, *,
                      reduce_every: int = 0,
-                     padding: Padding = Padding.NONE) -> QueryResult:
+                     padding: Padding = Padding.NONE,
+                     relation: Optional[str] = None) -> QueryResult:
         return self.run(RangeSelect(Between(column, lo, hi),
                                     reduce_every=reduce_every,
-                                    padding=padding))
+                                    padding=padding), relation=relation)
 
     def aggregate(self, op: str, column: ColumnRef, *,
                   where: Optional[Eq] = None, verify: bool = False,
-                  reduce_every: int = 0) -> QueryResult:
+                  reduce_every: int = 0,
+                  relation: Optional[str] = None) -> QueryResult:
         return self.run(Aggregate(op, column, where=where, verify=verify,
-                                  reduce_every=reduce_every))
+                                  reduce_every=reduce_every),
+                        relation=relation)
 
     def join(self, right: SecretSharedDB, on: Tuple[ColumnRef, ColumnRef], *,
-             kind: str = "pkfk", padding: Padding = Padding.NONE
-             ) -> QueryResult:
-        return self.run(Join(right=right, on=on, kind=kind, padding=padding))
+             kind: str = "pkfk", padding: Padding = Padding.NONE,
+             relation: Optional[str] = None) -> QueryResult:
+        return self.run(Join(right=right, on=on, kind=kind, padding=padding),
+                        relation=relation)

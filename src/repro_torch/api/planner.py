@@ -68,22 +68,27 @@ class CostEstimate:
 @dataclasses.dataclass(frozen=True)
 class DBStats:
     """The public statistics the planner works from (§2.3: n, m and the
-    schema are public). ``shards`` scales dispatch estimates only."""
+    schema are public). ``shards`` scales dispatch estimates only.
+    ``relation`` names the registry entry these statistics describe: with
+    several relations attached, every estimate is priced at the target
+    relation's own n and shard count."""
     n: int          # tuples
     m: int          # attributes
     c: int          # clouds / shares
     w: int          # word length
     a: int          # alphabet size
     shards: int = 1
+    relation: str = ""
 
     @classmethod
-    def of(cls, db, shards: Optional[int] = None) -> "DBStats":
+    def of(cls, db, shards: Optional[int] = None,
+           relation: str = "") -> "DBStats":
         if isinstance(db, ShardedRelation):
             shards = db.n_shards if shards is None else shards
             db = db.db
         return cls(n=db.n_tuples, m=db.n_attrs, c=db.n_shares,
                    w=db.codec.word_length, a=db.codec.alphabet_size,
-                   shards=shards or 1)
+                   shards=shards or 1, relation=relation)
 
 
 def _shards(s: DBStats) -> int:
@@ -475,6 +480,7 @@ class BatchExplanation:
     rounds: int
     dispatches: int
     shards: int
+    relation: str = ""
 
 
 def explain_batch_groups(stats: DBStats,
@@ -491,4 +497,37 @@ def explain_batch_groups(stats: DBStats,
         groups=tuple(groups),
         bits=sum(g.estimate.bits for g in groups),
         rounds=max((g.estimate.rounds for g in groups), default=0),
-        dispatches=dispatches, shards=S)
+        dispatches=dispatches, shards=S, relation=stats.relation)
+
+
+def _has_fetch(part: BatchExplanation) -> bool:
+    return any(g.family in FETCH_RIDERS and g.size > 0 for g in part.groups)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiBatchExplanation:
+    """Predicted ledgers for a fused multi-relation ``run_batch_multi``.
+
+    The parts are the solo :class:`BatchExplanation`\\ s: fusion only
+    co-schedules independent shard dispatches, so no relation's bits,
+    rounds or dispatch fan-out moves. What fusion buys is waves: the
+    ``fetch_parts`` relations that would each close with their own fetch
+    wave share ONE (``fetch_waves``)."""
+    parts: Tuple[BatchExplanation, ...]
+    bits: int                   # Σ parts
+    rounds: int                 # deepest part (waves run side by side)
+    dispatches: int             # Σ parts
+    fetch_parts: int            # relations riding the shared fetch wave
+    fetch_waves: int            # 1 when >= 2 parts fuse, else fetch_parts
+
+
+def explain_multi_batches(parts: Sequence[BatchExplanation]
+                          ) -> MultiBatchExplanation:
+    """Price a prospective ``run_batch_multi`` from its solo predictions."""
+    fetch_parts = sum(1 for p in parts if _has_fetch(p))
+    return MultiBatchExplanation(
+        parts=tuple(parts), bits=sum(p.bits for p in parts),
+        rounds=max((p.rounds for p in parts), default=0),
+        dispatches=sum(p.dispatches for p in parts),
+        fetch_parts=fetch_parts,
+        fetch_waves=1 if fetch_parts > 1 else fetch_parts)

@@ -2,7 +2,8 @@
 # outsourced relation and its dataplane, and the oblivious query suite.
 from . import automata, costs, dataplane, encoding, engine, field, shamir
 from .costs import CostLedger
-from .dataplane import Dispatcher, ShardedRelation, as_dataplane
+from .dataplane import (Dispatcher, PoolHandle, ShardedRelation,
+                        ThreadedDispatcher, as_dataplane, fused_execute)
 from .encoding import Codec
 from .engine import SecretSharedDB, from_arrays, outsource
 from .shamir import Shares, interpolate, reduce_degree, share
@@ -10,6 +11,7 @@ from .shamir import Shares, interpolate, reduce_degree, share
 __all__ = [
     "field", "shamir", "encoding", "automata", "costs", "dataplane",
     "engine", "SecretSharedDB", "outsource", "from_arrays", "Dispatcher",
-    "ShardedRelation", "as_dataplane", "Shares", "share", "interpolate",
+    "PoolHandle", "ThreadedDispatcher", "fused_execute", "ShardedRelation",
+    "as_dataplane", "Shares", "share", "interpolate",
     "reduce_degree", "Codec", "CostLedger",
 ]

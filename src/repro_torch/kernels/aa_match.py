@@ -34,6 +34,7 @@ the kernels against them on the card.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -59,6 +60,8 @@ _MAX_TILE_ROWS = 128
 #: chip_smoke.py).
 launches = 0
 slide_launches = 0
+#: kernels launch from pool and MapReduce threads too: += is not atomic
+_count_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -303,10 +306,11 @@ def _launch(src: torch.Tensor, offsets: Sequence[int],
                       pl.k_pass, int(pl.copy_bytes == 16), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    if k:
-        slide_launches += 1
-    else:
-        launches += 1
+    with _count_lock:
+        if k:
+            slide_launches += 1
+        else:
+            launches += 1
     return out
 
 

@@ -31,6 +31,7 @@ comes back.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
     Tuple
 
@@ -47,6 +48,8 @@ carry_launches = 0
 #: the same launches by route (ROUTES), since the last reset.
 ROUTES = ("bit_major", "strided")
 route_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+#: kernels launch from pool and MapReduce threads too: += is not atomic
+_count_lock = threading.Lock()
 
 #: lanes a bit-major thread covers (one 16-byte load a plane); bit_major
 #: pads each row's lanes to a multiple of it, so every plane of every row
@@ -282,9 +285,10 @@ def ripple_segment_cuda(a: torch.Tensor, b: torch.Tensor,
                  int(pl.vec_out), stream)
     if err != 0:
         raise RuntimeError(f"ripple kernel launch failed: CUDA error {err}")
-    if k == 1:
-        carry_launches += 1
-    else:
-        launches += 1
-    route_launches[pl.route] += 1
+    with _count_lock:
+        if k == 1:
+            carry_launches += 1
+        else:
+            launches += 1
+        route_launches[pl.route] += 1
     return rb, co

@@ -20,6 +20,7 @@ replacing the Pallas ``share_onehot_pallas``) and its plain version
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -52,6 +53,8 @@ TALL_MIN_K = 1024
 launches = 0
 tall_launches = 0
 share_onehot_launches = 0
+#: kernels launch from pool and MapReduce threads too: += is not atomic
+_count_lock = threading.Lock()
 
 
 def is_tall_skinny(m: int, k: int, n: int) -> bool:
@@ -171,7 +174,8 @@ def ss_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b, batch, m, k, n, out, live = _prepare(a, b)
     if live:
         _run("ss_matmul_u32", a, b, batch, m, k, n, out)
-        launches += 1
+        with _count_lock:
+            launches += 1
     return out
 
 
@@ -184,7 +188,8 @@ def ss_matmul_tall_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"the tall kernel takes M <= {TALL_MAX_M}, got {m}")
     if live:
         _run("ss_matmul_tall_u32", a, b, batch, m, k, n, out)
-        tall_launches += 1
+        with _count_lock:
+            tall_launches += 1
     return out
 
 
@@ -254,5 +259,6 @@ def share_onehot_cuda(tokens: torch.Tensor, a1: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"share_onehot kernel launch failed: CUDA error "
                            f"{err}")
-    share_onehot_launches += 1
+    with _count_lock:
+        share_onehot_launches += 1
     return out

@@ -7,6 +7,9 @@ Marked ``cuda``: every test skips without a CUDA device (decided inside the
 
 Results must be bit-identical (the arithmetic is exact mod p).
 """
+import dataclasses
+import threading
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -521,3 +524,94 @@ def test_join_match_matrix_on_card_equals_cpu(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts()["ss_matmul"] == 1
     assert torch.equal(got.cpu(), agg(bx.cpu(), by.cpu()))
+
+
+# ---------------------------------------------------------------------------
+# serving: the kernels launched from pool and MapReduce threads
+# ---------------------------------------------------------------------------
+
+_SERVE_ROWS = [[f"E{i:04d}", ("Zorro", "Quinn", "Adam", "Eve")[i % 4],
+                f"L{i % 7}", str(100 + 37 * i % 1900),
+                ("Sale", "Legal")[i % 2]] for i in range(96)]
+
+
+def _serve_db(cuda):
+    from repro_torch.core import Codec, outsource
+    return outsource(_SERVE_ROWS, n_shares=20,
+                     column_names=["EmployeeId", "FirstName", "LastName",
+                                   "Salary", "Department"],
+                     codec=Codec(word_length=8), degree=1, seed=3,
+                     numeric_columns={3: 13}, device=cuda)
+
+
+def _serve_plans():
+    from repro_torch import api
+    return [api.Count(api.Eq("FirstName", "Quinn")),
+            api.Select(api.Eq("FirstName", "Zorro"), strategy="one_round"),
+            api.Select(api.Eq("LastName", "L3"), strategy="tree"),
+            api.RangeCount(api.Between("Salary", 500, 1500),
+                           reduce_every=8)]
+
+
+def test_threaded_and_mapreduce_equal_serial_on_card(cuda):
+    from repro_torch import api
+    from repro_torch.core import ShardedRelation, ThreadedDispatcher
+    from repro_torch.runtime import MapReduceRunner, WorkerPool, mapreduce
+    db = _serve_db(cuda)
+    want = api.QueryClient(db, 4).run_batch(_serve_plans())
+    pool = ThreadedDispatcher(2)
+    ops.reset_launch_counts()
+    threaded = api.QueryClient(ShardedRelation(db, shards=2,
+                                               dispatcher=pool.handle()),
+                               4).run_batch(_serve_plans())
+    pool.close()
+    # worker 3 outsleeps the lease: every 4-split op re-executes tasks
+    ex = api.MapReduceExecutor(MapReduceRunner(
+        WorkerPool(4, dead_workers={2}, slow_workers={3: 0.6}),
+        lease_s=0.3, max_attempts=8), n_splits=4)
+    mapped = api.QueryClient(db, 4, executor=ex).run_batch(_serve_plans())
+    for th in threading.enumerate():       # the stragglers' late copies
+        if th.name == mapreduce.THREAD_NAME:
+            th.join(timeout=10)
+    torch.cuda.synchronize()
+    for a, b, c in zip(want, threaded, mapped):
+        for r in (b, c):
+            assert (r.count, r.rows, r.addresses, r.strategy) == \
+                (a.count, a.rows, a.addresses, a.strategy)
+            assert r.ledger.as_dict() == a.ledger.as_dict()
+    counts = ops.launch_counts()
+    assert counts["aa_match_batch"] > 0 and counts["ripple_segment"] > 0
+    assert counts["ss_matmul"] + counts["ss_matmul_tall"] > 0
+    assert ex.runner.reexecutions > 0
+
+
+def test_kernel_failure_on_pool_thread_is_the_requests_error(cuda):
+    import _torch_serving as _serving
+    from repro_torch import api
+    from repro_torch.core import ThreadedDispatcher
+    from repro_torch.launch import QueryServer
+    db = _serve_db(cuda)
+    seen = []
+    raising = _serving.raising_backend()
+
+    def ss_matmul(a, b):
+        seen.append(a.device.type)
+        return raising.ss_matmul(a, b)
+
+    be = dataclasses.replace(raising, ss_matmul=ss_matmul)
+    client = api.QueryClient(backend=be)
+    pool = ThreadedDispatcher(2)
+    client.attach(db, shards=2, dispatcher=pool.handle())
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        client.run_batch([_serve_plans()[1]])
+    pool.close()
+    srv = QueryServer(backend=be, pool_workers=2, max_wait_ms=5)
+    srv.attach("emp", db, shards=2, key=1)
+    with srv:
+        bad = srv.submit(_serve_plans()[1], relation="emp")
+        good = srv.submit(_serve_plans()[0], relation="emp")
+        for r in (bad, good):
+            r.wait(timeout=60)
+    assert isinstance(bad.error, RuntimeError) and bad.result is None
+    assert good.error is None and good.result.count == 24
+    assert srv.client.backend is be and set(seen) == {cuda.type}
