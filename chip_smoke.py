@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--tuples 131072] [--seed 0]
     python3 chip_smoke.py --aa-times SRC      # only the match/slide times
     python3 chip_smoke.py --ripple-times SRC  # only the ripple times
+    python3 chip_smoke.py --setup-peak SRC    # only the table set-up peak
 
 Phases, any failure exits non-zero:
 
@@ -74,6 +75,23 @@ Phases, any failure exits non-zero:
    held to the plaintext and every ledger to a solo replay; logs closes,
    latency, throughput, pool dispatches, launches, the MapReduce counters
    and the phase's host seconds and peak memory.
+   Slice 7 (last, after phase 4, with the earlier relations freed):
+   private LM generation at the full Qwen1.5-4B configuration of
+   ``repro_torch.configs`` (40 layers, d 2,560, 20 heads, d_ff 6,912,
+   V 151,936, QKV bias, bf16) on synthetic weights from ``--seed``; the
+   table is shared once (c = 4, degree 1) into ``params["embed_shares"]``.
+   4 requests of 64 prompt tokens and 32 new ones run three ways — (c) a
+   plaintext ``BatchServer`` over the dequantized quantized table, (a)
+   ``BatchServer`` with ``private_embed=True``, (b) the
+   ``private_generate`` flow (``QueryClient`` with the table at 2 vocab
+   shards under ``MeshDispatcher()``, one ``EmbedLookup`` a step into
+   ``decode_step(embeds=)``) — and must give identical tokens;
+   ``share_onehot`` and ``ss_matmul_tall`` must launch inside (a) and (b);
+   decode must match forward within atol 0.12 / rtol 0.05 and the tall
+   kernel at the decode shape (M = 4) its plain version. Logs set-up
+   seconds and peak, prefill seconds and ms per decode step a route,
+   tokens/s, the lookup's share of a (b) step, launches per lookup, a
+   ``torch.profiler`` device split and idle share a route, and the peak.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -113,6 +131,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import gc
 import json
 import os
 import re
@@ -1586,6 +1605,283 @@ def embed_full_shapes(torch, table, errs, launches):
     return entry
 
 
+#: slice 7 runs the full Qwen1.5-4B configuration of the port's registry
+#: (src/repro_torch/configs/qwen1_5_4b.py: 40 layers, d 2,560, 20 heads,
+#: d_ff 6,912, V 151,936, QKV bias, bf16) on synthetic weights from
+#: ``--seed``: 4 requests of 64 prompt tokens and 32 new ones, three ways.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "qwen1_5_4b", 4, 64, 32
+SLICE7_KERNELS = ("share_onehot", "ss_matmul_tall")
+
+
+def lm_path(torch, args, errs):
+    """Phase 3, slice 7: private LM generation at the full Qwen1.5-4B
+    configuration through the public entry points. The weights are drawn
+    on the card from ``--seed`` (``lm.init_params``) and the embedding
+    table is shared once (c = 4, degree 1) into ``params["embed_shares"]``.
+    Three routes generate greedily from the same prompts: (a)
+    ``BatchServer`` with ``private_embed=True`` (``private_lookup_inline``
+    each step), (b) the ``private_generate`` flow (a ``QueryClient`` with
+    the table attached at 2 vocab shards under ``MeshDispatcher()``, one
+    ``EmbedLookup`` a step into ``decode_step(embeds=)``), (c) a plaintext
+    ``BatchServer`` over the dequantized quantized table. Fails unless the
+    three generate identical tokens, the launch counters of
+    ``share_onehot`` and ``ss_matmul_tall`` rise inside (a) and (b), the
+    three routes' prefill logits are equal (every embedding is exact),
+    decode matches forward within atol 0.12 / rtol 0.05 (the reference's
+    own bound), and every kernel shape the routes launch equals its plain
+    version: ``share_onehot`` at M = 4 (a decode step) and M = 256 (the
+    prefill), the tall contraction against the whole table (route a) and
+    against each vocab shard's strided column slice (route b) at both M.
+    Records each kernel's largest error in ``errs``. Returns the path's
+    launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.api import EmbedLookup, MeshDispatcher, QueryClient
+    from repro_torch.core.queries import embed as eq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+    from repro_torch.launch import BatchServer, Request
+    from repro_torch.models import lm
+    from repro_torch.models import private_embed as pe
+
+    cfg = configs.full(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size,
+           cfg.dtype, cfg.qkv_bias) == (40, 2560, 20, 6912, 151936,
+                                        "bfloat16", True),
+          f"{LM_ARCH} is not the published configuration: {cfg}")
+    priv_cfg = dataclasses.replace(cfg, private_embed=True)
+    b, t, new = LM_BATCH, LM_PROMPT, LM_NEW
+    max_len = t + new
+    timings, total = {}, collections.Counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    def clock(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        timings[tag] = time.perf_counter() - t0
+        return res
+
+    params = clock("init_params_s", lambda: lm.init_params(args.seed, cfg))
+    n_params = sum(v.numel() for v in _leaves(params))
+    weights_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    base = torch.cuda.memory_allocated()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    table = clock("setup_private_embed_s", lambda: pe.setup_private_embed(
+        (args.seed, 7), params["embed"], n_shares=EMBED_SHARES))
+    setup_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    params["embed_shares"] = table.values
+    plain = {k: v for k, v in params.items() if k != "embed_shares"}
+    plain["embed"] = eq.dequantize_from_field(eq.quantize_to_field(
+        params["embed"])).to(params["embed"].dtype)
+    log(f"slice-7 {LM_ARCH}: {n_params} parameters ({weights_gb:.3f} GB, "
+        f"bf16 weights, fp32 norms) drawn in {timings['init_params_s']:.3f}"
+        f" s; table shared over {EMBED_SHARES} clouds "
+        f"({table.values.numel() * 4 / 1e9:.3f} GB) in "
+        f"{timings['setup_private_embed_s']:.3f} s, set-up peak "
+        f"{setup_peak:.3f} GB above the weights")
+    rng = np.random.default_rng(args.seed + 7)
+    prompts = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    dev = params["final_norm"].device
+    prompt_t = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+
+    def count_window(route, fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        total.update(got)
+        log(f"slice-7 route {route} launches {got}")
+        return res, got
+
+    def via_server_run(server, n_new):
+        reqs = [Request(prompt=p.copy(), max_new=n_new) for p in prompts]
+        return np.stack([r.out for r in server.serve(reqs)])
+
+    def via_server(route, server):
+        via_server_run(server, 2)                # warm-up, untimed
+        clock(f"{route}_prefill_s", lambda: via_server_run(server, 1))
+        return clock(f"{route}_generate_s",
+                     lambda: via_server_run(server, new))
+
+    servers = {"a": BatchServer(params, priv_cfg, max_len=max_len),
+               "c": BatchServer(plain, cfg, max_len=max_len)}
+    toks_c, launch_c = count_window("c", lambda: via_server("c",
+                                                            servers["c"]))
+    toks_a, launch_a = count_window("a", lambda: via_server("a",
+                                                            servers["a"]))
+
+    client = QueryClient(seed=args.seed)
+    plane = client.attach(pe.as_embed_relation(table), name="embeddings",
+                          shards=2, dispatcher=MeshDispatcher())
+    split = {"lookup_s": 0.0, "decode_s": 0.0}
+
+    def lookup(toks):
+        res = client.run(EmbedLookup(tokens=toks.reshape(-1)),
+                         relation="embeddings")
+        return torch.from_numpy(res.embeddings).to(dev).reshape(
+            *toks.shape, cfg.d_model)
+
+    def generate_b(n_new, keep=None):
+        logits, cache = lm.prefill(params, cfg, {"tokens": prompt_t,
+                                                 "embeds": lookup(prompts)},
+                                   max_len=max_len)
+        if keep is not None:
+            keep.append(logits)
+        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        out = [tok]
+        for i in range(n_new - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb = lookup(tok.cpu().numpy())
+            t1 = time.perf_counter()
+            logits, cache = lm.decode_step(params, cfg, cache, t + i,
+                                           {"tokens": tok, "embeds": emb})
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            out.append(tok)
+            torch.cuda.synchronize()
+            split["lookup_s"] += t1 - t0
+            split["decode_s"] += time.perf_counter() - t1
+        return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+
+    def route_b():
+        generate_b(2)                            # warm-up, untimed
+        clock("b_prefill_s", lambda: generate_b(1))
+        split.update(lookup_s=0.0, decode_s=0.0)
+        toks = clock("b_generate_s", lambda: generate_b(new))
+        timings.update(b_lookup_s=split["lookup_s"],
+                       b_decode_s=split["decode_s"])
+        return toks
+
+    toks_b, launch_b = count_window("b", route_b)
+    log(f"slice-7 tokens of request 0: {toks_a[0].tolist()}")
+    check(toks_a.shape == (b, new) and np.array_equal(toks_a, toks_b)
+          and np.array_equal(toks_a, toks_c),
+          "slice 7: routes (a), (b) and (c) generated different tokens")
+    for route, got in (("a", launch_a), ("b", launch_b)):
+        for name in SLICE7_KERNELS:
+            check(got[name] > 0, f"slice 7 route ({route}) launched no "
+                  f"{name}")
+    check(launch_c["share_onehot"] == 0 and launch_c["ss_matmul_tall"] == 0,
+          "slice 7: the plaintext route launched a lookup kernel")
+    lookups = 2 + 1 + new                    # warm-up, prefill, full run
+    per_step = {r: {k: got[k] / lookups for k in SLICE7_KERNELS}
+                for r, got in (("a", launch_a), ("b", launch_b))}
+    log(f"slice-7 plane: {plane.stats.dispatches} dispatches in "
+        f"{plane.stats.steps} steps, {plane.stats.transfer_bytes} bytes "
+        f"placed once")
+
+    # logits of the three embeddings sources at the prefill, and decode
+    # against forward (not counted)
+    kept = []
+    generate_b(1, keep=kept)
+    la, _ = lm.prefill(params, priv_cfg, {"tokens": prompt_t},
+                       max_len=max_len)
+    lc, cache = lm.prefill(plain, cfg, {"tokens": prompt_t}, max_len=max_len)
+    diff = {"a_vs_b": float((la - kept[0]).abs().max()),
+            "a_vs_c": float((la - lc).abs().max())}
+    check(diff["a_vs_b"] == 0.0 and diff["a_vs_c"] == 0.0,
+          f"slice 7: the routes' prefill logits differ: {diff}")
+    tok = torch.argmax(lc[:, -1], dim=-1, keepdim=True)
+    ld, _ = lm.decode_step(plain, cfg, cache, t, {"tokens": tok})
+    full = lm.forward(plain, cfg, {"tokens": torch.cat([prompt_t, tok], 1)})
+    dec_err = float((ld[:, 0] - full[:, t]).abs().max())
+    check(bool(torch.isfinite(full).all()) and torch.allclose(
+        ld[:, 0], full[:, t], atol=0.12, rtol=0.05),
+        f"slice 7: decode_step differs from forward (max |d| {dec_err})")
+    del kept, la, lc, ld, full, cache
+    log(f"slice-7 prefill logits max |d| {json.dumps(diff)}; decode vs "
+        f"forward max |d| {dec_err} (atol 0.12, rtol 0.05)")
+    path_peak = max(init_peak, torch.cuda.max_memory_allocated())
+
+    # every kernel shape of the routes against its plain version: the
+    # one-hot shares at M = 4 (a decode step) and M = 256 (the prefill),
+    # contracted with the whole table (route a) and with each vocab
+    # shard's strided column slice and its placed block (route b)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    blocks = [(f"table[{lo}:{hi}]", (lo, hi),
+               plane.view(sh.index).relation.values)
+              for sh in plane.shards for lo, hi in [(sh.lo, sh.hi)]]
+    for m in (b, b * t):
+        mtoks = torch.randint(0, cfg.vocab_size, (m,), generator=gen,
+                              device=dev)
+        a1 = rand_field(torch, gen, (m, cfg.vocab_size), dev)
+        shared = ops.share_onehot(mtoks, a1, n_shares=EMBED_SHARES)
+        want = ssm.share_onehot_plain(mtoks, a1, n_shares=EMBED_SHARES)
+        torch.cuda.synchronize()
+        check(torch.equal(shared, want), f"slice 7: share_onehot at "
+              f"{tuple(shared.shape)} differs from its plain version")
+        errs["share_onehot"] = max(errs["share_onehot"],
+                                   max_err(torch, shared, want))
+        del want, a1
+        for what, (lo, hi), rhs in [("table", (0, cfg.vocab_size),
+                                     table.values)] + blocks:
+            lhs = shared[:, :, lo:hi]
+            check(ssm.is_tall_skinny(m, hi - lo, cfg.d_model),
+                  f"slice 7: M={m} against {what} is not a tall shape")
+            got, want = ops.ss_matmul(lhs, rhs), ssm.ss_matmul_plain(lhs,
+                                                                     rhs)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"slice 7: ss_matmul_tall at M="
+                  f"{m} against {what} differs from its plain version")
+            errs["ss_matmul_tall"] = max(errs["ss_matmul_tall"],
+                                         max_err(torch, got, want))
+            del got, want
+        del shared
+    log(f"slice-7 kernels == plain versions: share_onehot at M = {b} and "
+        f"{b * t}; ss_matmul_tall at both M against the table and "
+        f"{', '.join(w for w, _, _ in blocks)}")
+    del blocks
+    # device time of one more generation a route (torch.profiler), so the
+    # card's idle share is 1 - device / host seconds of the counted run
+    runs = {"a": lambda: via_server_run(servers["a"], new),
+            "b": lambda: generate_b(new),
+            "c": lambda: via_server_run(servers["c"], new)}
+    split_dev = {r: device_split(torch, fn) for r, fn in runs.items()}
+    for r, sp in split_dev.items():
+        dev_ms = sp["ss_matmul_ms"] + sp["other_ms"]
+        sp["idle_share"] = 1.0 - dev_ms / (1e3 * timings[f"{r}_generate_s"])
+    log(f"slice-7 device ms of one generation a route: "
+        f"{json.dumps(split_dev)}")
+    decode_ms = {r: 1e3 * (timings[f"{r}_generate_s"]
+                           - timings[f"{r}_prefill_s"]) / (new - 1)
+                 for r in "abc"}
+    step_s = timings["b_lookup_s"] + timings["b_decode_s"]
+    summary = {
+        "setup_s": {k: timings[k] for k in
+                    ("init_params_s", "setup_private_embed_s")},
+        "prefill_s": {r: timings[f"{r}_prefill_s"] for r in "abc"},
+        "generate_s": {r: timings[f"{r}_generate_s"] for r in "abc"},
+        "decode_ms_per_step": decode_ms,
+        "tokens_per_s": {r: b * new / timings[f"{r}_generate_s"]
+                         for r in "abc"},
+        "b_lookup_share_of_step": timings["b_lookup_s"] / step_s,
+        "b_lookup_ms_per_step": 1e3 * timings["b_lookup_s"] / (new - 1),
+        "launches_per_lookup": per_step,
+        "idle_share": {r: sp["idle_share"] for r, sp in split_dev.items()},
+        "setup_peak_gb": setup_peak,
+        "peak_gb": path_peak / 1e9,
+        "peak_with_plain_check_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "held_before_gb": held / 1e9}
+    log("slice-7 summary " + json.dumps(summary))
+    del servers, client, plane, table, params, plain
+    return dict(total)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
@@ -2433,6 +2729,39 @@ def aa_times_only(torch, args) -> int:
     return 0
 
 
+def setup_peak_only(torch, args) -> int:
+    """``--setup-peak SRC``: the device memory ``setup_private_embed`` of
+    the port under SRC takes above its input, for slice 4's table
+    (float32, standard normal) and slice 7's (bfloat16, scaled as
+    ``lm.init_params`` draws it), both 151,936 x 2,560 over c = 4 clouds
+    (two checkouts compare on one card when both run in one call)."""
+    import repro_torch
+    from repro_torch.models import private_embed as pe
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    peaks = {}
+    for name, dtype, scale in (("slice4_f32", torch.float32, 1.0),
+                               ("slice7_bf16", torch.bfloat16,
+                                QWEN_DIM ** -0.5)):
+        table = (torch.randn((QWEN_VOCAB, QWEN_DIM), generator=gen,
+                             device="cuda") * scale).to(dtype)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shares = pe.setup_private_embed(args.seed, table,
+                                        n_shares=EMBED_SHARES)
+        torch.cuda.synchronize()
+        peaks[name] = {"seconds": time.perf_counter() - t0,
+                       "peak_gb": (torch.cuda.max_memory_allocated()
+                                   - base) / 1e9,
+                       "shares_gb": shares.values.numel() * 4 / 1e9}
+        del table, shares
+    print(json.dumps({"src": os.path.dirname(repro_torch.__file__),
+                      "card": smi("name,power.limit"),
+                      "setup_private_embed": peaks}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tuples", type=int, default=131072)
@@ -2446,10 +2775,14 @@ def main() -> int:
                     help="only time the ripple kernel of the port under SRC "
                          "at phase 4's shapes, on a random 13-bit column, "
                          "and print the times as JSON")
+    ap.add_argument("--setup-peak", metavar="SRC",
+                    help="only measure the device memory and seconds of the "
+                         "embedding table's set-up (slices 4 and 7) with the "
+                         "port under SRC, and print them as JSON")
     args = ap.parse_args()
-    if args.aa_times or args.ripple_times:
-        sys.path.insert(0, os.path.abspath(args.aa_times or
-                                           args.ripple_times))
+    only = args.aa_times or args.ripple_times or args.setup_peak
+    if only:
+        sys.path.insert(0, os.path.abspath(only))
 
     import torch
     if not torch.cuda.is_available():
@@ -2459,6 +2792,8 @@ def main() -> int:
         return aa_times_only(torch, args)
     if args.ripple_times:
         return ripple_times_only(torch, args)
+    if args.setup_peak:
+        return setup_peak_only(torch, args)
     from repro_torch.api import planner
     from repro_torch.kernels import _build
 
@@ -2509,6 +2844,18 @@ def main() -> int:
     log(f"phase 4 peak device memory {torch.cuda.max_memory_allocated() / 1e9}"
         f" GB (the relation included; the table until slice 5's shapes)")
     log("kernels == plain versions at the main paths' full shapes")
+
+    # slice 7 last, on a card freed of the earlier slices' relations
+    del db, client, assign_db
+    gc.collect()
+    torch.cuda.empty_cache()
+    path7 = lm_path(torch, args, errs)
+    log("slice-7 path: private, EmbedLookup and plaintext generations are "
+        "identical and decode matches forward")
+    for entry in kernels:
+        name = entry["name"].split("[")[0]
+        entry["launches"] += path7.get(name, 0)
+        entry["max_abs_err"] = max(entry["max_abs_err"], errs[name])
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi("name,power.limit"), flush=True)

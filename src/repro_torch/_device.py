@@ -30,6 +30,18 @@ def resolve(device) -> torch.device:
     return dev
 
 
+def upload(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host data (a list or numpy array) -> a tensor on ``device`` that
+    does not make the host wait for the device: a CUDA upload is staged in
+    pinned memory and copied without blocking (a copy from pageable memory
+    first waits for the stream to drain)."""
+    t = torch.as_tensor(data, dtype=dtype)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def as_key(seed) -> Key:
     """An int seed (or an existing key) -> key."""
     return tuple(int(s) for s in seed) if isinstance(seed, tuple) \

@@ -21,9 +21,12 @@
                   dispatcher=ThreadedDispatcher(4).handle())
     client.attach(orders_db, name="orders")
     client.run_batch_multi([("employees", plans_a), ("orders", plans_b)])
+    client.attach(table_rel, name="emb", shards=2,
+                  dispatcher=MeshDispatcher())  # device-resident, on CUDA
 """
 from ..core.dataplane import (Dispatcher, PoolHandle, ShardedRelation,
                               ThreadedDispatcher)
+from ..core.mesh_dispatch import MeshDispatcher
 from ..core.queries.aggregate import VerificationError
 from .backends import (DEFAULT_BACKEND, Backend, aggregate_match_matrix,
                        available_backends, batched_match_matrix, get_backend,
@@ -54,7 +57,8 @@ from .plans import (AGG_OPS, AUTO, JOIN_KINDS, MATCH_METHODS,
 __all__ = [
     "Dispatcher", "PoolHandle", "ShardedRelation", "ThreadedDispatcher",
     "DEFAULT_RELATION", "EXPLAIN_CACHE_MAX", "AttachedRelation",
-    "MapReduceDispatcher", "MapReduceExecutor", "MultiBatchExplanation",
+    "MapReduceDispatcher", "MapReduceExecutor", "MeshDispatcher",
+    "MultiBatchExplanation",
     "explain_multi_batches", "VerificationError", "DEFAULT_BACKEND", "Backend",
     "aggregate_match_matrix", "available_backends", "batched_match_matrix",
     "get_backend", "onehot_sharer", "register_backend", "ripple_segmenter",

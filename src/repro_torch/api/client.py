@@ -359,6 +359,12 @@ class QueryClient:
         else:
             plane = ShardedRelation(rel, shards=shards,
                                     dispatcher=dispatcher)
+        # a device-resident dispatcher (MeshDispatcher) places the share
+        # blocks on its devices now, before the entry below captures
+        # plane.db, so every later round runs on the placed blocks
+        bind = getattr(plane.dispatcher, "bind_plane", None)
+        if bind is not None:
+            bind(plane)
         db = self._on_device(plane)
         if ent is None:
             if key is not None:

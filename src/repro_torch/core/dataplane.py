@@ -67,8 +67,14 @@ def _nbytes(part: Any) -> int:
 
 
 class Dispatcher:
-    """Placement policy for one round's shard dispatches (serial default):
-    host dispatchers override only :meth:`run_all`."""
+    """Placement policy for one round's shard dispatches (serial default).
+
+    Two seams: host dispatchers (serial, thread pool, MapReduce) override
+    only :meth:`run_all`; a device-resident dispatcher
+    (``repro_torch.core.mesh_dispatch.MeshDispatcher``) overrides
+    :meth:`run_set` to reduce the per-shard partials on the device and
+    count only its initial placement as transferred.
+    """
 
     def run_all(self, thunks: Sequence[Callable[[], Any]]) -> List[Any]:
         return [t() for t in thunks]

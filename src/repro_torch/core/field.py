@@ -27,12 +27,27 @@ __all__ = [
 _FP64_K_CHUNK = 1 << 20
 
 
+#: elements ``to_field`` widens to int64 at a time (a 128 MB transient)
+_TO_FIELD_CHUNK = 1 << 24
+
+
 def to_field(x, device=None) -> torch.Tensor:
     """Cast integers (possibly negative / oversized) into canonical int32 F_p
-    form. Accepts tensors, numpy arrays (any integer dtype) and scalars."""
+    form. Accepts tensors, numpy arrays (any integer dtype) and scalars.
+
+    A tensor is reduced in chunks along its leading axis into one
+    preallocated int32 output, so the int64 transient stays one chunk
+    (about ``_TO_FIELD_CHUNK`` elements), not the whole input."""
     if isinstance(x, torch.Tensor):
         t = x.to(device=device) if device is not None else x
-        return torch.remainder(t.to(torch.int64), P).to(DTYPE)
+        if t.dim() == 0 or t.numel() == 0:
+            return torch.remainder(t.to(torch.int64), P).to(DTYPE)
+        out = torch.empty(t.shape, dtype=DTYPE, device=t.device)
+        rows = max(1, _TO_FIELD_CHUNK // max(1, t[0].numel()))
+        for lo in range(0, t.shape[0], rows):
+            out[lo:lo + rows] = torch.remainder(
+                t[lo:lo + rows].to(torch.int64), P)
+        return out
     arr = np.asarray(x)
     if arr.dtype == np.uint64 or arr.dtype == object:
         arr = (arr.astype(object) % P).astype(np.int64)

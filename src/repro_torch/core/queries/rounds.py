@@ -507,8 +507,8 @@ def _block_sums(be, plane: "dataplane.ShardedRelation", p_all: Shares,
                                 lens.tolist(), pats, h)        # (c, K, h)
         if address_weights:
             weights = (sh.lo + lo_s[:, None] + np.arange(h)[None, :] + 1)
-            bits = field.mul(bits, torch.as_tensor(
-                weights, dtype=field.DTYPE, device=bits.device)[None])
+            bits = field.mul(bits, _device.upload(
+                weights, field.DTYPE, bits.device)[None])
         return field.sum_(bits, dim=2)                         # (c, K)
 
     w = plane.db.relation.values.shape[-2]

@@ -23,8 +23,10 @@ import torch
 from . import field
 from .field import DTYPE, P
 
-#: elements per chunk of share generation (bounds the int64 transients).
-_SHARE_CHUNK = 1 << 26
+#: elements per chunk of share generation: the secrets reduce into F_p and
+#: the shares evaluate a chunk at a time, so the int64 transients stay
+#: about eight chunks (1 GB), whatever the input's size.
+_SHARE_CHUNK = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +102,8 @@ def make_shares(secrets: torch.Tensor, *, n_shares: int, degree: int = 1,
 
     Returns int32[n_shares, *secrets.shape].
     """
-    secrets = field.to_field(secrets)
+    if not isinstance(secrets, torch.Tensor):
+        secrets = field.to_field(secrets)
     device = secrets.device
     if coeffs is None:
         if generator is None:
@@ -117,7 +120,7 @@ def make_shares(secrets: torch.Tensor, *, n_shares: int, degree: int = 1,
     out = torch.empty((n_shares, flat_s.numel()), dtype=DTYPE, device=device)
     for lo in range(0, flat_s.numel(), _SHARE_CHUNK):
         hi = min(lo + _SHARE_CHUNK, flat_s.numel())
-        s = flat_s[lo:hi].to(torch.int64)
+        s = field.to_field(flat_s[lo:hi]).to(torch.int64)
         cf = flat_c[:, lo:hi].to(torch.int64)
         for k in range(n_shares):
             x = k + 1

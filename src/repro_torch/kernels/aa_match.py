@@ -39,6 +39,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from .. import _device
 from ..core import field
 from ..core.automata import _chain
 from ..core.field import DTYPE
@@ -297,7 +298,7 @@ def _launch(src: torch.Tensor, offsets: Sequence[int],
               tile)
     pat = pat.contiguous()
     dev = src.device
-    desc = torch.tensor(pack_chunks(pl.chunks), dtype=torch.int64).to(dev)
+    desc = _device.upload(pack_chunks(pl.chunks), torch.int64, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry = "aa_slide_rows_u32" if k else "aa_match_rows_u32"
     err = _lib(entry)(src.data_ptr(), desc.data_ptr(), len(pl.chunks),

@@ -1,6 +1,7 @@
-"""Serving drivers of the port: the multi-tenant ``QueryServer``."""
-from .serve import (QueryRequest, QueryServer, RelationStats, ServerStopped,
-                    ServeStats, plan_family)
+"""Serving drivers of the port: the LM ``BatchServer`` and the multi-tenant
+``QueryServer``."""
+from .serve import (BatchServer, QueryRequest, QueryServer, RelationStats,
+                    Request, ServerStopped, ServeStats, plan_family)
 
-__all__ = ["QueryRequest", "QueryServer", "RelationStats", "ServerStopped",
-           "ServeStats", "plan_family"]
+__all__ = ["BatchServer", "QueryRequest", "QueryServer", "RelationStats",
+           "Request", "ServerStopped", "ServeStats", "plan_family"]

@@ -1,4 +1,11 @@
-"""Oblivious query serving: a multi-tenant, deadline-batched scheduler.
+"""Serving drivers: batched LM inference and oblivious query serving.
+
+``BatchServer`` — prefill + greedy decode of a batch of equal-length
+prompts through ``models.lm``: one prefill, then one ``decode_step`` a
+token against the in-place cache, all eager. The sampled tokens stay on
+the device until the batch ends and come to the host in one copy. With
+``cfg.private_embed`` every step's embeddings are the paper's oblivious
+selection (``models.private_embed.private_lookup_inline``).
 
 ``QueryServer`` serves logical query plans (``repro_torch.api.plans``) over
 any number of attached secret-shared relations (the paper's owner
@@ -49,13 +56,82 @@ import threading
 import time
 from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
+import torch
+
+from .. import _device
 from ..api import (DEFAULT_RELATION, MapReduceExecutor, Plan, QueryClient,
                    QueryResult)
 from ..api.plans import PATTERN_PREDICATES
 from ..core.dataplane import (Dispatcher, ShardedRelation,
                               ThreadedDispatcher)
 from ..core.engine import SecretSharedDB
+from ..models import lm
+from ..models.config import ModelConfig
 
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray             # (T,) int32
+    max_new: int = 16
+    out: Optional[np.ndarray] = None
+    latency_s: float = 0.0
+
+
+class BatchServer:
+    """Serves equal-length-prompt batches (the common benchmark setting).
+
+    ``params`` must lie on ``device`` (default CUDA; ``device="cpu"`` for
+    the CPU). ``max_len`` is the cache capacity: a batch needs
+    prompt length + max_new − 1 positions, and a longer one raises."""
+
+    def __init__(self, params, cfg: ModelConfig, *, max_len: int = 256,
+                 device=None):
+        lm.check_supported(cfg)
+        self.device = _device.resolve(device)
+        held = params["final_norm"].device
+        if held.type != self.device.type:
+            raise ValueError(f"params live on {held}, the server was asked "
+                             f"for {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.max_len = max_len
+
+    @torch.no_grad()
+    def serve(self, requests: List[Request]) -> List[Request]:
+        t0 = time.time()
+        prompts = np.stack([r.prompt for r in requests])   # (B, T)
+        b, t = prompts.shape
+        max_new = max(r.max_new for r in requests)
+        if t + max_new - 1 > self.max_len:
+            raise ValueError(f"{t} prompt tokens + {max_new} new need "
+                             f"{t + max_new - 1} cache positions, max_len "
+                             f"is {self.max_len}")
+        dev = self.params["final_norm"].device
+        logits, cache = lm.prefill(
+            self.params, self.cfg,
+            {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device=dev)},
+            max_len=self.max_len)
+        gen = torch.empty((b, max_new), dtype=torch.int64, device=dev)
+        toks = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        gen[:, :1] = toks
+        for i in range(max_new - 1):
+            logits, cache = lm.decode_step(self.params, self.cfg, cache,
+                                           t + i, {"tokens": toks})
+            toks = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            gen[:, i + 1:i + 2] = toks
+        out = gen.cpu().numpy().astype(np.int32)        # the one copy back
+        dt = time.time() - t0
+        for i, r in enumerate(requests):
+            r.out = out[i, :r.max_new]
+            r.latency_s = dt
+        return requests
+
+
+# ---------------------------------------------------------------------------
+# oblivious query serving (the paper's workload behind the same queue idiom)
+# ---------------------------------------------------------------------------
 
 class ServerStopped(RuntimeError):
     """The server was stopped before this request could be served.

@@ -17,6 +17,9 @@ Two paths:
   engine (``core.queries.embed``): all one-hots share in ONE
   ``share_onehot`` launch and contract in ONE ``ss_matmul`` of shape
   ``(c, B·n, V)·(c, V, D)``, with opt-in ``verify=``.
+* :func:`private_lookup_inline` — the LM's own lookup when
+  ``cfg.private_embed`` is set (``models.lm``): the batched path over the
+  parameters' pre-shared table, with a fresh key per call.
 
 :func:`as_embed_relation` wraps the shared table as a relation so it runs
 behind a ``QueryClient`` like any other (``EmbedLookup`` plans, sharded
@@ -30,6 +33,7 @@ rejects token ids outside [0, V).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -44,11 +48,13 @@ from ..core.queries.embed import (QUANT_RANGE, QUANT_SCALE, EmbedJob,
                                   check_tokens, dequantize_from_field,
                                   lookup_shares, quantize_to_field)
 from ..core.shamir import Shares
+from .config import ModelConfig
 
 __all__ = [
     "QUANT_SCALE", "QUANT_RANGE", "quantize_to_field",
     "dequantize_from_field", "setup_private_embed", "table_from_arrays",
     "as_embed_relation", "private_lookup", "private_lookup_batched",
+    "private_lookup_inline",
 ]
 
 
@@ -158,3 +164,42 @@ def private_lookup_batched(key, embed_shares: Shares, tokens, *,
         _verify_openings(job, [out_sh], "embedding lookup")
     out = dequantize_from_field(shamir.interpolate(out_sh))
     return out.reshape(*_token_shape(tokens), -1)
+
+
+# Calls without an explicit key derive a fresh one from this counter; no two
+# lookups ever reuse sharing polynomials (the §2.1 frequency-attack defence).
+_INLINE_CALLS = itertools.count()
+
+
+def _next_inline_key(params: dict) -> _device.Key:
+    base = params.get("embed_key")
+    base = (0,) if base is None else _device.as_key(base)
+    return _device.fold(base, next(_INLINE_CALLS))
+
+
+def private_lookup_inline(params: dict, cfg: ModelConfig, tokens, *,
+                          key=None) -> torch.Tensor:
+    """The LM's lookup when ``cfg.private_embed`` is set -> (*tokens.shape,
+    D) in ``cfg.dtype`` on the table's device, detached.
+
+    With pre-shared tables in the params (``embed_shares``, (c, V, D) of
+    degree 1) the lookup contracts against them; otherwise the plaintext
+    table is quantized and shared on the fly (c = 4), the test path. The
+    result equals the quantized table's rows exactly (within 2⁻¹³, half a
+    quantization step, of the plaintext ones).
+
+    Sharing randomness: unless ``key`` is given, each call folds a fresh
+    counter value into the base key (``params["embed_key"]`` when present,
+    else ``(0,)``), so no two calls share polynomials. The token ids are
+    read on the host, where the user shares them, so a step whose ids lie
+    on the card copies them back first.
+    """
+    key = _next_inline_key(params) if key is None else _device.as_key(key)
+    if "embed_shares" in params:
+        sh = Shares(params["embed_shares"], 1)
+    else:
+        embed = params["embed"]
+        sh = setup_private_embed(_device.fold(key, 0), embed, n_shares=4,
+                                 device=embed.device)
+    out = private_lookup_batched(_device.fold(key, 1), sh, tokens)
+    return out.detach().to(getattr(torch, cfg.dtype))

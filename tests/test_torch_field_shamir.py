@@ -107,6 +107,22 @@ def test_to_field_matches_reference():
                                   np.asarray(jfield.to_field(x)))
 
 
+@pytest.mark.parametrize("shape", [(9, 13), (2, 3, 50), (1000,)])
+def test_to_field_chunks_match_reference(shape, monkeypatch):
+    """Reduction in leading-axis chunks (a chunk of 97 elements splits
+    rows and leaves a ragged tail) gives the reference's elements, for
+    int64 and int32 inputs and a transposed view."""
+    rng = np.random.default_rng(12)
+    x = rng.integers(-2**62, 2**62, size=shape, dtype=np.int64)
+    x.reshape(-1)[:4] = [-1, P, -P, 2 * P]
+    monkeypatch.setattr(field, "_TO_FIELD_CHUNK", 97)
+    for arr in (x, x.astype(np.int32), x.T):
+        got = field.to_field(torch.from_numpy(np.asarray(arr)))
+        assert got.dtype == field.DTYPE and got.shape == arr.shape
+        np.testing.assert_array_equal(_np(got),
+                                      np.asarray(jfield.to_field(arr)))
+
+
 def test_uniform_range_and_spread():
     g = torch.Generator().manual_seed(0)
     u = field.uniform(g, (4096,))

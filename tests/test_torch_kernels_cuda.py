@@ -10,6 +10,7 @@ Results must be bit-identical (the arithmetic is exact mod p).
 import dataclasses
 import threading
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -615,3 +616,94 @@ def test_kernel_failure_on_pool_thread_is_the_requests_error(cuda):
     assert isinstance(bad.error, RuntimeError) and bad.result is None
     assert good.error is None and good.result.count == 24
     assert srv.client.backend is be and set(seen) == {cuda.type}
+
+
+# ---------------------------------------------------------------------------
+# private LM generation (slice 7)
+# ---------------------------------------------------------------------------
+
+def test_full_width_qwen_decode_matches_forward_on_card(cuda):
+    """Two layers of Qwen1.5-4B at its full width (d 2,560, 20 heads, V
+    151,936, bf16): prefill + one decode step equal the full forward at
+    that position within the reference's bound (atol 0.12, rtol 0.05)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.full("qwen1_5_4b"), n_layers=2)
+    params = lm.init_params(0, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    full = lm.forward(params, cfg, {"tokens": toks})
+    _, cache = lm.prefill(params, cfg, {"tokens": toks[:, :16]}, max_len=24)
+    step, _ = lm.decode_step(params, cfg, cache, 16, {"tokens": toks[:, 16:]})
+    assert full.shape == (2, 17, cfg.vocab_size)
+    assert bool(torch.isfinite(full).all())
+    assert torch.allclose(step[:, 0], full[:, 16], atol=0.12, rtol=0.05)
+
+
+def test_private_generation_equals_plaintext_on_card(cuda):
+    """BatchServer with the private lookup (share_onehot + the matmul
+    kernel every step) generates the tokens of a plaintext BatchServer
+    over the dequantized quantized table, at smoke size."""
+    from repro_torch import configs
+    from repro_torch.core.queries import embed as eq
+    from repro_torch.launch import BatchServer, Request
+    from repro_torch.models import lm, private_embed as pe
+    cfg = configs.smoke("qwen1_5_4b")
+    params = lm.init_params(2, cfg)
+    params["embed_shares"] = pe.setup_private_embed(
+        (2, 1), params["embed"], n_shares=4).values
+    plain = {k: v for k, v in params.items() if k != "embed_shares"}
+    plain["embed"] = eq.dequantize_from_field(eq.quantize_to_field(
+        params["embed"])).to(params["embed"].dtype)
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 12)).astype(np.int32)
+
+    def serve(p, c):
+        reqs = [Request(prompt=x.copy(), max_new=6) for x in prompts]
+        return np.stack([r.out for r in BatchServer(p, c, max_len=24)
+                         .serve(reqs)])
+
+    ops.reset_launch_counts()
+    priv = serve(params, dataclasses.replace(cfg, private_embed=True))
+    counts = ops.launch_counts()
+    assert np.array_equal(priv, serve(plain, cfg))
+    assert counts["share_onehot"] == 6
+    assert counts["ss_matmul"] + counts["ss_matmul_tall"] == 6
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_mesh_dispatcher_equals_serial_on_card(cuda, strict):
+    """MeshDispatcher(devices=None) — the current card — gives the serial
+    dispatcher's rows and ledgers at 2 shards, and an EmbedLookup's
+    embeddings; ``strict_transfers`` runs each cloud step under CUDA's
+    sync debug mode "error", so a host copy inside one would raise."""
+    from repro_torch import api
+    from repro_torch.models import private_embed as pe
+    db = _serve_db(cuda)
+    serial = api.QueryClient(db, 4)
+    serial.attach(shards=2)
+    want = serial.run_batch(_serve_plans())
+    mesh = api.MeshDispatcher(strict_transfers=strict)
+    client = api.QueryClient(db, 4)
+    plane = client.attach(shards=2, dispatcher=mesh)
+    got = client.run_batch(_serve_plans())
+    for a, b in zip(want, got):
+        assert (b.count, b.rows, b.addresses, b.strategy) == \
+            (a.count, a.rows, a.addresses, a.strategy)
+        assert b.ledger.as_dict() == a.ledger.as_dict()
+    placed = plane.stats.transfer_bytes
+    client.run_batch(_serve_plans()[:1])
+    assert plane.stats.transfer_bytes == placed > 0
+    assert mesh.predicted_cost()["programs"] >= 1
+
+    table = pe.setup_private_embed(5, torch.randn((4096, 64), device=cuda),
+                                   n_shares=4)
+    plan = api.EmbedLookup(tokens=(7, 4095, 7, 0))
+    out = []
+    for disp in (None, mesh):
+        c = api.QueryClient(seed=1)
+        c.attach(pe.as_embed_relation(table), name="emb", shards=2,
+                 dispatcher=disp)
+        out.append(c.run(plan, relation="emb"))
+    assert np.array_equal(out[0].embeddings, out[1].embeddings)
+    assert out[0].ledger.as_dict() == out[1].ledger.as_dict()

@@ -1,0 +1,295 @@
+"""The port's dense decoder (``repro_torch.models.lm``) against the reference.
+
+The reference's parameters (``repro.models.lm.init_params``) are carried
+across with ``params_from_arrays``, so both packages run identical weights
+on identical tokens (drawn with numpy from a seed):
+
+* qwen1.5-4b, chatglm3-6b (GQA, RoPE on half the head dims) and gemma3-1b
+  (sliding window with ``global_every``, QK-norm, GeGLU, tied and scaled
+  embeddings) smoke configs in float32: ``forward``, ``prefill`` and three
+  ``decode_step``s give logits within atol 1e-4 / rtol 1e-4 of the
+  reference and caches within the same tolerance; greedy decoding picks
+  the same tokens;
+* the chunked log-sum-exp decode path (a cache of 1,024 positions) within
+  the same float32 tolerance;
+* one bfloat16 case within atol 0.12 / rtol 0.05, the tolerance the
+  reference holds its own bfloat16 decode to: both packages round every
+  matmul output to bfloat16 but accumulate in different orders, so the
+  last bits of an activation may differ (3 bf16 ulps of a logit seen);
+* decode matches forward at the same position within the reference's own
+  tolerance (``tests/test_arch_smoke.py``: atol 0.12, rtol 0.05) in the
+  configs' own bfloat16;
+* families not yet ported raise ``NotImplementedError``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro_torch.configs as tconfigs
+from repro.models import lm as jlm
+from repro_torch.models import lm as tlm
+
+ARCHS = ["qwen1_5_4b", "chatglm3_6b", "gemma3_1b"]
+ATOL = RTOL = 1e-4           # float32 logits and caches
+BF16_ATOL, BF16_RTOL = 0.12, 0.05    # bfloat16 logits
+B, T = 2, 12
+
+
+def _cfgs(arch, dtype="float32"):
+    return (dataclasses.replace(jconfigs.smoke(arch), dtype=dtype),
+            dataclasses.replace(tconfigs.smoke(arch), dtype=dtype))
+
+
+def _pair(arch, dtype="float32", seed=0):
+    jcfg, tcfg = _cfgs(arch, dtype)
+    jp = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
+    tp = tlm.params_from_arrays(jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _tokens(cfg, shape, seed=1):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# configs and parameters
+# ---------------------------------------------------------------------------
+
+def test_config_registry_matches_reference():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert tconfigs.ALIASES == jconfigs.ALIASES
+    for arch in jconfigs.ARCH_IDS:
+        for which in ("full", "smoke"):
+            want = dataclasses.asdict(getattr(jconfigs, which)(arch))
+            got = dataclasses.asdict(getattr(tconfigs, which)(arch))
+            assert got == want, (arch, which)
+    assert tconfigs.get("qwen1.5-4b").full().param_count() == \
+        jconfigs.full("qwen1_5_4b").param_count()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_cross_bit_exact(dtype):
+    """Every leaf carries across bit for bit, bf16 through its bits."""
+    _, _, jp, tp = _pair("qwen1_5_4b", dtype)
+    jl = jax.tree_util.tree_leaves_with_path(jp)
+    for path, leaf in jl:
+        node = tp
+        for k in path:
+            node = node[k.key]
+        want = np.asarray(leaf)
+        assert tuple(node.shape) == want.shape
+        assert str(node.dtype).split(".")[-1] == want.dtype.name
+        got = node.view(torch.int16).numpy() if node.dtype == torch.bfloat16 \
+            else node.numpy()
+        ref = want.view(np.int16) if want.dtype.name == "bfloat16" else want
+        assert np.array_equal(got, ref), path
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_tree_matches_reference(arch):
+    """The port's own synthetic weights have the reference's tree, shapes
+    and dtypes (the numbers come from torch generators) and scales."""
+    jcfg, tcfg = jconfigs.smoke(arch), tconfigs.smoke(arch)
+    shapes = jax.eval_shape(lambda k: jlm.init_params(k, jcfg),
+                            jax.random.PRNGKey(0))
+    tp = tlm.init_params(3, tcfg, device="cpu")
+    flat = jax.tree_util.tree_leaves_with_path(shapes)
+    assert len(flat) == len(jax.tree_util.tree_leaves(
+        jax.tree.map(lambda t: 0, tp, is_leaf=torch.is_tensor)))
+    for path, sds in flat:
+        node = tp
+        for k in path:
+            node = node[k.key]
+        assert tuple(node.shape) == sds.shape, path
+        assert str(node.dtype).split(".")[-1] == str(sds.dtype), path
+    again = tlm.init_params(3, tcfg, device="cpu")
+    assert torch.equal(tp["blocks"]["attn"]["wq"],
+                       again["blocks"]["attn"]["wq"])
+    wq = tp["blocks"]["attn"]["wq"].float()
+    assert not torch.equal(wq[0], wq[1])             # layers drawn apart
+    assert abs(float(wq.std()) * tcfg.d_model ** 0.5 - 1.0) < 0.1
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill / decode parity (float32)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_prefill_decode_match_reference(arch):
+    jcfg, tcfg, jp, tp = _pair(arch)
+    toks = _tokens(jcfg, (B, T))
+    _close(tlm.forward(tp, tcfg, {"tokens": torch.as_tensor(toks)}),
+           jlm.forward(jp, jcfg, {"tokens": jnp.asarray(toks)}))
+
+    lj, cj = jlm.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :8])},
+                         max_len=16)
+    lt, ct = tlm.prefill(tp, tcfg, {"tokens": torch.as_tensor(toks[:, :8])},
+                         max_len=16)
+    _close(lt, lj)
+    for s in range(3):
+        step = toks[:, 8 + s:9 + s]
+        lj, cj = jlm.decode_step(jp, jcfg, cj, 8 + s,
+                                 {"tokens": jnp.asarray(step)})
+        lt, ct = tlm.decode_step(tp, tcfg, ct, 8 + s,
+                                 {"tokens": torch.as_tensor(step)})
+        assert lt.shape == (B, 1, tcfg.vocab_size)
+        _close(lt, lj)
+        for got, want in zip(ct["kv"], cj["kv"]):
+            assert tuple(got.shape) == want.shape
+            _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_greedy_tokens_match_reference(arch):
+    """Greedy decoding through each package picks the same tokens."""
+    jcfg, tcfg, jp, tp = _pair(arch, seed=2)
+    prompt = _tokens(jcfg, (B, 6), seed=3)
+    lj, cj = jlm.prefill(jp, jcfg, {"tokens": jnp.asarray(prompt)},
+                         max_len=12)
+    lt, ct = tlm.prefill(tp, tcfg, {"tokens": torch.as_tensor(prompt)},
+                         max_len=12)
+    tj, tt = [], []
+    for i in range(5):
+        nj = jnp.argmax(lj[:, -1], axis=-1)[:, None]
+        nt = torch.argmax(lt[:, -1], dim=-1, keepdim=True)
+        tj.append(np.asarray(nj))
+        tt.append(nt.numpy())
+        lj, cj = jlm.decode_step(jp, jcfg, cj, 6 + i, {"tokens": nj})
+        lt, ct = tlm.decode_step(tp, tcfg, ct, 6 + i, {"tokens": nt})
+    assert np.array_equal(np.concatenate(tj, 1), np.concatenate(tt, 1))
+
+
+def test_chunked_decode_attention_matches_reference():
+    """A 1,024-position cache takes the chunked log-sum-exp decode path in
+    both packages (``decode_attention``); its logits and the function
+    itself on random inputs agree to float32 rounding."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+    jcfg, tcfg, jp, tp = _pair("gemma3_1b")
+    toks = _tokens(jcfg, (B, 9))
+    lj, cj = jlm.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :8])},
+                         max_len=1024)
+    lt, ct = tlm.prefill(tp, tcfg, {"tokens": torch.as_tensor(toks[:, :8])},
+                         max_len=1024)
+    lj, _ = jlm.decode_step(jp, jcfg, cj, 8, {"tokens": jnp.asarray(
+        toks[:, 8:])})
+    lt, _ = tlm.decode_step(tp, tcfg, ct, 8, {"tokens": torch.as_tensor(
+        toks[:, 8:])})
+    _close(lt, lj)
+
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 1024, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 1024, 2, 16)).astype(np.float32)
+    for kv_len, window in ((700, None), (1024, 100), (5, 3)):
+        want = jlayers.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), kv_len=kv_len,
+                                        window=window)
+        got = tlayers.decode_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                       torch.as_tensor(v), kv_len=kv_len,
+                                       window=window)
+        _close(got, want)
+
+
+def test_softcap_and_window_attention_match_reference():
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((2, 10, 6, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 10, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 10, 2, 8)).astype(np.float32)
+    for kw in (dict(window=3), dict(softcap=5.0), dict(causal=False),
+               dict(q_offset=0, kv_len=7)):
+        _close(tlayers.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                       torch.as_tensor(v), **kw),
+               jlayers.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), **kw))
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 and decode == forward
+# ---------------------------------------------------------------------------
+
+def test_bf16_forward_and_decode_match_reference():
+    jcfg, tcfg, jp, tp = _pair("qwen1_5_4b", "bfloat16")
+    toks = _tokens(jcfg, (B, T))
+    _close(tlm.forward(tp, tcfg, {"tokens": torch.as_tensor(toks)}),
+           jlm.forward(jp, jcfg, {"tokens": jnp.asarray(toks)}),
+           atol=BF16_ATOL, rtol=BF16_RTOL)
+    _, cj = jlm.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :8])},
+                        max_len=12)
+    _, ct = tlm.prefill(tp, tcfg, {"tokens": torch.as_tensor(toks[:, :8])},
+                        max_len=12)
+    lj, _ = jlm.decode_step(jp, jcfg, cj, 8, {"tokens": jnp.asarray(
+        toks[:, 8:9])})
+    lt, _ = tlm.decode_step(tp, tcfg, ct, 8, {"tokens": torch.as_tensor(
+        toks[:, 8:9])})
+    assert ct["kv"][0].dtype == torch.bfloat16
+    _close(lt, lj, atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_forward(arch):
+    """Prefill + decode logits == the full forward at the same position,
+    in the config's own dtype (bfloat16), within the reference's
+    tolerance."""
+    cfg = tconfigs.smoke(arch)
+    params = tlm.init_params(3, cfg, device="cpu")
+    toks = torch.as_tensor(_tokens(cfg, (1, 9), seed=4))
+    full = tlm.forward(params, cfg, {"tokens": toks})
+    _, cache = tlm.prefill(params, cfg, {"tokens": toks[:, :8]}, max_len=12)
+    l2, _ = tlm.decode_step(params, cfg, cache, 8, {"tokens": toks[:, 8:9]})
+    _close(l2[:, 0], full[:, 8], atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+def test_embeds_seam_and_cache_capacity():
+    """``batch["embeds"]`` replaces the lookup; a step past the cache's
+    capacity raises instead of writing elsewhere."""
+    _, tcfg, _, tp = _pair("qwen1_5_4b")
+    toks = torch.as_tensor(_tokens(tcfg, (B, 4)))
+    emb = tp["embed"][toks]
+    want = tlm.forward(tp, tcfg, {"tokens": toks})
+    got = tlm.forward(tp, tcfg, {"tokens": toks * 0, "embeds": emb})
+    assert torch.equal(got, want)
+    _, cache = tlm.prefill(tp, tcfg, {"tokens": toks}, max_len=4)
+    with pytest.raises(ValueError, match="cache holds 4"):
+        tlm.decode_step(tp, tcfg, cache, 4, {"tokens": toks[:, :1]})
+
+
+# ---------------------------------------------------------------------------
+# families not ported yet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
+                                  if a not in ARCHS])
+def test_unported_families_raise(arch):
+    cfg = tconfigs.smoke(arch)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        tlm.init_params(0, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        tlm.init_cache(cfg, 1, 4, device="cpu")
+
+
+def test_unported_fields_and_training_raise():
+    cfg = tconfigs.smoke("qwen1_5_4b")
+    params = tlm.init_params(0, cfg, device="cpu")
+    batch = {"tokens": torch.zeros((1, 2), dtype=torch.int64)}
+    for bad in (dict(attn_type="mla"), dict(n_experts=4, top_k=2),
+                dict(hybrid_ssm=True), dict(n_enc_layers=1),
+                dict(frontend="vit")):
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            tlm.forward(params, dataclasses.replace(cfg, **bad), batch)
+    with pytest.raises(NotImplementedError, match="training"):
+        tlm.train_loss(params, cfg, batch)

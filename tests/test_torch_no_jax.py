@@ -43,7 +43,10 @@ def test_source_imports_no_jax_or_reference(path):
 def test_serving_modules_are_covered():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
     for want in ("runtime/mapreduce.py", "api/executor.py",
-                 "launch/serve.py", "core/dataplane.py", "api/client.py"):
+                 "launch/serve.py", "core/dataplane.py", "api/client.py",
+                 "core/mesh_dispatch.py", "models/lm.py", "models/layers.py",
+                 "models/config.py", "configs/__init__.py",
+                 "configs/qwen1_5_4b.py"):
         assert want in names
 
 

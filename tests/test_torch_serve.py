@@ -821,9 +821,36 @@ def test_attach_weight_plumbs_to_pool_handle(employee_db):
     srv.close()
 
 
-def test_scheduler_park_is_floored(employee_db):
+class _TickClock:
+    """The scheduler module's ``time`` with a clock that advances a fixed
+    ``tick`` per ``time()`` read and nothing else (the rest is the real
+    module). A sub-millisecond deadline then passes after a set number of
+    reads, not after however long a loaded machine took between them."""
+
+    def __init__(self, tick: float):
+        self._lock = threading.Lock()
+        self._now = time.time()
+        self._tick = tick
+
+    def time(self) -> float:
+        with self._lock:
+            self._now += self._tick
+            return self._now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_scheduler_park_is_floored(employee_db, monkeypatch):
     """Sub-millisecond deadlines must park the scheduler at least
-    MIN_PARK_S per wait — never a ~0s spin-wait."""
+    MIN_PARK_S per wait — never a ~0s spin-wait.
+
+    The scheduler's clock advances 0.1 ms a read, so a 0.5 ms deadline is
+    always still ahead when the scheduler first scans a fresh submission
+    and the park is taken on any machine load (on the real clock a
+    loaded machine could find every deadline already past)."""
+    from repro_torch.launch import serve as serve_mod
+    monkeypatch.setattr(serve_mod, "time", _TickClock(1e-4))
     srv = _server(employee_db, 26, max_batch=64, max_wait_ms=0.5)
     recorded = []
     real_wait = srv._cond.wait
