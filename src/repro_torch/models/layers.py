@@ -1,16 +1,19 @@
-"""Transformer layers of the dense family: RMSNorm, RoPE (full or partial),
-GQA attention with QKV bias, QK-norm, sliding window and soft-cap, and the
-gated MLPs. Plain PyTorch on tensors, dtype-explicit, as
-``repro.models.layers`` is plain ``jnp``.
+"""Transformer layers: RMSNorm, RoPE (full or partial), GQA attention with
+QKV bias, QK-norm, sliding window and soft-cap, MLA (multi-head latent)
+attention, the gated MLPs and top-k MoE. Plain PyTorch on tensors,
+dtype-explicit, as ``repro.models.layers`` is plain ``jnp``.
 
 Attention upcasts to float32 as the reference does. ``flash_attention``
-computes the whole (Tq × Tk) score block at once instead of the
-reference's ``lax.scan`` over 512-key blocks: at the lengths this package
-serves the two are the same softmax, and for Tk <= 512 the same float32
-operations. ``decode_attention`` keeps the reference's chunked
-log-sum-exp combine for one query token against a long cache.
-
-MLA attention and MoE layers are not ported yet (``ROADMAP.md``, Queue 1).
+is the reference's blockwise online softmax: a loop over 512-key blocks
+counted from key 0, in the reference's order of operations, so only one
+block's (Tq × 512) scores are alive at a time and the float32 results
+agree with the reference's ``lax.scan`` at any key length.
+``decode_attention`` keeps the reference's chunked log-sum-exp combine for
+one query token against a long cache. MLA's one-token cached step is the
+reference's absorbed decode against the compressed cache; its other calls
+expand K and V and run ``flash_attention``. The MoE layer has both of the
+reference's dispatches: the one-hot einsum (default) and the capacity
+sort.
 """
 from __future__ import annotations
 
@@ -33,13 +36,20 @@ NEG_INF = -1e30
 # init helpers
 # ---------------------------------------------------------------------------
 
-def dense_init(key, in_dim: int, out_dim: int, dtype, device) -> Tensor:
-    """A (in_dim, out_dim) weight, standard normal / sqrt(in_dim), drawn in
-    float32 from ``key``'s generator and cast to ``dtype``."""
+def normal_init(key, shape, scale: float, dtype, device) -> Tensor:
+    """A weight of ``shape``, standard normal times ``scale``, drawn in
+    float32 from a fresh generator of ``key`` (two draws from one key
+    start from the same stream, as two from one ``jax.random`` key do)
+    and cast to ``dtype``."""
     gen = _device.generator(_device.as_key(key), device)
-    w = torch.randn((in_dim, out_dim), generator=gen, device=device,
-                    dtype=torch.float32)
-    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
+
+
+def dense_init(key, in_dim: int, out_dim: int, dtype, device) -> Tensor:
+    """A (in_dim, out_dim) weight, standard normal / sqrt(in_dim)."""
+    return normal_init(key, (in_dim, out_dim), 1.0 / math.sqrt(in_dim),
+                       dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +73,7 @@ def rmsnorm(x: Tensor, w: Tensor, eps: float = 1e-5) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, fraction: float, theta: float,
-               device="cpu") -> Tensor:
+               device) -> Tensor:
     """Inverse frequencies (rot/2,) float32 on ``device``, computed in
     numpy exactly as the reference computes them and uploaded without
     making the host wait for the device."""
@@ -99,14 +109,28 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *,
                     kv_len: Optional[int] = None,
                     window: Optional[int] = None,
                     causal: bool = True,
+                    block_k: int = 512,
                     softcap: float = 0.0) -> Tensor:
-    """Masked softmax attention in float32.
+    """Blockwise attention with an online softmax, in float32.
 
     q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, D), Hq % Hkv == 0 (GQA).
     q_offset: absolute position of q[0] (decode: the cache length).
     kv_len: number of valid kv entries (None = all of Tk).
     window: sliding-window width (None = full).
     Returns (B, Tq, Hq, D) in q's dtype.
+
+    The reference's loop: q is scaled once in float32; the keys are cut
+    into ``min(block_k, Tk)``-key blocks counted from key 0, a ragged last
+    block zero-padded; each block's scores are soft-capped, then masked to
+    ``NEG_INF`` (padding, causal, window), and folded into the running max
+    ``m``, normalizer ``l`` and output ``acc`` (``p = exp(s - m_new)``,
+    ``corr = exp(m_prev - m_new)``); ``out = acc / max(l, 1e-30)``. No
+    score tensor larger than one block, (B, Hkv, G, Tq, block_k), is
+    allocated. A block that lies wholly past ``kv_len`` leaves ``m``,
+    ``l`` and ``acc`` unchanged (its ``p`` is 0, its ``corr`` 1), so
+    attending to a cache's filled prefix equals the reference's masked
+    scan of the whole cache, up to the float32 order of the sums inside a
+    block.
     """
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -116,21 +140,40 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *,
     qf = qf.permute(0, 2, 3, 1, 4)                        # (B, Hkv, G, Tq, D)
     kf = k.float().permute(0, 2, 1, 3)                    # (B, Hkv, Tk, D)
     vf = v.float().permute(0, 2, 1, 3)
-    s = torch.einsum("bkgtd,bksd->bkgts", qf, kf)
-    s = _softcap(s, softcap)
+    block_k = min(block_k, tk)
+    n_blocks = (tk + block_k - 1) // block_k
+    tk_pad = n_blocks * block_k
+    if tk_pad != tk:
+        kf = F.pad(kf, (0, 0, 0, tk_pad - tk))
+        vf = F.pad(vf, (0, 0, 0, tk_pad - tk))
     dev = q.device
-    q_pos = q_offset + torch.arange(tq, device=dev)
-    kv_pos = torch.arange(tk, device=dev)
-    mask = kv_pos[None, :] < (tk if kv_len is None else kv_len)
-    if causal:
-        mask = mask & (kv_pos[None, :] <= q_pos[:, None])
-    if window is not None:
-        mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
-    s = torch.where(mask, s, NEG_INF)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = torch.sum(p, dim=-1, keepdim=True)
-    out = torch.einsum("bkgts,bksd->bkgtd", p, vf) / torch.clamp(l, min=1e-30)
+    q_pos = q_offset + torch.arange(tq, device=dev)       # (Tq,)
+    valid_len = tk if kv_len is None else kv_len
+    m = torch.full((b, hkv, g, tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, tq, d), dtype=torch.float32, device=dev)
+    for j in range(n_blocks):
+        lo = j * block_k
+        k_blk = kf[:, :, lo:lo + block_k]
+        v_blk = vf[:, :, lo:lo + block_k]
+        kv_pos = lo + torch.arange(block_k, device=dev)   # (bk,)
+        s = torch.einsum("bkgtd,bksd->bkgts", qf, k_blk)
+        s = _softcap(s, softcap)
+        mask = kv_pos[None, :] < valid_len
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgts,bksd->bkgtd", p,
+                                                   v_blk)
+        m = m_new
+        del s, p
+    out = acc / torch.clamp(l[..., None], min=1e-30)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, d)
     return out.to(q.dtype)
 
@@ -266,6 +309,107 @@ def attention_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (minicpm3 / deepseek-style multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(key, cfg: ModelConfig, dtype, device) -> dict:
+    d = cfg.d_model
+    ks = _device.split(_device.as_key(key), 7)
+    qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return {
+        "wdq": dense_init(ks[0], d, cfg.q_lora_rank, dtype, device),
+        "q_norm": rmsnorm_init(cfg.q_lora_rank, device),
+        "wuq": dense_init(ks[1], cfg.q_lora_rank, cfg.n_heads * qk_head,
+                          dtype, device),
+        "wdkv": dense_init(ks[2], d, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                           dtype, device),
+        "kv_norm": rmsnorm_init(cfg.kv_lora_rank, device),
+        "wuk": dense_init(ks[3], cfg.kv_lora_rank,
+                          cfg.n_heads * cfg.qk_nope_head_dim, dtype, device),
+        "wuv": dense_init(ks[4], cfg.kv_lora_rank,
+                          cfg.n_heads * cfg.v_head_dim, dtype, device),
+        "wo": dense_init(ks[5], cfg.n_heads * cfg.v_head_dim, d, dtype,
+                         device),
+    }
+
+
+def mla_forward(p: dict, cfg: ModelConfig, x: Tensor, *, positions: Tensor,
+                inv_freq_rope: Tensor,
+                kv_cache: Optional[Tuple[Tensor, Tensor]] = None,
+                cache_len: Optional[int] = None) -> Tensor:
+    """MLA: queries from a low-rank latent; K/V expanded from a compressed
+    cache that holds kv_lora_rank + rope dims a token.
+
+    kv_cache: (c_kv (B, S, kv_lora_rank), k_pe (B, S, qk_rope_head_dim)),
+    written IN PLACE at [cache_len, cache_len + T). A one-token cached
+    step is the reference's absorbed decode: W_uk folded into the query
+    and W_uv out of the attention, every einsum in float32 against the
+    compressed cache, one softmax over all S positions masked at
+    cache_len + 1. Every other call (forward, a prefill into the cache)
+    expands K and V from the latent rows, zero-pads V to dn + dr and runs
+    ``flash_attention`` at scale 1/sqrt(dn + dr); a cached call attends
+    to the cache's filled prefix. Returns the layer output (B, T, d).
+    """
+    b, t, _ = x.shape
+    nh = cfg.n_heads
+    r = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    ql = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (ql @ p["wuq"]).reshape(b, t, nh, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, inv_freq_rope)
+
+    dkv = x @ p["wdkv"]                                   # (B, T, r + dr)
+    c_kv = rmsnorm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(dkv[..., None, r:], positions,
+                      inv_freq_rope)[:, :, 0]             # (B, T, dr)
+
+    if kv_cache is None:
+        c_all, kpe_all, q_offset = c_kv, k_pe, 0
+    else:
+        ckv_cache, kpe_cache = kv_cache
+        end = cache_len + t
+        s_max = ckv_cache.shape[1]
+        if end > s_max:
+            raise ValueError(f"cache holds {s_max} positions, the step "
+                             f"needs {end}")
+        ckv_cache[:, cache_len:end].copy_(c_kv)
+        kpe_cache[:, cache_len:end].copy_(k_pe)
+        if t == 1:
+            scale = 1.0 / math.sqrt(dn + dr)
+            c32 = ckv_cache.float()
+            wuk = p["wuk"].reshape(r, nh, dn)
+            q_eff = torch.einsum("bthd,rhd->bthr", q_nope.float(),
+                                 wuk.float())
+            s_lat = torch.einsum("bthr,bsr->bhts", q_eff, c32)
+            s_pe = torch.einsum("bthd,bsd->bhts", q_pe.float(),
+                                kpe_cache.float())
+            s_all = (s_lat + s_pe) * scale                # (B, H, 1, S)
+            pos = torch.arange(s_max, device=x.device)
+            s_all = torch.where(pos < end, s_all, NEG_INF)
+            probs = torch.softmax(s_all, dim=-1)
+            o_lat = torch.einsum("bhts,bsr->bthr", probs, c32)
+            wuv = p["wuv"].reshape(r, nh, dv)
+            out = torch.einsum("bthr,rhd->bthd", o_lat, wuv.float())
+            out = out.reshape(b, t, nh * dv).to(x.dtype)
+            return out @ p["wo"]
+        c_all, kpe_all, q_offset = ckv_cache[:, :end], kpe_cache[:, :end], \
+            cache_len
+
+    s = c_all.shape[1]
+    k_nope = (c_all @ p["wuk"]).reshape(b, s, nh, dn)
+    v = (c_all @ p["wuv"]).reshape(b, s, nh, dv)
+    k = torch.cat([k_nope, kpe_all[:, :, None, :].expand(b, s, nh, dr)],
+                  dim=-1)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    out = flash_attention(q_full, k, F.pad(v, (0, dn + dr - dv)),
+                          q_offset=q_offset)
+    out = out[..., :dv].reshape(b, t, nh * dv)
+    return out @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -284,3 +428,101 @@ def mlp_forward(p: dict, x: Tensor, act: str = "silu") -> Tensor:
     else:                                   # geglu, gelu: tanh-approx GELU
         h = F.gelu(gate, approximate="tanh") * up
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing): the one-hot einsum dispatch (default) and the
+# capacity sort dispatch
+# ---------------------------------------------------------------------------
+
+def moe_init(key, cfg: ModelConfig, dtype, device) -> dict:
+    """Router (d, E) in float32 whatever ``dtype``; expert weights
+    (E, d, f), (E, d, f), (E, f, d); shared experts an MLP of width
+    d_ff · n_shared_experts."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    ks = _device.split(_device.as_key(key), 5)
+    scale = 1.0 / math.sqrt(d)
+    p = {
+        "router": dense_init(ks[0], d, e, torch.float32, device),
+        "w_gate": normal_init(ks[1], (e, d, f), scale, dtype, device),
+        "w_up": normal_init(ks[2], (e, d, f), scale, dtype, device),
+        "w_down": normal_init(ks[3], (e, f, d), 1.0 / math.sqrt(f), dtype,
+                              device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(ks[4], d, f * cfg.n_shared_experts, dtype,
+                               device)
+    return p
+
+
+def _moe_einsum_dispatch(p: dict, cfg: ModelConfig, x2: Tensor,
+                         weights: Tensor, idx: Tensor) -> Tensor:
+    """Dense one-hot dispatch: every expert runs on every token whose
+    combine weight is positive, through einsums."""
+    n, _ = x2.shape
+    e = cfg.n_experts
+    comb = torch.zeros((n, e), dtype=x2.dtype, device=x2.device)
+    for j in range(cfg.top_k):
+        comb = comb + F.one_hot(idx[:, j], e).to(x2.dtype) \
+            * weights[:, j:j + 1]
+    xe = torch.einsum("ne,nd->end", (comb > 0).to(x2.dtype), x2)
+    h = torch.einsum("end,edf->enf", xe, p["w_gate"])
+    u = torch.einsum("end,edf->enf", xe, p["w_up"])
+    h = F.silu(h) * u
+    y = torch.einsum("enf,efd->end", h, p["w_down"])
+    return torch.einsum("end,ne->nd", y, comb).to(x2.dtype)
+
+
+def _moe_sort_dispatch(p: dict, cfg: ModelConfig, x2: Tensor,
+                       weights: Tensor, idx: Tensor) -> Tensor:
+    """Capacity dispatch: the n·k (token, expert) pairs sorted stably by
+    expert, each expert's first cap = ceil(n·k/E · capacity_factor) rows
+    gathered into an (E, cap, d) buffer (the rest go to an overflow slot
+    E·cap and are dropped), the experts run on their rows, and the
+    weighted rows are added back per token (``index_add_``: atomic on
+    CUDA, so equal to the reference's ``.at[].add`` within float
+    rounding)."""
+    n, d = x2.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dev = x2.device
+    cap = int(math.ceil(n * k / e * cfg.capacity_factor))
+    flat_expert = idx.reshape(-1)                          # (n·k,)
+    flat_weight = weights.reshape(-1)
+    flat_token = torch.arange(n, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_expert, stable=True)
+    se, st, sw = flat_expert[order], flat_token[order], flat_weight[order]
+    pos = torch.arange(n * k, device=dev) - torch.searchsorted(se, se,
+                                                               side="left")
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, e * cap)      # overflow slot
+    buf = torch.zeros((e * cap + 1, d), dtype=x2.dtype, device=dev)
+    buf[slot] = x2[st]
+    xe = buf[:e * cap].reshape(e, cap, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"]))
+    h = h * torch.einsum("ecd,edf->ecf", xe, p["w_up"])
+    y = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(e * cap, d)
+    y = torch.cat([y, y.new_zeros((1, d))], dim=0)
+    out = torch.zeros((n, d), dtype=x2.dtype, device=dev)
+    out.index_add_(0, st, y[slot] * sw[:, None].to(y.dtype)
+                   * keep[:, None])
+    return out
+
+
+def moe_forward(p: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """Top-k MoE: a float32 softmax router, ``topk`` (sorted), the weights
+    renormalized and cast to the activation dtype, then the dispatch that
+    ``cfg.moe_dispatch`` names, plus the shared experts."""
+    b, t, d = x.shape
+    x2 = x.reshape(b * t, d)
+    logits = x2.float() @ p["router"]
+    weights, idx = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k,
+                              dim=-1, sorted=True)
+    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    weights = weights.to(x.dtype)
+    if cfg.moe_dispatch == "sort":
+        y = _moe_sort_dispatch(p, cfg, x2, weights, idx)
+    else:
+        y = _moe_einsum_dispatch(p, cfg, x2, weights, idx)
+    if cfg.n_shared_experts:
+        y = y + mlp_forward(p["shared"], x2, cfg.act)
+    return y.reshape(b, t, d)

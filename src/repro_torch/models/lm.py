@@ -1,4 +1,6 @@
-"""Decoder-only LM of the dense family, behind the reference's functional API.
+"""Decoder-only LMs behind the reference's functional API: the dense GQA
+family, MLA attention (minicpm3), MoE (granite, moonshot), the Mamba-2 SSM
+(mamba2) and the hybrid attention + SSM block (hymba).
 
     params = init_params(seed, cfg)                    # CUDA by default
     params = params_from_arrays(reference_params)      # carried across
@@ -14,9 +16,11 @@ The layers run as a Python loop that indexes the stacked tensors (no scan,
 no remat: training is not ported). gemma3's 5:1 local:global pattern is the
 reference's per-layer window list, ``GLOBAL_WINDOW`` for global layers.
 
-The decode cache is updated in place (``attention_forward`` copies each
-step's keys and values into the preallocated cache); ``prefill`` and
-``decode_step`` return the same dict they wrote.
+The decode cache is preallocated and updated in place: the attention
+layers copy each step's keys and values (MLA: its compressed latent and
+rope rows) into it, and the SSM's conv buffers and state are copied over
+its slots; ``prefill`` and ``decode_step`` return the same dict they
+wrote.
 
 Token embeddings come from one of three sources (:func:`_embed_tokens`):
 precomputed ``embeds`` (a serving frontend already ran the lookups, e.g.
@@ -24,10 +28,9 @@ obliviously through an ``EmbedLookup`` plan), the private path
 (``cfg.private_embed``: ``private_embed.private_lookup_inline``), or the
 plaintext table.
 
-Only the dense family is ported. MLA attention, MoE, SSM, hybrid,
-encoder-decoder and the vision/audio frontends raise
-``NotImplementedError`` (``ROADMAP.md``, Queue 1), and so does
-``train_loss``.
+The encoder-decoder stack and the vision/audio frontends (the ``encdec``
+and ``vlm`` families) raise ``NotImplementedError`` (``ROADMAP.md``,
+Queue 1), and so does ``train_loss``.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 
 from .. import _device
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
 
 Tensor = torch.Tensor
@@ -53,14 +57,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family or field the port does
     not run yet; nothing else is ever run in its place."""
     unported = []
-    if cfg.family != "dense":
+    if cfg.family in ("encdec", "vlm"):
         unported.append(f"family {cfg.family!r}")
-    if cfg.attn_type != "gqa":
-        unported.append(f"attn_type {cfg.attn_type!r}")
-    if cfg.n_experts:
-        unported.append("MoE layers")
-    if cfg.hybrid_ssm:
-        unported.append("hybrid SSM heads")
     if cfg.n_enc_layers:
         unported.append("the encoder-decoder stack")
     if cfg.frontend:
@@ -68,7 +66,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported to repro_torch "
-            f"yet (ROADMAP.md, Queue 1); only the dense family runs")
+            f"yet (ROADMAP.md, Queue 1)")
 
 
 def _params_device(params: dict) -> torch.device:
@@ -80,12 +78,30 @@ def _params_device(params: dict) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _block_init(key, cfg: ModelConfig, device) -> dict:
+    """One layer's tree, as the reference's: an SSM block holds ``ln1`` and
+    ``ssm``; the others ``ln1``, ``attn`` (GQA or MLA), the hybrid's
+    ``ssm`` with its 0-d float32 gates ``mix_a``/``mix_s``, ``ln2`` and
+    ``moe`` (family moe) or ``mlp``."""
     dt = _dtype(cfg)
-    ks = _device.split(key, 2)
-    return {"ln1": L.rmsnorm_init(cfg.d_model, device),
-            "attn": L.attention_init(ks[0], cfg, dt, device),
-            "ln2": L.rmsnorm_init(cfg.d_model, device),
-            "mlp": L.mlp_init(ks[1], cfg.d_model, cfg.d_ff, dt, device)}
+    ks = _device.split(key, 3)
+    p: Dict[str, Any] = {"ln1": L.rmsnorm_init(cfg.d_model, device)}
+    if cfg.family == "ssm":
+        p["ssm"] = S.ssm_init(ks[0], cfg, dt, device)
+        return p
+    if cfg.attn_type == "mla":
+        p["attn"] = L.mla_init(ks[0], cfg, dt, device)
+    else:
+        p["attn"] = L.attention_init(ks[0], cfg, dt, device)
+    if cfg.hybrid_ssm:
+        p["ssm"] = S.ssm_init(ks[2], cfg, dt, device)
+        p["mix_a"] = torch.zeros((), dtype=torch.float32, device=device)
+        p["mix_s"] = torch.zeros((), dtype=torch.float32, device=device)
+    p["ln2"] = L.rmsnorm_init(cfg.d_model, device)
+    if cfg.n_experts and cfg.family == "moe":
+        p["moe"] = L.moe_init(ks[1], cfg, dt, device)
+    else:
+        p["mlp"] = L.mlp_init(ks[1], cfg.d_model, cfg.d_ff, dt, device)
+    return p
 
 
 def init_params(key, cfg: ModelConfig, device=None) -> dict:
@@ -158,7 +174,7 @@ def params_from_arrays(tree: dict, device=None) -> dict:
     def leaf(name: str, value):
         if name == "embed_shares":
             return table_from_arrays(value, 1, device=dev).values
-        arr = np.ascontiguousarray(np.asarray(value))
+        arr = np.array(value, order="C")             # keeps 0-d leaves 0-d
         if name == "embed_key":
             return tuple(int(w) for w in arr.reshape(-1))
         if arr.dtype.name == "bfloat16":
@@ -184,33 +200,74 @@ def layer_windows(cfg: ModelConfig):
 # block application (shared by forward / prefill / decode)
 # ---------------------------------------------------------------------------
 
+def _ssm_apply(p: dict, cfg: ModelConfig, u: Tensor, mode: str,
+               cache: Optional[dict]) -> Tensor:
+    """The Mamba-2 mixer; a prefill or decode writes its conv buffers and
+    state over the layer's cache slots."""
+    out, sc = S.ssm_forward(p, cfg, u,
+                            cache=cache["ssm"] if mode == "decode" else None,
+                            return_cache=(mode == "prefill"))
+    if sc is not None:
+        for dst, src in zip(cache["ssm"], sc):
+            dst.copy_(src)
+    return out
+
+
 def _block_apply(cfg: ModelConfig, p: dict, x: Tensor, *, positions: Tensor,
                  inv_freq: Tensor, window: int, mode: str,
                  cache: Optional[dict], cache_len: Optional[int]) -> Tensor:
     """mode: 'train' (no cache) | 'prefill' (fill the cache) | 'decode'."""
+    if cfg.family == "ssm":
+        return x + _ssm_apply(p["ssm"], cfg,
+                              L.rmsnorm(x, p["ln1"], cfg.norm_eps), mode,
+                              cache)
     y = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    win = None if cfg.sliding_window is None else window
     kv_in = cache["kv"] if mode in ("prefill", "decode") else None
-    x = x + L.attention_forward(p["attn"], cfg, y, positions=positions,
+    if cfg.attn_type == "mla":
+        a = L.mla_forward(p["attn"], cfg, y, positions=positions,
+                          inv_freq_rope=inv_freq, kv_cache=kv_in,
+                          cache_len=cache_len)
+    else:
+        win = None if cfg.sliding_window is None else window
+        a = L.attention_forward(p["attn"], cfg, y, positions=positions,
                                 inv_freq=inv_freq, window=win,
                                 kv_cache=kv_in, cache_len=cache_len)
+    if cfg.hybrid_ssm:
+        s_out = _ssm_apply(p["ssm"], cfg, y, mode, cache)
+        ga = torch.sigmoid(p["mix_a"]).to(a.dtype)
+        gs = torch.sigmoid(p["mix_s"]).to(a.dtype)
+        x = x + a * ga + s_out * gs
+    else:
+        x = x + a
     y2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return x + L.moe_forward(p["moe"], cfg, y2)
     return x + L.mlp_forward(p["mlp"], y2, cfg.act)
+
+
+def _layer_cache(caches: dict, i: int) -> dict:
+    """Layer ``i``'s views of the stacked cache."""
+    out = {}
+    if "kv" in caches:
+        out["kv"] = tuple(a[i] for a in caches["kv"])
+    if "ssm" in caches:
+        out["ssm"] = S.SSMCache(*(a[i] for a in caches["ssm"]))
+    return out
 
 
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: Tensor, *,
                 positions: Tensor, caches: Optional[dict],
                 cache_len: Optional[int], mode: str) -> Tensor:
-    inv_freq = L.rope_freqs(cfg.resolved_head_dim, cfg.rope_fraction,
-                            cfg.rope_theta, device=x.device)
+    inv_freq = L.rope_freqs(
+        cfg.resolved_head_dim if cfg.attn_type != "mla"
+        else cfg.qk_rope_head_dim,
+        cfg.rope_fraction, cfg.rope_theta, x.device)
     for i, win in enumerate(layer_windows(cfg)):
-        cache_l = None
-        if caches is not None:
-            k_all, v_all = caches["kv"]
-            cache_l = {"kv": (k_all[i], v_all[i])}
         x = _block_apply(cfg, _layer(blocks, i), x, positions=positions,
                          inv_freq=inv_freq, window=win, mode=mode,
-                         cache=cache_l, cache_len=cache_len)
+                         cache=None if caches is None
+                         else _layer_cache(caches, i),
+                         cache_len=cache_len)
     return x
 
 
@@ -268,15 +325,31 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Stacked (L-leading) decode cache: {"kv": (k, v)}, each
-    (L, B, max_len, Hkv, head_dim) in ``cfg.dtype`` on ``device`` (default
-    CUDA)."""
+    """Stacked (L-leading) decode cache on ``device`` (default CUDA), in
+    ``cfg.dtype`` but the SSM state (float32): ``kv`` for every family
+    but SSM, each of (L, B, max_len, Hkv, head_dim) (MLA: (L, B, max_len,
+    kv_lora_rank) and (L, B, max_len, qk_rope_head_dim)); ``ssm``, an
+    L-stacked ``SSMCache``, for the SSM and hybrid families."""
     check_supported(cfg)
     dev = _device.resolve(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"kv": (torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-                   torch.zeros(shape, dtype=_dtype(cfg), device=dev))}
+    dt = _dtype(cfg)
+    cache: Dict[str, Any] = {}
+    if cfg.family != "ssm":
+        if cfg.attn_type == "mla":
+            shapes = ((cfg.n_layers, batch, max_len, cfg.kv_lora_rank),
+                      (cfg.n_layers, batch, max_len, cfg.qk_rope_head_dim))
+        else:
+            shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            shapes = (shape, shape)
+        cache["kv"] = tuple(torch.zeros(s, dtype=dt, device=dev)
+                            for s in shapes)
+    if cfg.family == "ssm" or cfg.hybrid_ssm:
+        one = S.ssm_cache_init(cfg, batch, dt, "meta")
+        cache["ssm"] = S.SSMCache(*(
+            torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
+                        device=dev) for a in one))
+    return cache
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,

@@ -1,15 +1,20 @@
-"""The port's dense decoder (``repro_torch.models.lm``) against the reference.
+"""The port's decoders (``repro_torch.models.lm``) against the reference.
 
 The reference's parameters (``repro.models.lm.init_params``) are carried
 across with ``params_from_arrays``, so both packages run identical weights
 on identical tokens (drawn with numpy from a seed):
 
-* qwen1.5-4b, chatglm3-6b (GQA, RoPE on half the head dims) and gemma3-1b
+* qwen1.5-4b, chatglm3-6b (GQA, RoPE on half the head dims), gemma3-1b
   (sliding window with ``global_every``, QK-norm, GeGLU, tied and scaled
-  embeddings) smoke configs in float32: ``forward``, ``prefill`` and three
+  embeddings), minicpm3-4b (MLA), granite and moonshot (MoE, the latter
+  with shared experts), mamba2-2.7b (SSM) and hymba-1.5b (attention + SSM)
+  smoke configs in float32: ``forward``, ``prefill`` and three
   ``decode_step``s give logits within atol 1e-4 / rtol 1e-4 of the
-  reference and caches within the same tolerance; greedy decoding picks
-  the same tokens;
+  reference and caches (KV, MLA latent, SSM conv buffers and state)
+  within the same tolerance; greedy decoding picks the same tokens;
+* ``flash_attention`` past one 512-key block (Tk = 513 and 1,300) and a
+  600-token prefill plus decode, within the same float32 tolerance: the
+  port scans the reference's key blocks in its order;
 * the chunked log-sum-exp decode path (a cache of 1,024 positions) within
   the same float32 tolerance;
 * one bfloat16 case within atol 0.12 / rtol 0.05, the tolerance the
@@ -19,7 +24,8 @@ on identical tokens (drawn with numpy from a seed):
 * decode matches forward at the same position within the reference's own
   tolerance (``tests/test_arch_smoke.py``: atol 0.12, rtol 0.05) in the
   configs' own bfloat16;
-* families not yet ported raise ``NotImplementedError``.
+* the encoder-decoder and VLM families, not yet ported, raise
+  ``NotImplementedError``.
 """
 import dataclasses
 
@@ -34,7 +40,12 @@ import repro_torch.configs as tconfigs
 from repro.models import lm as jlm
 from repro_torch.models import lm as tlm
 
-ARCHS = ["qwen1_5_4b", "chatglm3_6b", "gemma3_1b"]
+ARCHS = ["qwen1_5_4b", "chatglm3_6b", "gemma3_1b", "minicpm3_4b",
+         "granite_moe_3b_a800m", "moonshot_v1_16b_a3b", "mamba2_2_7b",
+         "hymba_1_5b"]
+#: a weight of each family drawn as N(0, 1/d_model) (fan-in d_model)
+PROBE = {"mla": ("attn", "wdq"), "ssm": ("ssm", "w_x"),
+         "moe": ("moe", "w_gate"), "gqa": ("attn", "wq")}
 ATOL = RTOL = 1e-4           # float32 logits and caches
 BF16_ATOL, BF16_RTOL = 0.12, 0.05    # bfloat16 logits
 B, T = 2, 12
@@ -114,12 +125,15 @@ def test_init_params_tree_matches_reference(arch):
             node = node[k.key]
         assert tuple(node.shape) == sds.shape, path
         assert str(node.dtype).split(".")[-1] == str(sds.dtype), path
+    kind = ("ssm" if tcfg.family == "ssm" else "mla"
+            if tcfg.attn_type == "mla" else "moe" if tcfg.family == "moe"
+            else "gqa")
+    mod, name = PROBE[kind]
     again = tlm.init_params(3, tcfg, device="cpu")
-    assert torch.equal(tp["blocks"]["attn"]["wq"],
-                       again["blocks"]["attn"]["wq"])
-    wq = tp["blocks"]["attn"]["wq"].float()
-    assert not torch.equal(wq[0], wq[1])             # layers drawn apart
-    assert abs(float(wq.std()) * tcfg.d_model ** 0.5 - 1.0) < 0.1
+    assert torch.equal(tp["blocks"][mod][name], again["blocks"][mod][name])
+    w = tp["blocks"][mod][name].float()
+    assert not torch.equal(w[0], w[1])               # layers drawn apart
+    assert abs(float(w.std()) * tcfg.d_model ** 0.5 - 1.0) < 0.1
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +160,12 @@ def test_forward_prefill_decode_match_reference(arch):
                                  {"tokens": torch.as_tensor(step)})
         assert lt.shape == (B, 1, tcfg.vocab_size)
         _close(lt, lj)
-        for got, want in zip(ct["kv"], cj["kv"]):
-            assert tuple(got.shape) == want.shape
-            _close(got, want)
+        assert sorted(ct) == sorted(cj)
+        for part in cj:
+            for got, want in zip(ct[part], cj[part], strict=True):
+                assert tuple(got.shape) == want.shape
+                assert str(got.dtype).split(".")[-1] == str(want.dtype)
+                _close(got, want)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -218,6 +235,71 @@ def test_softcap_and_window_attention_match_reference():
                                        jnp.asarray(v), **kw))
 
 
+@pytest.mark.parametrize("tk", [513, 1300])
+@pytest.mark.parametrize("case", ["causal", "window", "softcap", "kv_len",
+                                  "q_offset", "full"])
+def test_flash_attention_blocks_match_reference(tk, case):
+    """Past one 512-key block the port's online softmax follows the
+    reference's blocks and order: within float32 rounding at a ragged
+    last block (513, 1,300 keys)."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+    rng = np.random.default_rng(tk)
+    tq = {"q_offset": 7, "kv_len": tk}.get(case, tk)
+    q = rng.standard_normal((2, tq, 4, 16)).astype(np.float32) * 2
+    k = rng.standard_normal((2, tk, 2, 16)).astype(np.float32) * 2
+    v = rng.standard_normal((2, tk, 2, 16)).astype(np.float32)
+    kw = {"causal": {}, "window": dict(window=700), "softcap": dict(
+        softcap=5.0), "kv_len": dict(kv_len=tk - 200, causal=False),
+          "q_offset": dict(q_offset=tk - 7), "full": dict(causal=False)}[case]
+    _close(tlayers.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                   torch.as_tensor(v), **kw),
+           jlayers.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), **kw))
+
+
+def test_flash_attention_holds_one_block_of_scores(monkeypatch):
+    """No score tensor wider than one key block is made: every einsum's
+    output in the loop has at most 512 keys, whatever Tk."""
+    from repro_torch.models import layers as tlayers
+    widest = []
+    real = torch.einsum
+
+    def spy(eq, *ops):
+        out = real(eq, *ops)
+        if eq.endswith("->bkgts"):
+            widest.append(out.shape[-1])
+        return out
+
+    monkeypatch.setattr(tlayers.torch, "einsum", spy)
+    q = torch.randn(1, 40, 2, 8)
+    k = torch.randn(1, 1300, 2, 8)
+    tlayers.flash_attention(q, k, k, causal=False)
+    assert widest == [512, 512, 512]
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_4b", "minicpm3_4b"])
+def test_long_prefill_and_decode_match_reference(arch):
+    """A float32 prefill of 600 tokens (two key blocks; MLA expands its
+    cache and runs ``flash_attention`` on it) and two decode steps."""
+    jcfg, tcfg, jp, tp = _pair(arch)
+    toks = _tokens(jcfg, (1, 602), seed=9)
+    lj, cj = jlm.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :600])},
+                         max_len=608)
+    lt, ct = tlm.prefill(tp, tcfg, {"tokens": torch.as_tensor(
+        toks[:, :600])}, max_len=608)
+    _close(lt, lj)
+    for s in range(2):
+        step = toks[:, 600 + s:601 + s]
+        lj, cj = jlm.decode_step(jp, jcfg, cj, 600 + s,
+                                 {"tokens": jnp.asarray(step)})
+        lt, ct = tlm.decode_step(tp, tcfg, ct, 600 + s,
+                                 {"tokens": torch.as_tensor(step)})
+        _close(lt, lj)
+    for got, want in zip(ct["kv"], cj["kv"]):
+        _close(got, want)
+
+
 # ---------------------------------------------------------------------------
 # bfloat16 and decode == forward
 # ---------------------------------------------------------------------------
@@ -269,7 +351,7 @@ def test_embeds_seam_and_cache_capacity():
 
 
 # ---------------------------------------------------------------------------
-# families not ported yet
+# families not ported yet (encoder-decoder, VLM)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
@@ -286,9 +368,9 @@ def test_unported_fields_and_training_raise():
     cfg = tconfigs.smoke("qwen1_5_4b")
     params = tlm.init_params(0, cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 2), dtype=torch.int64)}
-    for bad in (dict(attn_type="mla"), dict(n_experts=4, top_k=2),
-                dict(hybrid_ssm=True), dict(n_enc_layers=1),
-                dict(frontend="vit")):
+    for bad in (dict(n_enc_layers=1), dict(frontend="vit"),
+                dict(frontend="audio"), dict(family="encdec"),
+                dict(family="vlm")):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             tlm.forward(params, dataclasses.replace(cfg, **bad), batch)
     with pytest.raises(NotImplementedError, match="training"):

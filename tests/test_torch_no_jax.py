@@ -45,7 +45,7 @@ def test_serving_modules_are_covered():
     for want in ("runtime/mapreduce.py", "api/executor.py",
                  "launch/serve.py", "core/dataplane.py", "api/client.py",
                  "core/mesh_dispatch.py", "models/lm.py", "models/layers.py",
-                 "models/config.py", "configs/__init__.py",
+                 "models/ssm.py", "models/config.py", "configs/__init__.py",
                  "configs/qwen1_5_4b.py"):
         assert want in names
 

@@ -6,10 +6,13 @@
 * calls without a key never reuse one, and an explicit key is threaded
   into both the set-up and the lookup;
 * the port's ``BatchServer`` generates the reference ``BatchServer``'s
-  tokens at smoke size in float32, private and plaintext;
+  tokens at smoke size in float32, private and plaintext, for the dense
+  (qwen1.5-4b), MLA (minicpm3-4b), MoE (granite, moonshot), SSM
+  (mamba2-2.7b) and hybrid (hymba-1.5b) families;
 * private generations equal plaintext ones whose table is the dequantized
   quantized table, and the private model's logits equal that plaintext
-  model's bit for bit (the lookup opens exactly those rows).
+  model's bit for bit (the lookup opens exactly those rows), for qwen,
+  mamba2 and minicpm3.
 
 Every comparison here is exact (tolerance 0): opened values are exact, and
 the generated tokens are compared as integers.
@@ -131,19 +134,25 @@ def test_inline_lookup_threads_explicit_key(monkeypatch):
 # BatchServer: the port against the reference, private against plaintext
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def qwen():
-    """(reference cfg, port cfg, reference params, port params) of the
-    qwen1.5-4b smoke config in float32, with a pre-shared table."""
-    jcfg = dataclasses.replace(jconfigs.smoke("qwen1_5_4b"),
-                               dtype="float32")
-    tcfg = dataclasses.replace(tconfigs.smoke("qwen1_5_4b"),
-                               dtype="float32")
+FAMILIES = ["minicpm3_4b", "granite_moe_3b_a800m", "moonshot_v1_16b_a3b",
+            "mamba2_2_7b", "hymba_1_5b"]
+
+
+def _smoke_pair(arch):
+    """(reference cfg, port cfg, reference params, port params) of
+    ``arch``'s smoke config in float32, with a pre-shared table."""
+    jcfg = dataclasses.replace(jconfigs.smoke(arch), dtype="float32")
+    tcfg = dataclasses.replace(tconfigs.smoke(arch), dtype="float32")
     jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     jp["embed_shares"] = jpe.setup_private_embed(
         jax.random.PRNGKey(1), jp["embed"], n_shares=4).values
     tp = tlm.params_from_arrays(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
+
+
+@pytest.fixture(scope="module")
+def qwen():
+    return _smoke_pair("qwen1_5_4b")
 
 
 def _requests(mod, cfg, n=3, t=12, new=6, seed=1):
@@ -175,8 +184,25 @@ def test_batch_server_matches_reference(qwen, private):
         assert b.latency_s > 0
 
 
-def test_private_generation_equals_dequantized_plaintext(qwen):
-    _, tcfg, _, tp = qwen
+@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("private", [False, True])
+def test_batch_server_matches_reference_families(arch, private):
+    jcfg, tcfg, jp, tp = _smoke_pair(arch)
+    jcfg = dataclasses.replace(jcfg, private_embed=private)
+    tcfg = dataclasses.replace(tcfg, private_embed=private)
+    want = jserve.BatchServer(jp, jcfg, max_len=24).serve(
+        _requests(jserve, jcfg, n=2, t=10, new=5))
+    got = tserve.BatchServer(tp, tcfg, max_len=24, device="cpu").serve(
+        _requests(tserve, tcfg, n=2, t=10, new=5))
+    for a, b in zip(want, got, strict=True):
+        assert b.out.shape == (5,)
+        assert np.array_equal(a.out, b.out)
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_4b", "mamba2_2_7b",
+                                  "minicpm3_4b"])
+def test_private_generation_equals_dequantized_plaintext(arch):
+    _, tcfg, _, tp = _smoke_pair(arch)
     priv = dataclasses.replace(tcfg, private_embed=True)
     plain_params = _dequantized(tp)
     reqs = _requests(tserve, tcfg, n=4, t=10, new=8, seed=7)
