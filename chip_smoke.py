@@ -115,6 +115,24 @@ Phases, any failure exits non-zero:
    width (capacity 8.0, atol 0.06). Logs per family the
    parameters, set-up seconds and peak, prefill ms and decode ms a step a
    route, tokens/s, idle share and peak device memory.
+   Slice 9 (after slice 8, on a freed card): the encoder-decoder and the
+   ViT-prefixed families as slice 8 runs the others, through a greedy
+   loop over ``lm.prefill`` and ``lm.decode_step`` whose prefill carries
+   the frontend input (``BatchServer`` passes tokens only):
+   SeamlessM4T-medium in full (12 + 12 layers, d 1,024, V 256,206; 4
+   requests of 640 audio frames of dim 160, past one 512-key block in the
+   encoder and the cross-attention, and a 2-token decoder prompt) and
+   InternVL2-76B at full width on 20 of its 80 layers (d 8,192, V 128,256,
+   its table shares 16.8 GB, the first past 2^31 elements; 4 requests of
+   256 patch embeddings of dim 3,200 and 64 text tokens). Both routes must
+   give identical tokens and equal prefill logits; route (a) must launch
+   one ``share_onehot`` and one ``ss_matmul_tall`` a lookup (every lookup
+   is tall: M = 8 or 256 at the prefill, 4 at a decode step), each equal
+   to its plain version bit for bit (the plain contraction 1,024 table
+   columns at a time); in float32 a decode step must match the forward
+   within 1e-4 (InternVL2 at 2 layers). Logs, beside slice 8's numbers,
+   the encoder's ms, the set-up's margin on the card and the lookup
+   kernels' ms against their bounds at these shapes.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -1661,7 +1679,6 @@ def lm_path(torch, args, errs):
 
     from repro_torch import configs
     from repro_torch.api import EmbedLookup, MeshDispatcher, QueryClient
-    from repro_torch.core.queries import embed as eq
     from repro_torch.kernels import ops
     from repro_torch.kernels import ss_matmul as ssm
     from repro_torch.launch import BatchServer, Request
@@ -1700,8 +1717,7 @@ def lm_path(torch, args, errs):
     setup_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     params["embed_shares"] = table.values
     plain = {k: v for k, v in params.items() if k != "embed_shares"}
-    plain["embed"] = eq.dequantize_from_field(eq.quantize_to_field(
-        params["embed"])).to(params["embed"].dtype)
+    plain["embed"] = dequantized(torch, params["embed"])
     log(f"slice-7 {LM_ARCH}: {n_params} parameters ({weights_gb:.3f} GB, "
         f"bf16 weights, fp32 norms) drawn in {timings['init_params_s']:.3f}"
         f" s; table shared over {EMBED_SHARES} clouds "
@@ -1930,15 +1946,49 @@ SLICE8_BATCH, SLICE8_NEW, SLICE8_PROFILED_NEW = 4, 32, 8
 SLICE8_KERNELS = ("share_onehot", "ss_matmul_tall")
 #: the families whose decode is held to forward in float32 at full width
 #: (atol 1e-4 / rtol 1e-4, the CPU tests' float32 bound): the two the
-#: reference's own test holds (in bf16 at smoke width) and MLA's absorbed
-#: decode against its expanded forward. In bf16 at full width the logits
-#: of one position move by up to ~0.2 between two lengths of the same
-#: forward (the noise floor logged below), more than atol 0.12 / rtol
-#: 0.05 allows, so the bf16 errors are logged, not held. The MoE models
-#: are not held: a near-tie in routing may pick another expert.
-SLICE8_DECODE_HELD = ("minicpm3_4b", "mamba2_2_7b", "hymba_1_5b")
-#: float32 decode against float32 forward (see SLICE8_DECODE_HELD)
+#: reference's own test holds (in bf16 at smoke width), MLA's absorbed
+#: decode against its expanded forward, and slice 9's two (the cross
+#: cache, the prefix's positions). In bf16 at full width the logits of one
+#: position move by up to ~0.2 between two lengths of the same forward
+#: (the noise floor logged below), more than atol 0.12 / rtol 0.05 allows,
+#: so the bf16 errors are logged, not held. The MoE models are not held:
+#: a near-tie in routing may pick another expert.
+DECODE_HELD = ("minicpm3_4b", "mamba2_2_7b", "hymba_1_5b",
+               "seamless_m4t_medium", "internvl2_76b")
+#: float32 decode against float32 forward (see DECODE_HELD)
 F32_ATOL = F32_RTOL = 1e-4
+#: layers of the float32 decode check where the float32 weights of the
+#: path's layers do not fit (InternVL2's 20 would take 77 GB); no width
+#: is cut
+F32_LAYERS = {"internvl2_76b": 2}
+#: columns of the table a plain contraction takes at a time in the kernel
+#: check (columns are independent; the plain version's float64 limbs of a
+#: whole 128,256 x 8,192 table would take ~34 GB each)
+PLAIN_COLS = 1024
+
+#: slice 9 runs the encoder-decoder and the ViT-prefixed families of the
+#: port's registry, bf16, synthetic weights and frontend inputs from
+#: ``--seed``: (arch, layers kept or None, prompt tokens, published fields,
+#: (frontend input, its length)). SeamlessM4T-medium runs in full: 4
+#: requests of 640 audio frames (stacked 80-dim fbank at a 20 ms stride:
+#: 12.8 s of speech; past one 512-key block in the encoder and the
+#: cross-attention) and a 2-token decoder prompt (``</s>`` and the
+#: target-language tag). InternVL2-76B keeps 20 of its 80 layers (80 are
+#: ~141 GB of bf16 weights; at 20, 38.4 GB of weights, its 16.8 GB table
+#: shares and their ~28 GB set-up transient leave ~13 GB of 80), with 256
+#: patch embeddings of InternViT-6B's width 3,200 (one 448 x 448 tile
+#: after the pixel shuffle) and 64 text tokens a request; no width is cut.
+SLICE9_FAMILIES = (
+    ("seamless_m4t_medium", None, 2,
+     dict(n_layers=12, n_enc_layers=12, d_model=1024, n_heads=16,
+          n_kv_heads=16, d_ff=4096, vocab_size=256206, family="encdec",
+          frontend="audio", frontend_dim=160), ("frames", 640)),
+    ("internvl2_76b", 20, 64,
+     dict(n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, d_ff=28672,
+          vocab_size=128256, family="vlm", frontend="vit", n_prefix=256,
+          frontend_dim=3200, rope_theta=500000.0), ("patches", 256)),
+)
+SLICE9_KERNELS = ("share_onehot", "ss_matmul_tall")
 
 
 def moe_dispatch_check(torch, args) -> float:
@@ -1966,27 +2016,93 @@ def moe_dispatch_check(torch, args) -> float:
     return err
 
 
-def family_path(torch, args, idx, arch, layers, t, fields):
-    """Slice 8, one family: the full published configuration ``arch``
+class FrontendServer:
+    """``BatchServer``'s greedy loop (``lm.prefill``, then one
+    ``lm.decode_step`` a token) with the frontend inputs ``extra``
+    (``frames`` or ``patches``, (B, n, frontend_dim)) in the prefill's
+    batch, which ``BatchServer`` does not pass (it serves tokens only, as
+    the reference's). A ViT prefix's positions count in ``cache_len``."""
+
+    def __init__(self, params, cfg, *, max_len: int, extra: dict):
+        self.params, self.cfg, self.max_len = params, cfg, max_len
+        self.extra = extra
+        self.prefix = (extra["patches"].shape[1] if "patches" in extra
+                       else 0)
+
+    def serve(self, requests):
+        import torch
+
+        from repro_torch.models import lm
+        t0 = time.time()
+        prompts = np.stack([r.prompt for r in requests])
+        b, t = prompts.shape
+        max_new = max(r.max_new for r in requests)
+        pos = self.prefix + t
+        check(pos + max_new - 1 <= self.max_len,
+              f"{pos} positions + {max_new} new exceed max_len "
+              f"{self.max_len}")
+        dev = self.params["final_norm"].device
+        with torch.no_grad():
+            logits, cache = lm.prefill(
+                self.params, self.cfg,
+                {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                           device=dev), **self.extra},
+                max_len=self.max_len)
+            gen = torch.empty((b, max_new), dtype=torch.int64, device=dev)
+            toks = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            gen[:, :1] = toks
+            for i in range(max_new - 1):
+                logits, cache = lm.decode_step(self.params, self.cfg, cache,
+                                               pos + i, {"tokens": toks})
+                toks = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+                gen[:, i + 1:i + 2] = toks
+        out = gen.cpu().numpy().astype(np.int32)
+        dt = time.time() - t0
+        for i, r in enumerate(requests):
+            r.out = out[i, :r.max_new]
+            r.latency_s = dt
+        return requests
+
+
+def dequantized(torch, embed, rows: int = 16384):
+    """The table as the private route opens it (quantized to the field and
+    back, in ``embed``'s dtype), a block of rows at a time: the whole
+    table's int64 transients of ``dequantize_from_field`` would take ~30
+    GB at InternVL2's 128,256 x 8,192."""
+    from repro_torch.core.queries import embed as eq
+    out = torch.empty_like(embed)
+    for lo in range(0, embed.shape[0], rows):
+        out[lo:lo + rows] = eq.dequantize_from_field(eq.quantize_to_field(
+            embed[lo:lo + rows], device=embed.device)).to(embed.dtype)
+    return out
+
+
+def family_path(torch, args, idx, arch, layers, t, fields, frontend=None,
+                slice_no=8):
+    """Slice 8 or 9, one family: the full published configuration ``arch``
     (``layers`` kept when not None) on synthetic weights from ``--seed``,
     the table shared once (c = 4, degree 1) into ``params["embed_shares"]``,
     then greedy generation of SLICE8_BATCH requests of ``t`` prompt tokens
-    and SLICE8_NEW new ones through (c) a plaintext ``BatchServer`` over
-    the dequantized quantized table and (a) a private one
-    (``private_lookup_inline`` a step). Fails unless the two generate the
-    same tokens, their prefill logits are equal, every logit is finite,
-    route (a) launches one ``share_onehot`` and one contraction a lookup
-    (``ss_matmul_tall`` at a decode step's M = 4 and wherever the prefill
-    is tall-skinny, the general ``ss_matmul`` where it is not) and route
-    (c) none, each kernel shape of route (a) equals its plain version
-    (bit for bit, so its error is 0), and, for the families of
-    SLICE8_DECODE_HELD, decode matches forward in float32 (the bf16
-    errors are logged). Returns (the route windows' launches, the
-    family's summary)."""
+    and SLICE8_NEW new ones through (c) a plaintext server over the
+    dequantized quantized table and (a) a private one
+    (``private_lookup_inline`` a step): ``BatchServer``s, or, with
+    ``frontend`` = (``"frames"`` or ``"patches"``, n), ``FrontendServer``s
+    whose prefills carry n frontend rows a request from ``--seed``. Fails
+    unless the two generate the same tokens, their prefill logits are
+    equal, every logit is finite, route (a) launches one ``share_onehot``
+    and one contraction a lookup (``ss_matmul_tall`` at a decode step's
+    M = 4 and wherever the prefill is tall-skinny, the general
+    ``ss_matmul`` where it is not) and route (c) none, each kernel shape
+    of route (a) equals its plain version (bit for bit, so its error is
+    0; the plain contraction PLAIN_COLS columns at a time), and, for the
+    families of DECODE_HELD, decode matches forward in float32 (the bf16
+    errors are logged). Logs the lookup kernels' times against their
+    bounds at the path's shapes and, for an encoder-decoder, the
+    encoder's. Returns (the route windows' launches, the family's
+    summary)."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.core.queries import embed as eq
     from repro_torch.kernels import ops
     from repro_torch.kernels import ss_matmul as ssm
     from repro_torch.launch import BatchServer, Request
@@ -2002,8 +2118,9 @@ def family_path(torch, args, idx, arch, layers, t, fields):
         cfg = dataclasses.replace(cfg, n_layers=layers)
     priv_cfg = dataclasses.replace(cfg, private_embed=True)
     b, new = SLICE8_BATCH, SLICE8_NEW
-    max_len = t + new
-    tag = f"slice-8 {arch}"
+    pre = frontend[1] if frontend and frontend[0] == "patches" else 0
+    max_len = pre + t + new
+    tag = f"slice-{slice_no} {arch}"
     timings, total = {}, collections.Counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2025,22 +2142,29 @@ def family_path(torch, args, idx, arch, layers, t, fields):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     table = clock("setup_private_embed_s", lambda: pe.setup_private_embed(
-        (args.seed, 8, idx), params["embed"], n_shares=EMBED_SHARES))
+        (args.seed, slice_no, idx), params["embed"], n_shares=EMBED_SHARES))
     setup_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    card_gb = torch.cuda.mem_get_info()[1] / 1e9
+    margin = card_gb - torch.cuda.max_memory_allocated() / 1e9
     params["embed_shares"] = table.values
     plain = {k: v for k, v in params.items() if k != "embed_shares"}
-    plain["embed"] = eq.dequantize_from_field(eq.quantize_to_field(
-        params["embed"])).to(params["embed"].dtype)
+    plain["embed"] = dequantized(torch, params["embed"])
     log(f"{tag}: {cfg.n_layers} layers, {n_params} parameters "
         f"({weights_gb:.3f} GB) drawn in {timings['init_params_s']:.3f} s; "
         f"table shared over {EMBED_SHARES} clouds "
         f"({table.values.numel() * 4 / 1e9:.3f} GB) in "
         f"{timings['setup_private_embed_s']:.3f} s, set-up peak "
-        f"{setup_peak:.3f} GB above the weights")
-    rng = np.random.default_rng(args.seed + 8 + idx)
+        f"{setup_peak:.3f} GB above the weights, {margin:.3f} GB of the "
+        f"card's {card_gb:.3f} left at that peak")
+    rng = np.random.default_rng(args.seed + slice_no + idx)
     prompts = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
     dev = params["final_norm"].device
     prompt_t = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    extra = {}
+    if frontend is not None:
+        name, n = frontend
+        extra[name] = torch.as_tensor(rng.standard_normal(
+            (b, n, cfg.frontend_dim)), dtype=torch.float32).to(dev)
 
     def serve(server, n_new):
         reqs = [Request(prompt=p.copy(), max_new=n_new) for p in prompts]
@@ -2058,8 +2182,12 @@ def family_path(torch, args, idx, arch, layers, t, fields):
         log(f"{tag} route {route} launches {got}")
         return toks, got
 
-    servers = {"a": BatchServer(params, priv_cfg, max_len=max_len),
-               "c": BatchServer(plain, cfg, max_len=max_len)}
+    def server(p, c):
+        if extra:
+            return FrontendServer(p, c, max_len=max_len, extra=extra)
+        return BatchServer(p, c, max_len=max_len)
+
+    servers = {"a": server(params, priv_cfg), "c": server(plain, cfg)}
     t_phase = time.perf_counter()
     toks_c, launch_c = window("c", servers["c"])
     toks_a, launch_a = window("a", servers["a"])
@@ -2084,54 +2212,90 @@ def family_path(torch, args, idx, arch, layers, t, fields):
 
     # prefill logits of both routes, decode against forward (not counted)
     t_phase = time.perf_counter()
-    la, _ = lm.prefill(params, priv_cfg, {"tokens": prompt_t},
-                       max_len=max_len)
-    lc, cache = lm.prefill(plain, cfg, {"tokens": prompt_t},
-                           max_len=max_len)
+    batch = {"tokens": prompt_t, **extra}
+    la, _ = lm.prefill(params, priv_cfg, batch, max_len=max_len)
+    lc, cache = lm.prefill(plain, cfg, batch, max_len=max_len)
     diff = float((la - lc).abs().max())
     check(bool(torch.isfinite(la).all()) and diff == 0.0,
           f"{tag}: the routes' prefill logits differ by {diff}")
     tok = torch.argmax(lc[:, -1], dim=-1, keepdim=True)
-    ld, _ = lm.decode_step(plain, cfg, cache, t, {"tokens": tok})
-    full = lm.forward(plain, cfg, {"tokens": torch.cat([prompt_t, tok], 1)})
+    ld, _ = lm.decode_step(plain, cfg, cache, pre + t, {"tokens": tok})
+    full = lm.forward(plain, cfg, dict(batch, tokens=torch.cat([prompt_t,
+                                                                tok], 1)))
     check(bool(torch.isfinite(full).all() and torch.isfinite(ld).all()),
           f"{tag}: non-finite logits")
-    dec_err = float((ld[:, 0] - full[:, t]).abs().max())
-    close = bool(torch.allclose(ld[:, 0], full[:, t], atol=0.12, rtol=0.05))
+    dec_err = float((ld[:, 0] - full[:, pre + t]).abs().max())
+    close = bool(torch.allclose(ld[:, 0], full[:, pre + t], atol=0.12,
+                                rtol=0.05))
     # the same forward at t and t + 1 tokens, at position t - 1: bf16's
     # noise floor for this model (no decode step involved)
-    floor = float((lc[:, 0] - full[:, t - 1]).abs().max())
+    floor = float((lc[:, 0] - full[:, pre + t - 1]).abs().max())
     log(f"{tag} prefill logits max |d| {diff}; bf16 decode vs forward max "
         f"|d| {dec_err} (within atol 0.12 / rtol 0.05: {close}; logged); "
         f"bf16 forward at {t} vs {t + 1} tokens max |d| {floor}")
     del la, lc, ld, full, cache
+    encoder_ms = None
+    if "frames" in extra:
+        with torch.no_grad():
+            encoder_ms = time_ms(torch, lambda: lm._encode(
+                plain, cfg, extra["frames"]), 3)
+        log(f"{tag} encoder over {tuple(extra['frames'].shape)} frames: "
+            f"{encoder_ms} ms")
     path_peak = torch.cuda.max_memory_allocated()
     timings["logit_check_s"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # route (a)'s kernel shapes against their plain versions: the one-hot
-    # shares at a decode step (M = b) and the prefill (M = b·t), each
-    # contracted with the table (tall or general, as ``ops.ss_matmul``
-    # routes it)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 8 + idx)
+    # route (a)'s kernel shapes against their plain versions and timed
+    # against their bounds: the one-hot shares at a decode step (M = b)
+    # and the prefill (M = b·t), each contracted with the table (tall or
+    # general, as ``ops.ss_matmul`` routes it); the plain contraction
+    # takes PLAIN_COLS columns of the table at a time
+    gen = torch.Generator(device=dev).manual_seed(args.seed + slice_no + idx)
+    c, v, d = table.values.shape
+    kernel_ms = {}
     for m in (b, b * t):
-        mtoks = torch.randint(0, cfg.vocab_size, (m,), generator=gen,
-                              device=dev)
-        a1 = rand_field(torch, gen, (m, cfg.vocab_size), dev)
-        shared = ops.share_onehot(mtoks, a1, n_shares=EMBED_SHARES)
-        want_sh = ssm.share_onehot_plain(mtoks, a1, n_shares=EMBED_SHARES)
+        mtoks = torch.randint(0, v, (m,), generator=gen, device=dev)
+        a1 = rand_field(torch, gen, (m, v), dev)
+        shared = ops.share_onehot(mtoks, a1, n_shares=c)
+        want_sh = ssm.share_onehot_plain(mtoks, a1, n_shares=c)
         torch.cuda.synchronize()
         check(torch.equal(shared, want_sh), f"{tag}: share_onehot at "
               f"{tuple(shared.shape)} differs from its plain version")
-        del want_sh, a1
-        name = ("ss_matmul_tall" if ssm.is_tall_skinny(
-            m, cfg.vocab_size, cfg.d_model) else "ss_matmul")
+        del want_sh
+        name = ("ss_matmul_tall" if ssm.is_tall_skinny(m, v, d)
+                else "ss_matmul")
         got_mm = ops.ss_matmul(shared, table.values)
-        want_mm = ssm.ss_matmul_plain(shared, table.values)
-        torch.cuda.synchronize()
-        check(torch.equal(got_mm, want_mm), f"{tag}: {name} at M = {m} "
-              f"differs from its plain version")
-        del shared, got_mm, want_mm
+        plain_ms = 0.0
+        for lo in range(0, d, PLAIN_COLS):
+            cols = table.values[..., lo:lo + PLAIN_COLS]
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want_mm = ssm.ss_matmul_plain(shared, cols)
+            stop.record()
+            torch.cuda.synchronize()
+            plain_ms += start.elapsed_time(stop)
+            check(torch.equal(got_mm[..., lo:lo + PLAIN_COLS], want_mm),
+                  f"{tag}: {name} at M = {m}, columns {lo}.. differ from "
+                  f"its plain version")
+            del want_mm
+        del got_mm
+        onehot_ms = time_ms(torch, lambda: ops.share_onehot(
+            mtoks, a1, n_shares=c), 5)
+        mm_ms = time_ms(torch, lambda: ops.ss_matmul(shared, table.values),
+                        5)
+        mm_bytes = 4 * (c * m * v + c * v * d + c * m * d)
+        mm_ops = 32 * c * m * v * d
+        onehot_bound = bound(4 * (m * v + m + c * m * v), (c + 1) * m * v)
+        kernel_ms[f"M={m}"] = {
+            "share_onehot_ms": onehot_ms, "share_onehot_bound": onehot_bound,
+            f"{name}_ms": mm_ms, f"{name}_plain_ms": plain_ms,
+            f"{name}_bound": bound(mm_bytes, mm_ops, INT8_TENSOR_OPS_PER_S)}
+        log(f"{tag} share_onehot {(c, m, v)}: {onehot_ms} ms, bound "
+            f"{onehot_bound}; {name} {(c, m, v)} @ {(c, v, d)}: {mm_ms} ms, "
+            f"plain {plain_ms} ms, bound "
+            f"{bound_note(mm_bytes, mm_ops, INT8_TENSOR_OPS_PER_S)}")
+        del shared, a1
     timings["kernel_check_s"] = time.perf_counter() - t_phase
     log(f"{tag} kernels == plain versions: share_onehot and the table "
         f"contraction at M = {b} and {b * t} "
@@ -2167,13 +2331,16 @@ def family_path(torch, args, idx, arch, layers, t, fields):
         "idle_share": {r: sp["idle_share"] for r, sp in split_dev.items()},
         "device_ms": split_dev,
         "decode_vs_forward": dec_err, "bf16_noise_floor": floor,
-        "peak_gb": path_peak / 1e9}
+        "peak_gb": path_peak / 1e9, "setup_margin_gb": margin,
+        "encoder_ms": encoder_ms, "kernels": kernel_ms}
     log(f"{tag} summary " + json.dumps(summary))
     del servers, table, params, plain
-    if arch in SLICE8_DECODE_HELD:
+    if arch in DECODE_HELD:
+        f32_cfg = dataclasses.replace(cfg, n_layers=F32_LAYERS.get(
+            arch, cfg.n_layers))
         summary["f32_decode_vs_forward"] = clock(
-            "f32_check_s", lambda: f32_decode_check(torch, args, cfg,
-                                                    prompt_t, tag))
+            "f32_check_s", lambda: f32_decode_check(torch, args, f32_cfg,
+                                                    batch, pre, tag))
     summary["phase_s"] = {k: v for k, v in timings.items()
                           if k.endswith("check_s") or k.endswith("split_s")
                           or k.endswith("windows_s")}
@@ -2181,9 +2348,10 @@ def family_path(torch, args, idx, arch, layers, t, fields):
     return dict(total), summary
 
 
-def f32_decode_check(torch, args, cfg, prompt_t, tag) -> float:
+def f32_decode_check(torch, args, cfg, batch, pre, tag) -> float:
     """``cfg`` in float32 (weights drawn from ``--seed``, no table): one
-    decode step after the prompt against the full forward at that
+    decode step after the prompt ``batch`` (its frontend inputs included;
+    a ViT prefix of ``pre`` positions) against the full forward at that
     position, within F32_ATOL / F32_RTOL. Returns the largest
     difference."""
     import dataclasses
@@ -2194,20 +2362,19 @@ def f32_decode_check(torch, args, cfg, prompt_t, tag) -> float:
     gc.collect()
     torch.cuda.empty_cache()
     params = lm.init_params(args.seed, f32)
-    t = prompt_t.shape[1]
-    logits, cache = lm.prefill(params, f32, {"tokens": prompt_t},
-                               max_len=t + 1)
+    pos = pre + batch["tokens"].shape[1]
+    logits, cache = lm.prefill(params, f32, batch, max_len=pos + 1)
     tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
-    ld, _ = lm.decode_step(params, f32, cache, t, {"tokens": tok})
-    full = lm.forward(params, f32, {"tokens": torch.cat([prompt_t, tok],
-                                                        1)})
-    err = float((ld[:, 0] - full[:, t]).abs().max())
+    ld, _ = lm.decode_step(params, f32, cache, pos, {"tokens": tok})
+    full = lm.forward(params, f32, dict(batch, tokens=torch.cat(
+        [batch["tokens"], tok], 1)))
+    err = float((ld[:, 0] - full[:, pos]).abs().max())
     check(bool(torch.isfinite(full).all()) and torch.allclose(
-        ld[:, 0], full[:, t], atol=F32_ATOL, rtol=F32_RTOL),
+        ld[:, 0], full[:, pos], atol=F32_ATOL, rtol=F32_RTOL),
         f"{tag}: float32 decode_step differs from forward (max |d| {err}, "
         f"atol {F32_ATOL}, rtol {F32_RTOL})")
     log(f"{tag} float32 decode vs forward max |d| {err} (atol {F32_ATOL}, "
-        f"rtol {F32_RTOL})")
+        f"rtol {F32_RTOL}; {cfg.n_layers} layers)")
     del params, cache, ld, full, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -2230,6 +2397,26 @@ def families_path(torch, args, families=SLICE8_FAMILIES):
     for name in SLICE8_KERNELS:
         check(total[name] > 0, f"slice 8 launched no {name}")
     log(f"slice-8 launches {dict(total)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(total)
+
+
+def slice9_path(torch, args):
+    """Phase 3, slice 9 (after slice 8, on a freed card): the
+    encoder-decoder and the ViT-prefixed families (SLICE9_FAMILIES), each
+    through :func:`family_path` with its frontend input, its parameters
+    freed before the next starts. Returns the launches of the route
+    windows, summed over the families."""
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    for idx, (arch, layers, t, fields, frontend) in enumerate(
+            SLICE9_FAMILIES):
+        got, _ = family_path(torch, args, idx, arch, layers, t, fields,
+                             frontend=frontend, slice_no=9)
+        total.update(got)
+    for name in SLICE9_KERNELS:
+        check(total[name] > 0, f"slice 9 launched no {name}")
+    log(f"slice-9 launches {dict(total)} in "
         f"{time.perf_counter() - t0:.1f} s")
     return dict(total)
 
@@ -3124,9 +3311,10 @@ def setup_peak_only(torch, args) -> int:
 
 def decode_times_only(torch, args) -> int:
     """``--decode-times SRC``: with the port under SRC, for slice 7's
-    configuration and each of slice 8's that the port runs (a family it
-    does not run is listed as unported), plaintext, bf16, synthetic
-    weights from ``--seed``: prefill ms and decode ms a step over
+    configuration and each of slices 8 and 9's that the port runs (a
+    family that an older port refuses with ``NotImplementedError`` is
+    listed as unported), plaintext, bf16, synthetic weights and frontend
+    inputs from ``--seed``: prefill ms and decode ms a step over
     SLICE8_NEW - 1 steps of SLICE8_BATCH requests (three rounds), and the
     aten calls of one decode step (``torch.profiler``, CPU activity), as
     one JSON line (two checkouts compare on one card when both run in one
@@ -3139,40 +3327,51 @@ def decode_times_only(torch, args) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for arch, layers, t in ([(LM_ARCH, None, LM_PROMPT)]
-                            + [f[:3] for f in SLICE8_FAMILIES]):
+    for arch, layers, t, frontend in (
+            [(LM_ARCH, None, LM_PROMPT, None)]
+            + [f[:3] + (None,) for f in SLICE8_FAMILIES]
+            + [f[:3] + f[4:] for f in SLICE9_FAMILIES]):
         cfg = configs.full(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         try:
-            lm.check_supported(cfg)
+            getattr(lm, "check_supported", lambda _: None)(cfg)
         except NotImplementedError:
             out[arch] = "unported"
             continue
         params = lm.init_params(args.seed, cfg)
-        toks = torch.as_tensor(np.random.default_rng(args.seed).integers(
-            0, cfg.vocab_size, (SLICE8_BATCH, t)),
-            device=params["final_norm"].device)
+        dev = params["final_norm"].device
+        rng = np.random.default_rng(args.seed)
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (SLICE8_BATCH, t)), device=dev)}
+        pre = 0
+        if frontend is not None:
+            name, n = frontend
+            batch[name] = torch.as_tensor(rng.standard_normal(
+                (SLICE8_BATCH, n, cfg.frontend_dim)),
+                dtype=torch.float32).to(dev)
+            pre = n if name == "patches" else 0
+        pos = pre + t
         rounds = []
         with torch.no_grad():
             for _ in range(3):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                logits, cache = lm.prefill(params, cfg, {"tokens": toks},
-                                           max_len=t + SLICE8_NEW)
+                logits, cache = lm.prefill(params, cfg, batch,
+                                           max_len=pos + SLICE8_NEW)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
                 for i in range(SLICE8_NEW - 1):
-                    logits, cache = lm.decode_step(params, cfg, cache, t + i,
-                                                   {"tokens": tok})
+                    logits, cache = lm.decode_step(params, cfg, cache,
+                                                   pos + i, {"tokens": tok})
                     tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
                 torch.cuda.synchronize()
                 rounds.append({"prefill_ms": 1e3 * (t1 - t0),
                                "decode_ms": 1e3 * (time.perf_counter() - t1)
                                / (SLICE8_NEW - 1)})
             with profile(activities=[ProfilerActivity.CPU]) as prof:
-                lm.decode_step(params, cfg, cache, t + SLICE8_NEW - 1,
+                lm.decode_step(params, cfg, cache, pos + SLICE8_NEW - 1,
                                {"tokens": tok})
                 torch.cuda.synchronize()
         calls = sum(e.count for e in prof.key_averages()
@@ -3208,7 +3407,7 @@ def main() -> int:
                          "port under SRC, and print them as JSON")
     ap.add_argument("--decode-times", metavar="SRC",
                     help="only time prefill and decode steps and count a "
-                         "decode step's aten calls for slices 7 and 8's "
+                         "decode step's aten calls for slices 7, 8 and 9's "
                          "configurations with the port under SRC, and print "
                          "them as JSON")
     args = ap.parse_args()
@@ -3292,9 +3491,15 @@ def main() -> int:
     path8 = families_path(torch, args)
     log("slice-8 path: private and plaintext generations are identical "
         "for every family")
+    gc.collect()
+    torch.cuda.empty_cache()
+    path9 = slice9_path(torch, args)
+    log("slice-9 path: private and plaintext generations are identical "
+        "for the encoder-decoder and the ViT-prefixed families")
     for entry in kernels:
         name = entry["name"].split("[")[0]
-        entry["launches"] += path7.get(name, 0) + path8.get(name, 0)
+        entry["launches"] += sum(p.get(name, 0) for p in (path7, path8,
+                                                          path9))
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[name])
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -83,11 +83,13 @@ class BatchServer:
 
     ``params`` must lie on ``device`` (default CUDA; ``device="cpu"`` for
     the CPU). ``max_len`` is the cache capacity: a batch needs
-    prompt length + max_new − 1 positions, and a longer one raises."""
+    prompt length + max_new − 1 positions, and a longer one raises. A
+    batch is its prompts' tokens only, as the reference's: a ViT model
+    serves text without its prefix, and an encoder-decoder raises
+    ``KeyError`` for the frames it lacks."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 256,
                  device=None):
-        lm.check_supported(cfg)
         self.device = _device.resolve(device)
         held = params["final_norm"].device
         if held.type != self.device.type:

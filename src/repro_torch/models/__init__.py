@@ -1,8 +1,8 @@
-# The decoders (models/lm.py over models/layers.py and models/ssm.py: dense
-# GQA, MLA, MoE, Mamba-2 SSM and hybrid) and their configuration, and the
-# paper-integrated private embedding lookup (§3.2.1 selection as an LM
-# layer): table set-up, the relation wrapper and the per-call, batched and
-# in-model lookups. Encoder-decoder and VLM wait (ROADMAP.md, Queue 1).
+# The models (models/lm.py over models/layers.py and models/ssm.py: dense
+# GQA, MLA, MoE, Mamba-2 SSM, hybrid, encoder-decoder and ViT-prefixed) and
+# their configuration, and the paper-integrated private embedding lookup
+# (§3.2.1 selection as an LM layer): table set-up, the relation wrapper and
+# the per-call, batched and in-model lookups.
 from . import private_embed
 from .config import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K,
                      TRAIN_4K, ModelConfig, ShapeConfig)

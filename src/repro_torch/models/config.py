@@ -4,8 +4,7 @@ One dataclass drives the whole zoo; family-specific fields are ignored by
 families that don't use them. Full configs live in
 ``repro_torch.configs.<arch>``; every full config has a reduced ``smoke()``
 sibling for CPU tests. The port's model (``repro_torch.models.lm``) runs
-the dense, MLA, MoE, SSM and hybrid decoders; the encoder-decoder and
-VLM families raise ``NotImplementedError`` there.
+every family.
 """
 from __future__ import annotations
 

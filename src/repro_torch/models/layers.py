@@ -1,5 +1,6 @@
 """Transformer layers: RMSNorm, RoPE (full or partial), GQA attention with
-QKV bias, QK-norm, sliding window and soft-cap, MLA (multi-head latent)
+QKV bias, QK-norm, sliding window and soft-cap (and its cross-attention
+form over an encoder's keys and values), MLA (multi-head latent)
 attention, the gated MLPs and top-k MoE. Plain PyTorch on tensors,
 dtype-explicit, as ``repro.models.layers`` is plain ``jnp``.
 
@@ -251,39 +252,69 @@ def attention_init(key, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
-def attention_qkv(p: dict, cfg: ModelConfig, x: Tensor, positions: Tensor,
-                  inv_freq: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+def attention_q(p: dict, cfg: ModelConfig, x: Tensor, positions: Tensor,
+                inv_freq: Tensor) -> Tensor:
+    """Queries (B, T, Hq, D): projected, biased, QK-normed and roped."""
+    b, t, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, t, cfg.n_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    return apply_rope(q, positions, inv_freq)
+
+
+def attention_kv(p: dict, cfg: ModelConfig, x: Tensor
+                 ) -> Tuple[Tensor, Tensor]:
+    """Keys and values (B, T, Hkv, D), projected and biased only: a
+    cross-attention layer's keys and values over the encoder output, as
+    the reference's ``lm._block_apply`` computes them (not roped, not
+    normed)."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, t, cfg.n_heads, hd)
-    k = k.reshape(b, t, cfg.n_kv_heads, hd)
-    v = v.reshape(b, t, cfg.n_kv_heads, hd)
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(b, t, cfg.n_kv_heads, hd),
+            v.reshape(b, t, cfg.n_kv_heads, hd))
+
+
+def attention_qkv(p: dict, cfg: ModelConfig, x: Tensor, positions: Tensor,
+                  inv_freq: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    q = attention_q(p, cfg, x, positions, inv_freq)
+    k, v = attention_kv(p, cfg, x)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, inv_freq)
-    k = apply_rope(k, positions, inv_freq)
-    return q, k, v
+    return q, apply_rope(k, positions, inv_freq), v
 
 
 def attention_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
                       positions: Tensor, inv_freq: Tensor,
                       window: Optional[int], causal: bool = True,
                       kv_cache: Optional[Tuple[Tensor, Tensor]] = None,
-                      cache_len: Optional[int] = None) -> Tensor:
-    """Full path when ``kv_cache`` is None; cached path otherwise.
+                      cache_len: Optional[int] = None,
+                      cross_kv: Optional[Tuple[Tensor, Tensor]] = None
+                      ) -> Tensor:
+    """Full path when ``kv_cache`` is None; cached path otherwise;
+    cross-attention when ``cross_kv`` is given.
 
     kv_cache: (k_cache, v_cache) of shape (B, S_max, Hkv, D), written IN
     PLACE at [cache_len, cache_len + T) (the reference returns an updated
     copy, which its server donates); ``cache_len`` is the number of valid
-    entries before this call. Returns the layer output (B, T, d_model).
+    entries before this call. cross_kv: the encoder's keys and values
+    (B, T_enc, Hkv, D) from :func:`attention_kv`; the queries, roped at
+    ``positions``, attend to all of them (not causal). Returns the layer
+    output (B, T, d_model).
     """
     b, t, _ = x.shape
+    if cross_kv is not None:
+        q = attention_q(p, cfg, x, positions, inv_freq)
+        out = flash_attention(q, *cross_kv, causal=False,
+                              softcap=cfg.logit_softcap)
+        out = out.reshape(b, t, cfg.n_heads * cfg.resolved_head_dim)
+        return out @ p["wo"]
     q, k, v = attention_qkv(p, cfg, x, positions, inv_freq)
     if kv_cache is None:
         out = flash_attention(q, k, v, window=window, causal=causal,

@@ -1,6 +1,8 @@
-"""Decoder-only LMs behind the reference's functional API: the dense GQA
-family, MLA attention (minicpm3), MoE (granite, moonshot), the Mamba-2 SSM
-(mamba2) and the hybrid attention + SSM block (hymba).
+"""Every model family of the reference behind its functional API: the
+dense GQA decoders, MLA attention (minicpm3), MoE (granite, moonshot), the
+Mamba-2 SSM (mamba2), the hybrid attention + SSM block (hymba), the
+encoder-decoder (seamless, an audio frontend) and the vision-prefixed
+decoder (internvl).
 
     params = init_params(seed, cfg)                    # CUDA by default
     params = params_from_arrays(reference_params)      # carried across
@@ -8,6 +10,16 @@ family, MLA attention (minicpm3), MoE (granite, moonshot), the Mamba-2 SSM
     logits, cache = prefill(params, cfg, {"tokens": toks}, max_len=96)
     logits, cache = decode_step(params, cfg, cache, cache_len,
                                 {"tokens": next_toks})
+
+An encoder-decoder batch also carries ``frames`` (B, T_enc,
+frontend_dim): :func:`_encode` projects them with ``frontend_proj`` and
+runs the encoder stack, and every decoder layer cross-attends to its
+output. A ViT batch may carry ``patches`` (B, n_prefix, frontend_dim):
+their projections go before the token embeddings, so the positions, the
+cache and a decode step's ``cache_len`` count them. The frontends are the
+reference's stubs (precomputed frame and patch embeddings); the private
+lookup shares the tokens only, the patches and frames being the user's
+own plaintext input.
 
 The parameter tree is the reference's (``repro.models.lm``): block tensors
 are stacked with a leading layer axis, so the two trees map one to one and
@@ -18,9 +30,10 @@ reference's per-layer window list, ``GLOBAL_WINDOW`` for global layers.
 
 The decode cache is preallocated and updated in place: the attention
 layers copy each step's keys and values (MLA: its compressed latent and
-rope rows) into it, and the SSM's conv buffers and state are copied over
-its slots; ``prefill`` and ``decode_step`` return the same dict they
-wrote.
+rope rows) into it, the SSM's conv buffers and state are copied over its
+slots, and a prefill writes the encoder's cross-attention keys and values
+once, which decode steps only read; ``prefill`` and ``decode_step``
+return the same dict they wrote.
 
 Token embeddings come from one of three sources (:func:`_embed_tokens`):
 precomputed ``embeds`` (a serving frontend already ran the lookups, e.g.
@@ -28,9 +41,7 @@ obliviously through an ``EmbedLookup`` plan), the private path
 (``cfg.private_embed``: ``private_embed.private_lookup_inline``), or the
 plaintext table.
 
-The encoder-decoder stack and the vision/audio frontends (the ``encdec``
-and ``vlm`` families) raise ``NotImplementedError`` (``ROADMAP.md``,
-Queue 1), and so does ``train_loss``.
+``train_loss`` raises ``NotImplementedError`` (``ROADMAP.md``, Queue 1).
 """
 from __future__ import annotations
 
@@ -53,22 +64,6 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family or field the port does
-    not run yet; nothing else is ever run in its place."""
-    unported = []
-    if cfg.family in ("encdec", "vlm"):
-        unported.append(f"family {cfg.family!r}")
-    if cfg.n_enc_layers:
-        unported.append("the encoder-decoder stack")
-    if cfg.frontend:
-        unported.append(f"the {cfg.frontend!r} frontend")
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported to repro_torch "
-            f"yet (ROADMAP.md, Queue 1)")
-
-
 def _params_device(params: dict) -> torch.device:
     return params["final_norm"].device
 
@@ -77,13 +72,17 @@ def _params_device(params: dict) -> torch.device:
 # init
 # ---------------------------------------------------------------------------
 
-def _block_init(key, cfg: ModelConfig, device) -> dict:
+def _block_init(key, cfg: ModelConfig, device, *, cross: bool = False
+                ) -> dict:
     """One layer's tree, as the reference's: an SSM block holds ``ln1`` and
     ``ssm``; the others ``ln1``, ``attn`` (GQA or MLA), the hybrid's
-    ``ssm`` with its 0-d float32 gates ``mix_a``/``mix_s``, ``ln2`` and
-    ``moe`` (family moe) or ``mlp``."""
+    ``ssm`` with its 0-d float32 gates ``mix_a``/``mix_s``, with ``cross``
+    a decoder layer's cross-attention ``cross`` and ``ln_cross``, ``ln2``
+    and ``moe`` (family moe) or ``mlp``. ``_device.split`` folds child i
+    into the key, so a child's draws do not depend on how many children
+    are split: ``cross`` takes the fourth and leaves the other three's."""
     dt = _dtype(cfg)
-    ks = _device.split(key, 3)
+    ks = _device.split(key, 4)
     p: Dict[str, Any] = {"ln1": L.rmsnorm_init(cfg.d_model, device)}
     if cfg.family == "ssm":
         p["ssm"] = S.ssm_init(ks[0], cfg, dt, device)
@@ -96,6 +95,9 @@ def _block_init(key, cfg: ModelConfig, device) -> dict:
         p["ssm"] = S.ssm_init(ks[2], cfg, dt, device)
         p["mix_a"] = torch.zeros((), dtype=torch.float32, device=device)
         p["mix_s"] = torch.zeros((), dtype=torch.float32, device=device)
+    if cross:
+        p["cross"] = L.attention_init(ks[3], cfg, dt, device)
+        p["ln_cross"] = L.rmsnorm_init(cfg.d_model, device)
     p["ln2"] = L.rmsnorm_init(cfg.d_model, device)
     if cfg.n_experts and cfg.family == "moe":
         p["moe"] = L.moe_init(ks[1], cfg, dt, device)
@@ -110,14 +112,19 @@ def init_params(key, cfg: ModelConfig, device=None) -> dict:
     reference's tree and scales: dense weights standard normal /
     sqrt(fan-in), norms and biases zero. The numbers are not the
     reference's (torch generators, not threefry); carry a reference tree
-    across with :func:`params_from_arrays` instead.
+    across with :func:`params_from_arrays` instead. An encoder-decoder
+    adds ``enc_blocks`` (``n_enc_layers`` stacked, no cross-attention),
+    ``enc_norm`` and cross-attention in every decoder block; a frontend
+    adds ``frontend_proj`` (frontend_dim, d_model). Their keys are
+    children 3 and 4 of ``key``; children 0-2 (the table, the blocks, the
+    head) draw the same whether or not a family has them.
 
     Layers are drawn one at a time into the stacked tensors, so the
     float32 transient is one layer's weight, not the stack's."""
-    check_supported(cfg)
     dev = _device.resolve(device)
     dt = _dtype(cfg)
-    k_emb, k_blocks, k_head = _device.split(_device.as_key(key), 3)
+    k_emb, k_blocks, k_head, k_enc, k_fe = _device.split(
+        _device.as_key(key), 5)
     gen = _device.generator(k_emb, dev)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         device=dev, dtype=torch.float32)
@@ -126,17 +133,33 @@ def init_params(key, cfg: ModelConfig, device=None) -> dict:
         "final_norm": L.rmsnorm_init(cfg.d_model, dev),
     }
     del embed
-    layer = _block_init(_device.fold(k_blocks, 0), cfg, dev)
-    blocks = _map(lambda t: t.new_empty((cfg.n_layers,) + t.shape), layer)
-    for i in range(cfg.n_layers):
-        if i:
-            layer = _block_init(_device.fold(k_blocks, i), cfg, dev)
-        _copy_layer(blocks, i, layer)
-    params["blocks"] = blocks
+    cross = cfg.n_enc_layers > 0
+    params["blocks"] = _stack_init(k_blocks, cfg, cfg.n_layers, dev,
+                                   cross=cross)
+    if cross:
+        params["enc_blocks"] = _stack_init(k_enc, cfg, cfg.n_enc_layers,
+                                           dev)
+        params["enc_norm"] = L.rmsnorm_init(cfg.d_model, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(k_head, cfg.d_model, cfg.vocab_size,
                                          dt, dev)
+    if cfg.frontend:
+        params["frontend_proj"] = L.dense_init(k_fe, cfg.frontend_dim,
+                                               cfg.d_model, dt, dev)
     return params
+
+
+def _stack_init(key, cfg: ModelConfig, n: int, device, *,
+                cross: bool = False) -> dict:
+    """``n`` layers drawn from ``fold(key, i)``, stacked (L-leading)."""
+    layer = _block_init(_device.fold(key, 0), cfg, device, cross=cross)
+    blocks = _map(lambda t: t.new_empty((n,) + t.shape), layer)
+    for i in range(n):
+        if i:
+            layer = _block_init(_device.fold(key, i), cfg, device,
+                                cross=cross)
+        _copy_layer(blocks, i, layer)
+    return blocks
 
 
 def _map(fn, tree):
@@ -215,8 +238,14 @@ def _ssm_apply(p: dict, cfg: ModelConfig, u: Tensor, mode: str,
 
 def _block_apply(cfg: ModelConfig, p: dict, x: Tensor, *, positions: Tensor,
                  inv_freq: Tensor, window: int, mode: str,
-                 cache: Optional[dict], cache_len: Optional[int]) -> Tensor:
-    """mode: 'train' (no cache) | 'prefill' (fill the cache) | 'decode'."""
+                 cache: Optional[dict], cache_len: Optional[int],
+                 enc_out: Optional[Tensor] = None) -> Tensor:
+    """mode: 'train' (no cache) | 'prefill' (fill the cache) | 'decode'.
+
+    A decoder layer of an encoder-decoder cross-attends when ``enc_out``
+    is given (train, prefill) or in decode: a prefill computes the cross
+    keys and values from ``enc_out`` and copies them into the layer's
+    ``cache["cross"]`` slots, a decode step reads them there."""
     if cfg.family == "ssm":
         return x + _ssm_apply(p["ssm"], cfg,
                               L.rmsnorm(x, p["ln1"], cfg.norm_eps), mode,
@@ -239,6 +268,18 @@ def _block_apply(cfg: ModelConfig, p: dict, x: Tensor, *, positions: Tensor,
         x = x + a * ga + s_out * gs
     else:
         x = x + a
+    if cfg.n_enc_layers and (enc_out is not None or mode == "decode"):
+        yc = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        if mode == "decode":
+            cross_kv = cache["cross"]
+        else:
+            cross_kv = L.attention_kv(p["cross"], cfg, enc_out)
+            if mode == "prefill":
+                for dst, src in zip(cache["cross"], cross_kv):
+                    dst.copy_(src)
+        x = x + L.attention_forward(p["cross"], cfg, yc, positions=positions,
+                                    inv_freq=inv_freq, window=None,
+                                    cross_kv=cross_kv)
     y2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         return x + L.moe_forward(p["moe"], cfg, y2)
@@ -252,12 +293,15 @@ def _layer_cache(caches: dict, i: int) -> dict:
         out["kv"] = tuple(a[i] for a in caches["kv"])
     if "ssm" in caches:
         out["ssm"] = S.SSMCache(*(a[i] for a in caches["ssm"]))
+    if "cross" in caches:
+        out["cross"] = tuple(a[i] for a in caches["cross"])
     return out
 
 
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: Tensor, *,
                 positions: Tensor, caches: Optional[dict],
-                cache_len: Optional[int], mode: str) -> Tensor:
+                cache_len: Optional[int], mode: str,
+                enc_out: Optional[Tensor] = None) -> Tensor:
     inv_freq = L.rope_freqs(
         cfg.resolved_head_dim if cfg.attn_type != "mla"
         else cfg.qk_rope_head_dim,
@@ -267,7 +311,7 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: Tensor, *,
                          inv_freq=inv_freq, window=win, mode=mode,
                          cache=None if caches is None
                          else _layer_cache(caches, i),
-                         cache_len=cache_len)
+                         cache_len=cache_len, enc_out=enc_out)
     return x
 
 
@@ -294,6 +338,17 @@ def _embed_tokens(params: dict, cfg: ModelConfig, tokens,
     return x
 
 
+def _prefix_inputs(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
+    """The input sequence: [the patches' projections, for a ViT batch that
+    carries ``patches``] + the token embeddings."""
+    x = _embed_tokens(params, cfg, batch["tokens"],
+                      embeds=batch.get("embeds"))
+    if cfg.frontend == "vit" and "patches" in batch:
+        patches = torch.as_tensor(batch["patches"]).to(x.device, x.dtype)
+        x = torch.cat([patches @ params["frontend_proj"], x], dim=1)
+    return x
+
+
 def _logits(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -303,18 +358,52 @@ def _logits(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
     return logits.float()
 
 
+def _encode(params: dict, cfg: ModelConfig, frames) -> Tensor:
+    """The encoder stack (seamless): frames (B, T_enc, frontend_dim) ->
+    ``frontend_proj`` -> the ``enc_blocks`` -> ``enc_norm``.
+
+    The encoder is CAUSAL, as the reference's code runs it: its ``_encode``
+    passes ``causal=False`` to ``_block_apply`` and calls itself
+    bidirectional, but ``attention_forward``'s no-cache branch calls
+    ``flash_attention`` without ``causal``, whose default masks. The port
+    follows the code, so both give the same encoder output."""
+    dev = _params_device(params)
+    x = torch.as_tensor(frames).to(dev, _dtype(cfg)) @ params["frontend_proj"]
+    positions = torch.arange(x.shape[1], device=dev)[None, :]
+    inv_freq = L.rope_freqs(cfg.resolved_head_dim, cfg.rope_fraction,
+                            cfg.rope_theta, dev)
+    for i in range(cfg.n_enc_layers):
+        x = _block_apply(cfg, _layer(params["enc_blocks"], i), x,
+                         positions=positions, inv_freq=inv_freq,
+                         window=GLOBAL_WINDOW, mode="train", cache=None,
+                         cache_len=None)
+    return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _encoder_output(params: dict, cfg: ModelConfig,
+                    batch: dict) -> Optional[Tensor]:
+    """The encoder's output for an encoder-decoder batch, else None."""
+    if not cfg.n_enc_layers:
+        return None
+    if "frames" not in batch:
+        raise KeyError(f"{cfg.name}: an encoder-decoder batch needs "
+                       f"'frames' (B, T_enc, {cfg.frontend_dim})")
+    return _encode(params, cfg, batch["frames"])
+
+
 # ---------------------------------------------------------------------------
 # public API: forward / prefill / decode
 # ---------------------------------------------------------------------------
 
 def forward(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
-    """Full-sequence forward -> float32 logits (B, T, V)."""
-    check_supported(cfg)
-    x = _embed_tokens(params, cfg, batch["tokens"],
-                      embeds=batch.get("embeds"))
+    """Full-sequence forward -> float32 logits (B, T, V), T counting a ViT
+    prefix."""
+    enc_out = _encoder_output(params, cfg, batch)
+    x = _prefix_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x = _run_blocks(cfg, params["blocks"], x, positions=positions,
-                    caches=None, cache_len=None, mode="train")
+                    caches=None, cache_len=None, mode="train",
+                    enc_out=enc_out)
     return _logits(params, cfg, x)
 
 
@@ -323,14 +412,15 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict):
                               "(ROADMAP.md, Queue 1: the training slice)")
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               *, device=None) -> dict:
     """Stacked (L-leading) decode cache on ``device`` (default CUDA), in
     ``cfg.dtype`` but the SSM state (float32): ``kv`` for every family
     but SSM, each of (L, B, max_len, Hkv, head_dim) (MLA: (L, B, max_len,
     kv_lora_rank) and (L, B, max_len, qk_rope_head_dim)); ``ssm``, an
-    L-stacked ``SSMCache``, for the SSM and hybrid families."""
-    check_supported(cfg)
+    L-stacked ``SSMCache``, for the SSM and hybrid families; ``cross``,
+    the encoder's keys and values, each of (L, B, enc_len, Hkv, head_dim),
+    for an encoder-decoder."""
     dev = _device.resolve(device)
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {}
@@ -349,22 +439,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["ssm"] = S.SSMCache(*(
             torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
                         device=dev) for a in one))
+    if cfg.n_enc_layers:
+        shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["cross"] = (torch.zeros(shape, dtype=dt, device=dev),
+                          torch.zeros(shape, dtype=dt, device=dev))
     return cache
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
             max_len: Optional[int] = None) -> Tuple[Tensor, dict]:
-    """Run the prompt through the model -> (last-token float32 logits
-    (B, 1, V), a decode-ready cache of capacity ``max_len``, default the
-    prompt length)."""
-    check_supported(cfg)
-    x = _embed_tokens(params, cfg, batch["tokens"],
-                      embeds=batch.get("embeds"))
+    """Run the prompt (a ViT prefix included) through the model ->
+    (last-token float32 logits (B, 1, V), a decode-ready cache of capacity
+    ``max_len``, default the prompt length). The next ``decode_step``'s
+    ``cache_len`` is the prompt length, the prefix counted."""
+    enc_out = _encoder_output(params, cfg, batch)
+    x = _prefix_inputs(params, cfg, batch)
     b, t, _ = x.shape
-    caches = init_cache(cfg, b, max_len or t, device=x.device)
+    caches = init_cache(cfg, b, max_len or t,
+                        0 if enc_out is None else enc_out.shape[1],
+                        device=x.device)
     positions = torch.arange(t, device=x.device)[None, :]
     x = _run_blocks(cfg, params["blocks"], x, positions=positions,
-                    caches=caches, cache_len=0, mode="prefill")
+                    caches=caches, cache_len=0, mode="prefill",
+                    enc_out=enc_out)
     return _logits(params, cfg, x[:, -1:]), caches
 
 
@@ -375,8 +473,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, cache_len: int,
 
     ``batch["embeds"]``, when present, carries this step's already-computed
     token embeddings (e.g. an oblivious ``EmbedLookup`` served off-graph);
-    otherwise the embeddings come from ``batch["tokens"]``."""
-    check_supported(cfg)
+    otherwise the embeddings come from ``batch["tokens"]``. An
+    encoder-decoder reads its cross-attention keys and values from
+    ``cache["cross"]``, as the prefill wrote them."""
     x = _embed_tokens(params, cfg, batch["tokens"],
                       embeds=batch.get("embeds"))
     cache_len = int(cache_len)

@@ -7,11 +7,13 @@ on identical tokens (drawn with numpy from a seed):
 * qwen1.5-4b, chatglm3-6b (GQA, RoPE on half the head dims), gemma3-1b
   (sliding window with ``global_every``, QK-norm, GeGLU, tied and scaled
   embeddings), minicpm3-4b (MLA), granite and moonshot (MoE, the latter
-  with shared experts), mamba2-2.7b (SSM) and hymba-1.5b (attention + SSM)
-  smoke configs in float32: ``forward``, ``prefill`` and three
-  ``decode_step``s give logits within atol 1e-4 / rtol 1e-4 of the
-  reference and caches (KV, MLA latent, SSM conv buffers and state)
-  within the same tolerance; greedy decoding picks the same tokens;
+  with shared experts), mamba2-2.7b (SSM), hymba-1.5b (attention + SSM),
+  seamless-m4t-medium (encoder-decoder; 8 audio frames a request) and
+  internvl2-76b (a ViT prefix of ``n_prefix`` patches) smoke configs in
+  float32: ``forward``, ``prefill`` and three ``decode_step``s give
+  logits within atol 1e-4 / rtol 1e-4 of the reference and caches (KV,
+  MLA latent, SSM conv buffers and state, cross-attention K/V) within the
+  same tolerance; greedy decoding picks the same tokens;
 * ``flash_attention`` past one 512-key block (Tk = 513 and 1,300) and a
   600-token prefill plus decode, within the same float32 tolerance: the
   port scans the reference's key blocks in its order;
@@ -24,8 +26,10 @@ on identical tokens (drawn with numpy from a seed):
 * decode matches forward at the same position within the reference's own
   tolerance (``tests/test_arch_smoke.py``: atol 0.12, rtol 0.05) in the
   configs' own bfloat16;
-* the encoder-decoder and VLM families, not yet ported, raise
-  ``NotImplementedError``.
+* ``train_loss``, not yet ported, raises ``NotImplementedError``.
+
+The frontend inputs (``frames``, ``patches``) are drawn with numpy from a
+seed and given to both packages (``_frontend``).
 """
 import dataclasses
 
@@ -42,13 +46,14 @@ from repro_torch.models import lm as tlm
 
 ARCHS = ["qwen1_5_4b", "chatglm3_6b", "gemma3_1b", "minicpm3_4b",
          "granite_moe_3b_a800m", "moonshot_v1_16b_a3b", "mamba2_2_7b",
-         "hymba_1_5b"]
+         "hymba_1_5b", "seamless_m4t_medium", "internvl2_76b"]
 #: a weight of each family drawn as N(0, 1/d_model) (fan-in d_model)
 PROBE = {"mla": ("attn", "wdq"), "ssm": ("ssm", "w_x"),
          "moe": ("moe", "w_gate"), "gqa": ("attn", "wq")}
 ATOL = RTOL = 1e-4           # float32 logits and caches
 BF16_ATOL, BF16_RTOL = 0.12, 0.05    # bfloat16 logits
 B, T = 2, 12
+N_FRAMES = 8                 # encoder frames a request (encoder-decoder)
 
 
 def _cfgs(arch, dtype="float32"):
@@ -66,6 +71,36 @@ def _pair(arch, dtype="float32", seed=0):
 def _tokens(cfg, shape, seed=1):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _frontend(cfg, b, seed=5):
+    """A batch's frontend inputs for ``cfg`` (numpy float32): ``frames``
+    (b, N_FRAMES, frontend_dim) for an encoder-decoder, ``patches`` (b,
+    n_prefix, frontend_dim) for a ViT prefix, nothing otherwise."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.n_enc_layers:
+        out["frames"] = rng.standard_normal(
+            (b, N_FRAMES, cfg.frontend_dim)).astype(np.float32)
+    if cfg.frontend == "vit":
+        out["patches"] = rng.standard_normal(
+            (b, cfg.n_prefix, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def _prefix(cfg):
+    """Positions a ViT prefix takes before the tokens."""
+    return cfg.n_prefix if cfg.frontend == "vit" else 0
+
+
+def _jbatch(toks, extra):
+    return {"tokens": jnp.asarray(toks),
+            **{k: jnp.asarray(v) for k, v in extra.items()}}
+
+
+def _tbatch(toks, extra):
+    return {"tokens": torch.as_tensor(toks),
+            **{k: torch.as_tensor(v) for k, v in extra.items()}}
 
 
 def _close(got, want, atol=ATOL, rtol=RTOL):
@@ -144,19 +179,20 @@ def test_init_params_tree_matches_reference(arch):
 def test_forward_prefill_decode_match_reference(arch):
     jcfg, tcfg, jp, tp = _pair(arch)
     toks = _tokens(jcfg, (B, T))
-    _close(tlm.forward(tp, tcfg, {"tokens": torch.as_tensor(toks)}),
-           jlm.forward(jp, jcfg, {"tokens": jnp.asarray(toks)}))
+    extra, pre = _frontend(jcfg, B), _prefix(jcfg)
+    _close(tlm.forward(tp, tcfg, _tbatch(toks, extra)),
+           jlm.forward(jp, jcfg, _jbatch(toks, extra)))
 
-    lj, cj = jlm.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :8])},
-                         max_len=16)
-    lt, ct = tlm.prefill(tp, tcfg, {"tokens": torch.as_tensor(toks[:, :8])},
-                         max_len=16)
+    lj, cj = jlm.prefill(jp, jcfg, _jbatch(toks[:, :8], extra),
+                         max_len=16 + pre)
+    lt, ct = tlm.prefill(tp, tcfg, _tbatch(toks[:, :8], extra),
+                         max_len=16 + pre)
     _close(lt, lj)
     for s in range(3):
         step = toks[:, 8 + s:9 + s]
-        lj, cj = jlm.decode_step(jp, jcfg, cj, 8 + s,
+        lj, cj = jlm.decode_step(jp, jcfg, cj, pre + 8 + s,
                                  {"tokens": jnp.asarray(step)})
-        lt, ct = tlm.decode_step(tp, tcfg, ct, 8 + s,
+        lt, ct = tlm.decode_step(tp, tcfg, ct, pre + 8 + s,
                                  {"tokens": torch.as_tensor(step)})
         assert lt.shape == (B, 1, tcfg.vocab_size)
         _close(lt, lj)
@@ -173,18 +209,17 @@ def test_greedy_tokens_match_reference(arch):
     """Greedy decoding through each package picks the same tokens."""
     jcfg, tcfg, jp, tp = _pair(arch, seed=2)
     prompt = _tokens(jcfg, (B, 6), seed=3)
-    lj, cj = jlm.prefill(jp, jcfg, {"tokens": jnp.asarray(prompt)},
-                         max_len=12)
-    lt, ct = tlm.prefill(tp, tcfg, {"tokens": torch.as_tensor(prompt)},
-                         max_len=12)
+    extra, pre = _frontend(jcfg, B, seed=6), _prefix(jcfg)
+    lj, cj = jlm.prefill(jp, jcfg, _jbatch(prompt, extra), max_len=12 + pre)
+    lt, ct = tlm.prefill(tp, tcfg, _tbatch(prompt, extra), max_len=12 + pre)
     tj, tt = [], []
     for i in range(5):
         nj = jnp.argmax(lj[:, -1], axis=-1)[:, None]
         nt = torch.argmax(lt[:, -1], dim=-1, keepdim=True)
         tj.append(np.asarray(nj))
         tt.append(nt.numpy())
-        lj, cj = jlm.decode_step(jp, jcfg, cj, 6 + i, {"tokens": nj})
-        lt, ct = tlm.decode_step(tp, tcfg, ct, 6 + i, {"tokens": nt})
+        lj, cj = jlm.decode_step(jp, jcfg, cj, pre + 6 + i, {"tokens": nj})
+        lt, ct = tlm.decode_step(tp, tcfg, ct, pre + 6 + i, {"tokens": nt})
     assert np.array_equal(np.concatenate(tj, 1), np.concatenate(tt, 1))
 
 
@@ -329,11 +364,14 @@ def test_decode_matches_forward(arch):
     tolerance."""
     cfg = tconfigs.smoke(arch)
     params = tlm.init_params(3, cfg, device="cpu")
-    toks = torch.as_tensor(_tokens(cfg, (1, 9), seed=4))
-    full = tlm.forward(params, cfg, {"tokens": toks})
-    _, cache = tlm.prefill(params, cfg, {"tokens": toks[:, :8]}, max_len=12)
-    l2, _ = tlm.decode_step(params, cfg, cache, 8, {"tokens": toks[:, 8:9]})
-    _close(l2[:, 0], full[:, 8], atol=BF16_ATOL, rtol=BF16_RTOL)
+    toks = _tokens(cfg, (1, 9), seed=4)
+    extra, pre = _frontend(cfg, 1), _prefix(cfg)
+    full = tlm.forward(params, cfg, _tbatch(toks, extra))
+    _, cache = tlm.prefill(params, cfg, _tbatch(toks[:, :8], extra),
+                           max_len=12 + pre)
+    l2, _ = tlm.decode_step(params, cfg, cache, pre + 8,
+                            {"tokens": torch.as_tensor(toks[:, 8:9])})
+    _close(l2[:, 0], full[:, pre + 8], atol=BF16_ATOL, rtol=BF16_RTOL)
 
 
 def test_embeds_seam_and_cache_capacity():
@@ -351,27 +389,12 @@ def test_embeds_seam_and_cache_capacity():
 
 
 # ---------------------------------------------------------------------------
-# families not ported yet (encoder-decoder, VLM)
+# not ported yet: training
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if a not in ARCHS])
-def test_unported_families_raise(arch):
-    cfg = tconfigs.smoke(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tlm.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tlm.init_cache(cfg, 1, 4, device="cpu")
-
-
-def test_unported_fields_and_training_raise():
+def test_training_raises():
     cfg = tconfigs.smoke("qwen1_5_4b")
     params = tlm.init_params(0, cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 2), dtype=torch.int64)}
-    for bad in (dict(n_enc_layers=1), dict(frontend="vit"),
-                dict(frontend="audio"), dict(family="encdec"),
-                dict(family="vlm")):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            tlm.forward(params, dataclasses.replace(cfg, **bad), batch)
     with pytest.raises(NotImplementedError, match="training"):
         tlm.train_loss(params, cfg, batch)

@@ -8,7 +8,13 @@
 * the port's ``BatchServer`` generates the reference ``BatchServer``'s
   tokens at smoke size in float32, private and plaintext, for the dense
   (qwen1.5-4b), MLA (minicpm3-4b), MoE (granite, moonshot), SSM
-  (mamba2-2.7b) and hybrid (hymba-1.5b) families;
+  (mamba2-2.7b) and hybrid (hymba-1.5b) families; the encoder-decoder
+  (seamless-m4t-medium) and ViT-prefixed (internvl2-76b) families,
+  whose batches carry a frontend input that no ``BatchServer`` passes,
+  generate the reference's tokens through a greedy loop over ``prefill``
+  and ``decode_step``, and their ``BatchServer``s behave as the
+  reference's (internvl serves text only, seamless raises for its
+  frames);
 * private generations equal plaintext ones whose table is the dequantized
   quantized table, and the private model's logits equal that plaintext
   model's bit for bit (the lookup opens exactly those rows), for qwen,
@@ -135,7 +141,8 @@ def test_inline_lookup_threads_explicit_key(monkeypatch):
 # ---------------------------------------------------------------------------
 
 FAMILIES = ["minicpm3_4b", "granite_moe_3b_a800m", "moonshot_v1_16b_a3b",
-            "mamba2_2_7b", "hymba_1_5b"]
+            "mamba2_2_7b", "hymba_1_5b", "seamless_m4t_medium",
+            "internvl2_76b"]
 
 
 def _smoke_pair(arch):
@@ -160,6 +167,39 @@ def _requests(mod, cfg, n=3, t=12, new=6, seed=1):
     return [mod.Request(prompt=rng.integers(0, cfg.vocab_size, size=t,
                                             dtype=np.int32), max_new=new)
             for _ in range(n)]
+
+
+def _frontend(cfg, b, seed=4):
+    """Frontend inputs (numpy float32): 6 audio frames a request for an
+    encoder-decoder, ``n_prefix`` patches for a ViT prefix."""
+    rng = np.random.default_rng(seed)
+    if cfg.n_enc_layers:
+        return {"frames": rng.standard_normal(
+            (b, 6, cfg.frontend_dim)).astype(np.float32)}
+    if cfg.frontend == "vit":
+        return {"patches": rng.standard_normal(
+            (b, cfg.n_prefix, cfg.frontend_dim)).astype(np.float32)}
+    return {}
+
+
+def _greedy(mod, params, cfg, prompts, extra, new):
+    """``new`` greedy tokens through ``mod``'s (the reference's ``lm`` or
+    the port's) ``prefill`` and ``decode_step``, with the frontend inputs
+    ``extra`` in the prefill's batch -> int array (B, new)."""
+    as_array = jnp.asarray if mod is jlm else torch.as_tensor
+    pre = cfg.n_prefix if "patches" in extra else 0
+    t = prompts.shape[1]
+    batch = {"tokens": as_array(prompts),
+             **{k: as_array(v) for k, v in extra.items()}}
+    logits, cache = mod.prefill(params, cfg, batch, max_len=pre + t + new)
+    out = []
+    for i in range(new):
+        tok = np.asarray(logits[:, -1]).argmax(-1)[:, None]
+        out.append(tok)
+        if i + 1 < new:
+            logits, cache = mod.decode_step(params, cfg, cache, pre + t + i,
+                                            {"tokens": as_array(tok)})
+    return np.concatenate(out, 1)
 
 
 def _dequantized(params):
@@ -190,6 +230,15 @@ def test_batch_server_matches_reference_families(arch, private):
     jcfg, tcfg, jp, tp = _smoke_pair(arch)
     jcfg = dataclasses.replace(jcfg, private_embed=private)
     tcfg = dataclasses.replace(tcfg, private_embed=private)
+    if jcfg.frontend:                  # a BatchServer passes tokens only
+        prompts = np.stack([r.prompt for r in _requests(
+            tserve, tcfg, n=2, t=10, new=5)])
+        extra = _frontend(jcfg, 2)
+        want = _greedy(jlm, jp, jcfg, prompts, extra, 5)
+        got = _greedy(tlm, tp, tcfg, prompts, extra, 5)
+        assert got.shape == (2, 5)
+        assert np.array_equal(want, got)
+        return
     want = jserve.BatchServer(jp, jcfg, max_len=24).serve(
         _requests(jserve, jcfg, n=2, t=10, new=5))
     got = tserve.BatchServer(tp, tcfg, max_len=24, device="cpu").serve(
@@ -197,6 +246,26 @@ def test_batch_server_matches_reference_families(arch, private):
     for a, b in zip(want, got, strict=True):
         assert b.out.shape == (5,)
         assert np.array_equal(a.out, b.out)
+
+
+def test_batch_server_frontend_families_as_reference():
+    """``BatchServer`` passes tokens only, in both packages: internvl
+    serves text without its prefix (the same tokens), seamless raises
+    ``KeyError`` for the frames it lacks."""
+    jcfg, tcfg, jp, tp = _smoke_pair("internvl2_76b")
+    want = jserve.BatchServer(jp, jcfg, max_len=24).serve(
+        _requests(jserve, jcfg, n=2, t=10, new=5))
+    got = tserve.BatchServer(tp, tcfg, max_len=24, device="cpu").serve(
+        _requests(tserve, tcfg, n=2, t=10, new=5))
+    for a, b in zip(want, got, strict=True):
+        assert np.array_equal(a.out, b.out)
+    jcfg, tcfg, jp, tp = _smoke_pair("seamless_m4t_medium")
+    with pytest.raises(KeyError, match="frames"):
+        jserve.BatchServer(jp, jcfg, max_len=24).serve(
+            _requests(jserve, jcfg, n=2, t=10, new=5))
+    with pytest.raises(KeyError, match="frames"):
+        tserve.BatchServer(tp, tcfg, max_len=24, device="cpu").serve(
+            _requests(tserve, tcfg, n=2, t=10, new=5))
 
 
 @pytest.mark.parametrize("arch", ["qwen1_5_4b", "mamba2_2_7b",
