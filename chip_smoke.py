@@ -133,6 +133,27 @@ Phases, any failure exits non-zero:
    within 1e-4 (InternVL2 at 2 layers). Logs, beside slice 8's numbers,
    the encoder's ms, the set-up's margin on the card and the lookup
    kernels' ms against their bounds at these shapes.
+   Slice 10 (after slice 9, on a freed card): training at the full
+   Qwen1.5-4B configuration (40 layers, d 2,560, V 151,936, untied head,
+   bf16, remat on; 3.95 B synthetic parameters from ``--seed``) on
+   ``TokenStream`` batches of 4 x 512 tokens, AdamW at lr 3e-4 with 2
+   warmup steps. t1: ``launch.train.main`` for 4 steps (finite losses,
+   grad_norm > 0, ``lr`` on its schedule, weights moved; ms a step,
+   tokens/s, peak memory, and the idle share over a profiled step), and 2
+   layers at full width in float32, one step's loss and gradients on the
+   card against the same code on the CPU within 1e-4. t2: the private
+   embedding (``private_embed=True``, the table re-shared each step)
+   through ``make_train_step``, 2 steps, each launching exactly one
+   ``share_onehot`` and one general ``ss_matmul`` (2,048 rows), its
+   embeddings equal to the dequantized table's rows, the untied ``embed``
+   gradient-free and decayed by the AdamW rule; both kernels at these
+   shapes equal their plain versions. t3: ``grad_accum`` 2 with int8
+   compression, 2 steps (40 layers unless the predicted peak leaves under
+   5 GB), every compressed gradient within half its block's step. t4: a
+   run killed after step 3 and restarted beside a torn ``step_4.tmp``
+   gives the uninterrupted run's losses, and the restored tensors equal
+   the saved ones bit for bit (the smoke config, checkpoints under
+   ``build/``).
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -153,7 +174,9 @@ Phases, any failure exits non-zero:
    and the joins' launches (a K = 69 match position in both orientations,
    the K = 552 aggregate product, the 1,024-row PK/FK fetch and the
    21-row tall equijoin fetch; the chain's copies, launches and modular
-   products and the equality indicator timed apart);
+   products and the equality indicator timed apart; ``share_onehot`` at
+   M = 4 and 8 over V = 151,936 and 256,206 by device time, the median of
+   CUDA-graph replays, beside its host-inclusive time);
    time kernel and plain version there (CUDA events; the match at B = 1
    and 8 and over the tree round, the slide at k = 2, 3 and 5; the ripple
    kernel on both routes, the median of CUDA-graph replays, beside the
@@ -174,6 +197,7 @@ import collections
 import copy
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -2421,6 +2445,576 @@ def slice9_path(torch, args):
     return dict(total)
 
 
+#: slice 10 trains the full Qwen1.5-4B configuration of the port's registry
+#: (40 layers, d 2,560, V 151,936, untied head, bf16, remat on) on
+#: synthetic weights from ``--seed`` and ``TokenStream`` batches of 4 x 512
+#: tokens (2,048 a step), AdamW at lr 3e-4 with 2 warmup steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = "qwen1_5_4b", 4, 512, 3e-4
+TRAIN_FIELDS = dict(n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20,
+                    d_ff=6912, vocab_size=151936, tie_embeddings=False,
+                    dtype="bfloat16", remat=True)
+#: t1's steps (through ``launch.train.main``) and t2's / t3's
+T1_STEPS, T2_STEPS, T3_STEPS = 4, 2, 2
+#: layers and tokens of t1's float32 card-against-CPU check (full width)
+F32_TRAIN_LAYERS, F32_TRAIN_TOKENS = 2, (2, 64)
+F32_TRAIN_TOL = 1e-4
+#: GB t3 must leave free on the card at its predicted peak, and its cut
+T3_MARGIN_GB, T3_CUT_LAYERS = 5.0, 20
+SLICE10_KERNELS = ("share_onehot", "ss_matmul")
+
+
+def train_cfg(torch):
+    """The full Qwen1.5-4B configuration, checked against its published
+    fields."""
+    from repro_torch import configs
+    cfg = configs.full(TRAIN_ARCH)
+    bad = {k: getattr(cfg, k) for k, v in TRAIN_FIELDS.items()
+           if getattr(cfg, k) != v}
+    check(not bad, f"slice 10: {TRAIN_ARCH} is not the published "
+          f"configuration: {bad}")
+    return cfg
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def train_kernel_kind(name: str) -> str:
+    """A profiled kernel's kind by its name: matrix products (cuBLAS's
+    ``nvjet``/``gemm``/``cutlass`` kernels), elementwise, reductions, or
+    other (copies, index and scatter kernels, the log-softmax)."""
+    low = name.lower()
+    if any(k in low for k in ("nvjet", "gemm", "cutlass", "sm90_xmma")):
+        return "matmul"
+    if "elementwise" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduce"
+    return "other"
+
+
+def train_t1(torch, args, cfg):
+    """t1: ``launch.train.main`` for T1_STEPS steps at full width. Checks
+    finite losses, grad_norm > 0, ``lr`` = ``schedule(step + 1)``, the
+    final norm moved off its zero init and a layer's weights moved
+    between the first and last step. Times steps 1 and 3 (host clock
+    between synchronizes), profiles step 2 (``torch.profiler`` device
+    time) for the idle share, and reads the peak memory."""
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.optim import schedule
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, T1_STEPS // 10),
+                      total_steps=T1_STEPS)
+    marks, rec, snap, prof = [], [], {}, {}
+
+    def on_step(step, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        m = {k: float(v) for k, v in metrics.items()}
+        want_lr = float(schedule(opt, step + 1))
+        rec.append(m)
+        check(math.isfinite(m["loss"]) and m["grad_norm"] > 0
+              and abs(m["lr"] - want_lr) <= 1e-6 * want_lr,
+              f"slice 10 t1 step {step}: {m} (lr should be {want_lr})")
+        w = params["blocks"]["mlp"]["w_up"][0, :8, :64]
+        if step == 0:
+            snap["w_up"] = w.clone()
+            check(bool((params["final_norm"] != 0).any()),
+                  "slice 10 t1: final_norm did not move off its init")
+        if step == 1:
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        if step == 2:
+            prof["p"].__exit__(None, None, None)
+        if step == T1_STEPS - 1:
+            check(not torch.equal(w, snap["w_up"]),
+                  "slice 10 t1: layer 0's w_up did not move")
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = train_launcher.main(
+        ["--arch", TRAIN_ARCH, "--steps", str(T1_STEPS), "--batch",
+         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+         "--log-every", "1", "--seed", str(args.seed)], on_step=on_step)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(rec) == T1_STEPS and final == rec[-1]["loss"],
+          "slice 10 t1: main did not run every step")
+    step_s = [b - a for a, b in zip(marks, marks[1:])]   # steps 1..3
+    plain_ms = 1e3 * (step_s[0] + step_s[2]) / 2         # 2 is profiled
+    kinds, launches = collections.Counter(), 0
+    by_name = collections.Counter()
+    for e in prof["p"].key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if not us:
+            continue
+        launches += e.count
+        by_name[e.key[:60]] += us / 1e3
+        kinds[train_kernel_kind(e.key)] += us / 1e3
+    device_ms = sum(kinds.values())
+    top = by_name.most_common(5)
+    out = {"losses": [r["loss"] for r in rec],
+           "grad_norms": [r["grad_norm"] for r in rec],
+           "lrs": [r["lr"] for r in rec],
+           "ms_per_step": plain_ms, "step_ms": [1e3 * s for s in step_s],
+           "first_step_and_init_s": marks[0] - t0, "main_s": total_s,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (plain_ms / 1e3),
+           "peak_gb": peak, "profiled_step_device_ms": device_ms,
+           "idle_share": 1.0 - device_ms / plain_ms,
+           "profiled_step_kernels": launches,
+           "device_ms_by_kind": dict(kinds),
+           "slowest_kernels_ms": top}
+    log("slice-10 t1 (launch.train.main, plaintext) " + json.dumps(out))
+    return out
+
+
+def f32_train_check(torch, args, cfg):
+    """t1's float32 check: F32_TRAIN_LAYERS layers at full width, one
+    step's loss and gradients on the card against the same port code on
+    the CPU (weights drawn on the card, copied to the host): loss within
+    F32_TRAIN_TOL, each leaf's gradient within a relative F32_TRAIN_TOL.
+    Returns the largest differences."""
+    import dataclasses
+
+    from repro_torch import _tree
+    from repro_torch.data import TokenStream
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "slice 10: TF32 matmuls are on; the float32 check needs them off")
+    f32 = dataclasses.replace(cfg, n_layers=F32_TRAIN_LAYERS,
+                              dtype="float32")
+    _free(torch)
+    params = lm.init_params(args.seed, f32)
+    host = _tree.map_leaves(lambda t: t.cpu(), params)
+    b, t = F32_TRAIN_TOKENS
+    batch = TokenStream(f32.vocab_size, b, t, seed=args.seed).batch_at(7)
+    out = {}
+    for name, p in (("card", params), ("cpu", host)):
+        dev = p["final_norm"].device
+        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        loss, grads = tstep._grads(f32, p, tstep._trainable(p), tb)
+        out[name] = (float(loss), [g.cpu() for g in grads],
+                     time.perf_counter() - t0)
+        del grads
+    names = [n for n, v in _tree.leaves_with_paths(host)]
+    loss_err = abs(out["card"][0] - out["cpu"][0])
+    rel = {}
+    for n, gc_, gh in zip(names, out["card"][1], out["cpu"][1]):
+        den = float(gh.norm()) or 1.0
+        rel[n] = float((gc_ - gh).norm()) / den
+    worst = max(rel, key=rel.get)
+    check(loss_err <= F32_TRAIN_TOL and rel[worst] <= F32_TRAIN_TOL,
+          f"slice 10: float32 step on the card differs from the CPU: loss "
+          f"{out['card'][0]} vs {out['cpu'][0]}, gradient {worst} relative "
+          f"{rel[worst]} (tolerance {F32_TRAIN_TOL})")
+    res = {"layers": F32_TRAIN_LAYERS, "tokens": [b, t],
+           "loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
+           "loss_abs_err": loss_err, "worst_grad": worst,
+           "worst_grad_rel_err": rel[worst],
+           "card_s": out["card"][2], "cpu_s": out["cpu"][2]}
+    log("slice-10 float32 card vs CPU " + json.dumps(res))
+    del params, host, out
+    _free(torch)
+    return res
+
+
+def train_t2(torch, args, cfg, errs):
+    """t2: ``private_embed=True`` through ``make_train_step``, T2_STEPS
+    steps at full width. Each step's forward re-shares the table (c = 4)
+    and launches one ``share_onehot`` and one ``ss_matmul`` (2,048 rows:
+    not tall), counted from zero just before the step and read after a
+    synchronize. One step's embeddings must equal the dequantized table's
+    rows exactly, and the untied ``embed`` (no gradient) must decay by
+    the AdamW rule on a zero gradient. Then, on a freed card, both kernels
+    at these shapes against their plain versions (the contraction
+    PLAIN_COLS columns at a time), and timed. Returns (launches,
+    summary)."""
+    import dataclasses
+
+    from repro_torch.core.queries import embed as eq
+    from repro_torch.data import TokenStream
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+    from repro_torch.models import lm
+    from repro_torch.models import private_embed as pe
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    pcfg = dataclasses.replace(cfg, private_embed=True)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=T2_STEPS)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params((args.seed, 10, 2), pcfg)
+    state = init_state(params)
+    step_fn = make_train_step(pcfg, opt)
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                         seed=args.seed)
+    seen = {}
+    inner = pe.private_lookup_inline
+
+    def recording(p, c, tokens, **kw):
+        out = inner(p, c, tokens, **kw)
+        seen["emb"] = out.clone()
+        return out
+
+    total = collections.Counter()
+    rec = []
+    pe.private_lookup_inline = recording
+    try:
+        for i in range(T2_STEPS):
+            batch = stream.batch_at(i)
+            dev_batch = to_device(batch, params["embed"].device)
+            toks = dev_batch["tokens"].long()
+            rows = params["embed"][toks].clone()
+            probe = params["embed"][:64].clone()
+            _free(torch)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, dev_batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            got = ops.launch_counts()
+            total.update(got)
+            want = {k: (1 if k in SLICE10_KERNELS else 0) for k in got}
+            check(got == want, f"slice 10 t2 step {i}: launched {got}, "
+                  f"one lookup a step wants {want}")
+            m = {k: float(v) for k, v in m.items()}
+            check(math.isfinite(m["loss"]) and m["grad_norm"] > 0,
+                  f"slice 10 t2 step {i}: {m}")
+            want_emb = eq.dequantize_from_field(eq.quantize_to_field(
+                rows, device=rows.device)).to(rows.dtype)
+            check(torch.equal(seen["emb"], want_emb),
+                  f"slice 10 t2 step {i}: the private embeddings differ "
+                  f"from the dequantized table's rows")
+            pf = probe.float()
+            delta = torch.zeros_like(pf).add_(pf, alpha=opt.weight_decay)
+            decayed = (pf - torch.tensor(m["lr"], device=pf.device)
+                       * delta).to(probe.dtype)
+            # in bf16 a decay of lr·wd ~ 3e-5 mostly rounds back to the
+            # stored value; the rule, not a visible change, is checked
+            check(torch.equal(params["embed"][:64], decayed)
+                  and not bool(state.m["embed"].any()),
+                  f"slice 10 t2 step {i}: the untied embed got a gradient "
+                  f"or did not decay as a zero-gradient AdamW leaf")
+            moved = int((params["embed"][:64] != probe).sum())
+            rec.append(dict(m, step_s=step_s, embed_probe_moved=moved))
+    finally:
+        pe.private_lookup_inline = inner
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    probe_dev = probe.device
+    del params, state, seen, rows, probe
+    _free(torch)
+
+    # the kernels at t2's shapes, on a freed card
+    dev = probe_dev
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    c, v, d = EMBED_SHARES, cfg.vocab_size, cfg.d_model
+    mrows = TRAIN_BATCH * TRAIN_SEQ
+    toks = torch.randint(0, v, (mrows,), generator=gen, device=dev)
+    a1 = rand_field(torch, gen, (mrows, v), dev)
+    shared = ops.share_onehot(toks, a1, n_shares=c)
+    want_sh = ssm.share_onehot_plain(toks, a1, n_shares=c)
+    torch.cuda.synchronize()
+    check(torch.equal(shared, want_sh), "slice 10: share_onehot at "
+          f"{(c, mrows, v)} differs from its plain version")
+    errs["share_onehot"] = max(errs["share_onehot"],
+                               max_err(torch, shared, want_sh))
+    del want_sh
+    onehot_ms = time_ms(torch, lambda: ops.share_onehot(toks, a1,
+                                                        n_shares=c), 5)
+    del a1
+    table = rand_field(torch, gen, (c, v, d), dev)
+    check(not ssm.is_tall_skinny(mrows, v, d),
+          "slice 10: the train lookup should not be tall")
+    got_mm = ops.ss_matmul(shared, table)
+    plain_ms = 0.0
+    for lo in range(0, d, PLAIN_COLS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want_mm = ssm.ss_matmul_plain(shared, table[..., lo:lo + PLAIN_COLS])
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(stop)
+        check(torch.equal(got_mm[..., lo:lo + PLAIN_COLS], want_mm),
+              f"slice 10: ss_matmul at M = {mrows}, columns {lo}.. differs "
+              f"from its plain version")
+        errs["ss_matmul"] = max(errs["ss_matmul"],
+                                max_err(torch, got_mm[..., lo:lo + PLAIN_COLS],
+                                        want_mm))
+        del want_mm
+    del got_mm
+    mm_ms = time_ms(torch, lambda: ops.ss_matmul(shared, table), 3)
+    mm_bytes = 4 * (c * mrows * v + c * v * d + c * mrows * d)
+    mm_ops = 32 * c * mrows * v * d
+    summary = {
+        "steps": rec, "peak_gb": peak,
+        "launches": dict(total),
+        "share_onehot": {"shape": [c, mrows, v], "ms": onehot_ms,
+                         "bound": bound(4 * (mrows * v + mrows
+                                             + c * mrows * v),
+                                        (c + 1) * mrows * v)},
+        "ss_matmul": {"shape": [c, mrows, v, d], "ms": mm_ms,
+                      "plain_ms": plain_ms,
+                      "bound": bound(mm_bytes, mm_ops,
+                                     INT8_TENSOR_OPS_PER_S)}}
+    log("slice-10 t2 (private embedding, make_train_step) "
+        + json.dumps(summary))
+    del shared, table
+    _free(torch)
+    return dict(total), summary
+
+
+def train_t3(torch, args, cfg):
+    """t3: ``grad_accum = 2`` (2 x 2 x 512) with ``compress=True``,
+    T3_STEPS steps: finite losses, and every gradient element the
+    compression touched within its block's bound (half its int8 step, plus
+    float32 rounding), checked on the first 2^20 elements of every leaf.
+    Keeps 40 layers if the predicted peak leaves T3_MARGIN_GB of the card,
+    else T3_CUT_LAYERS."""
+    import dataclasses
+
+    from repro_torch.data import TokenStream
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train import compress as tcomp
+    from repro_torch.train import step as tstep
+
+    card_gb = torch.cuda.mem_get_info()[1] / 1e9
+    weights_gb = cfg.param_count() * 2 / 1e9
+    # bf16 weights, float32 m and v, the float32 accumulator, one
+    # microbatch's bf16 gradients, ~3 GB of activations and logits
+    predicted = weights_gb * (1 + 4 + 2 + 1) + 3.0
+    layers = cfg.n_layers if predicted <= card_gb - T3_MARGIN_GB \
+        else T3_CUT_LAYERS
+    c3 = dataclasses.replace(cfg, n_layers=layers)
+    log(f"slice-10 t3: predicted peak {predicted:.2f} GB of the card's "
+        f"{card_gb:.2f}: {layers} layers")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=T3_STEPS)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params((args.seed, 10, 3), c3)
+    state = init_state(params)
+    step_fn = make_train_step(c3, opt, grad_accum=2, compress=True)
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                         seed=args.seed)
+    worst = {"ratio": 0.0, "leaves": 0}
+    inner = tcomp.roundtrip_
+
+    def checked(g):
+        n = min(g.numel(), 1 << 20) // tcomp.BLOCK * tcomp.BLOCK \
+            or g.numel()
+        before = g.reshape(-1)[:n].clone()
+        out = inner(g)
+        after = out.reshape(-1)[:n]
+        pad = (-n) % tcomp.BLOCK
+        blk = torch.nn.functional.pad(before, (0, pad)).view(-1,
+                                                             tcomp.BLOCK)
+        scale = blk.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+        err = torch.nn.functional.pad((after - before).abs(),
+                                      (0, pad)).view(-1, tcomp.BLOCK)
+        ratio = float((err / scale).max())
+        worst["ratio"] = max(worst["ratio"], ratio)
+        worst["leaves"] += 1
+        check(ratio <= 0.5 + 2e-5, f"slice 10 t3: a dequantized gradient "
+              f"is {ratio} of its block's scale from its input (bound 0.5)")
+        return out
+
+    rec = []
+    tstep.roundtrip_ = checked
+    try:
+        for i in range(T3_STEPS):
+            batch = stream.batch_at(100 + i)
+            batch = {k: a.reshape((2, -1) + a.shape[1:])
+                     for k, a in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(
+                params, state, to_device(batch, params["embed"].device))
+            torch.cuda.synchronize()
+            m = {k: float(v) for k, v in m.items()}
+            m["step_s"] = time.perf_counter() - t0
+            check(math.isfinite(m["loss"]) and m["grad_norm"] > 0,
+                  f"slice 10 t3 step {i}: {m}")
+            rec.append(m)
+    finally:
+        tstep.roundtrip_ = inner
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"layers": layers, "predicted_peak_gb": predicted,
+           "peak_gb": peak, "card_gb": card_gb, "steps": rec,
+           "worst_err_over_scale": worst["ratio"],
+           "leaves_checked": worst["leaves"]}
+    log("slice-10 t3 (grad_accum 2, int8 compression) " + json.dumps(out))
+    del params, state
+    _free(torch)
+    return out
+
+
+def train_t4(torch, args):
+    """t4: restart through ``launch.train.main`` on the smoke Qwen config
+    on the card, checkpoints under ``build/``: run A trains 6 steps
+    uninterrupted (checkpoints every 2); run B dies after step 3, a torn
+    ``step_4.tmp`` is left beside its step-2 checkpoint, and a restart
+    resumes from step 2. B's losses must equal A's, and A's restored
+    step-6 tensors must equal A's final ones bit for bit, as must B's."""
+    import shutil
+
+    from repro_torch import _tree, configs
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import lm
+    from repro_torch.train import init_state
+
+    root = os.path.join(ROOT, "build", "slice10_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    finals = {}
+
+    class Crash(Exception):
+        pass
+
+    def run(name, hist, crash_after=None):
+        def on_step(step, params, opt_state, metrics):
+            hist.append((step, float(metrics["loss"])))
+            if step == 5:
+                finals[name] = [t.detach().clone() for t in
+                                _tree.leaves((params, opt_state))]
+            if step == crash_after:
+                raise Crash
+        return train_launcher.main(
+            ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6", "--batch",
+             "4", "--seq", "64", "--seed", str(args.seed), "--ckpt-dir",
+             os.path.join(root, name), "--ckpt-every", "2",
+             "--log-every", "100"], on_step=on_step)
+
+    full, crashed, resumed = [], [], []
+    run("a", full)
+    try:
+        run("b", crashed, crash_after=3)
+        check(False, "slice 10 t4: the crash did not happen")
+    except Crash:
+        pass
+    # the step-2 writer thread outlives the crash inside this process
+    deadline = time.perf_counter() + 60
+    while latest_step(os.path.join(root, "b")) != 2 \
+            and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    os.makedirs(os.path.join(root, "b", "step_4.tmp"))
+    check(latest_step(os.path.join(root, "b")) == 2,
+          "slice 10 t4: a torn step_4.tmp was taken for a checkpoint")
+    run("b", resumed)
+    check(crashed == full[:4] and resumed == full[2:],
+          f"slice 10 t4: resumed losses {resumed} differ from the "
+          f"uninterrupted run's {full}")
+    cfg = configs.smoke(TRAIN_ARCH)
+    p = lm.init_params(args.seed, cfg)
+    tmpl = (p, init_state(p))
+    for name in ("a", "b"):
+        step, tree = restore_checkpoint(os.path.join(root, name), tmpl,
+                                        device=p["embed"].device)
+        same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+                   zip(_tree.leaves(tree), finals[name]))
+        check(step == 6 and same, f"slice 10 t4: run {name}'s restored "
+              f"step-6 tensors differ from the saved ones")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"losses": [l for _, l in full], "resumed_from": 2,
+           "leaves": len(finals["a"])}
+    log("slice-10 t4 (restart) " + json.dumps(out))
+    return out
+
+
+def train_path(torch, args, errs):
+    """Phase 3, slice 10 (after slice 9, on a freed card): training at the
+    full Qwen1.5-4B configuration, t1 to t4 and the float32 check. Returns
+    the launches of t2's step windows (t1, t3 and t4 launch no kernel of
+    the port: their embeddings are plaintext)."""
+    t0 = time.perf_counter()
+    cfg = train_cfg(torch)
+    phases = {}
+    t1 = train_t1(torch, args, cfg)
+    phases["t1_s"] = time.perf_counter() - t0
+    f32 = f32_train_check(torch, args, cfg)
+    phases["f32_s"] = time.perf_counter() - t0 - sum(phases.values())
+    launches, t2 = train_t2(torch, args, cfg, errs)
+    phases["t2_s"] = time.perf_counter() - t0 - sum(phases.values())
+    t3 = train_t3(torch, args, cfg)
+    phases["t3_s"] = time.perf_counter() - t0 - sum(phases.values())
+    t4 = train_t4(torch, args)
+    phases["t4_s"] = time.perf_counter() - t0 - sum(phases.values())
+    for name in SLICE10_KERNELS:
+        check(launches.get(name, 0) > 0, f"slice 10 launched no {name}")
+    summary = {"ms_per_step": t1["ms_per_step"],
+               "tokens_per_s": t1["tokens_per_s"],
+               "peak_gb": t1["peak_gb"], "idle_share": t1["idle_share"],
+               "t2_step_s": [s["step_s"] for s in t2["steps"]],
+               "t2_peak_gb": t2["peak_gb"],
+               "t3_step_s": [s["step_s"] for s in t3["steps"]],
+               "t3_peak_gb": t3["peak_gb"], "t3_layers": t3["layers"],
+               "f32_loss_abs_err": f32["loss_abs_err"],
+               "f32_worst_grad_rel_err": f32["worst_grad_rel_err"],
+               "launches": launches, "phase_s": phases}
+    log("slice-10 summary " + json.dumps(summary))
+    return launches
+
+
+#: SeamlessM4T-medium's vocabulary (slice 9): not a multiple of 4, so
+#: ``share_onehot`` reads it on its scalar-load route
+SEAMLESS_VOCAB = 256206
+
+
+def onehot_device_times(torch, args):
+    """Phase 4: ``share_onehot`` at a decode step's M = 4 and 8 over
+    V = 151,936 (Qwen1.5-4B; the 16-byte route) and 256,206 (SeamlessM4T;
+    the scalar-load route), c = 4, each against its plain version and
+    timed by device time (``graph_ms``: the median of CUDA-graph replays,
+    so the launcher's host work does not count) beside the host-inclusive
+    figure (``time_ms``: 5 back-to-back calls between CUDA events, as
+    slices 8 and 9 time it) and the bound. Returns the rows."""
+    from repro_torch import _device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+
+    dev = _device.resolve(None)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    c, rows = EMBED_SHARES, []
+    for v in (QWEN_VOCAB, SEAMLESS_VOCAB):
+        for m in (4, 8):
+            toks = torch.randint(0, v, (m,), generator=gen, device=dev)
+            a1 = rand_field(torch, gen, (m, v), dev)
+            got = ops.share_onehot(toks, a1, n_shares=c)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ssm.share_onehot_plain(toks, a1,
+                                                          n_shares=c)),
+                  f"share_onehot at {(c, m, v)} differs from its plain "
+                  f"version")
+
+            def call(toks=toks, a1=a1):
+                ops.share_onehot(toks, a1, n_shares=c)
+
+            dev_ms, host_us, lo, hi = graph_ms(torch, [call])
+            host_ms = time_ms(torch, call, 5)
+            b_ms, b_by = bound(4 * (m * v + m + c * m * v),
+                               (c + 1) * m * v)
+            rows.append({"m": m, "v": v, "c": c, "device_ms": dev_ms,
+                         "device_ms_range": [lo, hi],
+                         "host_inclusive_ms": host_ms,
+                         "launcher_host_us": host_us, "bound_ms": b_ms,
+                         "bound_by": b_by,
+                         "share_of_bound": b_ms / dev_ms})
+    log("share_onehot re-timed by device time (CUDA-graph replays) "
+        + json.dumps(rows))
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3473,6 +4067,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     onehot = embed_full_shapes(torch, table, errs, launches)
     del table
+    onehot_device_times(torch, args)
     kernels = full_shape_kernels(torch, db, errs, launches) + [onehot] \
         + join_full_shapes(torch, db, assign_db, errs, launches)
     log(f"phase 4 peak device memory {torch.cuda.max_memory_allocated() / 1e9}"
@@ -3496,10 +4091,16 @@ def main() -> int:
     path9 = slice9_path(torch, args)
     log("slice-9 path: private and plaintext generations are identical "
         "for the encoder-decoder and the ViT-prefixed families")
+    gc.collect()
+    torch.cuda.empty_cache()
+    path10 = train_path(torch, args, errs)
+    log("slice-10 path: training at full Qwen1.5-4B width through the "
+        "launcher, the private embedding, accumulation with compression "
+        "and a restart all pass")
     for entry in kernels:
         name = entry["name"].split("[")[0]
         entry["launches"] += sum(p.get(name, 0) for p in (path7, path8,
-                                                          path9))
+                                                          path9, path10))
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[name])
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,6 +7,7 @@ decoder (internvl).
     params = init_params(seed, cfg)                    # CUDA by default
     params = params_from_arrays(reference_params)      # carried across
     logits = forward(params, cfg, {"tokens": toks})
+    loss, metrics = train_loss(params, cfg, {"tokens": toks, "labels": lab})
     logits, cache = prefill(params, cfg, {"tokens": toks}, max_len=96)
     logits, cache = decode_step(params, cfg, cache, cache_len,
                                 {"tokens": next_toks})
@@ -24,9 +25,15 @@ own plaintext input.
 The parameter tree is the reference's (``repro.models.lm``): block tensors
 are stacked with a leading layer axis, so the two trees map one to one and
 :func:`params_from_arrays` carries a reference tree across leaf by leaf.
-The layers run as a Python loop that indexes the stacked tensors (no scan,
-no remat: training is not ported). gemma3's 5:1 local:global pattern is the
-reference's per-layer window list, ``GLOBAL_WINDOW`` for global layers.
+The layers run as a Python loop over the stacked tensors, unbound once a
+call (no scan; one backward node a stacked tensor gathers every layer's
+gradient). With ``cfg.remat``, a training forward under autograd runs each
+decoder block under ``torch.utils.checkpoint`` (non-reentrant), as the
+reference wraps its scan body in ``jax.checkpoint``: a block keeps only its
+input, and its activations are recomputed in the backward pass. The
+encoder's blocks are not rematerialized, as in the reference. gemma3's 5:1
+local:global pattern is the reference's per-layer window list,
+``GLOBAL_WINDOW`` for global layers.
 
 The decode cache is preallocated and updated in place: the attention
 layers copy each step's keys and values (MLA: its compressed latent and
@@ -41,15 +48,18 @@ obliviously through an ``EmbedLookup`` plan), the private path
 (``cfg.private_embed``: ``private_embed.private_lookup_inline``), or the
 plaintext table.
 
-``train_loss`` raises ``NotImplementedError`` (``ROADMAP.md``, Queue 1).
+``train_loss`` is the reference's masked next-token cross-entropy over
+float32 logits; ``train.make_train_step`` differentiates it.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import _device
 from . import layers as L
@@ -176,9 +186,12 @@ def _copy_layer(stack: dict, i: int, layer: dict) -> None:
             stack[k][i].copy_(v)
 
 
-def _layer(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s view of the stacked block tensors."""
-    return _map(lambda t: t[i], blocks)
+def _layers(blocks: dict, n: int) -> List[dict]:
+    """The ``n`` layers' views of the stacked block tensors. Each stacked
+    tensor is unbound once, so under autograd its gradient is one stack
+    of the layers' gradients, not ``n`` full-size scatters."""
+    slices = _map(lambda t: t.unbind(0), blocks)
+    return [_map(lambda s: s[i], slices) for i in range(n)]
 
 
 def params_from_arrays(tree: dict, device=None) -> dict:
@@ -302,16 +315,22 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: Tensor, *,
                 positions: Tensor, caches: Optional[dict],
                 cache_len: Optional[int], mode: str,
                 enc_out: Optional[Tensor] = None) -> Tensor:
+    """The decoder blocks in order; with ``cfg.remat``, a training forward
+    under autograd checkpoints each block (its activations are recomputed
+    in the backward pass)."""
     inv_freq = L.rope_freqs(
         cfg.resolved_head_dim if cfg.attn_type != "mla"
         else cfg.qk_rope_head_dim,
         cfg.rope_fraction, cfg.rope_theta, x.device)
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    layers = _layers(blocks, cfg.n_layers)
     for i, win in enumerate(layer_windows(cfg)):
-        x = _block_apply(cfg, _layer(blocks, i), x, positions=positions,
-                         inv_freq=inv_freq, window=win, mode=mode,
-                         cache=None if caches is None
-                         else _layer_cache(caches, i),
-                         cache_len=cache_len, enc_out=enc_out)
+        block = functools.partial(
+            _block_apply, cfg, layers[i], positions=positions,
+            inv_freq=inv_freq, window=win, mode=mode,
+            cache=None if caches is None else _layer_cache(caches, i),
+            cache_len=cache_len, enc_out=enc_out)
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
     return x
 
 
@@ -372,8 +391,8 @@ def _encode(params: dict, cfg: ModelConfig, frames) -> Tensor:
     positions = torch.arange(x.shape[1], device=dev)[None, :]
     inv_freq = L.rope_freqs(cfg.resolved_head_dim, cfg.rope_fraction,
                             cfg.rope_theta, dev)
-    for i in range(cfg.n_enc_layers):
-        x = _block_apply(cfg, _layer(params["enc_blocks"], i), x,
+    for lp in _layers(params["enc_blocks"], cfg.n_enc_layers):
+        x = _block_apply(cfg, lp, x,
                          positions=positions, inv_freq=inv_freq,
                          window=GLOBAL_WINDOW, mode="train", cache=None,
                          cache_len=None)
@@ -407,9 +426,26 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
     return _logits(params, cfg, x)
 
 
-def train_loss(params: dict, cfg: ModelConfig, batch: dict):
-    raise NotImplementedError("train_loss is not ported to repro_torch yet "
-                              "(ROADMAP.md, Queue 1: the training slice)")
+def train_loss(params: dict, cfg: ModelConfig, batch: dict
+               ) -> Tuple[Tensor, dict]:
+    """Mean next-token cross-entropy over the labelled positions ->
+    (loss, {"loss", "tokens"}), both float32 0-d tensors.
+
+    ``batch["labels"]`` (B, T) holds each position's next token; a label
+    below 0 masks its position out. A ViT batch's prefix positions carry
+    no label and are dropped from the logits first. The log-softmax runs
+    over the float32 logits, as the reference's."""
+    logits = forward(params, cfg, batch)
+    labels = torch.as_tensor(batch["labels"]).to(logits.device,
+                                                 torch.int64)
+    if cfg.frontend == "vit" and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:]
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = (labels >= 0).to(torch.float32)
+    take = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    n = torch.sum(mask)
+    loss = -torch.sum(take * mask) / torch.clamp(n, min=1.0)
+    return loss, {"loss": loss, "tokens": n}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,

@@ -192,14 +192,17 @@ def private_lookup_inline(params: dict, cfg: ModelConfig, tokens, *,
     counter value into the base key (``params["embed_key"]`` when present,
     else ``(0,)``), so no two calls share polynomials. The token ids are
     read on the host, where the user shares them, so a step whose ids lie
-    on the card copies them back first.
+    on the card copies them back first. No gradient flows through the
+    lookup (the reference's ``stop_gradient``): a training step's
+    untied ``embed`` gets none.
     """
     key = _next_inline_key(params) if key is None else _device.as_key(key)
-    if "embed_shares" in params:
-        sh = Shares(params["embed_shares"], 1)
-    else:
-        embed = params["embed"]
-        sh = setup_private_embed(_device.fold(key, 0), embed, n_shares=4,
-                                 device=embed.device)
-    out = private_lookup_batched(_device.fold(key, 1), sh, tokens)
-    return out.detach().to(getattr(torch, cfg.dtype))
+    with torch.no_grad():        # the reference's stop_gradient
+        if "embed_shares" in params:
+            sh = Shares(params["embed_shares"], 1)
+        else:
+            embed = params["embed"]
+            sh = setup_private_embed(_device.fold(key, 0), embed,
+                                     n_shares=4, device=embed.device)
+        out = private_lookup_batched(_device.fold(key, 1), sh, tokens)
+    return out.to(getattr(torch, cfg.dtype))

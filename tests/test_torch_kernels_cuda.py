@@ -707,3 +707,68 @@ def test_mesh_dispatcher_equals_serial_on_card(cuda, strict):
         out.append(c.run(plan, relation="emb"))
     assert np.array_equal(out[0].embeddings, out[1].embeddings)
     assert out[0].ledger.as_dict() == out[1].ledger.as_dict()
+
+
+# ---------------------------------------------------------------------------
+# training (slice 10)
+# ---------------------------------------------------------------------------
+
+def test_private_embed_train_shapes_equal_plain(cuda):
+    """A private-embedding train step of 4 x 512 tokens at Qwen1.5-4B's
+    width: ``share_onehot`` at M = 2,048, V = 151,936, c = 4, and the
+    general ``ss_matmul`` (M = 2,048 is not tall) against the (4, 151,936,
+    2,560) table, each equal to its plain version (the contraction a
+    1,024-column block at a time)."""
+    m, v, d, c = 2048, 151936, 2560, 4
+    g = torch.Generator(device=cuda).manual_seed(10)
+    toks = torch.randint(0, v, (m,), generator=g, device=cuda)
+    a1 = _field((m, v), 11, cuda)
+    ops.reset_launch_counts()
+    shared = ops.share_onehot(toks, a1, n_shares=c)
+    torch.cuda.synchronize()
+    assert torch.equal(shared, ss_matmul.share_onehot_plain(toks, a1,
+                                                            n_shares=c))
+    del a1
+    table = _field((c, v, d), 12, cuda)
+    assert not ss_matmul.is_tall_skinny(m, v, d)
+    got = ops.ss_matmul(shared, table)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["share_onehot"] == 1
+    assert ops.launch_counts()["ss_matmul"] == 1
+    for lo in range(0, d, 1024):
+        want = ss_matmul.ss_matmul_plain(shared, table[..., lo:lo + 1024])
+        assert torch.equal(got[..., lo:lo + 1024], want)
+
+
+def test_train_step_on_card_equals_cpu(cuda):
+    """One ``make_train_step`` step (grad_accum 2, compression on) of the
+    qwen smoke config in float32 on the card against the same step on the
+    CPU: loss, lr and grad_norm within 1e-5; parameters within ``lr`` (the
+    first AdamW step is about sign(g)·lr, so an element whose gradient is
+    within rounding of zero may move apart by up to lr) and 99 % of each
+    leaf's elements within 1e-6."""
+    from repro_torch import _tree, configs
+    from repro_torch.data import TokenStream
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"), dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = TokenStream(cfg.vocab_size, 4, 16, seed=3).batch_at(0)
+    batch = {k: a.reshape((2, -1) + a.shape[1:]) for k, a in batch.items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        params = lm.init_params(4, cfg, device="cpu")
+        params = _tree.map_leaves(lambda t: t.to(dev), params)
+        step = make_train_step(cfg, opt, grad_accum=2, compress=True)
+        params, _, m = step(params, init_state(params),
+                            to_device(batch, dev))
+        out[str(dev)] = (_tree.map_leaves(lambda t: t.cpu(), params),
+                         {k: float(v) for k, v in m.items()})
+    (pc, mc), (pg, mg) = out["cpu"], out[str(cuda)]
+    for k in ("loss", "lr", "grad_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(1.0, abs(mc[k])), k
+    for a, b in zip(_tree.leaves(pg), _tree.leaves(pc)):
+        d = (a - b).abs()
+        assert float(d.max()) <= mc["lr"] * 1.001
+        assert float((d > 1e-6).float().mean()) <= 0.01

@@ -26,7 +26,8 @@ on identical tokens (drawn with numpy from a seed):
 * decode matches forward at the same position within the reference's own
   tolerance (``tests/test_arch_smoke.py``: atol 0.12, rtol 0.05) in the
   configs' own bfloat16;
-* ``train_loss``, not yet ported, raises ``NotImplementedError``.
+* ``train_loss`` gives the reference's loss (``tests/test_torch_train.py``
+  holds it and its gradients for every family).
 
 The frontend inputs (``frames``, ``patches``) are drawn with numpy from a
 seed and given to both packages (``_frontend``).
@@ -389,12 +390,22 @@ def test_embeds_seam_and_cache_capacity():
 
 
 # ---------------------------------------------------------------------------
-# not ported yet: training
+# training (the full parity suite is tests/test_torch_train.py)
 # ---------------------------------------------------------------------------
 
 def test_training_raises():
-    cfg = tconfigs.smoke("qwen1_5_4b")
-    params = tlm.init_params(0, cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 2), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="training"):
-        tlm.train_loss(params, cfg, batch)
+    """``train_loss`` is ported: on the reference's weights and batch it
+    gives the reference's loss and token count; like the reference's, it
+    raises ``KeyError`` on a batch without ``labels``."""
+    jcfg, tcfg, jp, tp = _pair("qwen1_5_4b")
+    toks = _tokens(tcfg, (B, T))
+    labels = _tokens(tcfg, (B, T), seed=2)
+    labels[1, 0] = -1
+    jl, jm = jlm.train_loss(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                       "labels": jnp.asarray(labels)})
+    tl, tm = tlm.train_loss(tp, tcfg, {"tokens": torch.as_tensor(toks),
+                                       "labels": torch.as_tensor(labels)})
+    assert abs(float(tl) - float(jl)) <= 1e-5
+    assert float(tm["tokens"]) == float(jm["tokens"]) == B * T - 1
+    with pytest.raises(KeyError, match="labels"):
+        tlm.train_loss(tp, tcfg, {"tokens": torch.as_tensor(toks)})

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``.
+``chip_smoke.py`` imports ``jax``, ``ml_dtypes`` (a JAX dependency the
+card's machine lacks) or the reference package ``repro``.
 
 Each source file's import statements are read from its syntax tree, and
 every module of the port is imported in a fresh interpreter in which
@@ -20,7 +21,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imports(path: Path):
@@ -46,7 +47,9 @@ def test_serving_modules_are_covered():
                  "launch/serve.py", "core/dataplane.py", "api/client.py",
                  "core/mesh_dispatch.py", "models/lm.py", "models/layers.py",
                  "models/ssm.py", "models/config.py", "configs/__init__.py",
-                 "configs/qwen1_5_4b.py"):
+                 "configs/qwen1_5_4b.py", "train/optim.py",
+                 "train/compress.py", "train/step.py", "data/pipeline.py",
+                 "checkpoint/manager.py", "launch/train.py", "_tree.py"):
         assert want in names
 
 
@@ -60,11 +63,12 @@ def test_every_port_module_imports_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'repro')\n"
+        "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro')\n"
         "             and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
         "print(len(bad))\n")
