@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ripple-times SRC  # only the ripple times
     python3 chip_smoke.py --setup-peak SRC    # only the table set-up peak
     python3 chip_smoke.py --decode-times SRC  # only LM prefill/decode times
+    python3 chip_smoke.py --onehot-times SRC  # only the share_onehot times
 
 Phases, any failure exits non-zero:
 
@@ -19,7 +20,8 @@ Phases, any failure exits non-zero:
    sliding windows for k = 1..W, the tall-skinny matmul at M = 1, 17, 255
    and 256, K not a multiple of its tile, N = 1, and at vocab-shard
    offsets that are not a multiple of 4; the fused one-hot sharing at
-   M = 1..300, V = 1..151,936, c = 1, 4, 20 with −1 padding tokens; both
+   M = 1..300, V = 1..256,206 (every V % 4), c = 1, 4, 20 with −1, V and
+   2³¹ + 3 as tokens, each call on the route its plan names; both
    matmul kernels where their byte-limb arithmetic is tightest: all-(p−1)
    and all-(2³¹−1) operands at K = 2·8,192 + 1 and the 8,192-term
    K-chunk boundary at M = 1, 9, 33 and 257; the match and slide kernels
@@ -175,8 +177,12 @@ Phases, any failure exits non-zero:
    the K = 552 aggregate product, the 1,024-row PK/FK fetch and the
    21-row tall equijoin fetch; the chain's copies, launches and modular
    products and the equality indicator timed apart; ``share_onehot`` at
-   M = 4 and 8 over V = 151,936 and 256,206 by device time, the median of
-   CUDA-graph replays, beside its host-inclusive time);
+   decode steps (M = 4, 8) over V = 151,936, 256,206, 49,155 and 32,001,
+   at M = 256 over 151,936 and 128,256 and at M = 2,048 by device time,
+   the median of CUDA-graph replays, and the device time of its kernel
+   in those replays (``torch.profiler``) beside its host-inclusive time,
+   each row on the quad route; one call with int64 tokens must run
+   exactly one device kernel);
    time kernel and plain version there (CUDA events; the match at B = 1
    and 8 and over the tree round, the slide at k = 2, 3 and 5; the ripple
    kernel on both routes, the median of CUDA-graph replays, beside the
@@ -525,39 +531,49 @@ def compare_tall(torch, gen, dev, errs) -> None:
 
 def compare_onehot(torch, gen, dev, errs) -> None:
     """``ops.share_onehot`` vs ``share_onehot_plain``: M = 1, 17, 256, 300,
-    V = 1, 1000, 1003 and 151,936 (V not a multiple of 4 or of the
-    1,024-wide tile), c = 1, 4, 20; tokens at 0, V−1, repeated and −1; a1
-    with p−1 extremes and as a strided view. Then the embedding lookup's
-    shard contraction on the tall kernel at S = 3 over 151,936 ids, whose
-    second and third vocab slices start at offsets that are not a multiple
-    of 4 (the kernel's 4-byte copy route)."""
+    V = 1, 1,000 to 1,003 (every V % 4, so M·V % 4 takes every value),
+    151,936 and 256,206, c = 1, 4, 20; tokens at 0, V−1, repeated and −1,
+    and from M = 17 also V, −5 and 2³¹ + 3; a1 with p−1 extremes and as a
+    strided view; each call one launch on the route ``onehot_plan`` names
+    (quad where M·V % 4 == 0, word for the rest and the views). Then the
+    embedding lookup's shard contraction on the tall kernel at S = 3 over
+    151,936 ids, whose second and third vocab slices start at offsets that
+    are not a multiple of 4 (the kernel's 4-byte copy route)."""
     from repro_torch.core.partition import split_bounds
     from repro_torch.kernels import ops
     from repro_torch.kernels import ss_matmul as ssm
 
-    def same(got, want, what):
+    def same(toks, a1, c, what):
+        before = ops.onehot_route_counts()
+        got = ops.share_onehot(toks, a1, n_shares=c)
+        want = ssm.share_onehot_plain(toks, a1, n_shares=c)
         torch.cuda.synchronize()
         check(got.shape == want.shape and torch.equal(got, want),
               f"{what} differs from its plain version")
         errs["share_onehot"] = max(errs["share_onehot"],
                                    max_err(torch, got, want))
+        route = ssm.onehot_plan(a1.data_ptr(), got.data_ptr(), a1.stride(),
+                                *a1.shape)
+        after = ops.onehot_route_counts()
+        check(after[route] == before[route] + 1
+              and sum(after.values()) == sum(before.values()) + 1,
+              f"{what}: one launch on the {route} route wanted, routes "
+              f"went {before} -> {after}")
 
     for m in (1, 17, 256, 300):
-        for v in (1, 1000, 1003, QWEN_VOCAB):
+        for v in (1, 1000, 1001, 1002, 1003, QWEN_VOCAB, SEAMLESS_VOCAB):
             toks = torch.randint(0, v, (m,), generator=gen, device=dev)
             if m >= 4:
                 toks[:4] = torch.tensor([0, v - 1, int(toks[m - 1]), -1])
+            if m >= 17:
+                toks[4:7] = torch.tensor([v, -5, 2**31 + 3])
             a1 = rand_field(torch, gen, (m, v), dev)
             for c in (1, 4, 20):
-                same(ops.share_onehot(toks, a1, n_shares=c),
-                     ssm.share_onehot_plain(toks, a1, n_shares=c),
-                     f"share_onehot M={m} V={v} c={c}")
+                same(toks, a1, c, f"share_onehot M={m} V={v} c={c}")
     wide = rand_field(torch, gen, (6, 1030), dev)
     for view in (wide[:, 3:1027], wide[::2, 1:9]):
         toks = torch.arange(view.shape[0], device=dev) * 3
-        same(ops.share_onehot(toks, view, n_shares=4),
-             ssm.share_onehot_plain(toks, view, n_shares=4),
-             "share_onehot strided a1")
+        same(toks, view, 4, "share_onehot strided a1")
 
     stacked = rand_field(torch, gen, (4, 8, QWEN_VOCAB), dev)
     table = rand_field(torch, gen, (4, QWEN_VOCAB, 64), dev)
@@ -708,7 +724,21 @@ def check_launches(torch, ops, path: str, kernels, timings):
     for name in kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {path}")
+    check_onehot_quad(ops, path)
     return launches
+
+
+def check_onehot_quad(ops, path: str) -> dict:
+    """Every ``share_onehot`` launch since the last reset took the quad
+    route (every main-path lookup has M·V % 4 == 0 and a fresh a1)."""
+    routes = ops.onehot_route_counts()
+    n = ops.launch_counts()["share_onehot"]
+    check(routes == {"quad": n, "word": 0},
+          f"{path}: share_onehot launched {n} times, by route {routes}; "
+          f"every main-path lookup takes the quad route")
+    if n:
+        log(f"{path} share_onehot routes {routes}")
+    return routes
 
 
 def main_path(torch, args, expect_strategy):
@@ -1761,6 +1791,7 @@ def lm_path(torch, args, errs):
         got = ops.launch_counts()
         total.update(got)
         log(f"slice-7 route {route} launches {got}")
+        check_onehot_quad(ops, f"slice-7 route {route}")
         return res, got
 
     def via_server_run(server, n_new):
@@ -2204,6 +2235,7 @@ def family_path(torch, args, idx, arch, layers, t, fields, frontend=None,
         got = ops.launch_counts()
         total.update(got)
         log(f"{tag} route {route} launches {got}")
+        check_onehot_quad(ops, f"{tag} route {route}")
         return toks, got
 
     def server(p, c):
@@ -2684,6 +2716,7 @@ def train_t2(torch, args, cfg, errs):
             step_s = time.perf_counter() - t0
             got = ops.launch_counts()
             total.update(got)
+            check_onehot_quad(ops, f"slice 10 t2 step {i}")
             want = {k: (1 if k in SLICE10_KERNELS else 0) for k in got}
             check(got == want, f"slice 10 t2 step {i}: launched {got}, "
                   f"one lookup a step wants {want}")
@@ -2966,53 +2999,130 @@ def train_path(torch, args, errs):
     return launches
 
 
-#: SeamlessM4T-medium's vocabulary (slice 9): not a multiple of 4, so
-#: ``share_onehot`` reads it on its scalar-load route
-SEAMLESS_VOCAB = 256206
+#: vocabularies of the families whose lookups phase 4 re-times:
+#: SeamlessM4T-medium (slice 9), Granite-3.0-3B-A800M and Hymba-1.5B
+#: (slice 8), InternVL2-76B (slice 9); V % 4 = 2, 3, 1 and 0
+SEAMLESS_VOCAB, GRANITE_VOCAB, HYMBA_VOCAB, INTERNVL_VOCAB = \
+    256206, 49155, 32001, 128256
+#: phase 4's share_onehot rows (V, M), c = 4: decode steps (M = 4, 8) of
+#: every V % 4, the 256-token prefills of Qwen1.5-4B and InternVL2 and
+#: slice 10's 2,048-token training lookup
+ONEHOT_ROWS = ((QWEN_VOCAB, 4), (QWEN_VOCAB, 8), (SEAMLESS_VOCAB, 4),
+               (SEAMLESS_VOCAB, 8), (GRANITE_VOCAB, 4), (HYMBA_VOCAB, 4),
+               (QWEN_VOCAB, 256), (INTERNVL_VOCAB, 256), (QWEN_VOCAB, 2048))
+#: a row whose bound is under this is labelled launch-bound: a launch's
+#: own fixed cost on the card is of that order
+LAUNCH_BOUND_MS = 0.003
 
 
 def onehot_device_times(torch, args):
-    """Phase 4: ``share_onehot`` at a decode step's M = 4 and 8 over
-    V = 151,936 (Qwen1.5-4B; the 16-byte route) and 256,206 (SeamlessM4T;
-    the scalar-load route), c = 4, each against its plain version and
-    timed by device time (``graph_ms``: the median of CUDA-graph replays,
-    so the launcher's host work does not count) beside the host-inclusive
-    figure (``time_ms``: 5 back-to-back calls between CUDA events, as
-    slices 8 and 9 time it) and the bound. Returns the rows."""
+    """Phase 4: ``share_onehot`` at ONEHOT_ROWS, int64 tokens, each against
+    its plain version and timed by device time (``graph_ms``: the median
+    of CUDA-graph replays, so the launcher's host work does not count),
+    the device time of the kernels inside those replays by
+    ``torch.profiler`` (``graph_kernels``), the host-inclusive figure
+    (``time_ms``: 5 back-to-back calls between CUDA events, as slices 8
+    and 9 time it) and the bound; each row names the route its launch
+    took. Then the device work of one call with int64 and with int32
+    tokens: the nodes of a CUDA graph of it (``graph_nodes``) and the
+    kernels ``torch.profiler`` lists (``eager_kernels``). A port without
+    route counters (an older checkout under ``--onehot-times``) reports
+    its route as None. -> (rows, {"int64": {"graph": ..., "profiler":
+    ...}, "int32": {...}})."""
     from repro_torch import _device
     from repro_torch.kernels import ops
     from repro_torch.kernels import ss_matmul as ssm
 
+    routes = getattr(ops, "onehot_route_counts", None)
     dev = _device.resolve(None)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
     c, rows = EMBED_SHARES, []
-    for v in (QWEN_VOCAB, SEAMLESS_VOCAB):
-        for m in (4, 8):
-            toks = torch.randint(0, v, (m,), generator=gen, device=dev)
-            a1 = rand_field(torch, gen, (m, v), dev)
-            got = ops.share_onehot(toks, a1, n_shares=c)
-            torch.cuda.synchronize()
-            check(torch.equal(got, ssm.share_onehot_plain(toks, a1,
-                                                          n_shares=c)),
-                  f"share_onehot at {(c, m, v)} differs from its plain "
-                  f"version")
+    for v, m in ONEHOT_ROWS:
+        toks = torch.randint(0, v, (m,), generator=gen, device=dev)
+        a1 = rand_field(torch, gen, (m, v), dev)
+        before = routes() if routes else None
+        got = ops.share_onehot(toks, a1, n_shares=c)
+        torch.cuda.synchronize()
+        route = None if routes is None else ",".join(
+            k for k, n in routes().items() if n > before[k])
+        check(torch.equal(got, ssm.share_onehot_plain(toks, a1,
+                                                      n_shares=c)),
+              f"share_onehot at {(c, m, v)} differs from its plain version")
+        del got
 
-            def call(toks=toks, a1=a1):
-                ops.share_onehot(toks, a1, n_shares=c)
+        def call(toks=toks, a1=a1):
+            ops.share_onehot(toks, a1, n_shares=c)
 
-            dev_ms, host_us, lo, hi = graph_ms(torch, [call])
-            host_ms = time_ms(torch, call, 5)
-            b_ms, b_by = bound(4 * (m * v + m + c * m * v),
-                               (c + 1) * m * v)
-            rows.append({"m": m, "v": v, "c": c, "device_ms": dev_ms,
-                         "device_ms_range": [lo, hi],
-                         "host_inclusive_ms": host_ms,
-                         "launcher_host_us": host_us, "bound_ms": b_ms,
-                         "bound_by": b_by,
-                         "share_of_bound": b_ms / dev_ms})
+        dev_ms, host_us, lo, hi = graph_ms(torch, [call])
+        by_kernel, per_call = graph_kernels(torch, [call])
+        host_ms = time_ms(torch, call, 5)
+        b_ms, b_by = bound(4 * (m * v + m + c * m * v), (c + 1) * m * v)
+        rows.append({"m": m, "v": v, "c": c, "route": route,
+                     "device_ms": dev_ms, "device_ms_range": [lo, hi],
+                     "kernel_ms": by_kernel, "kernels_a_call": per_call,
+                     "host_inclusive_ms": host_ms,
+                     "launcher_host_us": host_us, "bound_ms": b_ms,
+                     "bound_by": b_by, "share_of_bound": b_ms / dev_ms,
+                     "launch_bound": b_ms < LAUNCH_BOUND_MS})
+        del toks, a1
     log("share_onehot re-timed by device time (CUDA-graph replays) "
         + json.dumps(rows))
-    return rows
+    toks = torch.randint(0, QWEN_VOCAB, (4,), generator=gen, device=dev)
+    a1 = rand_field(torch, gen, (4, QWEN_VOCAB), dev)
+    calls = {}
+    for name, t in (("int64", toks), ("int32", toks.int())):
+        def one(t=t):
+            ops.share_onehot(t, a1, n_shares=c)
+        calls[name] = {"graph": graph_nodes(torch, one),
+                       "profiler": eager_kernels(torch, one)}
+    log(f"share_onehot device work of one call (M = 4, V = {QWEN_VOCAB}"
+        f"): {json.dumps(calls)}")
+    return rows, calls
+
+
+def graph_nodes(torch, fn) -> dict:
+    """The device work of one call of ``fn``, read from a CUDA graph of it
+    through ``libcuda`` (``cuGraphGetNodes``, ``cuGraphNodeGetType``):
+    {"nodes": all nodes, "kernels": kernel nodes}. Unlike a profiler
+    trace, it cannot drop an event."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kernels += kind.value == 0            # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return {"nodes": n.value, "kernels": kernels}
+
+
+def eager_kernels(torch, fn) -> dict:
+    """The device kernels (and copies) of one more call of ``fn`` by
+    ``torch.profiler``: {name: count}; empty when the profiler sees no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.count for e in prof.key_averages()
+            if getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))}
 
 
 def _leaves(tree):
@@ -3530,12 +3640,10 @@ def smi(query: str, check: bool = True) -> str:
             ).splitlines()[0]
 
 
-def graph_ms(torch, fns):
-    """Device ms per call of ``fns`` (thunks run in turn): a CUDA graph of
-    at least 12 calls, replayed GRAPH_WARM times untimed, then GRAPH_TIMED
-    times each between CUDA events, so the launcher's host time does not
-    bound a 0.03 ms kernel. -> (median ms, host µs a call measured without
-    the graph, least and most ms of the timed replays)."""
+def _graph(torch, fns):
+    """A CUDA graph of at least 12 calls of ``fns`` (thunks run in turn),
+    captured after a warm-up on a side stream -> (graph, calls in it, host
+    µs a call measured without the graph)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -3554,6 +3662,16 @@ def graph_ms(torch, fns):
         for _ in range(reps):
             for fn in fns:
                 fn()
+    return graph, reps * len(fns), host_us
+
+
+def graph_ms(torch, fns):
+    """Device ms per call of ``fns`` (thunks run in turn): a CUDA graph of
+    at least 12 calls, replayed GRAPH_WARM times untimed, then GRAPH_TIMED
+    times each between CUDA events, so the launcher's host time does not
+    bound a 0.03 ms kernel. -> (median ms, host µs a call measured without
+    the graph, least and most ms of the timed replays)."""
+    graph, calls, host_us = _graph(torch, fns)
     for _ in range(GRAPH_WARM):
         graph.replay()
     events = [(torch.cuda.Event(enable_timing=True),
@@ -3565,10 +3683,35 @@ def graph_ms(torch, fns):
         graph.replay()
         stop.record()
     torch.cuda.synchronize()
-    ms = sorted(start.elapsed_time(stop) / (reps * len(fns))
-                for start, stop in events)
+    ms = sorted(start.elapsed_time(stop) / calls for start, stop in events)
     del graph
     return ms[len(ms) // 2], host_us, ms[0], ms[-1]
+
+
+def graph_kernels(torch, fns):
+    """The device time of the kernels inside GRAPH_TIMED replays of a CUDA
+    graph of ``fns`` (as ``graph_ms`` builds it), by ``torch.profiler``
+    -> ({kernel name: device ms a call}, device kernels a call); ({}, 0)
+    when the profiler sees no device time in graph replays."""
+    from torch.profiler import ProfilerActivity, profile
+    graph, calls, _ = _graph(torch, fns)
+    for _ in range(GRAPH_WARM):
+        graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRAPH_TIMED):
+            graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    n = GRAPH_TIMED * calls
+    by_name, kernels = {}, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us:
+            by_name[e.key[:80]] = us / 1e3 / n
+            kernels += e.count
+    return by_name, kernels / n
 
 
 def ripple_operands(torch, x, ends, bit_major):
@@ -3903,6 +4046,23 @@ def setup_peak_only(torch, args) -> int:
     return 0
 
 
+def onehot_times_only(torch, args) -> int:
+    """``--onehot-times SRC``: build SRC's kernels and print
+    ``onehot_device_times``' rows and one call's device kernels as JSON
+    (two checkouts compare on one card when both run in one call, in
+    turns)."""
+    import repro_torch
+    from repro_torch.kernels import _build
+    _build.build_all()
+    clocks = smi(CLOCKS, check=False)
+    rows, calls = onehot_device_times(torch, args)
+    print(json.dumps({"src": os.path.dirname(repro_torch.__file__),
+                      "card": smi("name,power.limit"),
+                      "clocks_before": clocks, "rows": rows,
+                      "kernels_of_one_call": calls}), flush=True)
+    return 0
+
+
 def decode_times_only(torch, args) -> int:
     """``--decode-times SRC``: with the port under SRC, for slice 7's
     configuration and each of slices 8 and 9's that the port runs (a
@@ -3999,6 +4159,11 @@ def main() -> int:
                     help="only measure the device memory and seconds of the "
                          "embedding table's set-up (slices 4 and 7) with the "
                          "port under SRC, and print them as JSON")
+    ap.add_argument("--onehot-times", metavar="SRC",
+                    help="only time share_onehot of the port under SRC at "
+                         "phase 4's shapes (device time of CUDA-graph "
+                         "replays, the kernels inside them, routes) and "
+                         "print the rows as JSON")
     ap.add_argument("--decode-times", metavar="SRC",
                     help="only time prefill and decode steps and count a "
                          "decode step's aten calls for slices 7, 8 and 9's "
@@ -4006,7 +4171,7 @@ def main() -> int:
                          "them as JSON")
     args = ap.parse_args()
     only = (args.aa_times or args.ripple_times or args.setup_peak
-            or args.decode_times)
+            or args.decode_times or args.onehot_times)
     if only:
         sys.path.insert(0, os.path.abspath(only))
 
@@ -4022,6 +4187,8 @@ def main() -> int:
         return setup_peak_only(torch, args)
     if args.decode_times:
         return decode_times_only(torch, args)
+    if args.onehot_times:
+        return onehot_times_only(torch, args)
     from repro_torch.api import planner
     from repro_torch.kernels import _build
 
@@ -4067,7 +4234,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     onehot = embed_full_shapes(torch, table, errs, launches)
     del table
-    onehot_device_times(torch, args)
+    onehot_rows, onehot_calls = onehot_device_times(torch, args)
+    check(all(r["route"] == "quad" for r in onehot_rows),
+          "a phase-4 share_onehot shape did not take the quad route")
+    int64 = onehot_calls["int64"]
+    check(int64["graph"] == {"nodes": 1, "kernels": 1}
+          and all("onehot" in k for k in int64["profiler"]),
+          f"share_onehot with int64 tokens ran {int64}, not exactly one "
+          f"device kernel")
     kernels = full_shape_kernels(torch, db, errs, launches) + [onehot] \
         + join_full_shapes(torch, db, assign_db, errs, launches)
     log(f"phase 4 peak device memory {torch.cuda.max_memory_allocated() / 1e9}"

@@ -5,22 +5,40 @@
 //     out[k, i, v] = [v == tok_i] + a1[i, v] * (k + 1)        (mod p)
 //
 // the share at x_k = k + 1 of the degree-1 polynomial onehot_i + a1_i * x.
-// A token outside [0, V) (the -1 padding) gives an all-zero one-hot row.
-// The plaintext one-hot never reaches device memory.
+// A token outside [0, V) (the -1 padding, or any int64 id past V) gives an
+// all-zero one-hot row. The plaintext one-hot never reaches device memory.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ss_matmul.py:186
 // share_onehot_pallas (_share_onehot_kernel).
 //
 // What bounds it on an H100: device-memory bytes. It reads a1 once
-// (4 M V bytes) and writes c times as much, with one add per output word.
+// (4 M V bytes) and writes c times as much, with one add per output word
+// and nothing reused, so the only gains are fewer transactions and fewer
+// launches.
 //
-// Design (simple and right first): one block per (token row, vocabulary
-// tile) and four consecutive vocabulary ids per thread. The token is read
-// once per block; a1[i, v:v+4] comes in one 16-byte load where the row is
-// 16-byte aligned and V % 4 == 0, else in scalar loads. The shares follow
-// without a multiply: s = onehot + a1, then s += a1 (mod p) for each
-// further cloud, every step one coalesced 16-byte store to
-// out[k, i, v:v+4]. The Pallas grid's (bm, bv) blocks are not carried over.
+// Design. Each cloud's output plane out[k] is one flat run of n = M V
+// words, and so is a1 when it is contiguous. The launch plan
+// (kernels/ss_matmul.py onehot_plan) picks one of two routes:
+//   * quad (every main-path shape): a1 contiguous, both bases 16-byte
+//     aligned, n % 4 == 0. Thread q owns words 4q..4q+3 of the flat plane
+//     whatever the row: one 16-byte load of a1, the one-hot bits from the
+//     rows the quad touches (one division for the first word's row; a
+//     quad crosses into the next row when V % 4 != 0, and spans several
+//     rows when V < 4), then c 16-byte stores with s += a1 (mod p) between
+//     clouds. Neighbouring threads take neighbouring 16-byte quads, so a
+//     warp's load or store is 512 contiguous bytes for any V. One quad a
+//     thread and streaming (evict-first) stores measured fastest on the
+//     H100 at M = 256 and 2,048 (PERF.md §6), against 2 or 4 quads a
+//     thread and plain stores.
+//   * word (anything else: a strided or offset a1 view, n % 4 != 0, an
+//     unaligned base): one word a thread, consecutive threads on
+//     consecutive words, kWords words a thread unrolled; a1 is read
+//     through both strides, so no view is copied.
+// Token ids are read as int64 in the kernel and range-tested there: in
+// flat addressing a token equal to V or -1 would otherwise mark a word of
+// the next or the previous row. Word indices are 64-bit (c M V passes
+// 2^31); while a plane holds under 2^32 words the row is a 32-bit
+// division.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -28,49 +46,85 @@ namespace {
 
 constexpr uint32_t kP = 2147483647u;
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocksY = 65535;
+constexpr int kWords = 4;
 
 __device__ __forceinline__ uint32_t add_p(uint32_t x, uint32_t y) {
   const uint32_t s = x + y;  // < 2^32 for x, y < p
   return s >= kP ? s - kP : s;
 }
 
+__device__ __forceinline__ uint4 add_p4(uint4 x, uint4 y) {
+  return make_uint4(add_p(x.x, y.x), add_p(x.y, y.y), add_p(x.z, y.z),
+                    add_p(x.w, y.w));
+}
+
+__device__ __forceinline__ long long row_of(long long w, long long v,
+                                            bool narrow) {
+  return narrow ? static_cast<long long>(static_cast<uint32_t>(w) /
+                                         static_cast<uint32_t>(v))
+                : w / v;
+}
+
+// Bit j set iff word w + j of the flat plane is its row's hot word: every
+// row whose span meets [w, w + 4) is tested (one or two rows for V >= 4).
+__device__ __forceinline__ uint32_t hot_bits(const long long* __restrict__ tok,
+                                             long long tok_stride, long long w,
+                                             long long v, bool narrow) {
+  long long r = row_of(w, v, narrow);
+  uint32_t bits = 0;
+  for (long long start = r * v; start < w + 4; start += v, ++r) {
+    const long long t = __ldg(tok + r * tok_stride);
+    if (t >= 0 && t < v) {
+      const long long h = start + t - w;  // t's word, relative to w
+      if (h >= 0 && h < 4) bits |= 1u << h;
+    }
+  }
+  return bits;
+}
+
 __global__ void __launch_bounds__(kThreads)
-share_onehot_kernel(const int* __restrict__ tok,
-                    const uint32_t* __restrict__ a1, long long a1_stride,
-                    uint32_t* __restrict__ out, int m, long long v, int c,
-                    int vec) {
-  const long long v0 =
-      4 * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
-  if (v0 >= v) return;
-  const long long cloud_stride = static_cast<long long>(m) * v;
-  for (long long i = blockIdx.y; i < m; i += gridDim.y) {
-    const long long t = __ldg(tok + i);
-    const uint32_t* a_row = a1 + i * a1_stride + v0;
-    uint32_t* o = out + i * v + v0;
-    if (vec && v0 + 4 <= v) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(a_row));
-      uint4 s;
-      s.x = add_p(a.x, t == v0 ? 1u : 0u);
-      s.y = add_p(a.y, t == v0 + 1 ? 1u : 0u);
-      s.z = add_p(a.z, t == v0 + 2 ? 1u : 0u);
-      s.w = add_p(a.w, t == v0 + 3 ? 1u : 0u);
+onehot_quad_kernel(const long long* __restrict__ tok, long long tok_stride,
+                   const uint4* __restrict__ a1, uint4* __restrict__ out,
+                   long long n, long long v, int c, bool narrow) {
+  const long long nq = n / 4;
+  const long long q =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (q >= nq) return;
+  const uint4 a = __ldg(a1 + q);
+  const uint32_t b = hot_bits(tok, tok_stride, 4 * q, v, narrow);
+  uint4 s = make_uint4(add_p(a.x, b & 1u), add_p(a.y, (b >> 1) & 1u),
+                       add_p(a.z, (b >> 2) & 1u), add_p(a.w, b >> 3));
+  for (int k = 0; k < c; ++k) {
+    __stcs(out + k * nq + q, s);  // streamed: nothing here is read again
+    s = add_p4(s, a);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+onehot_word_kernel(const long long* __restrict__ tok, long long tok_stride,
+                   const uint32_t* __restrict__ a1, long long row_stride,
+                   long long col_stride, uint32_t* __restrict__ out,
+                   long long n, long long v, int c, bool narrow) {
+  const long long w0 =
+      static_cast<long long>(blockIdx.x) * (kThreads * kWords) + threadIdx.x;
+  uint32_t a[kWords];
+  long long col[kWords], row[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const long long w = w0 + j * kThreads;
+    row[j] = row_of(w < n ? w : 0, v, narrow);
+    col[j] = w - row[j] * v;
+    if (w < n) a[j] = __ldg(a1 + row[j] * row_stride + col[j] * col_stride);
+  }
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const long long w = w0 + j * kThreads;
+    if (w < n) {
+      const long long t = __ldg(tok + row[j] * tok_stride);
+      uint32_t s = add_p(a[j], t == col[j] ? 1u : 0u);  // col in [0, V)
       for (int k = 0; k < c; ++k) {
-        *reinterpret_cast<uint4*>(o + k * cloud_stride) = s;
-        s.x = add_p(s.x, a.x);
-        s.y = add_p(s.y, a.y);
-        s.z = add_p(s.z, a.z);
-        s.w = add_p(s.w, a.w);
-      }
-    } else {
-      const int len = v - v0 < 4 ? static_cast<int>(v - v0) : 4;
-      for (int j = 0; j < len; ++j) {
-        const uint32_t a = __ldg(a_row + j);
-        uint32_t s = add_p(a, t == v0 + j ? 1u : 0u);
-        for (int k = 0; k < c; ++k) {
-          o[k * cloud_stride + j] = s;
-          s = add_p(s, a);
-        }
+        __stcs(out + k * n + w, s);
+        s = add_p(s, a[j]);
       }
     }
   }
@@ -78,24 +132,39 @@ share_onehot_kernel(const int* __restrict__ tok,
 
 }  // namespace
 
-// tok: device int32[m] token ids (outside [0, v) -> a zero one-hot row)
-// a1: device uint32 rows of v coefficients in [0, p), row stride a1_stride
-//     elements (unit stride along v)
+// tok: device int64 token ids, element stride tok_stride (outside [0, v)
+//      -> a zero one-hot row)
+// a1: device uint32 (m, v) coefficients in [0, p), element strides
+//     (a1_row_stride, a1_col_stride)
 // out: device uint32[c, m, v] contiguous
-extern "C" int share_onehot_u32(const void* tok, const void* a1,
-                                long long a1_stride, void* out, int m,
-                                long long v, int c, void* stream) {
+// route: 1 quad (a1 flat-contiguous, a1 and out 16-byte aligned,
+//        m v % 4 == 0; cudaErrorInvalidValue otherwise), 0 word
+extern "C" int share_onehot_u32(const void* tok, long long tok_stride,
+                                const void* a1, long long a1_row_stride,
+                                long long a1_col_stride, void* out, int m,
+                                long long v, int c, int route, void* stream) {
   if (m <= 0 || v <= 0 || c <= 0) return 0;
-  const bool vec = v % 4 == 0 && a1_stride % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(a1) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long quads = (v + 3) / 4;
-  const long long bx = (quads + kThreads - 1) / kThreads;
-  const long long by = m < kMaxBlocksY ? m : kMaxBlocksY;
-  dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by));
-  share_onehot_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tok), static_cast<const uint32_t*>(a1),
-      a1_stride, static_cast<uint32_t*>(out), m, v, c, vec ? 1 : 0);
+  const long long n = static_cast<long long>(m) * v;
+  const bool narrow = n <= 0xFFFFFFFFLL;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const long long*>(tok);
+  if (route == 1) {
+    const bool flat = (m == 1 || a1_row_stride == v) &&
+                      (v == 1 || a1_col_stride == 1);
+    if (!flat || n % 4 != 0 || reinterpret_cast<uintptr_t>(a1) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long blocks = (n / 4 + kThreads - 1) / kThreads;
+    if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+    onehot_quad_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        t, tok_stride, static_cast<const uint4*>(a1),
+        static_cast<uint4*>(out), n, v, c, narrow);
+  } else {
+    const long long blocks = (n + kThreads * kWords - 1) / (kThreads * kWords);
+    if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+    onehot_word_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        t, tok_stride, static_cast<const uint32_t*>(a1), a1_row_stride,
+        a1_col_stride, static_cast<uint32_t*>(out), n, v, c, narrow);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -207,6 +207,7 @@ def reset_launch_counts() -> None:
     _rip.launches = 0
     _rip.carry_launches = 0
     _rip.route_launches = dict.fromkeys(_rip.ROUTES, 0)
+    _ssm.onehot_route_launches = dict.fromkeys(_ssm.ONEHOT_ROUTES, 0)
 
 
 def ripple_route_counts() -> Dict[str, int]:
@@ -214,3 +215,9 @@ def ripple_route_counts() -> Dict[str, int]:
     (``bit_major``, ``strided``) since the last
     :func:`reset_launch_counts`."""
     return dict(_rip.route_launches)
+
+
+def onehot_route_counts() -> Dict[str, int]:
+    """The ``share_onehot`` kernel's launches by route (``quad``, ``word``;
+    ``ss_matmul.onehot_plan``) since the last :func:`reset_launch_counts`."""
+    return dict(_ssm.onehot_route_launches)

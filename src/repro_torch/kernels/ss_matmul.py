@@ -16,12 +16,15 @@ The module also holds the user-side sharing step that feeds the embedding
 lookup's contraction: :func:`share_onehot_cuda` (``csrc/share_onehot.cu``,
 replacing the Pallas ``share_onehot_pallas``) and its plain version
 :func:`share_onehot_plain`, as the reference keeps them beside the matmul.
+The pure-Python :func:`onehot_plan` picks the kernel's route: ``quad``
+(16-byte quads of the flat (M, V) plane, every main-path lookup) or
+``word`` (strided or offset views, M·V % 4 != 0).
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -53,6 +56,9 @@ TALL_MIN_K = 1024
 launches = 0
 tall_launches = 0
 share_onehot_launches = 0
+#: the share_onehot launches by route (ONEHOT_ROUTES), since the last reset.
+ONEHOT_ROUTES = ("quad", "word")
+onehot_route_launches: Dict[str, int] = dict.fromkeys(ONEHOT_ROUTES, 0)
 #: kernels launch from pool and MapReduce threads too: += is not atomic
 _count_lock = threading.Lock()
 
@@ -229,10 +235,29 @@ def share_onehot_plain(tokens: torch.Tensor, a1: torch.Tensor, *,
     return out
 
 
+#: the kernel's route argument (csrc/share_onehot.cu share_onehot_u32)
+ONEHOT_ROUTES_C = {"word": 0, "quad": 1}
+
+
+def onehot_plan(a1_ptr: int, out_ptr: int, a1_strides: Sequence[int],
+                m: int, v: int) -> str:
+    """The share_onehot launch's route: ``"quad"`` (16-byte quads of the
+    flat (M, V) plane) when a1 is one flat run (row stride V, unit column
+    stride; either is free where its dim is 1), both byte addresses are
+    16-byte aligned and M·V % 4 == 0, else ``"word"``. Every plane of
+    the (c, M, V) output then starts 16-byte aligned too."""
+    rows, cols = a1_strides
+    flat = (m == 1 or rows == v) and (v == 1 or cols == 1)
+    if flat and (m * v) % 4 == 0 and a1_ptr % 16 == 0 and out_ptr % 16 == 0:
+        return "quad"
+    return "word"
+
+
 def _onehot_lib():
     fn = _build.library("share_onehot").share_onehot_u32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -240,8 +265,11 @@ def _onehot_lib():
 
 def share_onehot_cuda(tokens: torch.Tensor, a1: torch.Tensor, *,
                       n_shares: int) -> torch.Tensor:
-    """The CUDA kernel (see :func:`share_onehot_plain`); M = 0 or V = 0
-    return without a launch. ``a1`` is read through its row stride."""
+    """The CUDA kernel (see :func:`share_onehot_plain`) on the route that
+    :func:`onehot_plan` picks; M = 0 or V = 0 return without a launch.
+    ``a1`` and the tokens are read through their strides and int64 ids are
+    range-tested in the kernel, so int64 tokens cost one device kernel;
+    int32 ones are widened first."""
     global share_onehot_launches
     m, v = _check_onehot(tokens, a1, n_shares)
     if max(m, v, n_shares) >= 2**31:
@@ -249,16 +277,17 @@ def share_onehot_cuda(tokens: torch.Tensor, a1: torch.Tensor, *,
     out = torch.empty((n_shares, m, v), dtype=DTYPE, device=a1.device)
     if m == 0 or v == 0:
         return out
-    if a1.stride(-1) != 1:
-        a1 = a1.contiguous()
-    # ids past int32 are out of range either way: clamp keeps them so
-    tok = tokens.clamp(-1, v).to(torch.int32).contiguous()
+    if tokens.dtype != torch.int64:
+        tokens = tokens.to(torch.int64)
+    route = onehot_plan(a1.data_ptr(), out.data_ptr(), a1.stride(), m, v)
     stream = torch.cuda.current_stream(a1.device).cuda_stream
-    err = _onehot_lib()(tok.data_ptr(), a1.data_ptr(), a1.stride(0),
-                        out.data_ptr(), m, v, n_shares, stream)
+    err = _onehot_lib()(tokens.data_ptr(), tokens.stride(0), a1.data_ptr(),
+                        a1.stride(0), a1.stride(1), out.data_ptr(), m, v,
+                        n_shares, ONEHOT_ROUTES_C[route], stream)
     if err != 0:
         raise RuntimeError(f"share_onehot kernel launch failed: CUDA error "
                            f"{err}")
     with _count_lock:
         share_onehot_launches += 1
+        onehot_route_launches[route] += 1
     return out

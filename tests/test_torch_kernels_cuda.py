@@ -343,22 +343,38 @@ def test_ss_matmul_tall_kernel_reads_shard_slices(cuda):
                            ss_matmul.ss_matmul_plain(a, b))
 
 
+def _onehot_case(toks, a1, c):
+    """One ``share_onehot`` call: bit-equal to the plain version, one
+    launch (none at M = 0), on the route ``onehot_plan`` names for its
+    operands."""
+    ops.reset_launch_counts()
+    got = ops.share_onehot(toks, a1, n_shares=c)
+    torch.cuda.synchronize()
+    assert got.shape == (c, *a1.shape)
+    assert torch.equal(got, ss_matmul.share_onehot_plain(toks, a1,
+                                                         n_shares=c))
+    route = ss_matmul.onehot_plan(a1.data_ptr(), got.data_ptr(), a1.stride(),
+                                  *a1.shape)
+    launched = int(a1.shape[0] > 0)
+    assert ops.launch_counts()["share_onehot"] == launched
+    assert ops.onehot_route_counts() == {
+        r: launched * (r == route) for r in ss_matmul.ONEHOT_ROUTES}
+    return route
+
+
 @pytest.mark.parametrize("c", [1, 4, 20])
 @pytest.mark.parametrize("m,v", [(0, 1000), (1, 1), (17, 1000), (300, 1003),
-                                 (256, 4096)])
+                                 (256, 4096)] + [
+    (m, v) for v in (1000, 1001, 1002, 1003, 3) for m in (1, 3, 4, 8, 17)])
 def test_share_onehot_kernel_equals_plain(cuda, m, v, c):
+    """Every V % 4 (and V < 4, where a quad spans rows) against M % 4, so
+    M·V % 4 takes every value: the quad route exactly where it is 0."""
     g = torch.Generator(device=cuda).manual_seed(25)
     toks = torch.randint(0, v, (m,), generator=g, device=cuda)
     if m >= 4:                       # first, last, a repeat and the padding
         toks[:4] = torch.tensor([0, v - 1, int(toks[5 % m]), -1])
-    a1 = _field((m, v), 26, cuda)
-    ops.reset_launch_counts()
-    got = ops.share_onehot(toks, a1, n_shares=c)
-    torch.cuda.synchronize()
-    assert got.shape == (c, m, v)
-    assert torch.equal(got, ss_matmul.share_onehot_plain(toks, a1,
-                                                         n_shares=c))
-    assert ops.launch_counts()["share_onehot"] == (0 if m == 0 else 1)
+    route = _onehot_case(toks, _field((m, v), 26, cuda), c)
+    assert m == 0 or route == ("quad" if m * v % 4 == 0 else "word")
 
 
 def test_share_onehot_kernel_extremes_and_strides(cuda):
@@ -371,6 +387,42 @@ def test_share_onehot_kernel_extremes_and_strides(cuda):
         t = torch.arange(view.shape[0], device=cuda) * 3
         assert torch.equal(ops.share_onehot(t, view, n_shares=4),
                            ss_matmul.share_onehot_plain(t, view, n_shares=4))
+
+
+@pytest.mark.parametrize("v", [1001, 1002, 1003, 6])
+def test_share_onehot_quad_across_a_row_boundary(cuda, v):
+    """Hot words on both sides of a row boundary inside one 16-byte quad:
+    the last id of one row, the first of the next (M·V % 4 == 0)."""
+    m = 8
+    toks = torch.tensor([v - 1, 0] * 4, device=cuda)
+    toks[4:6] = torch.tensor([v - 2, 1])
+    assert _onehot_case(toks, _field((m, v), 30, cuda), 4) == "quad"
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_share_onehot_out_of_range_ids(cuda, dtype):
+    """Ids −5, V and 2³¹ + 3 (int64 only) give zero one-hot rows: in flat
+    addressing V would otherwise mark the next row's word 0, −1 the
+    previous row's last word."""
+    v = 1002
+    ids = [-5, v, 0, v - 1, -1, 2**31 + 3, 7, v]
+    if dtype == torch.int32:
+        ids[5] = 2**31 - 1
+    toks = torch.tensor(ids, dtype=dtype, device=cuda)
+    assert _onehot_case(toks, _field((8, v), 31, cuda), 20) == "quad"
+
+
+def test_share_onehot_strided_views_take_the_word_route(cuda):
+    wide = _field((6, 1030), 32, cuda)
+    base = _field((4 * 1000 + 1,), 33, cuda)
+    for view in (wide[:, 3:1027], wide[::2, 1:9], wide[:, :1000],
+                 wide[:, ::2], _field((9, 6), 35, cuda).t(),
+                 base[1:].view(4, 1000)):
+        t = torch.arange(view.shape[0], device=cuda) * 3
+        assert _onehot_case(t, view, 4) == "word"
+    toks = torch.tensor([[5, 1], [0, 1], [999, 1], [-1, 1]],
+                        device=cuda)[:, 0]          # token stride 2
+    assert _onehot_case(toks, _field((4, 1000), 34, cuda), 4) == "quad"
 
 
 # ---------------------------------------------------------------------------
