@@ -78,6 +78,24 @@ Phases, any failure exits non-zero:
    held to the plaintext and every ledger to a solo replay; logs closes,
    latency, throughput, pool dispatches, launches, the MapReduce counters
    and the phase's host seconds and peak memory.
+   Slice 11 (after slice 6, before slice 4): ``MeshDispatcher`` on a
+   ``("data", "model")`` grid, the Employee relation at 2 shards. (a) A
+   2 x 2 grid of ``cuda:0`` at the full n: 2 data rows, 2 groups of 10
+   clouds. A count, the one-tuple, one-round and tree selects, a
+   substring count, ``RangeCount`` at ``reduce_every`` 8 and 1, SUM, MIN
+   and a PK/FK join with slice 5's Assignment relation run on the 1 x 1
+   grid and on the 2 x 2 one: every answer must equal the plaintext and
+   the 1 x 1 grid's, every ledger its ledger, the dispatcher's record of
+   copies must show zero bytes from one cloud group's slot to another's,
+   and every kernel but ``share_onehot`` must launch on the 2 x 2 grid
+   (launches counted from zero before it). (b) Distinct devices: every
+   card at the full n when there are two or more; on one card
+   ``[cuda:0, cpu]`` on the model axis, cloud group 1 on the host
+   running the plain versions, at 16,384 tuples and a 32-row child
+   relation; the same checks. Logs each call's host seconds beside the
+   1 x 1 grid's, the copies by kind, the placed bytes by slot, the
+   predicted reduction cost and the peak memory. Slice 7's route (b) runs
+   under the default ``MeshDispatcher()``: every visible card on data.
    Slice 7 (last, after phase 4, with the earlier relations freed):
    private LM generation at the full Qwen1.5-4B configuration of
    ``repro_torch.configs`` (40 layers, d 2,560, 20 heads, d_ff 6,912,
@@ -1535,6 +1553,260 @@ def time_busy_reader(torch, srv, counts, rounds: int = 2):
     return {k: max(v) for k, v in times.items()}
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the MeshDispatcher on a grid of devices
+# ---------------------------------------------------------------------------
+
+#: every kernel of the slice-11 path (share_onehot is reached by slice 7's
+#: route (b), the EmbedLookup under the default MeshDispatcher())
+SLICE11_KERNELS = ("aa_match_batch", "aa_slide_batch", "ss_matmul",
+                   "ss_matmul_tall", "ripple_segment", "ripple_carry")
+#: (b) on a one-card host: cloud group 1 lives on the host and runs the
+#: plain versions there, so its relation is cut to this many tuples and
+#: its join's child relation to this many rows (the host's int64 matmuls
+#: take seconds a cloud at 16,384 x 2,760)
+HOST_HALF_TUPLES, HOST_HALF_CHILD = 16384, 32
+
+
+def slice11_cases(rows, assign, child_db, seed):
+    """(plans by tag, their plaintext check): count, the one-tuple,
+    one-round and tree selects, a substring count, RangeCount at
+    reduce_every 8 and 1, SUM and MIN over Salary and a PK/FK join."""
+    from repro_torch.api import (Aggregate, Between, Contains, Count, Eq,
+                                 Join, RangeCount, Select)
+    pick = np.random.default_rng(seed + 11)
+    eid = rows[pick.integers(0, len(rows)), 0]
+    first = rows[:, NAMES.index("FirstName")]
+    salary = rows[:, NAMES.index("Salary")].astype(np.int64)
+    by_id = {r[0]: list(r) for r in rows}
+    plans = {
+        "count": Count(Eq("FirstName", "Quinn")),
+        "one_tuple": Select(Eq("EmployeeId", eid), strategy="one_tuple"),
+        "one_round": Select(Eq("FirstName", "Zorro"), strategy="one_round"),
+        "tree": Select(Eq("FirstName", "Quinn"), strategy="tree"),
+        "contains": Count(Contains("FirstName", "inn")),
+        "range_r8": RangeCount(Between("Salary", 500, 1500), reduce_every=8),
+        "range_r1": RangeCount(Between("Salary", 500, 1500), reduce_every=1),
+        "sum": Aggregate("sum", "Salary"),
+        "min": Aggregate("min", "Salary", reduce_every=8),
+        "pkfk": Join(right=child_db, on=("EmployeeId", "EmployeeId"),
+                     kind="pkfk")}
+    in_range = int(((salary >= 500) & (salary <= 1500)).sum())
+    want = {
+        "count": ("count", ELL["Quinn"]),
+        "one_tuple": ("rows", [by_id[eid]]),
+        "one_round": ("rows", sorted(list(r) for r in rows[first == "Zorro"])),
+        "tree": ("addresses",
+                 [int(i) for i in np.nonzero(first == "Quinn")[0]]),
+        "contains": ("count", sum(like_oracle(w, "%inn%") for w in first)),
+        "range_r8": ("count", in_range),
+        "range_r1": ("count", in_range),
+        "sum": ("value", int(salary.sum())),
+        "min": ("value", int(salary.min())),
+        "pkfk": ("rows", sorted(by_id[a[0]] + list(a[1:]) for a in assign
+                                if a[0] in by_id))}
+    return plans, want
+
+
+def slice11_run(torch, args, db, plans, grid):
+    """Every plan through a client whose relation sits at 2 shards under
+    ``MeshDispatcher(grid)``, in strict mode (no cloud step may copy to
+    the host or wait on the device) when every slot is a card: (results,
+    host seconds a call, dispatcher)."""
+    from repro_torch.api import MeshDispatcher, QueryClient
+    mesh = MeshDispatcher(grid, strict_transfers=all(
+        d.type == "cuda" for d in grid.devices))
+    client = QueryClient(db, seed=args.seed)
+    client.attach(shards=2, dispatcher=mesh)
+    outs, secs = {}, {}
+    for tag, plan in plans.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs[tag] = client.run(plan)
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t
+    return outs, secs, mesh
+
+
+def slice11_check(torch, args, db, plans, want, grid, label):
+    """Run ``plans`` on the 1 x 1 grid of ``cuda:0`` and on ``grid``; every
+    answer must equal the plaintext and the 1 x 1 grid's, every ledger its
+    ledger, and no byte may go from one cloud group's slot to another's.
+    Returns the launches of the ``grid`` run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dispatch_mesh
+    peaks = {}
+
+    def run(which, grid_):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = slice11_run(torch, args, db, plans, grid_)
+        peaks[which] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return out
+
+    one, one_s, _ = run("1 x 1", make_dispatch_mesh(devices=["cuda:0"]))
+    ops.reset_launch_counts()
+    got, got_s, mesh = run(label, grid)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for tag, (field, value) in want.items():
+        for res, who in ((one[tag], "1 x 1"), (got[tag], label)):
+            have = getattr(res, field)
+            if field == "rows":
+                have = sorted(have)
+            check(have == value, f"slice 11 {who} {tag}: {field} {have} != "
+                  f"{value}")
+        a, b = one[tag], got[tag]
+        check((a.strategy, a.rows, a.addresses, a.count, a.value)
+              == (b.strategy, b.rows, b.addresses, b.count, b.value),
+              f"slice 11 {label} {tag}: answer differs from the 1 x 1 grid's")
+        check(a.ledger.as_dict() == b.ledger.as_dict(),
+              f"slice 11 {label} {tag}: ledger differs from the 1 x 1 grid's")
+    cross = mesh.cross_group_bytes()
+    by_why = collections.Counter()
+    for cp in mesh.copies():
+        by_why[cp["why"]] += cp["bytes"]
+    log(f"slice 11 {label}: grid {mesh.grid.shape} of "
+        f"{[str(d) for d in mesh.devices]}, "
+        f"{len(mesh.groups(db.n_shares))} cloud groups of "
+        f"{[hi - lo for lo, hi in mesh.groups(db.n_shares)]} clouds; "
+        f"bytes copied by kind {json.dumps(dict(by_why))}; "
+        f"cross-group bytes {cross}; predicted reduction cost "
+        f"{json.dumps(mesh.predicted_cost())}")
+    log(f"slice 11 {label}: placed bytes by slot " + json.dumps(
+        {str(cp["dst"]): cp["bytes"] for cp in mesh.copies()
+         if cp["why"] == "place"}))
+    check(cross == 0, f"slice 11 {label}: {cross} bytes went from one "
+          f"cloud group's slot to another's")
+    log(f"slice 11 {label}: host seconds a call (this grid, then the 1 x 1 "
+        f"grid) " + json.dumps({t: [round(got_s[t], 4), round(one_s[t], 4)]
+                               for t in plans}))
+    log(f"slice 11 {label}: strict transfers {mesh.strict_transfers}; "
+        f"launches {json.dumps(launches)}; peak device memory above the "
+        f"resident relations, GB " + json.dumps(
+            {k: round(v, 3) for k, v in peaks.items()}))
+    return launches
+
+
+def slice11_isolation(torch, args, db, plans, want, grid, label):
+    """The non-communicating clouds on ``grid``: run the count and the
+    one-round select with every cloud step run twice, the first time with
+    each share of the clouds outside group 0 raised by one (mod p) in
+    place (the blocks on the relation's own card are views of it), then
+    as shared. Group 0's clouds of each step's result must be
+    bit-identical in both runs and the other clouds must differ, so a
+    block that read another group's shares fails; the answers must stay
+    the plaintext's."""
+    from repro_torch import _tree
+    from repro_torch.api import MeshDispatcher, QueryClient
+
+    class Isolating(MeshDispatcher):
+        steps = moved = 0
+
+        def run_set(self, plane, ds):
+            k = self.groups(plane.db.n_shares)[0][1]
+            held = [plane.db.relation.values] + [
+                s.values for s in plane.db.numeric.values()]
+            for t in held:
+                t[k:].add_(1).remainder_(P)
+            try:
+                changed = super().run_set(plane, ds)
+            finally:
+                for t in held:
+                    t[k:].sub_(1).remainder_(P)
+            out = super().run_set(plane, ds)
+            a, b = _tree.leaves(out), _tree.leaves(changed)
+            check(len(a) == len(b), f"slice 11 {label} isolation: the "
+                  f"changed run returned another structure")
+            moved = False
+            for x, y in zip(a, b):
+                if isinstance(x, torch.Tensor):
+                    check(torch.equal(x[:k], y[:k]),
+                          f"slice 11 {label} isolation: group 0's clouds "
+                          f"moved with another group's shares")
+                    moved |= not torch.equal(x[k:], y[k:])
+                else:
+                    check(x == y, f"slice 11 {label} isolation: {x!r} "
+                          f"!= {y!r}")
+            Isolating.steps += 1
+            Isolating.moved += moved
+            return out
+
+    mesh = Isolating(grid)
+    check(len(mesh.groups(db.n_shares)) > 1,
+          f"slice 11 {label}: the isolation check needs split clouds")
+    client = QueryClient(db, seed=args.seed)
+    client.attach(shards=2, dispatcher=mesh)
+    for tag in ("count", "one_round"):
+        field, value = want[tag]
+        have = getattr(client.run(plans[tag]), field)
+        check((sorted(have) if field == "rows" else have) == value,
+              f"slice 11 {label} isolation {tag}: {field} {have}")
+    check(Isolating.steps == Isolating.moved == 3,
+          f"slice 11 {label} isolation: {Isolating.moved} of "
+          f"{Isolating.steps} steps moved with group 1's shares, not 3 of 3")
+    log(f"slice 11 {label}: a count and a one-round select, each cloud "
+        f"step run with the clouds outside group 0 changed: group 0's "
+        f"clouds bit-identical in all {Isolating.steps} steps, the other "
+        f"clouds changed in {Isolating.moved}")
+
+
+def slice11_path(torch, args, db, rows):
+    """Phase 3, slice 11: the Employee relation's cloud steps through
+    ``MeshDispatcher`` on a grid. (a) A 2 x 2 grid of ``cuda:0`` at the
+    full n (2 data rows, 2 groups of 10 clouds); every kernel of the path
+    must launch there. (b) Distinct devices: every card (n_model 2 when
+    their count is even) at the full n, or on a one-card host
+    ``[cuda:0, cpu]`` on the model axis at HOST_HALF_TUPLES, cloud group 1
+    on the host. Returns the launches of both grid runs."""
+    from repro_torch.core import Codec, outsource
+    from repro_torch.launch.mesh import make_dispatch_mesh
+
+    def child(rows_, n_child):
+        assign = make_assignments(rows_, args.seed)[:n_child]
+        return assign, outsource(assign.tolist(), n_shares=20,
+                                 column_names=ASSIGN_NAMES,
+                                 codec=Codec(word_length=8), degree=1,
+                                 seed=args.seed + 5)
+
+    t0 = time.perf_counter()
+    assign, child_db = child(rows, N_ASSIGN)
+    plans, want = slice11_cases(rows, assign, child_db, args.seed)
+    grid = make_dispatch_mesh(2, devices=["cuda:0"] * 4)
+    launches = slice11_check(torch, args, db, plans, want, grid,
+                             "(a) 2 x 2 grid of cuda:0")
+    slice11_isolation(torch, args, db, plans, want, grid,
+                      "(a) 2 x 2 grid of cuda:0")
+    for name in SLICE11_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the slice-11 2 x 2 grid")
+    log(f"slice 11 (a) took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        grid = make_dispatch_mesh(2 if cards % 2 == 0 else 1)
+        label = f"(b) {cards} cards"
+        db_b, rows_b, assign_b, child_b = db, rows, assign, child_db
+    else:
+        grid = make_dispatch_mesh(2, devices=["cuda:0", "cpu"])
+        label = "(b) cuda:0 and the host"
+        rows_b = make_rows(HOST_HALF_TUPLES, args.seed)
+        db_b = outsource(rows_b.tolist(), n_shares=20, column_names=NAMES,
+                         codec=Codec(word_length=8), degree=1,
+                         seed=args.seed,
+                         numeric_columns={NAMES.index("Salary"):
+                                          SALARY_BITS})
+        assign_b, child_b = child(rows_b, HOST_HALF_CHILD)
+    log(f"slice 11 {label}: {db_b.n_tuples} tuples, a "
+        f"{child_b.n_tuples}-row child relation")
+    plans, want = slice11_cases(rows_b, assign_b, child_b, args.seed)
+    launches_b = slice11_check(torch, args, db_b, plans, want, grid, label)
+    log(f"slice 11 (b) took {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] + launches_b[k] for k in launches}
+
+
 def embed_path(torch, args, vocab: int = QWEN_VOCAB, dim: int = QWEN_DIM):
     """Phase 3, slice 4: the oblivious embedding lookup at Qwen1.5-4B width
     through the public entry points: a synthetic (V, D) table from
@@ -1812,8 +2084,15 @@ def lm_path(torch, args, errs):
                                                             servers["a"]))
 
     client = QueryClient(seed=args.seed)
+    mesh = MeshDispatcher()
+    check(mesh.grid.shape == {"data": torch.cuda.device_count(),
+                              "model": 1},
+          f"the default MeshDispatcher() grid is {mesh.grid.shape}, not "
+          f"every visible card on data")
+    log(f"slice-7 route (b): the default MeshDispatcher() grid "
+        f"{mesh.grid.shape} of {[str(d) for d in mesh.devices]}")
     plane = client.attach(pe.as_embed_relation(table), name="embeddings",
-                          shards=2, dispatcher=MeshDispatcher())
+                          shards=2, dispatcher=mesh)
     split = {"lookup_s": 0.0, "decode_s": 0.0}
 
     def lookup(toks):
@@ -4227,10 +4506,14 @@ def main() -> int:
     path6 = serve_path(torch, args, db, rows, assign_db)
     log("slice-6 path: every served answer equals the plaintext "
         "evaluation and every ledger a solo replay")
+    path11 = slice11_path(torch, args, db, rows)
+    log("slice-11 path: on a 2 x 2 grid of the card and on distinct "
+        "devices every answer equals the plaintext and every answer and "
+        "ledger the 1 x 1 grid's, with no byte between cloud groups")
     path4, table = embed_path(torch, args)
     log("slice-4 path: every embedding equals the quantized table's row")
     launches = {k: sum(p[k] for p in (path1, path2, path3, path4, path5,
-                                      path6)) for k in path1}
+                                      path6, path11)) for k in path1}
     torch.cuda.reset_peak_memory_stats()
     onehot = embed_full_shapes(torch, table, errs, launches)
     del table

@@ -23,10 +23,15 @@
     client.run_batch_multi([("employees", plans_a), ("orders", plans_b)])
     client.attach(table_rel, name="emb", shards=2,
                   dispatcher=MeshDispatcher())  # device-resident, on CUDA
+    grid = make_dispatch_mesh(2)    # the cards as ("data", "model")
+    client.attach(db, name="employees", shards=4,
+                  dispatcher=MeshDispatcher(grid))  # cloud groups on model
 """
 from ..core.dataplane import (Dispatcher, PoolHandle, ShardedRelation,
                               ThreadedDispatcher)
-from ..core.mesh_dispatch import MeshDispatcher
+from ..core.grid import DeviceGrid, make_dispatch_mesh, make_host_mesh
+from ..core.mesh_dispatch import Block, MeshDispatcher
+from ..sharding import share_spec
 from ..core.queries.aggregate import VerificationError
 from .backends import (DEFAULT_BACKEND, Backend, aggregate_match_matrix,
                        available_backends, batched_match_matrix, get_backend,
@@ -57,7 +62,8 @@ from .plans import (AGG_OPS, AUTO, JOIN_KINDS, MATCH_METHODS,
 __all__ = [
     "Dispatcher", "PoolHandle", "ShardedRelation", "ThreadedDispatcher",
     "DEFAULT_RELATION", "EXPLAIN_CACHE_MAX", "AttachedRelation",
-    "MapReduceDispatcher", "MapReduceExecutor", "MeshDispatcher",
+    "MapReduceDispatcher", "MapReduceExecutor", "MeshDispatcher", "Block",
+    "DeviceGrid", "make_dispatch_mesh", "make_host_mesh", "share_spec",
     "MultiBatchExplanation",
     "explain_multi_batches", "VerificationError", "DEFAULT_BACKEND", "Backend",
     "aggregate_match_matrix", "available_backends", "batched_match_matrix",

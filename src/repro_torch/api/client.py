@@ -360,8 +360,9 @@ class QueryClient:
             plane = ShardedRelation(rel, shards=shards,
                                     dispatcher=dispatcher)
         # a device-resident dispatcher (MeshDispatcher) places the share
-        # blocks on its devices now, before the entry below captures
-        # plane.db, so every later round runs on the placed blocks
+        # blocks on its grid now; plane.db stays the relation on the
+        # client's device (the blocks may sit on several devices), and
+        # every later round's dispatches run on the placed blocks
         bind = getattr(plane.dispatcher, "bind_plane", None)
         if bind is not None:
             bind(plane)

@@ -3,7 +3,8 @@
 A :class:`ShardedRelation` splits the share arrays of a
 :class:`~repro_torch.core.engine.SecretSharedDB` into S contiguous
 tuple-axis shards (views, never copies), and the round engine emits one
-:class:`ShardDispatch` per shard per cloud step. A :class:`DispatchSet`
+:class:`ShardDispatch` per shard per cloud step (per (shard, cloud
+group) block on a ``MeshDispatcher``'s grid). A :class:`DispatchSet`
 bundles one step's dispatches with the reduction that reassembles them:
 
   * ``"concat"`` — per-tuple outputs concatenate along the tuple axis;
@@ -72,9 +73,14 @@ class Dispatcher:
     Two seams: host dispatchers (serial, thread pool, MapReduce) override
     only :meth:`run_all`; a device-resident dispatcher
     (``repro_torch.core.mesh_dispatch.MeshDispatcher``) overrides
-    :meth:`run_set` to reduce the per-shard partials on the device and
-    count only its initial placement as transferred.
+    :meth:`blocks` to split each shard into placed blocks and
+    :meth:`run_set` to reduce the partials on the devices and count only
+    its initial placement as transferred.
     """
+
+    def blocks(self, plane: "ShardedRelation") -> Sequence["Shard"]:
+        """The blocks one cloud step dispatches to: one whole shard each."""
+        return plane.shards
 
     def run_all(self, thunks: Sequence[Callable[[], Any]]) -> List[Any]:
         return [t() for t in thunks]
@@ -254,7 +260,13 @@ class PoolHandle(Dispatcher):
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """One contiguous tuple-axis slice [lo, hi) of the relation."""
+    """One contiguous tuple-axis slice [lo, hi) of the relation.
+
+    A shard is also the block a host dispatcher's dispatch runs on: every
+    cloud of the slice, where the relation lies. A device-resident
+    dispatcher hands its dispatches smaller blocks
+    (``core.mesh_dispatch.Block``: one group of clouds on one grid slot);
+    a dispatch reads its own block from the ``sh`` it is given."""
     index: int
     lo: int
     hi: int
@@ -263,10 +275,20 @@ class Shard:
     def n_tuples(self) -> int:
         return self.hi - self.lo
 
+    def take(self, x: Optional[torch.Tensor], *, clouds: bool = True
+             ) -> Optional[torch.Tensor]:
+        """A query operand that a dispatch captured, brought to its block:
+        the cloud axis (axis 0 of every share operand) cut to the block's
+        clouds unless ``clouds=False`` (weights, indices: no cloud axis),
+        then moved to the block's device. A whole shard on the relation's
+        own device takes every operand as it is; ``None`` stays ``None``."""
+        return x
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardDispatch:
-    """One shard's slice of a cloud step: a zero-argument device thunk."""
+    """One block's slice of a cloud step (a shard, or one cloud group of
+    it on a grid): a zero-argument device thunk."""
     shard: Shard
     run: Callable[[], Any]
 
@@ -336,6 +358,7 @@ class ShardedRelation:
         self.dispatcher = dispatcher or SERIAL
         self.stats = DispatchStats()
         self._views: dict = {}
+        self._placed: Dict[Shard, SecretSharedDB] = {}
 
     @property
     def device(self) -> torch.device:
@@ -346,8 +369,14 @@ class ShardedRelation:
     def n_shards(self) -> int:
         return len(self.shards)
 
-    def view(self, index: int) -> SecretSharedDB:
-        """Shard ``index`` as a sliced SecretSharedDB (cached)."""
+    def view(self, index: int, block: Optional[Shard] = None
+             ) -> SecretSharedDB:
+        """Shard ``index`` as a sliced SecretSharedDB (cached), or the
+        placed copy of ``block`` when a dispatcher placed it (:meth:`place`).
+        ``self.db`` stays the relation on the client's device, so shape
+        reads of it hold whatever the placement."""
+        if block is not None and block in self._placed:
+            return self._placed[block]
         sh = self.shards[index]
         if sh.lo == 0 and sh.hi == self.db.n_tuples:
             return self.db
@@ -363,15 +392,22 @@ class ShardedRelation:
                 base_degree=db.base_degree)
         return self._views[index]
 
+    def place(self, blocks: Dict[Shard, SecretSharedDB]) -> None:
+        """Serve ``blocks`` (block -> its placed view) from :meth:`view`,
+        in place of any earlier placement."""
+        self._placed = dict(blocks)
+
     # -- dispatch -----------------------------------------------------------
     def dispatch_set(self, build: Callable[[SecretSharedDB, Shard], Any],
                      *, reduce: str = "concat", axis: int = -1
                      ) -> DispatchSet:
-        """One cloud step: a per-shard dispatch descriptor per shard."""
+        """One cloud step: a dispatch descriptor per block of the
+        dispatcher (per shard for a host dispatcher); ``build(view, sh)``
+        gets the block's view and the block."""
         return DispatchSet(tuple(
-            ShardDispatch(sh, functools.partial(build, self.view(sh.index),
-                                                sh))
-            for sh in self.shards), reduce=reduce, axis=axis)
+            ShardDispatch(b, functools.partial(build, self.view(b.index, b),
+                                               b))
+            for b in self.dispatcher.blocks(self)), reduce=reduce, axis=axis)
 
     def execute(self, ds: DispatchSet):
         """Run one step through the placement policy and reduce it."""

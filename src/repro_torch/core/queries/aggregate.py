@@ -49,8 +49,8 @@ from ..costs import CostLedger
 from ..dataplane import RelationLike
 from ..shamir import Shares
 from .rounds import (Key, MatchJob, _fused_interpolate, _match_columns,
-                     _ripple_segmenter, _segment_edges, _share_patterns,
-                     _stack_numeric)
+                     _pick, _ripple_segmenter, _segment_edges,
+                     _share_patterns, _stack_numeric)
 
 AGG_OPS = ("sum", "avg", "min", "max")
 
@@ -185,23 +185,25 @@ def agg_sum_phase(be, db: RelationLike, jobs: Sequence[SumJob]) -> List[int]:
     for k, i in enumerate(cond):
         by_vcol.setdefault(jobs[i].value_column, []).append(k)
 
-    def lifted(v, col: int) -> torch.Tensor:                # (c, n_s)
+    def lifted(v, col: int, wts: torch.Tensor) -> torch.Tensor:  # (c, n_s)
         return field.sum_(field.mul(v.numeric[col].values,
-                                    weights[None, None, :]), dim=2)
+                                    wts[None, None, :]), dim=2)
 
     def one(v, sh):
         parts = []
+        wts = sh.take(weights, clouds=False)
         if cond:
-            bits = _match_columns(be, v, pred_cols, p_all.values)
+            bits = _match_columns(be, v, pred_cols, sh.take(p_all.values))
             out: List[Optional[torch.Tensor]] = [None] * len(cond)
             for vc, ks in by_vcol.items():
-                prod = be.ss_matmul(bits[:, ks],
-                                    lifted(v, vc)[:, :, None])  # (c,|ks|,1)
+                prod = be.ss_matmul(
+                    _pick(bits, 1, ks),
+                    lifted(v, vc, wts)[:, :, None])          # (c,|ks|,1)
                 for r, k in enumerate(ks):
                     out[k] = prod[:, r, 0]
             parts.append(torch.stack(out, dim=1))            # (c, Bc)
         if free:
-            cols = torch.stack([lifted(v, jobs[i].value_column)
+            cols = torch.stack([lifted(v, jobs[i].value_column, wts)
                                 for i in free], dim=1)        # (c, Bf, n_s)
             parts.append(field.sum_(cols, dim=2))            # (c, Bf)
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
@@ -296,7 +298,8 @@ def agg_minmax_rounds(be, db: RelationLike, jobs: Sequence[MinMaxJob]
         match_deg = (db.relation.degree + p_all.degree) * w
         pred_cols = [j.pred_column for j in cond_jobs]
         bits = Shares(plane.run_concat(
-            lambda v, sh: _match_columns(be, v, pred_cols, p_all.values),
+            lambda v, sh: _match_columns(be, v, pred_cols,
+                                         sh.take(p_all.values)),
             axis=2), match_deg)                             # (c, Bc, n)
         counts = Shares(field.sum_(bits.values, dim=2), match_deg)
         # sentinel mask: non-matching rows become the op's losing extreme

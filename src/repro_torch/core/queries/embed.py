@@ -187,7 +187,7 @@ def lookup_shares(be, rel: RelationLike, jobs: Sequence[EmbedJob]
                            be=be, a1=a1).values                 # (c, N, V)
     del a1
     fetched = plane.run_sum(
-        lambda view, sh: be.ss_matmul(stacked[:, :, sh.lo:sh.hi],
+        lambda view, sh: be.ss_matmul(sh.take(stacked[:, :, sh.lo:sh.hi]),
                                       view.relation.values))    # (c, N, D)
     return Shares(fetched, out_deg), spans
 

@@ -353,17 +353,18 @@ class _MatcherPlan:
                      for _, _, idxs in self.groups]
 
     def _shard_values(self, be, v: SecretSharedDB, sh):
-        """Cloud step on one shard: per group ``(job idxs, bits, contains
+        """Cloud step on one block: per group ``(job idxs, bits, contains
         job idxs, contains window counts)``. Bits are complete on the
         shard; window counts still need the cross-shard reduction."""
         out = []
         for (kind, k, idxs), pats in zip(self.groups, self.pats):
             cols = [self.jobs[i].column for i in idxs]
+            pat = sh.take(pats.values)
             if kind != "slide":
-                out.append((idxs, _match_columns(be, v, cols, pats.values,
-                                                 width=k), [], None))
+                out.append((idxs, _match_columns(be, v, cols, pat, width=k),
+                            [], None))
                 continue
-            win = _slide_columns(be, v, cols, pats.values)   # (c,Bg,ns,M)
+            win = _slide_columns(be, v, cols, pat)           # (c,Bg,ns,M)
             if self.w - k + 1 == 1:
                 # one window: the chain product IS the bit, either kind
                 out.append((idxs, win[..., 0], [], None))
@@ -378,7 +379,7 @@ class _MatcherPlan:
                 bits = torch.stack([_suffix_bits(
                     win[:, b], rel[:, :, cols[b], k:, 0]) for b in suf],
                     dim=1)
-            p_cnt = field.sum_(win[:, con], dim=-1) if con else None
+            p_cnt = field.sum_(_pick(win, 1, con), dim=-1) if con else None
             out.append(([idxs[b] for b in suf], bits,
                         [idxs[b] for b in con], p_cnt))
         return out
@@ -446,6 +447,17 @@ def _stack_numeric(db: SecretSharedDB, columns: Sequence[int]) -> Shares:
     return Shares(stacked, first.degree)
 
 
+def _pick(x: torch.Tensor, dim: int, idx: Sequence[int]) -> torch.Tensor:
+    """``x``'s entries ``idx`` along ``dim``, as a list index gives them,
+    without the list index: that index is uploaded from pageable memory,
+    so on CUDA it makes the host wait inside a cloud step. A run of
+    indices is a slice; anything else is stacked."""
+    idx = list(idx)
+    if idx == list(range(idx[0], idx[0] + len(idx))):
+        return x.narrow(dim, idx[0], len(idx)).contiguous()
+    return torch.stack([x.select(dim, i) for i in idx], dim=dim)
+
+
 def _match_columns(be, db: SecretSharedDB, columns: Sequence[int],
                    pats: torch.Tensor, width: Optional[int] = None
                    ) -> torch.Tensor:
@@ -504,8 +516,9 @@ def _block_sums(be, plane: "dataplane.ShardedRelation", p_all: Shares,
         lens = np.clip(ends, sh.lo, sh.hi) - sh.lo - lo_s
         h = max(1, int(lens.max()))
         bits = be.aa_match_rows(v.relation.values, cols_e, lo_s.tolist(),
-                                lens.tolist(), pats, h)        # (c, K, h)
+                                lens.tolist(), sh.take(pats), h)  # (c, K, h)
         if address_weights:
+            # public line numbers, uploaded straight to the block's device
             weights = (sh.lo + lo_s[:, None] + np.arange(h)[None, :] + 1)
             bits = field.mul(bits, _device.upload(
                 weights, field.DTYPE, bits.device)[None])
@@ -579,9 +592,9 @@ def one_tuple_round(be, db: RelationLike, jobs: Sequence[MatchJob]
     match_deg = (db.relation.degree + p_all.degree) * w
 
     def one(v: SecretSharedDB, sh):
-        bits = _match_columns(be, v, columns, p_all.values)    # (c, B, n_s)
-        return be.ss_matmul(bits, v.relation.values.reshape(
-            c, sh.n_tuples, m * w * a))
+        bits = _match_columns(be, v, columns,
+                              sh.take(p_all.values))           # (c, B, n_s)
+        return be.ss_matmul(bits, v.relation.values.flatten(2))
 
     sums = Shares(plane.run_sum(one).reshape(c, b, m, w, a),
                   match_deg + db.relation.degree)              # (c,B,m,W,A)
@@ -889,8 +902,9 @@ def range_phase(be, db: RelationLike, jobs: Sequence[RangeJob]) -> Shares:
         # degree, +2d per bit position.
         outs = plane.run_list(
             lambda v, sh, s0=s0, s1=s1: segment(
-                lhs[:, :, sh.lo:sh.hi, s0:s1], rhs[:, :, sh.lo:sh.hi, s0:s1],
-                carries[sh.index]))
+                sh.take(lhs[:, :, sh.lo:sh.hi, s0:s1]),
+                sh.take(rhs[:, :, sh.lo:sh.hi, s0:s1]),
+                sh.take(carries[sh.index])))
         rb_parts = [o[0] for o in outs]
         carries = [o[1] for o in outs]
         carry_deg = carry_deg + 2 * d * (s1 - s0)
@@ -960,11 +974,9 @@ def _fetch_stack(be, plane, jobs: Sequence[FetchJob],
     blocks = mats + [e.values for e in extras]
     # one block (a lone join's match rows) is read in place, not copied
     stacked = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
-    c, _, m, w, a = db.relation.values.shape
-    ds = plane.dispatch_set(                        # ONE dispatch per shard
-        lambda v, sh: be.ss_matmul(
-            stacked[:, :, sh.lo:sh.hi],
-            v.relation.values.reshape(c, sh.n_tuples, m * w * a)),
+    ds = plane.dispatch_set(                        # ONE dispatch per block
+        lambda v, sh: be.ss_matmul(sh.take(stacked[:, :, sh.lo:sh.hi]),
+                                   v.relation.values.flatten(2)),
         reduce="sum")
     return ds, ellps
 
@@ -1102,7 +1114,7 @@ def join_match_round(be, db: RelationLike, jobs: Sequence[JoinJob]
                   if len(set(cols_x)) == 1 else
                   torch.stack([v.relation.values[:, :, cx] for cx in cols_x],
                               dim=1))                   # (c, B, ns, W, A)
-            return matcher(bx, by_stack).transpose(-1, -2)
+            return matcher(bx, sh.take(by_stack)).transpose(-1, -2)
 
         m_rows = plane.run_concat(rows, axis=-1)        # (c, B, ny, nx)
         deg = (db.relation.degree + by_deg) * w_len
@@ -1237,10 +1249,9 @@ def equijoin_rounds(be, db: RelationLike, jobs: Sequence[EquiJob]
     if not specs:       # no job had a common value or padding
         return [[] for _ in jobs]
     x_stack = torch.cat([s[4].values for s in specs], dim=1)
-    x_fetched = plane.run_sum(          # ONE X-side dispatch per shard
-        lambda v, sh: be.ss_matmul(
-            x_stack[:, :, sh.lo:sh.hi],
-            v.relation.values.reshape(c, sh.n_tuples, -1)))
+    x_fetched = plane.run_sum(          # ONE X-side dispatch per block
+        lambda v, sh: be.ss_matmul(sh.take(x_stack[:, :, sh.lo:sh.hi]),
+                                   v.relation.values.flatten(2)))
     y_by_right: Dict[int, List[int]] = {}
     for i, s in enumerate(specs):
         y_by_right.setdefault(id(s[0].right), []).append(i)

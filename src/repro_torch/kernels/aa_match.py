@@ -299,12 +299,14 @@ def _launch(src: torch.Tensor, offsets: Sequence[int],
     pat = pat.contiguous()
     dev = src.device
     desc = _device.upload(pack_chunks(pl.chunks), torch.int64, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    entry = "aa_slide_rows_u32" if k else "aa_match_rows_u32"
-    err = _lib(entry)(src.data_ptr(), desc.data_ptr(), len(pl.chunks),
-                      stride_c, stride_n, pat.data_ptr(), out.data_ptr(), c,
-                      nb, height, w, a, tile, pl.rows, pl.pitch, pl.patterns,
-                      pl.k_pass, int(pl.copy_bytes == 16), stream)
+    with torch.cuda.device(dev):  # the entry asks the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        entry = "aa_slide_rows_u32" if k else "aa_match_rows_u32"
+        err = _lib(entry)(src.data_ptr(), desc.data_ptr(), len(pl.chunks),
+                          stride_c, stride_n, pat.data_ptr(), out.data_ptr(),
+                          c, nb, height, w, a, tile, pl.rows, pl.pitch,
+                          pl.patterns, pl.k_pass, int(pl.copy_bytes == 16),
+                          stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     with _count_lock:

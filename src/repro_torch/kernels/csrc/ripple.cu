@@ -238,35 +238,31 @@ struct Args {
   cudaStream_t stream;
 };
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
-// A persistent grid: as many blocks as fit on the card at once (asked of
-// the occupancy calculator once per kernel), at most one a tile.
+// A persistent grid: as many blocks as fit on the current device at once
+// (its SM count asked at each launch, the occupancy calculator once per
+// kernel and device: the launcher makes the operands' device current, and
+// a host may hold several cards), at most one a tile.
 long long persistent_blocks(const void* kernel, long long tiles) {
   struct Seen {
     const void* kernel;
+    int dev;
     int per_sm;
   };
-  static Seen seen[8];
+  static Seen seen[64];
   static int n_seen = 0;
-  int per_sm = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   for (int i = 0; i < n_seen; ++i)
-    if (seen[i].kernel == kernel) per_sm = seen[i].per_sm;
+    if (seen[i].kernel == kernel && seen[i].dev == dev)
+      per_sm = seen[i].per_sm;
   if (per_sm == 0) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                   0);
     if (per_sm < 1) per_sm = 1;
-    if (n_seen < 8) seen[n_seen++] = {kernel, per_sm};
+    if (n_seen < 64) seen[n_seen++] = {kernel, dev, per_sm};
   }
-  const long long cap = static_cast<long long>(sm_count()) * per_sm;
+  const long long cap = static_cast<long long>(sms) * per_sm;
   return tiles < cap ? tiles : cap;
 }
 

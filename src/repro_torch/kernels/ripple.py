@@ -278,11 +278,12 @@ def ripple_segment_cuda(a: torch.Tensor, b: torch.Tensor,
         c_ptr, c_st = None, _I64x4(0, 0, 0, 0)
     else:
         c_ptr, c_st = ops[2].data_ptr(), _I64x4(*pl.lane_strides[2], 0)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib()(ops[0].data_ptr(), a_st, ops[1].data_ptr(), b_st, c_ptr,
-                 c_st, rb.data_ptr(), co.data_ptr(), _I64x3(*pl.dims), k,
-                 int(carry is None), ROUTES_C[pl.route], int(pl.vec_carry),
-                 int(pl.vec_out), stream)
+    with torch.cuda.device(a.device):  # the entry asks the current device
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _lib()(ops[0].data_ptr(), a_st, ops[1].data_ptr(), b_st, c_ptr,
+                     c_st, rb.data_ptr(), co.data_ptr(), _I64x3(*pl.dims), k,
+                     int(carry is None), ROUTES_C[pl.route], int(pl.vec_carry),
+                     int(pl.vec_out), stream)
     if err != 0:
         raise RuntimeError(f"ripple kernel launch failed: CUDA error {err}")
     with _count_lock:

@@ -162,12 +162,13 @@ def _run(name, a, b, batch, m, k, n, out) -> None:
     ksplit = _ksplit(batch, m, k, n)
     part = (torch.empty((ksplit, batch, m, n), dtype=DTYPE, device=a.device)
             if ksplit > 1 else out)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib(name)(
-        a.data_ptr(), a.stride(0) if a.ndim == 3 else 0, a.stride(-2),
-        b.data_ptr(), b.stride(0) if b.ndim == 3 else 0, b.stride(-2),
-        part.data_ptr(), out.data_ptr(), batch, m, k, n, ksplit,
-        *row_layout(m), K_CHUNK, stream)
+    with torch.cuda.device(a.device):  # the entry asks the current device
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _lib(name)(
+            a.data_ptr(), a.stride(0) if a.ndim == 3 else 0, a.stride(-2),
+            b.data_ptr(), b.stride(0) if b.ndim == 3 else 0, b.stride(-2),
+            part.data_ptr(), out.data_ptr(), batch, m, k, n, ksplit,
+            *row_layout(m), K_CHUNK, stream)
     if err != 0:
         raise RuntimeError(f"ss_matmul kernel launch failed: CUDA error "
                            f"{err}")
@@ -280,10 +281,11 @@ def share_onehot_cuda(tokens: torch.Tensor, a1: torch.Tensor, *,
     if tokens.dtype != torch.int64:
         tokens = tokens.to(torch.int64)
     route = onehot_plan(a1.data_ptr(), out.data_ptr(), a1.stride(), m, v)
-    stream = torch.cuda.current_stream(a1.device).cuda_stream
-    err = _onehot_lib()(tokens.data_ptr(), tokens.stride(0), a1.data_ptr(),
-                        a1.stride(0), a1.stride(1), out.data_ptr(), m, v,
-                        n_shares, ONEHOT_ROUTES_C[route], stream)
+    with torch.cuda.device(a1.device):  # the entry asks the current device
+        stream = torch.cuda.current_stream(a1.device).cuda_stream
+        err = _onehot_lib()(tokens.data_ptr(), tokens.stride(0), a1.data_ptr(),
+                            a1.stride(0), a1.stride(1), out.data_ptr(), m, v,
+                            n_shares, ONEHOT_ROUTES_C[route], stream)
     if err != 0:
         raise RuntimeError(f"share_onehot kernel launch failed: CUDA error "
                            f"{err}")

@@ -761,6 +761,79 @@ def test_mesh_dispatcher_equals_serial_on_card(cuda, strict):
     assert out[0].ledger.as_dict() == out[1].ledger.as_dict()
 
 
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_their_operands_card(two_cards):
+    """Every kernel on ``cuda:1`` tensors while ``cuda:0`` is current: the
+    launcher makes the operands' card current, so the shared-memory limit,
+    the occupancy query and the SM count are that card's, and the kernel
+    runs in its stream; each result equals its plain version."""
+    home, other = two_cards
+    ops.reset_launch_counts()
+    with torch.cuda.device(home):
+        a, b = _field((3, 300, 700), 1, other), _field((3, 700, 90), 2, other)
+        t = _field((3, 8, 700), 3, other)
+        col = _field((3, 2, 257, 8, 69), 4, other)
+        pat, tile = _field((3, 2, 8, 69), 5, other), _field((3, 2, 3, 69), 6,
+                                                            other)
+        rel = _field((3, 257, 4, 8, 69), 7, other)
+        x, y = _field((3, 4, 1027, 8), 8, other), _field((3, 4, 1027, 8), 9,
+                                                         other)
+        toks = torch.arange(16, device=other) * 61
+        a1 = _field((16, 1000), 10, other)
+        rows = dict(columns=[0, 3], starts=[0, 100], lengths=[257, 57],
+                    height=257)
+        cases = [
+            (ops.ss_matmul(a, b), ss_matmul.ss_matmul_plain(a, b)),
+            (ops.ss_matmul(t, b), ss_matmul.ss_matmul_plain(t, b)),
+            (ops.aa_match_batch(col, pat),
+             aa_match.aa_match_batch_plain(col, pat)),
+            (ops.aa_match_rows(rel, pat=pat, **rows),
+             aa_match.aa_match_rows_plain(rel, pat=pat, **rows)),
+            (ops.aa_slide_batch(col, tile),
+             aa_match.aa_slide_batch_plain(col, tile)),
+            (ops.share_onehot(toks, a1, n_shares=4),
+             ss_matmul.share_onehot_plain(toks, a1, n_shares=4))]
+        for k in (8, 1):
+            got = ops.ripple_segment(x[..., :k], y[..., :k], None)
+            want = ripple.ripple_segment_plain(x[..., :k], y[..., :k], None)
+            cases += list(zip(got, want))
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+    for got, want in cases:
+        assert got.device == other
+        assert torch.equal(got, want)
+    assert all(v > 0 for v in ops.launch_counts().values())
+
+
+def test_mesh_dispatcher_on_two_cards_equals_serial(two_cards):
+    """A (1, 2) grid of two cards: cloud group 1 on ``cuda:1``, its
+    operands brought there, the groups assembled on ``cuda:0``; the rows
+    and ledgers are the serial dispatcher's and no byte goes from one
+    card's group to the other's."""
+    from repro_torch import api
+    from repro_torch.launch.mesh import make_dispatch_mesh
+    home, _ = two_cards
+    db = _serve_db(home)
+    serial = api.QueryClient(db, 4, device=home)
+    serial.attach(shards=2)
+    want = serial.run_batch(_serve_plans())
+    mesh = api.MeshDispatcher(make_dispatch_mesh(2), strict_transfers=True)
+    client = api.QueryClient(db, 4, device=home)
+    client.attach(shards=2, dispatcher=mesh)
+    got = client.run_batch(_serve_plans())
+    for a, b in zip(want, got):
+        assert (b.count, b.rows, b.addresses) == (a.count, a.rows,
+                                                  a.addresses)
+        assert b.ledger.as_dict() == a.ledger.as_dict()
+    assert mesh.cross_group_bytes() == 0
+
+
 # ---------------------------------------------------------------------------
 # training (slice 10)
 # ---------------------------------------------------------------------------

@@ -152,13 +152,16 @@ def test_mesh_sum_equals_serial_field_add_chain(range_db):
     """The stacked int64 fold with one final % p is the serial add chain
     for every S, on partials at p − 1 where the chain wraps most."""
     _, db = range_db
+
+    def build(v, sh):
+        return torch.full((3, 5), 2**31 - 2, dtype=torch.int32)
+
     for shards in (2, 3, 4):
         plane = ShardedRelation(db, shards=shards)
-        step = plane.dispatch_set(
-            lambda v, sh: torch.full((3, 5), 2**31 - 2, dtype=torch.int32),
-            reduce="sum")
-        want = SERIAL.run_set(plane, step)
-        got = MeshDispatcher(["cpu", "cpu"]).run_set(plane, step)
+        want = SERIAL.run_set(plane, plane.dispatch_set(build, reduce="sum"))
+        mesh = MeshDispatcher(["cpu", "cpu"])
+        on_mesh = ShardedRelation(db, shards=shards, dispatcher=mesh)
+        got = mesh.run_set(on_mesh, on_mesh.dispatch_set(build, reduce="sum"))
         assert torch.equal(want, got)
 
 
@@ -304,26 +307,15 @@ def test_shared_mesh_bills_each_plane_its_own_placement(range_db,
             + sum(s.values.numel() * 4 for s in rel.numeric.values())
 
 
-def test_mesh_refuses_shards_on_distinct_devices(range_db):
-    """Distinct devices are refused when the dispatcher is made, never at
-    attach; one device named twice is fine."""
-    _, db = range_db
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        MeshDispatcher(["cpu", "meta"])
-    mesh = MeshDispatcher(["cpu", "cpu"])
-    plane = QueryClient(db, 7, device="cpu").attach(shards=2,
-                                                    dispatcher=mesh)
-    assert mesh.shard_devices(plane) == [torch.device("cpu")] * 2
-
-
 def test_default_devices_are_the_visible_gpus():
-    """The default is the current CUDA device alone: a plane's shards stay
-    on the card that makes its query operands, on a host with any number
-    of cards."""
+    """The default grid is every visible card on the data axis, as the
+    reference's ``make_dispatch_mesh()``; without a card it raises."""
     if torch.cuda.is_available():
         mesh = MeshDispatcher()
-        assert mesh.devices == [torch.device(
-            "cuda", torch.cuda.current_device())]
+        assert mesh.devices == [torch.device("cuda", i) for i in
+                                range(torch.cuda.device_count())]
+        assert mesh.grid.shape == {"data": torch.cuda.device_count(),
+                                   "model": 1}
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MeshDispatcher()
@@ -346,7 +338,9 @@ def test_mesh_predicted_cost_report(range_db):
                          "programs"}
     assert cost["programs"] >= 1
     assert cost["flops"] > 0 and cost["hbm_bytes"] > cost["flops"]
-    assert cost["collective_bytes"] == 0         # one device: no copies
+    # the copies are counted by grid slot: shard 1's (c, 1) SUM partial
+    # goes from data row 1 to row 0, although both rows are the CPU
+    assert cost["collective_bytes"] == 20 * 1 * 4
     # a repeat of the same shapes adds no new reduction
     client.run_batch([Count(Eq("Name", "nm1")), Aggregate("sum", "Val")])
     assert mesh.predicted_cost() == cost
