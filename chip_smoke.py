@@ -759,6 +759,71 @@ def check_onehot_quad(ops, path: str) -> dict:
     return routes
 
 
+#: slice 12: the cost walker (``launch.hlo_cost``) against real steps of
+#: the main paths. Each priced step's record, in run order; a walked step
+#: may take at most SLICE12_SLACK x its measured time at the roofline.
+SLICE12 = []
+SLICE12_SLACK = 1.05
+
+
+def price_step(torch, label, fn, kernels=()):
+    """Slice 12: ``fn``, one step of a main path on objects its slice
+    built, once untimed, once timed with CUDA events (the peak device
+    memory above what is allocated before it), and once under the cost
+    walker (ops on the host left to it). Logs the walker's flops by
+    class, bytes, link bytes, roofline terms and bound, the measured ms,
+    measured over roofline, and the walker's predicted peak beside the
+    measured one. Fails unless no op is unpriced, the walker priced each
+    of ``kernels`` (the step's hand-written kernels) and the roofline
+    time is at most SLICE12_SLACK x the measured time."""
+    from repro_torch.launch import hlo_cost
+
+    t0 = time.perf_counter()
+    fn()                                          # untimed
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    measured_peak = torch.cuda.max_memory_allocated() - base
+    with hlo_cost.CostMode(device="cuda") as mode:
+        fn()
+    torch.cuda.synchronize()
+    cost = mode.cost
+    roof = cost.roofline()
+    bound_ms = roof.t_bound * 1e3
+    rec = {"step": label, "measured_ms": ms, "roofline_ms": bound_ms,
+           "bound_by": roof.bottleneck,
+           "measured_over_roofline": ms / bound_ms if bound_ms else None,
+           "t_compute_ms": roof.t_compute * 1e3,
+           "t_memory_ms": roof.t_memory * 1e3,
+           "t_collective_ms": roof.t_collective * 1e3,
+           "flops_by_class": cost.flops_by_class, "hbm_bytes": cost.hbm_bytes,
+           "link_bytes": cost.collectives, "kernels": cost.kernels,
+           "aten_ops": cost.ops, "host_ops": cost.host_ops,
+           "unpriced": cost.unpriced,
+           "predicted_peak_gb": cost.peak_bytes / 1e9,
+           "measured_peak_gb": measured_peak / 1e9,
+           "argument_gb": cost.arg_bytes / 1e9,
+           "seconds": time.perf_counter() - t0}
+    SLICE12.append(rec)
+    log(f"slice-12 {label}: " + json.dumps(rec))
+    check(not cost.unpriced, f"slice 12 {label}: unpriced ops "
+          f"{cost.unpriced}")
+    for name in kernels:
+        check(cost.kernels.get(name, 0) > 0,
+              f"slice 12 {label}: the walker priced no {name}")
+    check(bound_ms <= SLICE12_SLACK * ms,
+          f"slice 12 {label}: the roofline time {bound_ms} ms is over "
+          f"{SLICE12_SLACK} x the measured {ms} ms")
+    return rec
+
+
 def main_path(torch, args, expect_strategy):
     """Phase 3, slice 1: outsourcing, count and selection at full size
     through the public entry points."""
@@ -2243,7 +2308,15 @@ def lm_path(torch, args, errs):
         "peak_with_plain_check_gb": torch.cuda.max_memory_allocated() / 1e9,
         "held_before_gb": held / 1e9}
     log("slice-7 summary " + json.dumps(summary))
-    del servers, client, plane, table, params, plain
+    # slice 12: one decode step of route (a) after a prefill, priced
+    _, dcache = lm.prefill(params, priv_cfg, {"tokens": prompt_t},
+                           max_len=max_len)
+    tok = prompt_t[:, -1:]
+    price_step(torch, f"slice-7 route (a) private {LM_ARCH} decode step",
+               lambda: lm.decode_step(params, priv_cfg, dcache, t,
+                                      {"tokens": tok}),
+               kernels=SLICE7_KERNELS)
+    del servers, client, plane, table, params, plain, dcache
     return dict(total)
 
 
@@ -2825,6 +2898,8 @@ def train_t1(torch, args, cfg):
     def on_step(step, params, opt_state, metrics):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        if step == T1_STEPS - 1:         # kept for slice 12
+            snap["state"] = (params, opt_state)
         m = {k: float(v) for k, v in metrics.items()}
         want_lr = float(schedule(opt, step + 1))
         rec.append(m)
@@ -2882,6 +2957,19 @@ def train_t1(torch, args, cfg):
            "device_ms_by_kind": dict(kinds),
            "slowest_kernels_ms": top}
     log("slice-10 t1 (launch.train.main, plaintext) " + json.dumps(out))
+    # slice 12: one more step of t1's model and optimizer state, priced
+    from repro_torch.data import make_lm_batches
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.train import make_train_step
+    params, opt_state = snap.pop("state")
+    step_fn = make_train_step(cfg, opt)
+    batch = to_device(make_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=args.seed).batch_at(T1_STEPS),
+                      params["final_norm"].device)
+    price_step(torch, f"slice-10 t1 {TRAIN_ARCH} train step "
+               f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
+               lambda: step_fn(params, opt_state, batch))
+    del params, opt_state, batch, step_fn
     return out
 
 
@@ -4497,6 +4585,9 @@ def main() -> int:
 
     db, client, rows, path1 = main_path(torch, args, expect_strategy)
     log("slice-1 path: every answer equals the plaintext evaluation")
+    price_step(torch, "slice-1 Eq count (FirstName = Quinn)",
+               lambda: client.count("FirstName", "Quinn"),
+               kernels=("aa_match_batch",))
     path2 = range_agg_path(torch, client, rows)
     log("slice-2 path: every answer equals the plaintext evaluation")
     path3 = pattern_path(torch, client, rows)
@@ -4554,6 +4645,15 @@ def main() -> int:
     log("slice-10 path: training at full Qwen1.5-4B width through the "
         "launcher, the private embedding, accumulation with compression "
         "and a restart all pass")
+    log("slice-12 summary " + json.dumps({
+        "seconds": sum(r["seconds"] for r in SLICE12),
+        "measured_over_roofline": {r["step"]: r["measured_over_roofline"]
+                                   for r in SLICE12},
+        "predicted_over_measured_peak": {
+            r["step"]: (r["predicted_peak_gb"] / r["measured_peak_gb"]
+                        if r["measured_peak_gb"] else None)
+            for r in SLICE12}}))
+    check(len(SLICE12) == 3, f"slice 12 priced {len(SLICE12)} steps, not 3")
     for entry in kernels:
         name = entry["name"].split("[")[0]
         entry["launches"] += sum(p.get(name, 0) for p in (path7, path8,

@@ -364,10 +364,57 @@ class ShardedRelation:
     def device(self) -> torch.device:
         return self.db.device
 
+    # -- SecretSharedDB delegation: the plane reads like its relation ------
+    @property
+    def relation(self) -> Shares:
+        return self.db.relation
+
+    @property
+    def codec(self):
+        return self.db.codec
+
+    @property
+    def column_names(self):
+        return self.db.column_names
+
+    @property
+    def numeric(self):
+        return self.db.numeric
+
+    @property
+    def numeric_bits(self):
+        return self.db.numeric_bits
+
+    @property
+    def base_degree(self) -> int:
+        return self.db.base_degree
+
+    @property
+    def n_shares(self) -> int:
+        return self.db.n_shares
+
+    @property
+    def n_tuples(self) -> int:
+        return self.db.n_tuples
+
+    @property
+    def n_attrs(self) -> int:
+        return self.db.n_attrs
+
+    def column(self, col: int) -> Shares:
+        return self.db.column(col)
+
+    def col_index(self, name: str) -> int:
+        return self.db.col_index(name)
+
     # -- structure ----------------------------------------------------------
     @property
     def n_shards(self) -> int:
         return len(self.shards)
+
+    @property
+    def max_shard_rows(self) -> int:
+        return max((s.n_tuples for s in self.shards), default=0)
 
     def view(self, index: int, block: Optional[Shard] = None
              ) -> SecretSharedDB:

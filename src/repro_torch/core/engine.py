@@ -16,6 +16,7 @@ import torch
 
 from .. import _device
 from . import encoding
+from .costs import CostLedger
 from .encoding import Codec
 from .shamir import Shares
 
@@ -47,6 +48,13 @@ class SecretSharedDB:
     @property
     def n_attrs(self) -> int:
         return self.relation.shape[1]
+
+    def column(self, col: int) -> Shares:
+        """Share view of one attribute: (c, n, W, A)."""
+        return Shares(self.relation.values[:, :, col], self.relation.degree)
+
+    def col_index(self, name: str) -> int:
+        return list(self.column_names).index(name)
 
 
 def outsource(rows: Sequence[Sequence[str]], *, n_shares: int,
@@ -116,3 +124,7 @@ def from_arrays(relation, *, degree: int, alphabet: str, word_length: int,
                  for c, v in (numeric or {}).items()},
         numeric_bits={int(c): int(b) for c, b in (numeric_bits or {}).items()},
         base_degree=base_degree)
+
+
+def fresh_ledger() -> CostLedger:
+    return CostLedger()

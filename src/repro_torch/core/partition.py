@@ -28,3 +28,7 @@ def split_bounds(lo: int, hi: int, k: int) -> List[Bounds]:
     return [(int(edges[i]), int(edges[i + 1])) for i in range(k)
             if edges[i] < edges[i + 1]]
 
+
+def split_sizes(total: int, k: int) -> List[int]:
+    """Sizes of :func:`split_bounds`(0, total, k)."""
+    return [b - a for a, b in split_bounds(0, total, k)]

@@ -62,21 +62,64 @@ class Shares:
         return Shares(field.mul(self.values, other.values),
                       self.degree + other.degree)
 
+    def add_public(self, const) -> "Shares":
+        """Add a public constant (it moves the free coefficient only)."""
+        return Shares(field.add(self.values, self._public(const)),
+                      self.degree)
+
     def mul_public(self, const) -> "Shares":
         """Multiply by a public constant (degree unchanged)."""
-        return Shares(field.mul(self.values, field.to_field(
-            torch.as_tensor(const), device=self.values.device)), self.degree)
+        return Shares(field.mul(self.values, self._public(const)),
+                      self.degree)
 
-    def sum(self, dim=None) -> "Shares":
-        """Modular sum over secret-data axes (``dim`` indexes self.shape)."""
+    def neg(self) -> "Shares":
+        return Shares(field.neg(self.values), self.degree)
+
+    def sum(self, axis=None, keepdims: bool = False, *, dim=None
+            ) -> "Shares":
+        """Modular sum over secret-data axes (``axis`` indexes self.shape;
+        ``dim`` is an alias). An axis outside the secret shape raises, as
+        in the reference."""
+        if dim is not None:
+            if axis is not None:
+                raise TypeError("pass axis= or dim=, not both")
+            axis = dim
         nd = self.values.ndim - 1
-        if dim is None:
-            dims = tuple(range(1, nd + 1))
-        elif isinstance(dim, int):
-            dims = (dim % nd + 1,)
+        if axis is None:
+            axes = tuple(range(1, nd + 1))
+        elif isinstance(axis, int):
+            axes = (_norm_axis(axis, nd) + 1,)
         else:
-            dims = tuple(d % nd + 1 for d in dim)
-        return Shares(field.sum_(self.values, dim=dims), self.degree)
+            axes = tuple(_norm_axis(a, nd) + 1 for a in axis)
+        if not axes:                     # torch would reduce every axis
+            return Shares(self.values, self.degree)
+        return Shares(field.sum_(self.values, dim=axes, keepdim=keepdims),
+                      self.degree)
+
+    def reshape(self, *shape) -> "Shares":
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return Shares(self.values.reshape((self.n_shares,) + tuple(shape)),
+                      self.degree)
+
+    def __getitem__(self, idx) -> "Shares":
+        """Index the secret-data axes (the cloud axis is kept whole)."""
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        return Shares(self.values[(slice(None),) + idx], self.degree)
+
+    def _public(self, const) -> torch.Tensor:
+        return field.to_field(torch.as_tensor(const),
+                              device=self.values.device)
+
+
+def _norm_axis(a: int, ndim: int) -> int:
+    """A secret-data axis, negative ones counted from the end; an axis
+    outside [-ndim, ndim) raises."""
+    if not -ndim <= a < ndim:
+        raise ValueError(f"axis {a} is out of bounds for secret shape of "
+                         f"{ndim} dimensions")
+    return a + ndim if a < 0 else a
 
 
 def _check_compat(a: Shares, b: Shares) -> None:

@@ -3,8 +3,15 @@
 Each wrapper takes its kernel's plain PyTorch version when the tensor it is
 given lies on the CPU, and launches the CUDA kernel when it lies on a CUDA
 device — there is no fallback from one to the other: a kernel that does
-not build or launch raises. Launches are counted by the kernel modules
-(:func:`launch_counts`), and only where a kernel actually launches.
+not build or launch raises. A meta tensor takes the plain version too,
+which on meta computes nothing and only yields shapes. Launches are counted
+by the kernel modules (:func:`launch_counts`), and only where a kernel
+actually launches.
+
+While a cost walker (``launch.hlo_cost.CostMode``) is entered, ``walker``
+holds it, and each entry point hands its call to it: the walker prices the
+kernel once from its operands' shapes and runs the call unpriced. With no
+walker this is one test of a module attribute a call.
 """
 from __future__ import annotations
 
@@ -17,9 +24,13 @@ from . import aa_match as _aa
 from . import ripple as _rip
 from . import ss_matmul as _ssm
 
+#: the active cost walker, or None
+walker = None
+
 
 def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
+    """Does ``t`` take the plain version (a CPU or meta tensor)?"""
+    if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type == "cuda":
         return False
@@ -30,6 +41,8 @@ def ss_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched mod-p matmul: a ([c,] M, K), b ([c,] K, N) -> ([c,] M, N).
     Shapes that ``is_tall_skinny`` accepts take the tall kernel (the
     reference's routing); both kernels compute the same function."""
+    if walker is not None:
+        return walker.kernel(ss_matmul, a, b)
     if _on_cpu(a):
         return _ssm.ss_matmul_plain(a, b)
     _, m, k, n = _ssm._shapes(a, b)
@@ -92,6 +105,8 @@ def aa_match_batch(col: torch.Tensor, pat: torch.Tensor) -> torch.Tensor:
     if tuple(pat.shape) != (c, b, w, a):
         raise ValueError(f"pattern shape {tuple(pat.shape)} does not match "
                          f"column stack {tuple(col.shape)}")
+    if walker is not None:
+        return walker.kernel(aa_match_batch, col, pat)
     if _on_cpu(col):
         return _aa.aa_match_batch_plain(col, pat)
     return _aa.aa_match_batch_cuda(col, pat)
@@ -105,6 +120,9 @@ def aa_match_rows(rel: torch.Tensor, columns: Sequence[int],
     against pat[:, b] -> (c, B, height), 0 past each block's length."""
     if not len(columns) == len(starts) == len(lengths):
         raise ValueError("columns, starts and lengths differ in length")
+    if walker is not None:
+        return walker.kernel(aa_match_rows, rel, columns, starts, lengths,
+                             pat, height)
     if _on_cpu(rel):
         return _aa.aa_match_rows_plain(rel, columns, starts, lengths, pat,
                                        height)
@@ -126,6 +144,8 @@ def aa_slide_batch(col: torch.Tensor, pat: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported rank: {tuple(col.shape)}")
     c, b, _, w, a = col.shape
     _check_slide(pat, c, b, w, a)
+    if walker is not None:
+        return walker.kernel(aa_slide_batch, col, pat)
     if _on_cpu(col):
         return _aa.aa_slide_batch_plain(col, pat)
     return _aa.aa_slide_batch_cuda(col, pat)
@@ -141,6 +161,9 @@ def aa_slide_rows(rel: torch.Tensor, columns: Sequence[int],
         raise ValueError("columns, starts and lengths differ in length")
     c, _, _, w, a = rel.shape
     _check_slide(pat, c, len(columns), w, a)
+    if walker is not None:
+        return walker.kernel(aa_slide_rows, rel, columns, starts, lengths,
+                             pat, height)
     if _on_cpu(rel):
         return _aa.aa_slide_rows_plain(rel, columns, starts, lengths, pat,
                                        height)
@@ -162,6 +185,8 @@ def ripple_segment(a: torch.Tensor, b: torch.Tensor,
     if carry is not None and tuple(carry.shape) != tuple(a.shape[:-1]):
         raise ValueError(f"carry {tuple(carry.shape)} does not match the "
                          f"lanes {tuple(a.shape[:-1])}")
+    if walker is not None:
+        return walker.kernel(ripple_segment, a, b, carry)
     if _on_cpu(a):
         return _rip.ripple_segment_plain(a, b, carry)
     return _rip.ripple_segment_cuda(a, b, carry)
@@ -180,6 +205,8 @@ def share_onehot(tokens: torch.Tensor, a1: torch.Tensor, *,
     """Fused degree-1 one-hot sharing: tokens (M,), a1 (M, V) -> (c, M, V)
     shares ``[v == tok_i] + a1[i, v]·(k+1) mod p`` (a token outside
     [0, V) gives a zero one-hot row)."""
+    if walker is not None:
+        return walker.kernel(share_onehot, tokens, a1, n_shares=n_shares)
     if _on_cpu(a1):
         return _ssm.share_onehot_plain(tokens, a1, n_shares=n_shares)
     return _ssm.share_onehot_cuda(tokens, a1, n_shares=n_shares)

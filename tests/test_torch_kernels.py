@@ -7,6 +7,8 @@ kernels run in interpret mode, the reference oracles in
 ``repro_torch.kernels.ref``. The wrappers in ``repro_torch.kernels.ops``
 must take the plain version for CPU tensors and count no launch.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -198,9 +200,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 def test_wrappers_reject_other_devices():
-    a = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    """A device with no kernel and no plain route raises; meta takes the
+    plain version, which yields shapes only."""
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError):
-        ops.ss_matmul(a, a.T)
+        ops.ss_matmul(other, other)
+    a = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    out = ops.ss_matmul(a, a.T)
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 2)
 
 
 def test_backend_registry():

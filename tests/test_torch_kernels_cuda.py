@@ -897,3 +897,26 @@ def test_train_step_on_card_equals_cpu(cuda):
         d = (a - b).abs()
         assert float(d.max()) <= mc["lr"] * 1.001
         assert float((d > 1e-6).float().mean()) <= 0.01
+
+
+def test_walker_prices_phase4_kernels_at_perf_md_bounds(cuda):
+    """Each kernel launched under the cost walker at ``chip_smoke.py``
+    phase 4's shapes (zero shares on the card) launches once, is priced
+    once, and its bound is its PERF.md §6 row's "Bound ms" within 1 %."""
+    import math
+
+    from _torch_phase4 import phase4_calls
+    from repro_torch.launch import hlo_cost
+
+    calls = phase4_calls(lambda s, d: torch.zeros(s, dtype=d, device=cuda))
+    for label, entry, args, kw, kernel, bound_ms in calls:
+        ops.reset_launch_counts()
+        with hlo_cost.CostMode(device="cuda") as mode:
+            getattr(ops, entry)(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[kernel] == 1, label
+        assert mode.cost.kernels == {kernel: 1} and mode.cost.ops == 0
+        t = mode.cost.roofline().t_bound * 1e3
+        assert math.isclose(t, bound_ms, rel_tol=0.01), (label, t, bound_ms)
+    del calls
+    torch.cuda.empty_cache()
