@@ -7,6 +7,7 @@
     python3 chip_smoke.py --setup-peak SRC    # only the table set-up peak
     python3 chip_smoke.py --decode-times SRC  # only LM prefill/decode times
     python3 chip_smoke.py --onehot-times SRC  # only the share_onehot times
+    python3 chip_smoke.py --mesh-only         # only t1 and slice 13
 
 Phases, any failure exits non-zero:
 
@@ -174,6 +175,23 @@ Phases, any failure exits non-zero:
    gives the uninterrupted run's losses, and the restored tensors equal
    the saved ones bit for bit (the smoke config, checkpoints under
    ``build/``).
+   Slice 13 (last, after slice 10): the production mesh, a
+   (1, 1) ``DeviceMesh`` of one NCCL rank started by
+   ``launch.mesh.init_ranks`` from ``torchrun``'s environment variables
+   (a free localhost port). 3 steps of ``launch.train.main(mesh=)`` at
+   t1's shapes, DTensor parameters, moments and batches: losses within
+   1e-6 (step 0) and 2e-3 (steps 1–2) relative of t1's; ms a step, the
+   idle share over a profiled step and the peak. One private-embedding
+   step through ``make_train_step`` on DTensors launches exactly one
+   ``share_onehot`` and one ``ss_matmul`` (each rank's blocks), each
+   call equal to its plain version afterwards, the opened rows equal to
+   the unsharded lookup's. The smoke config's parameters and AdamW
+   state saved at the mesh restore unsharded and at the mesh bit for
+   bit. The walker prices a 2-layer full-width step on the mesh as the
+   unsharded step (flops by class, HBM bytes), with no collective byte.
+   With two or more cards, (1, 2) and (2, 1) grids of two spawned NCCL
+   ranks run the 3 steps too (losses within 2e-3 of the (1, 1) mesh's);
+   on one card a line says they did not run.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -2845,6 +2863,8 @@ F32_TRAIN_TOL = 1e-4
 #: GB t3 must leave free on the card at its predicted peak, and its cut
 T3_MARGIN_GB, T3_CUT_LAYERS = 5.0, 20
 SLICE10_KERNELS = ("share_onehot", "ss_matmul")
+#: t1's losses, which slice 13 holds its mesh steps against
+SLICE10_T1_LOSSES = []
 
 
 def train_cfg(torch):
@@ -3341,6 +3361,7 @@ def train_path(torch, args, errs):
     cfg = train_cfg(torch)
     phases = {}
     t1 = train_t1(torch, args, cfg)
+    SLICE10_T1_LOSSES[:] = t1["losses"]
     phases["t1_s"] = time.perf_counter() - t0
     f32 = f32_train_check(torch, args, cfg)
     phases["f32_s"] = time.perf_counter() - t0 - sum(phases.values())
@@ -3363,6 +3384,413 @@ def train_path(torch, args, errs):
                "f32_worst_grad_rel_err": f32["worst_grad_rel_err"],
                "launches": launches, "phase_s": phases}
     log("slice-10 summary " + json.dumps(summary))
+    return launches
+
+
+#: slice 13: the production-mesh path (DTensor parameters over a
+#: ("data", "model") DeviceMesh of NCCL ranks) at t1's shapes
+SLICE13_STEPS = 3
+#: slice 13's losses against t1's (same seed, batches and weights): step
+#: 0 is the same forward (within 1e-6 relative); the later steps follow
+#: updates whose global norm sums the leaves in another order, so their
+#: bf16 parameters may differ in a last bit: within 2e-3 relative
+SLICE13_STEP0_RTOL, SLICE13_LOSS_RTOL = 1e-6, 2e-3
+SLICE13_KERNELS = ("share_onehot", "ss_matmul")
+#: layers of the full-width step the walker prices at (1, 1)
+SLICE13_WALK_LAYERS = 2
+
+
+def slice13_mesh(torch):
+    """A one-rank NCCL process group on this card, started as ``torchrun``
+    would (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, a free localhost
+    port) through ``launch.mesh.init_ranks``, and its (1, 1) mesh."""
+    import socket
+
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    dev = init_ranks()
+    check(dev == torch.device("cuda", 0), f"slice 13: init_ranks gave {dev}")
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def slice13_argv(args, steps):
+    return ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--seed", str(args.seed)]
+
+
+def slice13_train(torch, args, mesh, t1_losses):
+    """SLICE13_STEPS steps of ``launch.train.main(mesh=)`` at full width:
+    DTensor parameters, moments and batches; the losses against t1's; ms a
+    step (host clock between synchronizes, steps 0 and 2), the idle share
+    over a profiled step 1 and the peak memory."""
+    from repro_torch.launch import train as train_launcher
+    from torch.profiler import ProfilerActivity, profile
+
+    marks, losses, prof, seen = [], [], {}, {}
+
+    def on_step(step, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+        if step == 0:
+            w = params["blocks"]["mlp"]["w_up"]
+            seen["placements"] = [repr(p) for p in w.placements]
+            seen["dtensor"] = type(w).__name__
+            seen["moment"] = type(opt_state.m["blocks"]["mlp"]["w_up"]
+                                  ).__name__
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        if step == 1:
+            prof["p"].__exit__(None, None, None)
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = train_launcher.main(slice13_argv(args, SLICE13_STEPS), mesh=mesh,
+                                on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(seen.get("dtensor") == "DTensor" and seen.get("moment")
+          == "DTensor", f"slice 13: the parameters or moments were not "
+          f"DTensors: {seen}")
+    check(len(losses) == SLICE13_STEPS and final == losses[-1],
+          "slice 13: main did not run every step")
+    for i, (got, want) in enumerate(zip(losses, t1_losses)):
+        tol = SLICE13_STEP0_RTOL if i == 0 else SLICE13_LOSS_RTOL
+        check(abs(got - want) <= tol * abs(want),
+              f"slice 13 step {i}: loss {got} on the mesh, {want} in "
+              f"slice 10's t1 (rtol {tol})")
+    device_ms = 0.0
+    for e in prof["p"].key_averages():
+        device_ms += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) / 1e3
+    step_ms = 1e3 * (marks[1] - marks[0])             # step 1, profiled
+    plain_ms = 1e3 * (marks[2] - marks[1])            # step 2
+    out = {"losses": losses, "t1_losses": t1_losses[:SLICE13_STEPS],
+           "loss_rel_diff": [abs(a - b) / abs(b) for a, b in
+                             zip(losses, t1_losses)],
+           "placements_w_up": seen["placements"], "ms_per_step": plain_ms,
+           "profiled_step_ms": step_ms, "profiled_step_device_ms": device_ms,
+           "idle_share": 1.0 - device_ms / step_ms, "peak_gb": peak,
+           "first_step_and_init_s": marks[0] - t0}
+    log("slice-13 train (launch.train.main on the (1, 1) mesh) "
+        + json.dumps(out))
+    return out
+
+
+def slice13_private(torch, args, mesh, errs):
+    """One private-embedding step at full width on the (1, 1) mesh
+    (``make_train_step`` on DTensor parameters and batch): launch counters
+    zeroed just before it; the DTensor path's ``share_onehot`` and
+    ``ss_matmul`` calls (the kernels' wrappers in ``kernels.ss_matmul``
+    wrapped, their operands kept) held after the step, on a freed card,
+    against their plain versions (the contraction PLAIN_COLS columns at
+    a time); the opened rows equal to the unsharded lookup's (the
+    dequantized table's rows) bit for bit."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.core.queries import embed as eq
+    from repro_torch.data import TokenStream
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+    from repro_torch.models import lm
+    from repro_torch.models import private_embed as pe
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    pcfg = dataclasses.replace(train_cfg(torch), private_embed=True)
+    _free(torch)
+    params = lm.init_params((args.seed, 13), pcfg)
+    params = sharding.distribute(params, mesh,
+                                 sharding.param_shardings(pcfg, mesh, params))
+    state = init_state(params)
+    step_fn = make_train_step(pcfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                                total_steps=2))
+    batch = TokenStream(pcfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                        seed=args.seed).batch_at(0)
+    dp = sharding.dp_entry(mesh)
+    dbatch = to_device(batch, "cuda", mesh=mesh,
+                       specs={k: (dp, None) for k in batch})
+    rows = params["embed"].full_tensor()[
+        torch.as_tensor(batch["tokens"], device="cuda").long()]
+    want_rows = eq.dequantize_from_field(eq.quantize_to_field(
+        rows, device=rows.device)).to(rows.dtype)
+    del rows
+    calls, seen = collections.Counter(), {}
+    inner_share, inner_mm = ssm.share_onehot_cuda, ssm.ss_matmul_cuda
+    inner_lookup = pe.private_lookup_inline
+
+    def share(tokens, a1, *, n_shares):
+        out = inner_share(tokens, a1, n_shares=n_shares)
+        calls["share_onehot"] += 1
+        seen["share"] = (tokens, a1, n_shares, out)
+        return out
+
+    def matmul(a, b):
+        out = inner_mm(a, b)
+        calls["ss_matmul"] += 1
+        seen["matmul"] = (a, b, out)
+        return out
+
+    def lookup(p, c, tokens, **kw):
+        out = inner_lookup(p, c, tokens, **kw)
+        seen["rows"] = out.full_tensor().clone()
+        seen["type"] = type(out).__name__
+        return out
+
+    ssm.share_onehot_cuda, ssm.ss_matmul_cuda = share, matmul
+    pe.private_lookup_inline = lookup
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, dbatch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        ssm.share_onehot_cuda, ssm.ss_matmul_cuda = inner_share, inner_mm
+        pe.private_lookup_inline = inner_lookup
+    check_onehot_quad(ops, "slice 13 private step")
+    for name in SLICE13_KERNELS:
+        check(launches[name] == 1 and calls[name] == 1,
+              f"slice 13: the private step launched {launches}, wrapper "
+              f"calls {dict(calls)}: one {name} a step wanted")
+    check(seen.get("type") == "DTensor" and torch.equal(seen["rows"],
+                                                        want_rows),
+          "slice 13: the mesh lookup's opened rows differ from the "
+          "unsharded lookup's (the dequantized table's rows)")
+    m = {k: float(v) for k, v in m.items()}
+    check(math.isfinite(m["loss"]) and m["grad_norm"] > 0,
+          f"slice 13 private step: {m}")
+    # the kernels' calls against their plain versions, on a freed card
+    del params, state, dbatch, want_rows
+    _free(torch)
+    tokens, a1, n_shares, shared = seen.pop("share")
+    want = ssm.share_onehot_plain(tokens, a1, n_shares=n_shares)
+    if not torch.equal(shared, want):
+        errs["share_onehot"] = max(errs["share_onehot"],
+                                   max_err(torch, shared, want))
+        check(False, "slice 13: share_onehot on the mesh path differs "
+              "from its plain version")
+    del want, a1, tokens
+    a, b, got = seen.pop("matmul")
+    for lo in range(0, b.shape[-1], PLAIN_COLS):
+        want = ssm.ss_matmul_plain(a, b[..., lo:lo + PLAIN_COLS])
+        if not torch.equal(got[..., lo:lo + PLAIN_COLS], want):
+            errs["ss_matmul"] = max(errs["ss_matmul"], max_err(
+                torch, got[..., lo:lo + PLAIN_COLS], want))
+            check(False, f"slice 13: ss_matmul on the mesh path differs "
+                  f"from its plain version at columns {lo}..")
+        del want
+    out = {"launches": {k: launches[k] for k in SLICE13_KERNELS},
+           "shapes": {"share_onehot": list(shared.shape),
+                      "ss_matmul": [list(a.shape), list(b.shape)]},
+           "step_s": step_s, "metrics": m}
+    log("slice-13 private step (DTensor path) " + json.dumps(out))
+    del seen, shared, a, b, got
+    _free(torch)
+    return launches
+
+
+def slice13_checkpoint(torch, args, mesh):
+    """The smoke configuration's parameters and AdamW state, DTensors on
+    the (1, 1) mesh, saved; restored unsharded and at the mesh again:
+    every leaf bit for bit."""
+    import shutil
+
+    from repro_torch import _tree, configs, sharding
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.models import lm
+    from repro_torch.train import init_state
+    from repro_torch.train.optim import AdamWState
+
+    cfg = configs.smoke(TRAIN_ARCH)
+    params = lm.init_params(args.seed, cfg)
+    p_sh = sharding.param_shardings(cfg, mesh, params)
+    params = sharding.distribute(params, mesh, p_sh)
+    state = init_state(params)
+    state.m["final_norm"].to_local().add_(1.5)    # not all zeros
+    tree = (params, state)
+    whole = [t.full_tensor().clone() for t in _tree.leaves(tree)]
+    root = os.path.join(ROOT, "build", "slice13_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    save_checkpoint(root, 1, tree)
+    plain = lm.init_params(args.seed, cfg)
+    _, back = restore_checkpoint(root, (plain, init_state(plain)),
+                                 device=plain["embed"].device)
+    same_plain = all(torch.equal(a, b) for a, b in
+                     zip(_tree.leaves(back), whole))
+    o_sh = AdamWState(step=sharding.NamedSharding(mesh, sharding.REP),
+                      m=p_sh, v=p_sh)
+    _, again = restore_checkpoint(root, tree, shardings=(p_sh, o_sh))
+    same_mesh = all(type(a).__name__ == "DTensor"
+                    and torch.equal(a.full_tensor(), b)
+                    for a, b in zip(_tree.leaves(again), whole))
+    shutil.rmtree(root, ignore_errors=True)
+    check(same_plain and same_mesh, f"slice 13: checkpoint leaves differ "
+          f"(unsharded {same_plain}, at the mesh {same_mesh})")
+    out = {"leaves": len(whole), "unsharded_equal": same_plain,
+           "mesh_equal": same_mesh}
+    log("slice-13 checkpoint " + json.dumps(out))
+    return out
+
+
+def slice13_walk(torch, args, mesh):
+    """The cost walker on one train step at full width and
+    SLICE13_WALK_LAYERS layers, unsharded and on the (1, 1) mesh (each on
+    its own copy of the weights, the same batch): the mesh walk must give
+    the unsharded walk's flops by class and HBM bytes, with no collective
+    byte and no unpriced op."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.data import make_lm_batches
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    cfg = dataclasses.replace(train_cfg(torch),
+                              n_layers=SLICE13_WALK_LAYERS)
+    batch = make_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                            seed=args.seed).batch_at(0)
+    dp = sharding.dp_entry(mesh)
+    costs = {}
+    for name in ("unsharded", "mesh"):
+        _free(torch)
+        params = lm.init_params(args.seed, cfg)
+        if name == "mesh":
+            params = sharding.distribute(
+                params, mesh, sharding.param_shardings(cfg, mesh, params))
+            dbatch = to_device(batch, "cuda", mesh=mesh,
+                               specs={k: (dp, None) for k in batch})
+        else:
+            dbatch = to_device(batch, "cuda")
+        state = init_state(params)
+        step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+        step_fn(params, state, dbatch)                 # untimed
+        with hlo_cost.CostMode(device="cuda") as mode:
+            step_fn(params, state, dbatch)
+        torch.cuda.synchronize()
+        costs[name] = mode.cost
+        del params, state, dbatch, step_fn
+    a, b = costs["unsharded"], costs["mesh"]
+    out = {"flops": [a.flops, b.flops], "hbm_bytes": [a.hbm_bytes,
+                                                      b.hbm_bytes],
+           "collective_bytes_by_kind": b.collective_kinds,
+           "collectives": b.collective_count,
+           "link_bytes": [a.collectives, b.collectives],
+           "op_count_diff": {k: [a.op_counts.get(k, 0),
+                                 b.op_counts.get(k, 0)]
+                             for k in set(a.op_counts) | set(b.op_counts)
+                             if a.op_counts.get(k, 0)
+                             != b.op_counts.get(k, 0)},
+           "host_ops": [a.host_ops, b.host_ops],
+           "flops_by_class_equal": a.flops_by_class == b.flops_by_class,
+           "unpriced": [a.unpriced, b.unpriced]}
+    log("slice-13 walk (a full-width step at "
+        f"{SLICE13_WALK_LAYERS} layers, unsharded and on the (1, 1) mesh) "
+        + json.dumps(out))
+    check(a.flops == b.flops and a.flops_by_class == b.flops_by_class
+          and a.hbm_bytes == b.hbm_bytes
+          and sum(b.collective_kinds.values()) == 0
+          and not a.unpriced and not b.unpriced,
+          f"slice 13: the walker prices the (1, 1) mesh step otherwise "
+          f"than the unsharded one: {out}")
+    return out
+
+
+def slice13_rank(rank, world, port, shape, argv, out_path):
+    """One rank of a multi-card grid (a spawned process): NCCL over a
+    localhost port, its card, ``launch.train.main(mesh=)``; rank 0 writes
+    the losses."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    try:
+        mesh = make_mesh(shape, ("data", "model"))
+        losses = []
+        train_launcher.main(argv, mesh=mesh, on_step=lambda s, p, o, m:
+                            losses.append(float(m["loss"])))
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(losses, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def slice13_grids(torch, args, want):
+    """On a host with two or more cards, (1, 2) and (2, 1) grids of two
+    spawned NCCL ranks run slice 13's steps; their losses must match the
+    (1, 1) mesh's within SLICE13_LOSS_RTOL. On one card this logs that
+    they did not run."""
+    import socket
+
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"slice-13 grids (1, 2) and (2, 1): not run, {n} card")
+        return {"ran": False}
+    out = {"ran": True}
+    for shape in ((1, 2), (2, 1)):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        path = os.path.join(ROOT, "build", f"slice13_{shape[0]}x{shape[1]}"
+                            ".json")
+        mp.spawn(slice13_rank, args=(2, port, shape,
+                                     slice13_argv(args, SLICE13_STEPS),
+                                     path), nprocs=2, join=True)
+        with open(path) as f:
+            losses = json.load(f)
+        out[f"{shape[0]}x{shape[1]}"] = losses
+        check(len(losses) == SLICE13_STEPS and all(
+            abs(a - b) <= SLICE13_LOSS_RTOL * abs(b)
+            for a, b in zip(losses, want)),
+            f"slice 13 {shape}: losses {losses}, the (1, 1) mesh's {want}")
+    log("slice-13 grids " + json.dumps(out))
+    return out
+
+
+def slice13_path(torch, args, errs, t1_losses):
+    """Phase 3, slice 13 (after slice 10, on a freed card): the
+    production-mesh path on a (1, 1) mesh of one NCCL rank — full-width
+    training through ``launch.train.main(mesh=)``, a private-embedding
+    step through the DTensor path, a checkpoint across grids, the walker
+    on a mesh step — and, with two or more cards, (1, 2) and (2, 1)
+    grids. Returns the private step's launches."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh = slice13_mesh(torch)
+    try:
+        train = slice13_train(torch, args, mesh, t1_losses)
+        launches = slice13_private(torch, args, mesh, errs)
+        slice13_checkpoint(torch, args, mesh)
+        walk = slice13_walk(torch, args, mesh)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    grids = slice13_grids(torch, args, train["losses"])
+    card = smi("name,power.limit")
+    log("slice-13 summary " + json.dumps({
+        "card": card, "ms_per_step": train["ms_per_step"],
+        "peak_gb": train["peak_gb"], "idle_share": train["idle_share"],
+        "loss_rel_diff": train["loss_rel_diff"],
+        "walk_flops": walk["flops"][1], "grids_ran": grids["ran"],
+        "seconds": time.perf_counter() - t0}))
     return launches
 
 
@@ -4531,6 +4959,10 @@ def main() -> int:
                          "phase 4's shapes (device time of CUDA-graph "
                          "replays, the kernels inside them, routes) and "
                          "print the rows as JSON")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only build the kernels, run slice 10's t1 and "
+                         "slice 13 (the production-mesh path), and print "
+                         "slice 13's summary")
     ap.add_argument("--decode-times", metavar="SRC",
                     help="only time prefill and decode steps and count a "
                          "decode step's aten calls for slices 7, 8 and 9's "
@@ -4576,6 +5008,12 @@ def main() -> int:
                                  "ss_matmul", "ss_matmul_tall",
                                  "ripple_segment", "ripple_carry",
                                  "share_onehot")}
+    if args.mesh_only:
+        t1 = train_t1(torch, args, train_cfg(torch))
+        _free(torch)
+        launches = slice13_path(torch, args, errs, t1["losses"])
+        print(json.dumps({"slice13_launches": launches, "errs": errs}))
+        return 0
     compare_small(torch, dev, errs)
     log("kernels == plain versions on extremes and ragged shapes")
 
@@ -4654,10 +5092,18 @@ def main() -> int:
                         if r["measured_peak_gb"] else None)
             for r in SLICE12}}))
     check(len(SLICE12) == 3, f"slice 12 priced {len(SLICE12)} steps, not 3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    path13 = slice13_path(torch, args, errs, SLICE10_T1_LOSSES)
+    log("slice-13 path: full-width steps on a (1, 1) NCCL mesh match "
+        "slice 10's, the private lookup runs its kernels on each rank's "
+        "blocks, checkpoints cross grids and the walker prices the mesh "
+        "step as the unsharded one")
     for entry in kernels:
         name = entry["name"].split("[")[0]
         entry["launches"] += sum(p.get(name, 0) for p in (path7, path8,
-                                                          path9, path10))
+                                                          path9, path10,
+                                                          path13))
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[name])
 
     print(json.dumps({"kernels": kernels}), flush=True)

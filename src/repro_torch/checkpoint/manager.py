@@ -6,8 +6,15 @@ Guarantees, as the reference's:
   * **integrity**: every leaf carries a SHA-256 (16 hex digits) in the
     manifest; restore verifies it and falls back to the newest *valid*
     step (a torn or corrupt checkpoint is skipped);
-  * **placement on restore**: ``device=`` puts the restored leaves there
-    (the reference's ``shardings=``); without it they stay on the host;
+  * **placement on restore**: ``shardings=`` (a tree of
+    ``sharding.NamedSharding``s, as ``sharding.param_shardings`` gives on
+    a ``DeviceMesh``) makes each leaf a ``DTensor`` of its placements,
+    each rank uploading only its own block, so a checkpoint written at
+    one grid restores at any other; ``device=`` puts plain leaves there;
+    without either they stay on the host;
+  * **on a mesh**: ``save`` gathers each ``DTensor`` leaf whole (every
+    rank takes part) and rank 0 alone writes the checkpoint, so it holds
+    each whole leaf once, as an unsharded run's does;
   * **async**: ``save(..., blocking=False)`` copies every leaf to the host
     before it returns, then a writer thread persists while training goes
     on. The copy is a clone even of a CPU tensor, whose ``.cpu()`` would
@@ -33,7 +40,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _tree
+from .. import _device, _tree
+from .. import sharding as shd
 
 #: torch dtypes numpy lacks -> (manifest name, the same-width signed torch
 #: view they cross through, the unsigned numpy view they are stored as)
@@ -72,10 +80,19 @@ def _sha(arr: np.ndarray) -> str:
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
                     blocking: bool = True) -> Optional[threading.Thread]:
     """Persist a tree. Non-blocking mode copies it to the host, then
-    returns the writer thread."""
-    host: List[Tuple[str, np.ndarray, str]] = [
-        (name, *_to_host(leaf)) for name, leaf in
-        _tree.leaves_with_paths(tree)]
+    returns the writer thread. In a process group every rank calls it
+    (a ``DTensor`` leaf is gathered whole with every rank's block); rank
+    0 writes, the others return ``None``."""
+    writer = shd.rank() == 0
+    host: List[Tuple[str, np.ndarray, str]] = []
+    for name, leaf in _tree.leaves_with_paths(tree):
+        if _device.is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if writer:
+            host.append((name, *_to_host(leaf)))
+        del leaf
+    if not writer:
+        return None
 
     def _write():
         os.makedirs(ckpt_dir, exist_ok=True)
@@ -144,11 +161,15 @@ def _load_step(ckpt_dir: str, step: int, template: Any, *,
 
 
 def restore_checkpoint(ckpt_dir: str, template: Any, *,
-                       step: Optional[int] = None, device=None,
-                       verify: bool = True) -> tuple:
+                       step: Optional[int] = None, shardings=None,
+                       device=None, verify: bool = True) -> tuple:
     """Restore the newest valid checkpoint (or ``step``) into a tree of
     ``template``'s structure -> (step, tree). Leaves are tensors on the
-    host, or on ``device`` when it is given. Raises FileNotFoundError if
+    host, or on ``device`` when it is given; with ``shardings`` (a tree
+    of ``template``'s structure holding a ``sharding.NamedSharding``, or
+    ``None`` for a plain leaf, at each leaf) each leaf becomes a
+    ``DTensor`` of its placements holding this rank's block (on
+    ``device``, by default the mesh's). Raises FileNotFoundError if
     nothing valid exists."""
     candidates = [step] if step is not None else list(reversed(_steps(
         ckpt_dir)))
@@ -159,9 +180,16 @@ def restore_checkpoint(ckpt_dir: str, template: Any, *,
         except (OSError, ValueError, KeyError) as e:  # torn/corrupt
             last_err = e
             continue
+        tree = _tree.unflatten(template, leaves)
+        if shardings is not None:
+            return s, _tree.map_leaves(
+                lambda t, sh: (t.to(device) if device is not None else t)
+                if sh is None else shd.place(t, sh.mesh, sh.placements,
+                                             device=device),
+                tree, shardings)
         if device is not None:
-            leaves = [t.to(device) for t in leaves]
-        return s, _tree.unflatten(template, leaves)
+            tree = _tree.map_leaves(lambda t: t.to(device), tree)
+        return s, tree
     raise FileNotFoundError(
         f"no valid checkpoint under {ckpt_dir}: {last_err}")
 
@@ -190,6 +218,8 @@ class CheckpointManager:
             self._gc()
 
     def _gc(self) -> None:
+        if shd.rank() != 0:
+            return
         steps = _steps(self.dir)
         for s in steps[:-self.keep]:
             shutil.rmtree(os.path.join(self.dir, f"step_{s}"),

@@ -370,10 +370,8 @@ class MeshDispatcher(Dispatcher):
         item = parts[0].element_size()
         key = (n_shards, n, str(parts[0].dtype), len(parts))
         with self._lock:
-            self._reductions.setdefault(key, dict(
-                flops=n_shards * n,          # S−1 additions + one fold
-                hbm_bytes=(n_shards + 1) * n * item,
-                collective_bytes=copied))
+            self._reductions.setdefault(
+                key, reduction_cost(n_shards, n, item, copied))
 
     # -- predicted cost -------------------------------------------------------
     def predicted_cost(self) -> Dict[str, float]:
@@ -390,6 +388,18 @@ class MeshDispatcher(Dispatcher):
                     collective_bytes=float(sum(c["collective_bytes"]
                                                for c in costs)),
                     programs=len(costs))
+
+
+def reduction_cost(n_shards: int, numel: int, itemsize: int,
+                   copied: int) -> Dict[str, int]:
+    """One mod-p reduction of ``n_shards`` partials of ``numel`` elements
+    each: ``flops`` the S − 1 additions and one fold an element,
+    ``hbm_bytes`` each partial read once and the result written once,
+    ``collective_bytes`` the ``copied`` bytes of partials brought to the
+    data-row-0 slot (at most every partial but row 0's)."""
+    return dict(flops=n_shards * numel,
+                hbm_bytes=(n_shards + 1) * numel * itemsize,
+                collective_bytes=copied)
 
 
 def _cat_clouds(first, *rest):

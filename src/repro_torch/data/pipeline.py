@@ -88,13 +88,31 @@ def make_lm_batches(cfg, shape_batch: int, seq: int, *, seed: int = 0
     return TokenStream(cfg.vocab_size, shape_batch, seq, seed=seed)
 
 
-def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
-                                                            torch.Tensor]:
-    """A host batch's arrays -> tensors of their dtypes on ``device``."""
+def to_device(batch: Dict[str, np.ndarray], device, *, mesh=None,
+              specs=None) -> Dict[str, torch.Tensor]:
+    """A host batch's arrays -> tensors of their dtypes on ``device``.
+
+    With ``mesh`` (a ``DeviceMesh``) and ``specs`` (an entry's spec tuple,
+    as ``sharding.batch_spec`` gives them, by key), ``batch`` is the global
+    batch and each entry becomes a ``DTensor``: this rank uploads only its
+    own block (its data-axis rows), and the other axes, a microbatch-major
+    batch's accumulation axis included, stay whole."""
+    from .. import sharding
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = _device.upload(t, t.dtype, device)
+        arr = np.ascontiguousarray(v)
+        if mesh is None:
+            t = torch.from_numpy(arr)
+            out[k] = _device.upload(t, t.dtype, device)
+            continue
+        from torch.distributed.tensor import DTensor
+        pls = sharding.placements(specs[k], mesh)
+        block = torch.from_numpy(np.ascontiguousarray(
+            arr[sharding.local_block(arr.shape, mesh, pls)]))
+        local = _device.upload(block, block.dtype, device)
+        out[k] = DTensor.from_local(
+            local, mesh, pls, run_check=False, shape=arr.shape,
+            stride=_device.contiguous_strides(arr.shape))
     return out
 
 

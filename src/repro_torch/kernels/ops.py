@@ -19,6 +19,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .. import _device
 from ..core import field
 from . import aa_match as _aa
 from . import ripple as _rip
@@ -29,7 +30,12 @@ walker = None
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
-    """Does ``t`` take the plain version (a CPU or meta tensor)?"""
+    """Does ``t`` take the plain version (a CPU or meta tensor)? A
+    ``DTensor`` raises: a kernel takes a rank's local block, and a
+    DTensor is never gathered into a plain tensor here."""
+    if _device.is_dtensor(t):
+        raise TypeError("a DTensor reached a kernel wrapper: pass each "
+                        "rank's local block (DTensor.to_local())")
     if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type == "cuda":

@@ -2,13 +2,24 @@
 
 The port's counterpart of the reference's ``launch/dryrun.py``. The
 reference lowers and compiles each cell's step for a 256- or 512-chip
-mesh and reads XLA's analyses; the port has no HLO and drives one
-process, so each cell's real step runs on meta-device inputs
-(``launch.specs``) under the aten-op cost walker (``launch.hlo_cost``),
-on a one-card grid. The run allocates nothing on any device: it runs on
-the CPU (and meta), needs no card, and its numbers are counts (flops,
-bytes, the roofline terms at the H100's peaks, the predicted peak
-memory beside the card's 80 GB), never times.
+mesh and reads XLA's analyses; the port has no HLO, so each cell's real
+step runs on meta-device inputs (``launch.specs``) under the aten-op cost
+walker (``launch.hlo_cost``). On a grid of ``GRIDS`` other than
+``one_card_1x1`` the inputs are ``DTensor``s placed by
+``repro_torch.sharding`` on a ``DeviceMesh`` of the ``"fake"`` process
+group (all 256 or 512 ranks in this one process, which is rank 0; the
+group is torn down after each cell), and the walk prices rank 0: its
+local ops, its kernels and its collectives by kind and by link
+(``hlo_analysis.link_of_ranks``). The run allocates nothing on any
+device: it runs on the CPU (and meta), needs no card, and its numbers are
+counts (flops, bytes, the roofline terms at the H100's peaks, the
+predicted peak memory beside the card's 80 GB), never times.
+
+The query mix (``paper_db``) on a grid prices one rank's block of each
+input at ``specs.paper_db_specs``' placements, then adds the mod-p
+reductions of its partial counts and fetched rows over the data axes as
+``MeshDispatcher`` counts them (``core.mesh_dispatch.reduction_cost``),
+their copies on the data group's link, so nothing is priced twice.
 
 A full-size training step is slow on meta (every op of every microbatch
 passes through the walker), so a train cell prices one microbatch's
@@ -17,24 +28,32 @@ the accumulation count, as the reference's walker multiplies a ``while``
 body by its trip count, and adds one optimizer update; its record says
 ``"accum_scaled": true``.
 
-Each record holds the arch, shape, grid, status, ``model_flops``,
-``useful_ratio`` (model flops over the walk's flops), the walk's seconds,
-aten ops and kernels priced, the memory terms and the ``Roofline`` terms.
-Results accumulate in a JSON file (re-running skips done cells unless
-``--force``).
+Each record holds the arch, shape, grid, ``n_chips``, status,
+``model_flops``, ``useful_ratio`` (model flops over all ranks' walked
+flops), the walk's seconds, aten ops and kernels priced, the memory terms
+(per rank, beside the card's 80 GB: ``fits``) and the ``Roofline`` terms
+(per rank: flops by class, HBM bytes, collective bytes by link in
+``collective_detail`` and by kind in ``collective_kinds``,
+``t_collective``). A cell whose step fails is recorded with
+``status: "error: ..."``. Results accumulate in a JSON file (re-running
+skips done cells unless ``--force``).
 
 Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-4b
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-4b \
+      --mesh both                      # single_pod_256 and multi_pod_512
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch paper_db
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
-The reference's ``make_production_mesh`` and ``make_mesh`` (256- and
-512-chip meshes) have no counterpart: one process drives one grid.
+``--mesh one`` (the default) prices ``one_card_1x1``; ``single``,
+``multi`` and ``both`` the reference's production meshes.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import time
 import traceback
@@ -42,18 +61,28 @@ from typing import Optional
 
 import torch
 
-from .. import _tree
+from .. import _device, _tree
 from .. import configs
+from .. import sharding as shd
+from ..core.mesh_dispatch import reduction_cost
 from ..models.config import ALL_SHAPES, ShapeConfig
 from ..train import AdamWConfig, make_serve_steps, make_train_step
 from ..train import step as train_step
 from ..train.optim import apply_updates
-from . import hlo_cost, specs
+from . import hlo_analysis, hlo_cost, specs
+from .mesh import make_mesh
 
 RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "build", "dryrun_results.json")
 
 GRID = "one_card_1x1"
+#: grid name -> (mesh shape, axes); the reference's production meshes
+GRIDS = {GRID: ((1, 1), ("data", "model")),
+         "single_pod_256": ((16, 16), ("data", "model")),
+         "multi_pod_512": ((2, 16, 16), ("pod", "data", "model"))}
+MESH_CHOICES = {"one": [GRID], "single": ["single_pod_256"],
+                "multi": ["multi_pod_512"],
+                "both": ["single_pod_256", "multi_pod_512"]}
 DEVICE_BYTES = 80e9              # one H100's HBM
 
 # long_500k runs only for sub-quadratic archs (SSM / hybrid / sliding-window
@@ -93,26 +122,50 @@ def cell_key(arch, shape_name, grid_name):
 
 
 def tree_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in _tree.leaves(tree)
-               if isinstance(t, torch.Tensor))
+    """Bytes a rank holds of ``tree``'s tensors (a DTensor's own block)."""
+    return sum(_device.local(t).numel() * t.element_size()
+               for t in _tree.leaves(tree) if isinstance(t, torch.Tensor))
+
+
+@contextlib.contextmanager
+def fake_mesh(grid: str):
+    """``grid``'s ``DeviceMesh`` over a ``"fake"`` process group of its
+    size in this process (rank 0), torn down on exit; ``None`` for the
+    one-card grid, which walks plain tensors."""
+    if grid == GRID:
+        yield None
+        return
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = GRIDS[grid]
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield make_mesh(shape, axes, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def _walk(fn, *args) -> hlo_cost.Cost:
-    with hlo_cost.CostMode() as mode:
+    """Price ``fn(*args)``'s ops on meta; host ops (a mesh's rank
+    bookkeeping on the CPU) are left to the host."""
+    with hlo_cost.CostMode(device="meta") as mode:
         fn(*args)
     return mode.cost
 
 
-def _price_train(cfg, shape, ga: int):
+def _price_train(cfg, shape, ga: int, mesh=None):
     """-> (cost, argument bytes, temporary peak bytes, accum_scaled)."""
-    params, opt, batch = specs.input_specs(cfg, shape, grad_accum=ga)
+    params, opt, batch = specs.input_specs(cfg, shape, grad_accum=ga,
+                                           mesh=mesh)
     args = tree_bytes((params, opt, batch))
     if ga == 1:
         cost = _walk(make_train_step(cfg, AdamWConfig()), params, opt, batch)
         return cost, args, cost.peak_bytes, False
     leaves = train_step._trainable(params)
-    acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-           for t in leaves]
+    acc = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
 
     def microbatch():
         _, grads = train_step._grads(cfg, params, leaves,
@@ -134,13 +187,18 @@ def _price_train(cfg, shape, ga: int):
             True)
 
 
-def _record(arch, shape_name, cost, args_b, temp_b, mf, t0, **extra):
-    roof = cost.roofline(peak_memory=args_b + temp_b)
-    return {"arch": arch, "shape": shape_name, "grid": GRID,
+def _record(arch, shape_name, cost, args_b, temp_b, mf, t0, *,
+            grid: str = GRID, **extra):
+    n_chips = math.prod(GRIDS[grid][0])
+    roof = cost.roofline(n_chips=n_chips, peak_memory=args_b + temp_b)
+    return {"arch": arch, "shape": shape_name, "grid": grid,
+            "n_chips": n_chips,
             "status": "ok", "walk_s": round(time.time() - t0, 1),
             "model_flops": mf,
-            "useful_ratio": mf / roof.flops if mf and roof.flops else None,
+            "useful_ratio": (mf / (roof.flops * n_chips)
+                             if mf and roof.flops else None),
             **extra,
+            "collectives": hlo_analysis.collective_bytes(cost),
             "aten_ops": cost.ops, "kernels": dict(cost.kernels),
             "unpriced": dict(cost.unpriced),
             "memory": {"argument_gb": args_b / 1e9, "temp_gb": temp_b / 1e9,
@@ -150,37 +208,66 @@ def _record(arch, shape_name, cost, args_b, temp_b, mf, t0, **extra):
             **roof.as_dict()}
 
 
-def price_cell(arch: str, shape: ShapeConfig, *, smoke: bool = False
-               ) -> dict:
+def price_cell(arch: str, shape: ShapeConfig, *, smoke: bool = False,
+               grid: str = GRID) -> dict:
     """One cell's record: the arch's full configuration (``smoke`` for its
-    reduced sibling) at ``shape``, its step on meta under the walker."""
+    reduced sibling) at ``shape``, its step on meta under the walker, on
+    ``grid`` (rank 0's share of it)."""
     cfg = configs.smoke(arch) if smoke else configs.full(arch)
     t0 = time.time()
     extra = {}
-    if shape.kind == "train":
-        ga = min(grad_accum_for(cfg), shape.global_batch)
-        cost, args_b, temp_b, scaled = _price_train(cfg, shape, ga)
-        extra = {"grad_accum": ga, "accum_scaled": scaled}
-    else:
-        prefill_fn, decode_fn = make_serve_steps(cfg)
-        args = specs.input_specs(cfg, shape)
-        args_b = tree_bytes(args)
-        cost = _walk(prefill_fn if shape.kind == "prefill" else decode_fn,
-                     *args)
-        temp_b = cost.peak_bytes
+    with fake_mesh(grid) as mesh:
+        dp = 1 if mesh is None else shd.dp_size(mesh)
+        if shape.kind == "train":
+            # the microbatch must stay divisible over the data axes
+            ga = min(grad_accum_for(cfg), max(1, shape.global_batch // dp))
+            cost, args_b, temp_b, scaled = _price_train(cfg, shape, ga,
+                                                        mesh)
+            extra = {"grad_accum": ga, "accum_scaled": scaled}
+        else:
+            prefill_fn, decode_fn = make_serve_steps(cfg)
+            args = specs.input_specs(cfg, shape, mesh=mesh)
+            args_b = tree_bytes(args)
+            cost = _walk(prefill_fn if shape.kind == "prefill"
+                         else decode_fn, *args)
+            temp_b = cost.peak_bytes
     return _record(arch, shape.name, cost, args_b, temp_b,
-                   model_flops(cfg, shape), t0, **extra)
+                   model_flops(cfg, shape), t0, grid=grid, **extra)
 
 
-def price_paper_db(db_cfg=None) -> dict:
+def _data_group(mesh) -> list:
+    """The global ranks of rank 0's data group (every data-axis position,
+    rank 0's model position)."""
+    model = mesh.mesh_dim_names.index("model")
+    return mesh.mesh.select(model, 0).reshape(-1).tolist()
+
+
+def price_paper_db(db_cfg=None, *, grid: str = GRID) -> dict:
     """The paper's query mix (``specs.paper_db_step``) at ``db_cfg``
-    (default ``configs.paper_db.full()``)."""
+    (default ``configs.paper_db.full()``) on ``grid``: rank 0's block of
+    every input walked, plus the reductions of its partials over the data
+    axes (``reduction_cost``, as ``MeshDispatcher`` counts them)."""
     db_cfg = db_cfg or configs.get("paper_db").full()
-    args = specs.paper_db_specs(db_cfg)
     t0 = time.time()
-    cost = _walk(specs.paper_db_step, *args)
-    return _record("paper_db", "query_mix", cost, tree_bytes(args),
-                   cost.peak_bytes, None, t0)
+    with fake_mesh(grid) as mesh:
+        args = specs.paper_db_specs(db_cfg, mesh)
+        blocks = [_device.local(a) for a in args]
+        cost = _walk(specs.paper_db_step, *blocks)
+        if mesh is not None and shd.dp_size(mesh) > 1:
+            s = shd.dp_size(mesh)
+            link = hlo_analysis.link_of_ranks(_data_group(mesh))
+            c, rows = db_cfg.n_shares, db_cfg.fetch_rows
+            width = db_cfg.n_attrs * db_cfg.word_length * db_cfg.alphabet_size
+            for numel in (c, c * rows * width):      # counts, fetched rows
+                red = reduction_cost(s, numel, 4, (s - 1) * numel * 4)
+                cost.add_flops("int", red["flops"])
+                cost.hbm_bytes += red["hbm_bytes"]
+                cost.collectives[link] += red["collective_bytes"]
+                cost.collective_kinds["reduce"] = cost.collective_kinds.get(
+                    "reduce", 0.0) + red["collective_bytes"]
+                cost.collective_count += 1
+    return _record("paper_db", "query_mix", cost, tree_bytes(blocks),
+                   cost.peak_bytes, None, t0, grid=grid)
 
 
 def _flush(results, path, last):
@@ -200,9 +287,9 @@ def _flush(results, path, last):
           f"{status}{extra}", flush=True)
 
 
-def _error(arch, shape_name, e) -> dict:
-    return {"arch": arch, "shape": shape_name, "grid": GRID,
-            "status": f"error: {e}",
+def _error(arch, shape_name, grid, e) -> dict:
+    return {"arch": arch, "shape": shape_name, "grid": grid,
+            "status": f"error: {type(e).__name__}: {e}"[:500],
             "traceback": traceback.format_exc()[-2000:]}
 
 
@@ -210,13 +297,22 @@ def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="one", choices=sorted(MESH_CHOICES),
+                    help="one: one_card_1x1; single: single_pod_256; "
+                         "multi: multi_pod_512; both: the two")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=os.path.abspath(RESULTS))
     args = ap.parse_args(argv)
     if not (args.arch or args.all):
         ap.error("name --arch or --all")
+    for grid in MESH_CHOICES[args.mesh]:
+        results = _run_grid(args, grid)
+    return results
 
+
+def _run_grid(args, grid: str) -> dict:
+    """Price the named cells on ``grid`` into ``args.out``."""
     results = {}
     if os.path.exists(args.out):
         with open(args.out) as f:
@@ -229,30 +325,30 @@ def main(argv: Optional[list] = None) -> dict:
 
     for arch in arch_list:
         if arch == "paper_db":
-            key = cell_key(arch, "query_mix", GRID)
+            key = cell_key(arch, "query_mix", grid)
             if key in results and not args.force:
                 continue
             try:
-                rec = price_paper_db()
-            except Exception as e:  # noqa: BLE001
-                rec = _error(arch, "query_mix", e)
+                rec = price_paper_db(grid=grid)
+            except Exception as e:  # noqa: BLE001 — recorded, as the ref
+                rec = _error(arch, "query_mix", grid, e)
             results[key] = rec
             _flush(results, args.out, rec)
             continue
         for shape in shape_list:
-            key = cell_key(arch, shape.name, GRID)
+            key = cell_key(arch, shape.name, grid)
             if key in results and not args.force:
                 continue
             if shape.name == "long_500k" and arch not in LONG_OK:
                 results[key] = {
-                    "arch": arch, "shape": shape.name, "grid": GRID,
+                    "arch": arch, "shape": shape.name, "grid": grid,
                     "status": "skipped: full quadratic attention at 500k"}
                 _flush(results, args.out, results[key])
                 continue
             try:
-                rec = price_cell(arch, shape)
-            except Exception as e:  # noqa: BLE001
-                rec = _error(arch, shape.name, e)
+                rec = price_cell(arch, shape, grid=grid)
+            except Exception as e:  # noqa: BLE001 — recorded, as the ref
+                rec = _error(arch, shape.name, grid, e)
             results[key] = rec
             _flush(results, args.out, rec)
     return results

@@ -11,13 +11,19 @@ Hardware model (NVIDIA's data sheet, H100 SXM, dense rates at the full
 700 W power limit): 3.35 TB/s of HBM; the tensor cores at 989 TFLOP/s in
 bf16 and fp16, 495 in TF32 and 1,979 TOP/s in int8; 67 TFLOP/s in float32
 outside the tensor cores; 450 GB/s each way between two cards of a host
-(NVLink) and 64 GB/s each way between the host and a card (PCIe Gen5 x16).
+(NVLink, ``CARDS_PER_HOST`` = 8 cards a host), 50 GB/s each way a card
+between cards of different hosts (InfiniBand NDR, one 400 Gb/s port a
+card) and 64 GB/s each way between the host and a card (PCIe Gen5 x16).
 A card set below 700 W runs slower under load: the terms are a bound, not
 a prediction.
 
-The reference's ``collective_bytes(hlo_text)``, ``_shape_bytes`` and
-``analyze(compiled, n_chips)`` read HLO text and XLA's compiled object and
-have no counterpart here.
+On a mesh the walker prices one rank: each term is one card's, and a
+grid's totals are ``n_chips`` times as much. A collective is priced, as
+the reference's ``collective_bytes`` sums them, by its output bytes and
+kind (``COLLECTIVES``), on the link its group crosses (:func:`link_of_
+ranks`): NVLink within one host, InfiniBand once the group spans hosts.
+:func:`collective_bytes` and :func:`analyze` are the counterparts of the
+reference's, over a walk instead of HLO text and XLA's compiled object.
 """
 from __future__ import annotations
 
@@ -25,8 +31,15 @@ import dataclasses
 from typing import Dict, Optional
 
 HBM_BW = 3.35e12            # B/s, one card
-NVLINK_BW = 450e9           # B/s each way, card to card
+NVLINK_BW = 450e9           # B/s each way, card to card within a host
+IB_BW = 50e9                # B/s each way a card, between hosts
 PCIE_BW = 64e9              # B/s each way, host to card
+CARDS_PER_HOST = 8
+
+#: the collective kinds: the reference's names, and ``reduce`` (partials
+#: brought to one rank, ``MeshDispatcher``'s mod-p reductions)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute", "reduce")
 
 #: peak operations a second by class of work. ``dot_*`` are matrix
 #: products by operand type; ``int8`` is the two hand-written matmul
@@ -52,7 +65,29 @@ PEAKS: Dict[str, float] = {
 DEFAULT_CLASS = "dot_bf16"
 
 #: link rates by the kind of copy that crosses them
-LINK_BW: Dict[str, float] = {"nvlink": NVLINK_BW, "pcie": PCIE_BW}
+LINK_BW: Dict[str, float] = {"nvlink": NVLINK_BW, "ib": IB_BW,
+                             "pcie": PCIE_BW}
+
+
+def link_of_ranks(ranks) -> Optional[str]:
+    """The link a collective over the global ``ranks`` crosses (one card a
+    rank, ``CARDS_PER_HOST`` consecutive ranks a host): ``"nvlink"``
+    within one host, ``"ib"`` across hosts, ``None`` for one rank."""
+    ranks = list(ranks)
+    if len(ranks) <= 1:
+        return None
+    hosts = {r // CARDS_PER_HOST for r in ranks}
+    return "nvlink" if len(hosts) == 1 else "ib"
+
+
+def collective_bytes(cost) -> Dict[str, float]:
+    """A walk's collective output bytes by kind (``COLLECTIVES``), with
+    ``count`` and ``total``, as the reference's ``collective_bytes`` sums
+    them from HLO text; ``cost`` is an ``hlo_cost.Cost``."""
+    out = {k: float(cost.collective_kinds.get(k, 0.0)) for k in COLLECTIVES}
+    out["count"] = int(cost.collective_count)
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    return out
 
 
 def link_of(src, dst) -> Optional[str]:
@@ -93,6 +128,7 @@ class Roofline:
     collective_detail: Dict[str, float]
     peak_memory_per_device: Optional[float] = None
     flops_by_class: Optional[Dict[str, float]] = None
+    collective_kinds: Optional[Dict[str, float]] = None
 
     @property
     def t_compute(self) -> float:
@@ -135,4 +171,18 @@ class Roofline:
                     bottleneck=self.bottleneck,
                     peak_memory_per_device=self.peak_memory_per_device,
                     flops_by_class=dict(self.flops_by_class or {}),
-                    collective_detail=dict(self.collective_detail))
+                    collective_detail=dict(self.collective_detail),
+                    collective_kinds=dict(self.collective_kinds or {}))
+
+
+def analyze(fn, *args, n_chips: Optional[int] = None, **kw) -> Roofline:
+    """Walk ``fn(*args, **kw)`` (``hlo_cost.CostMode``) -> one rank's
+    ``Roofline`` at ``n_chips`` ranks (default: the process group's world,
+    1 without one), the counterpart of the reference's
+    ``analyze(compiled, n_chips)``."""
+    from . import hlo_cost
+    if n_chips is None:
+        import torch.distributed as dist
+        n_chips = (dist.get_world_size() if dist.is_available()
+                   and dist.is_initialized() else 1)
+    return hlo_cost.analyze(fn, *args, **kw).roofline(n_chips=n_chips)

@@ -18,7 +18,10 @@ runs the forward again inside the backward) included, and it accumulates
                  nothing more), since eager ops are unfused as HLO's
                  top-level instructions are; a gather reads the rows it
                  takes; views and metadata ops cost nothing;
-  * link bytes — copies between devices, by link (``hlo_analysis.LINK_BW``);
+  * link bytes — copies between devices, and collectives, by link
+                 (``hlo_analysis.LINK_BW``); collectives also by kind
+                 (``hlo_analysis.COLLECTIVES``), each its output bytes on
+                 the link its group crosses;
   * the peak   — the most bytes held at once by storages the walk made
                  (each storage once, freed when PyTorch frees it, autograd's
                  saved tensors included), beside the bytes of the storages
@@ -36,11 +39,22 @@ ops as well.
 An op that falls in no class is listed in ``Cost.unpriced`` with its
 count, never dropped silently. :func:`analyze` runs one function under the
 walker; the numbers are one device's, as the reference's are.
+
+On a mesh the walker prices one rank. An op on ``DTensor``s reaches it
+first at its global shapes: it returns ``NotImplemented``, DTensor's own
+dispatch runs, and the walker then sees, and prices, what this rank runs:
+the op on its local blocks and the ``_c10d_functional`` collectives of
+any redistribution. DTensor's sharding propagator also runs each new op
+once on fake tensors at global shapes to learn its output's shape; those
+calls run under a ``FakeTensorMode``, and the walker leaves every op run
+while one is active unpriced and unrecorded (no aten op of a step runs
+under one).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 import weakref
 from typing import Callable, Dict, Optional, Tuple
 
@@ -50,7 +64,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels import ops as kops
 from ..kernels import ss_matmul as _ssm
-from .hlo_analysis import LINK_BW, Roofline, link_of
+from .hlo_analysis import LINK_BW, Roofline, link_of, link_of_ranks
 
 _FLOAT_TYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
@@ -84,7 +98,8 @@ _ELEMENTWISE = {"_to_copy", "clamp", "clamp_min", "clamp_max", "where",
                 "fill_diagonal", "_masked_scale", "native_dropout",
                 "native_dropout_backward", "embedding_dense_backward",
                 "isin", "bucketize", "searchsorted", "softplus_backward",
-                "logit_backward", "hardtanh_backward", "elu_backward"}
+                "logit_backward", "hardtanh_backward", "elu_backward",
+                "__and__", "__or__", "__xor__"}
 
 #: sorts: n·log2(n) operations
 _SORT = {"sort", "argsort", "topk", "kthvalue", "msort"}
@@ -112,6 +127,34 @@ _FILL = {"zeros", "ones", "full", "fill", "zero", "zeros_like", "ones_like",
          "randn_like", "rand_like", "randint_like", "normal", "uniform",
          "random", "bernoulli", "randperm", "eye", "exponential",
          "geometric", "cauchy", "log_normal"}
+
+
+#: ``_c10d_functional`` collectives -> their kind; ``wait_tensor`` and
+#: ``_wrap_tensor_autograd`` only hand a result on and cost nothing
+_COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "broadcast": "collective-permute",
+}
+_COLLECTIVE_FREE = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _is_dtensor_type(t) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and issubclass(t, mod.DTensor)
+
+
+def _group_ranks(args) -> Optional[list]:
+    """The global ranks of the group a collective's arguments name (its
+    last string argument, the group's name)."""
+    from torch.distributed import distributed_c10d as c10d
+    name = next((a for a in reversed(args) if isinstance(a, str)), None)
+    if name is None:
+        return None
+    return c10d.get_process_group_ranks(c10d._resolve_process_group(name))
 
 
 def _op_name(func) -> str:
@@ -264,6 +307,9 @@ class Cost:
         default_factory=lambda: {k: 0.0 for k in LINK_BW})
     flops_by_class: Dict[str, float] = dataclasses.field(
         default_factory=dict)
+    collective_kinds: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    collective_count: int = 0
     kernels: Dict[str, int] = dataclasses.field(default_factory=dict)
     unpriced: Dict[str, int] = dataclasses.field(default_factory=dict)
     op_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -281,7 +327,9 @@ class Cost:
         self.hbm_bytes += other.hbm_bytes
         self.ops += other.ops
         self.host_ops += other.host_ops
+        self.collective_count += other.collective_count
         for mine, theirs in ((self.collectives, other.collectives),
+                             (self.collective_kinds, other.collective_kinds),
                              (self.flops_by_class, other.flops_by_class),
                              (self.kernels, other.kernels),
                              (self.unpriced, other.unpriced),
@@ -299,6 +347,8 @@ class Cost:
             return {k: v * mult for k, v in d.items()}
         return Cost(self.flops * mult, self.hbm_bytes * mult,
                     times(self.collectives), times(self.flops_by_class),
+                    times(self.collective_kinds),
+                    int(self.collective_count * mult),
                     times(self.kernels), times(self.unpriced),
                     times(self.op_counts), int(self.ops * mult),
                     int(self.host_ops * mult), self.arg_bytes,
@@ -318,7 +368,8 @@ class Cost:
             collective_detail=dict(self.collectives),
             peak_memory_per_device=(self.arg_bytes + self.peak_bytes
                                     if peak_memory is None else peak_memory),
-            flops_by_class=dict(self.flops_by_class))
+            flops_by_class=dict(self.flops_by_class),
+            collective_kinds=dict(self.collective_kinds))
 
 
 class CostMode(TorchDispatchMode):
@@ -392,8 +443,15 @@ class CostMode(TorchDispatchMode):
     # -- aten ops -------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented        # DTensor runs it on local blocks
         out = func(*args, **kwargs)
-        if self._quiet:
+        if self._quiet or torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return out                   # a sharding propagator's probe
+        if func.namespace == "_c10d_functional":
+            self._collective(func, args, out)
+            self._note(_tensors((args, kwargs)), _tensors(out))
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         if self.device is not None and not any(
@@ -411,6 +469,26 @@ class CostMode(TorchDispatchMode):
                 cost.unpriced[key] = cost.unpriced.get(key, 0) + 1
         self._note(ins, outs)
         return out
+
+    def _collective(self, func, args, out) -> None:
+        """Price a collective: its output bytes, by kind, on the link its
+        group crosses (nothing for a group of one rank)."""
+        name = func.overloadpacket.__name__
+        if name in _COLLECTIVE_FREE:
+            return
+        kind = _COLLECTIVE_KINDS.get(name)
+        if kind is None:
+            key = str(func.overloadpacket)
+            self.cost.unpriced[key] = self.cost.unpriced.get(key, 0) + 1
+            return
+        cost = self.cost
+        cost.collective_count += 1
+        link = link_of_ranks(_group_ranks(args) or ())
+        if link is None:
+            return
+        nb = sum(nbytes(t) for t in _tensors(out))
+        cost.collectives[link] += nb
+        cost.collective_kinds[kind] = cost.collective_kinds.get(kind, 0) + nb
 
     def _price(self, name, func, args, kwargs, ins, outs) -> bool:
         """Add one op's work to the cost; False for an op in no class."""

@@ -4,6 +4,19 @@ form over an encoder's keys and values), MLA (multi-head latent)
 attention, the gated MLPs and top-k MoE. Plain PyTorch on tensors,
 dtype-explicit, as ``repro.models.layers`` is plain ``jnp``.
 
+On a mesh (``DTensor`` weights placed by ``repro_torch.sharding``, a
+residual stream split over the data axes only) the GQA self-attention
+(with its cache's local block in a prefill or decode step) and the gated
+MLP run as tensor-parallel layers on each rank's local blocks
+(:func:`_on_local_blocks`): column-split projections in, row-split
+projections out, so a layer's output is a partial sum over the mesh dims
+its weights split on, which the caller reduces (one all-reduce a layer),
+and a layer whose weights are whole on ``model`` runs whole on every
+model rank. The gradients of the local blocks are declared partial where
+the ranks' shares of the work differ, so autograd reduces them as
+DTensor would. Cross-attention, MLA, MoE and the SSM run on DTensors op
+by op, their constants replicated over the mesh.
+
 Attention upcasts to float32 as the reference does. ``flash_attention``
 is the reference's blockwise online softmax: a loop over 512-key blocks
 counted from key 0, in the reference's order of operations, so only one
@@ -18,8 +31,9 @@ sort.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -150,9 +164,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *,
     dev = q.device
     q_pos = q_offset + torch.arange(tq, device=dev)       # (Tq,)
     valid_len = tk if kv_len is None else kv_len
-    m = torch.full((b, hkv, g, tq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, hkv, g, tq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hkv, g, tq, d), dtype=torch.float32, device=dev)
+    m = l = acc = None
     for j in range(n_blocks):
         lo = j * block_k
         k_blk = kf[:, :, lo:lo + block_k]
@@ -165,7 +177,18 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *,
             mask = mask & (kv_pos[None, :] <= q_pos[:, None])
         if window is not None:
             mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_device.replicate_like(mask, s), s, NEG_INF)
+        if m is None:
+            # the first block from m = NEG_INF, l = acc = 0: its max is
+            # the block's (no score lies below NEG_INF), and 0·corr + x is
+            # x, so no running state is made before the scores (a state
+            # made from nothing would not carry the scores' placement)
+            m = torch.amax(s, dim=-1)
+            p = torch.exp(s - m[..., None])
+            l = torch.sum(p, dim=-1)
+            acc = torch.einsum("bkgts,bksd->bkgtd", p, v_blk)
+            del s, p
+            continue
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -215,7 +238,8 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, *, kv_len: int,
     mask = pos < kv_len
     if window is not None:
         mask = mask & ((kv_len - 1) - pos < window)
-    sc = torch.where(mask[None, :, None, None, :], sc, NEG_INF)
+    mask = _device.replicate_like(mask[None, :, None, None, :], sc)
+    sc = torch.where(mask, sc, NEG_INF)
     m_c = torch.amax(sc, dim=-1)                          # (B,nc,Hkv,G)
     p = torch.exp(sc - m_c[..., None])
     l_c = torch.sum(p, dim=-1)
@@ -290,6 +314,163 @@ def attention_qkv(p: dict, cfg: ModelConfig, x: Tensor, positions: Tensor,
     return q, apply_rope(k, positions, inv_freq), v
 
 
+def _on_local_blocks(fn: Callable, p: dict, x: Tensor, *consts
+                     ) -> Tensor:
+    """``fn(local weights, local x, *local consts) -> local out`` for a
+    tensor-parallel layer on a mesh -> the output as a ``DTensor``: split
+    as ``x`` over the dims ``x`` is split on, partial over the dims a
+    weight of ``p`` is split on (the row-split projection's partial
+    sums), replicated elsewhere. ``x``'s gradient is declared partial over
+    the weights' split dims (each rank's columns use all of ``x``), and a
+    whole weight's gradient partial over every dim the work is split on
+    (``x``'s and the weights')."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+    xp = list(x.placements)
+    split = {i for w in p.values() if _device.is_dtensor(w)
+             for i, pl in enumerate(w.placements) if pl.is_shard()}
+    work = split | {i for i, pl in enumerate(xp) if pl.is_shard()}
+    xl = x.to_local(grad_placements=[
+        Partial() if i in split and not pl.is_shard() else pl
+        for i, pl in enumerate(xp)])
+    local = {k: (w.to_local(grad_placements=[
+        Partial() if pl.is_replicate() and i in work else pl
+        for i, pl in enumerate(w.placements)])
+        if _device.is_dtensor(w) else w) for k, w in p.items()}
+    out = fn(local, xl, *(_device.local(c) for c in consts))
+    pls = [pl if pl.is_shard() else (Partial() if i in split
+                                     else Replicate())
+           for i, pl in enumerate(xp)]
+    shape = tuple(x.shape[:-1]) + (out.shape[-1],)
+    return DTensor.from_local(out, mesh, pls, run_check=False, shape=shape,
+                              stride=_device.contiguous_strides(shape))
+
+
+def _attention_on_mesh(p: dict, cfg: ModelConfig, x: Tensor,
+                       positions: Tensor, inv_freq: Tensor,
+                       window: Optional[int], causal: bool,
+                       kv_cache=None, cache_len: Optional[int] = None
+                       ) -> Tensor:
+    """GQA attention on a mesh, each rank on its own heads (all of them
+    where the weights are whole on ``model``). Where the query heads
+    split and the KV heads do not (the reference's replicated-KV
+    fallback), each local query head takes the KV head the whole layer
+    would give it. A cache (``DTensor``s placed by ``sharding.
+    cache_spec``) is written in its local block: one split on heads
+    holds this rank's heads; one split on the sequence (a
+    context-parallel cache) holds this rank's positions, and then a
+    prefill into an empty cache attends to the step's own keys and a
+    one-token decode step combines the ranks' partial softmaxes
+    (:func:`_decode_on_blocks`); the cache is never gathered."""
+    hd = cfg.resolved_head_dim
+    q_split = [i for i, pl in enumerate(p["wq"].placements) if pl.is_shard()]
+    kv_split = any(pl.is_shard() for pl in p["wk"].placements)
+    mesh = x.device_mesh
+    rank = mesh.get_coordinate()
+    if kv_cache is not None:
+        seq_dims = [i for i, pl in enumerate(kv_cache[0].placements)
+                    if pl.is_shard(1)]
+        if q_split and not kv_split:
+            raise NotImplementedError(
+                "a cached step with query heads split and KV heads whole "
+                "on a mesh")
+
+    def local(pl: dict, xl: Tensor, pos: Tensor, freq: Tensor) -> Tensor:
+        hq, hkv = pl["wq"].shape[-1] // hd, pl["wk"].shape[-1] // hd
+        lcfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                   head_dim=hd)
+        q, k, v = attention_qkv(pl, lcfg, xl, pos, freq)
+        if q_split and not kv_split:
+            first = rank[q_split[0]] * hq
+            idx = torch.div(first + torch.arange(hq, device=xl.device),
+                            cfg.n_heads // cfg.n_kv_heads,
+                            rounding_mode="floor")
+            k, v = k[:, :, idx], v[:, :, idx]
+        b, t = xl.shape[:2]
+        if kv_cache is None:
+            out = flash_attention(q, k, v, window=window, causal=causal,
+                                  softcap=cfg.logit_softcap)
+        else:
+            out = _cached_on_blocks(cfg, q, k, v, kv_cache, cache_len,
+                                    window, causal, seq_dims)
+        return out.reshape(b, t, hq * hd) @ pl["wo"]
+
+    return _on_local_blocks(local, p, x, positions, inv_freq)
+
+
+def _cached_on_blocks(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                      kv_cache, cache_len: int, window: Optional[int],
+                      causal: bool, seq_dims) -> Tensor:
+    """A cached step's attention on this rank's block of the cache (see
+    :func:`_attention_on_mesh`); q, k, v are the step's local heads."""
+    from .. import sharding
+    k_dt, v_dt = kv_cache
+    kc, vc = k_dt.to_local(), v_dt.to_local()
+    t = q.shape[1]
+    end = cache_len + t
+    if end > k_dt.shape[1]:
+        raise ValueError(f"cache holds {k_dt.shape[1]} positions, the step "
+                         f"needs {end}")
+    rows = sharding.local_block(k_dt.shape, k_dt.device_mesh,
+                                k_dt.placements)[1]
+    lo, hi = max(cache_len, rows.start), min(end, rows.stop)
+    if lo < hi:                       # the step's positions in this block
+        kc[:, lo - rows.start:hi - rows.start].copy_(
+            k[:, lo - cache_len:hi - cache_len])
+        vc[:, lo - rows.start:hi - rows.start].copy_(
+            v[:, lo - cache_len:hi - cache_len])
+    if not seq_dims:
+        return flash_attention(q, kc[:, :end], vc[:, :end],
+                               q_offset=cache_len, window=window,
+                               causal=causal, softcap=cfg.logit_softcap)
+    if cache_len == 0:                # the step's keys are the cache's
+        return flash_attention(q, k, v, window=window, causal=causal,
+                               softcap=cfg.logit_softcap)
+    if t != 1:
+        raise NotImplementedError("a multi-token step into a non-empty "
+                                  "context-parallel cache")
+    return _decode_on_blocks(q, kc, vc, rows.start, end, window,
+                             cfg.logit_softcap, k_dt.device_mesh, seq_dims)
+
+
+def _decode_on_blocks(q: Tensor, kc: Tensor, vc: Tensor, first: int,
+                      end: int, window: Optional[int], softcap: float,
+                      mesh, seq_dims) -> Tensor:
+    """One query token against a cache whose positions are split over
+    ``seq_dims``: this rank's positions [first, first + S_b) give a
+    partial max ``m``, normalizer ``l`` and output ``acc`` (float32, the
+    positions at or past ``end`` masked), and three all-reduces over the
+    split dims combine them (max of ``m``; sums of ``l`` and ``acc``
+    rescaled by exp(m - max)): each rank exchanges (B, H) and (B, H, D)
+    values, never its block."""
+    from torch.distributed import _functional_collectives as funcol
+    b, _, hq, d = q.shape
+    hkv = kc.shape[2]
+    g = hq // hkv
+    qf = (q.float() / math.sqrt(d)).reshape(b, hkv, g, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, kc.float())
+    s = _softcap(s, softcap)
+    pos = first + torch.arange(kc.shape[1], device=q.device)
+    mask = pos < end
+    if window is not None:
+        mask = mask & ((end - 1) - pos < window)
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.amax(s, dim=-1)                              # (B, Hkv, G)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, vc.float())
+    top = m
+    for i in seq_dims:
+        top = funcol.all_reduce(top, "max", (mesh, i))
+    w = torch.exp(m - top)
+    l, acc = l * w, acc * w[..., None]
+    for i in seq_dims:
+        l = funcol.all_reduce(l, "sum", (mesh, i))
+        acc = funcol.all_reduce(acc, "sum", (mesh, i))
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
 def attention_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
                       positions: Tensor, inv_freq: Tensor,
                       window: Optional[int], causal: bool = True,
@@ -309,6 +490,9 @@ def attention_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
     output (B, T, d_model).
     """
     b, t, _ = x.shape
+    if _device.is_dtensor(x) and cross_kv is None:
+        return _attention_on_mesh(p, cfg, x, positions, inv_freq, window,
+                                  causal, kv_cache, cache_len)
     if cross_kv is not None:
         q = attention_q(p, cfg, x, positions, inv_freq)
         out = flash_attention(q, *cross_kv, causal=False,
@@ -418,7 +602,8 @@ def mla_forward(p: dict, cfg: ModelConfig, x: Tensor, *, positions: Tensor,
                                 kpe_cache.float())
             s_all = (s_lat + s_pe) * scale                # (B, H, 1, S)
             pos = torch.arange(s_max, device=x.device)
-            s_all = torch.where(pos < end, s_all, NEG_INF)
+            s_all = torch.where(_device.replicate_like(pos < end, s_all),
+                                s_all, NEG_INF)
             probs = torch.softmax(s_all, dim=-1)
             o_lat = torch.einsum("bhts,bsr->bthr", probs, c32)
             wuv = p["wuv"].reshape(r, nh, dv)
@@ -452,6 +637,11 @@ def mlp_init(key, d: int, f: int, dtype, device) -> dict:
 
 
 def mlp_forward(p: dict, x: Tensor, act: str = "silu") -> Tensor:
+    """The gated MLP; on a mesh, tensor-parallel on local blocks (a
+    partial sum over the dims the FFN width splits on)."""
+    if _device.is_dtensor(x):
+        return _on_local_blocks(lambda pl, xl: mlp_forward(pl, xl, act),
+                                p, x)
     gate = x @ p["w_gate"]
     up = x @ p["w_up"]
     if act == "silu":
@@ -492,10 +682,10 @@ def _moe_einsum_dispatch(p: dict, cfg: ModelConfig, x2: Tensor,
     combine weight is positive, through einsums."""
     n, _ = x2.shape
     e = cfg.n_experts
-    comb = torch.zeros((n, e), dtype=x2.dtype, device=x2.device)
+    comb = None             # 0 + the first choice's column is the column
     for j in range(cfg.top_k):
-        comb = comb + F.one_hot(idx[:, j], e).to(x2.dtype) \
-            * weights[:, j:j + 1]
+        col = F.one_hot(idx[:, j], e).to(x2.dtype) * weights[:, j:j + 1]
+        comb = col if comb is None else comb + col
     xe = torch.einsum("ne,nd->end", (comb > 0).to(x2.dtype), x2)
     h = torch.einsum("end,edf->enf", xe, p["w_gate"])
     u = torch.einsum("end,edf->enf", xe, p["w_up"])

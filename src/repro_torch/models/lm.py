@@ -50,6 +50,15 @@ plaintext table.
 
 ``train_loss`` is the reference's masked next-token cross-entropy over
 float32 logits; ``train.make_train_step`` differentiates it.
+
+On a mesh (parameters and batch ``DTensor``s placed by
+``repro_torch.sharding``) the residual stream is split over the data
+axes only: each block's partial output (a tensor-parallel layer's, see
+``layers``) is reduced before the residual add, the embedding and the
+label logits are looked up in each rank's vocabulary block
+(:func:`_embed_rows`, :func:`_label_logits`), the constants a forward
+makes (positions, RoPE tables, masks) are replicated over the mesh, and
+a prefill makes its cache placed by ``sharding.cache_spec``.
 """
 from __future__ import annotations
 
@@ -59,9 +68,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .. import _device
+from .. import _device, _tree
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
@@ -260,9 +270,9 @@ def _block_apply(cfg: ModelConfig, p: dict, x: Tensor, *, positions: Tensor,
     keys and values from ``enc_out`` and copies them into the layer's
     ``cache["cross"]`` slots, a decode step reads them there."""
     if cfg.family == "ssm":
-        return x + _ssm_apply(p["ssm"], cfg,
-                              L.rmsnorm(x, p["ln1"], cfg.norm_eps), mode,
-                              cache)
+        return x + _device.reduced(_ssm_apply(
+            p["ssm"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), mode,
+            cache))
     y = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     kv_in = cache["kv"] if mode in ("prefill", "decode") else None
     if cfg.attn_type == "mla":
@@ -274,8 +284,10 @@ def _block_apply(cfg: ModelConfig, p: dict, x: Tensor, *, positions: Tensor,
         a = L.attention_forward(p["attn"], cfg, y, positions=positions,
                                 inv_freq=inv_freq, window=win,
                                 kv_cache=kv_in, cache_len=cache_len)
+    a = _device.reduced(a)
     if cfg.hybrid_ssm:
-        s_out = _ssm_apply(p["ssm"], cfg, y, mode, cache)
+        s_out = _device.reduced(_ssm_apply(p["ssm"], cfg, y, mode,
+                                           cache))
         ga = torch.sigmoid(p["mix_a"]).to(a.dtype)
         gs = torch.sigmoid(p["mix_s"]).to(a.dtype)
         x = x + a * ga + s_out * gs
@@ -290,13 +302,13 @@ def _block_apply(cfg: ModelConfig, p: dict, x: Tensor, *, positions: Tensor,
             if mode == "prefill":
                 for dst, src in zip(cache["cross"], cross_kv):
                     dst.copy_(src)
-        x = x + L.attention_forward(p["cross"], cfg, yc, positions=positions,
-                                    inv_freq=inv_freq, window=None,
-                                    cross_kv=cross_kv)
+        x = x + _device.reduced(L.attention_forward(
+            p["cross"], cfg, yc, positions=positions, inv_freq=inv_freq,
+            window=None, cross_kv=cross_kv))
     y2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        return x + L.moe_forward(p["moe"], cfg, y2)
-    return x + L.mlp_forward(p["mlp"], y2, cfg.act)
+        return x + _device.reduced(L.moe_forward(p["moe"], cfg, y2))
+    return x + _device.reduced(L.mlp_forward(p["mlp"], y2, cfg.act))
 
 
 def _layer_cache(caches: dict, i: int) -> dict:
@@ -318,10 +330,10 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: Tensor, *,
     """The decoder blocks in order; with ``cfg.remat``, a training forward
     under autograd checkpoints each block (its activations are recomputed
     in the backward pass)."""
-    inv_freq = L.rope_freqs(
+    inv_freq = _device.replicate_like(L.rope_freqs(
         cfg.resolved_head_dim if cfg.attn_type != "mla"
         else cfg.qk_rope_head_dim,
-        cfg.rope_fraction, cfg.rope_theta, x.device)
+        cfg.rope_fraction, cfg.rope_theta, x.device), x)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     layers = _layers(blocks, cfg.n_layers)
     for i, win in enumerate(layer_windows(cfg)):
@@ -351,10 +363,53 @@ def _embed_tokens(params: dict, cfg: ModelConfig, tokens,
         from .private_embed import private_lookup_inline
         x = private_lookup_inline(params, cfg, tokens)
     else:
-        x = params["embed"][torch.as_tensor(tokens, device=dev)]
+        x = _embed_rows(params["embed"], torch.as_tensor(tokens, device=dev))
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        x = x * _device.replicate_like(
+            torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                         device=x.device), x)
     return x
+
+
+def _embed_rows(table: Tensor, tokens: Tensor) -> Tensor:
+    """``table[tokens]``. On a mesh each rank looks its own tokens up in
+    its own block of the table, a zero row for an id of another block
+    (ids offset by the block's first row), and the rows are summed over
+    the mesh dims the vocabulary is split on and gathered over those
+    d_model is split on, to the tokens' placements: the residual stream
+    is split over the data axes only, and the table is never gathered."""
+    if not _device.is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from .. import sharding
+    mesh = table.device_mesh
+    # a split over a mesh dim of one rank keeps the table whole there
+    t_pls = [tp if mesh.size(i) > 1 else Replicate()
+             for i, tp in enumerate(table.placements)]
+    k_pls = (list(tokens.placements) if _device.is_dtensor(tokens)
+             else [Replicate()] * mesh.ndim)
+    # the block's gradient sums this rank's tokens only: partial over the
+    # dims the tokens split on
+    block = table.to_local(grad_placements=[
+        Partial() if tp.is_replicate() and kp.is_shard() else
+        table.placements[i] for i, (tp, kp) in enumerate(zip(t_pls, k_pls))])
+    ids = _device.local(tokens)
+    if any(tp.is_shard(0) for tp in t_pls):
+        ids = ids - sharding.local_block(table.shape, mesh, t_pls)[0].start
+        inside = (ids >= 0) & (ids < block.shape[0])
+        rows = F.embedding(torch.where(inside, ids, 0), block) \
+            * inside[..., None].to(block.dtype)
+    else:
+        rows = F.embedding(ids, block)
+    pls = [Partial() if tp.is_shard(0)
+           else Shard(rows.ndim - 1) if tp.is_shard(1)
+           else (kp if kp.is_shard() else Replicate())
+           for tp, kp in zip(t_pls, k_pls)]
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    x = DTensor.from_local(rows, mesh, pls, run_check=False, shape=shape,
+                           stride=_device.contiguous_strides(shape))
+    return x.redistribute(mesh, [kp if kp.is_shard() else Replicate()
+                                 for kp in k_pls])
 
 
 def _prefix_inputs(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
@@ -364,7 +419,10 @@ def _prefix_inputs(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
                       embeds=batch.get("embeds"))
     if cfg.frontend == "vit" and "patches" in batch:
         patches = torch.as_tensor(batch["patches"]).to(x.device, x.dtype)
-        x = torch.cat([patches @ params["frontend_proj"], x], dim=1)
+        # on a mesh the projection leaves split over d_model: gathered to
+        # the patches' placements, as the residual stream is
+        x = torch.cat([_device.placed_as(patches @ params["frontend_proj"],
+                                         patches), x], dim=1)
     return x
 
 
@@ -374,7 +432,9 @@ def _logits(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
-    return logits.float()
+    # on a mesh a head split on d_model leaves partial sums: reduced; one
+    # split on the vocabulary stays split
+    return _device.reduced(logits).float()
 
 
 def _encode(params: dict, cfg: ModelConfig, frames) -> Tensor:
@@ -387,10 +447,13 @@ def _encode(params: dict, cfg: ModelConfig, frames) -> Tensor:
     ``flash_attention`` without ``causal``, whose default masks. The port
     follows the code, so both give the same encoder output."""
     dev = _params_device(params)
-    x = torch.as_tensor(frames).to(dev, _dtype(cfg)) @ params["frontend_proj"]
-    positions = torch.arange(x.shape[1], device=dev)[None, :]
-    inv_freq = L.rope_freqs(cfg.resolved_head_dim, cfg.rope_fraction,
-                            cfg.rope_theta, dev)
+    frames = torch.as_tensor(frames).to(dev, _dtype(cfg))
+    x = _device.placed_as(frames @ params["frontend_proj"], frames)
+    positions = _device.replicate_like(
+        torch.arange(x.shape[1], device=dev)[None, :], x)
+    inv_freq = _device.replicate_like(
+        L.rope_freqs(cfg.resolved_head_dim, cfg.rope_fraction,
+                     cfg.rope_theta, dev), x)
     for lp in _layers(params["enc_blocks"], cfg.n_enc_layers):
         x = _block_apply(cfg, lp, x,
                          positions=positions, inv_freq=inv_freq,
@@ -419,11 +482,56 @@ def forward(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
     prefix."""
     enc_out = _encoder_output(params, cfg, batch)
     x = _prefix_inputs(params, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = _device.replicate_like(
+        torch.arange(x.shape[1], device=x.device)[None, :], x)
     x = _run_blocks(cfg, params["blocks"], x, positions=positions,
                     caches=None, cache_len=None, mode="train",
                     enc_out=enc_out)
     return _logits(params, cfg, x)
+
+
+def _pick(logits: Tensor, ids: Tensor) -> Tensor:
+    """``gather(logits, -1, ids)`` for ids (..., 1), as an index: its
+    backward keeps the logits' shape, where ``gather``'s keeps the
+    (B, T, V) logits alive."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    rows = torch.arange(flat.shape[0], device=flat.device)
+    return flat[rows, ids.reshape(-1)].reshape(ids.shape)
+
+
+def _label_logits(logits: Tensor, labels: Tensor) -> Tensor:
+    """``gather(logits, -1, labels)``, labels (B, T, 1). On a mesh, where
+    the vocabulary may be split, each rank gathers from its own block (a
+    zero for a label in another block; ids offset by the block's first
+    column) and the partial values are summed: no rank holds, or
+    differentiates through, a (B, T, V) tensor of the whole
+    vocabulary."""
+    if not _device.is_dtensor(logits):
+        return _pick(logits, labels)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from .. import sharding
+    mesh = logits.device_mesh
+    pls = list(logits.placements)
+    split = [pl.is_shard(logits.ndim - 1) and mesh.size(i) > 1
+             for i, pl in enumerate(pls)]
+    block = logits.to_local()
+    ids = _device.local(labels)
+    if any(split):
+        lo = sharding.local_block(logits.shape, mesh, pls)[-1].start
+        ids = ids - lo
+        inside = (ids >= 0) & (ids < block.shape[-1])
+        take = _pick(block, torch.where(inside, ids, 0)) \
+            * inside.to(block.dtype)
+    else:
+        take = _pick(block, ids)
+    out = [Partial() if sp else (pl if pl.is_shard() and not
+                                 pl.is_shard(logits.ndim - 1)
+                                 else Replicate())
+           for sp, pl in zip(split, pls)]
+    shape = tuple(labels.shape)
+    return _device.reduced(DTensor.from_local(
+        take, mesh, out, run_check=False, shape=shape,
+        stride=_device.contiguous_strides(shape)))
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict
@@ -434,30 +542,63 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict
     ``batch["labels"]`` (B, T) holds each position's next token; a label
     below 0 masks its position out. A ViT batch's prefix positions carry
     no label and are dropped from the logits first. The log-softmax runs
-    over the float32 logits, as the reference's."""
+    over the float32 logits, as the reference's, spelled as reductions
+    over the vocabulary (max, sum of exponentials, the label's logit)
+    so that on a mesh, where the logits are split over the vocabulary,
+    each is a partial result reduced across ranks, (B, T) values a
+    reduction, and the (B, T, V) logits are never gathered."""
     logits = forward(params, cfg, batch)
     labels = torch.as_tensor(batch["labels"]).to(logits.device,
                                                  torch.int64)
     if cfg.frontend == "vit" and "patches" in batch:
         logits = logits[:, batch["patches"].shape[1]:]
-    logp = torch.log_softmax(logits, dim=-1)
+    m = _device.reduced(torch.amax(logits, dim=-1, keepdim=True)).detach()
+    # exp in place: one (B, T, V) float32 transient, as log_softmax's
+    lse = m + torch.log(_device.reduced(torch.sum((logits - m).exp_(),
+                                                  dim=-1, keepdim=True)))
     mask = (labels >= 0).to(torch.float32)
-    take = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    take = _label_logits(logits, labels.clamp(min=0)[..., None])
+    take = (take - lse)[..., 0]
     n = torch.sum(mask)
     loss = -torch.sum(take * mask) / torch.clamp(n, min=1.0)
     return loss, {"loss": loss, "tokens": n}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
-               *, device=None) -> dict:
+               *, device=None, mesh=None) -> dict:
     """Stacked (L-leading) decode cache on ``device`` (default CUDA), in
     ``cfg.dtype`` but the SSM state (float32): ``kv`` for every family
     but SSM, each of (L, B, max_len, Hkv, head_dim) (MLA: (L, B, max_len,
     kv_lora_rank) and (L, B, max_len, qk_rope_head_dim)); ``ssm``, an
     L-stacked ``SSMCache``, for the SSM and hybrid families; ``cross``,
     the encoder's keys and values, each of (L, B, enc_len, Hkv, head_dim),
-    for an encoder-decoder."""
+    for an encoder-decoder. With ``mesh`` every tensor is a ``DTensor``
+    placed by ``sharding.cache_spec``, each rank allocating its block."""
     dev = _device.resolve(device)
+    shapes = _cache_shapes(cfg, batch, max_len, enc_len)
+    if mesh is None:
+        return _tree.map_leaves(
+            lambda sd: torch.zeros(sd.shape, dtype=sd.dtype, device=dev),
+            shapes)
+    from .. import sharding
+    from .config import ShapeConfig
+    spec = sharding.cache_spec(
+        cfg, mesh, ShapeConfig("cache", max_len, batch, "decode"))
+    return _tree.map_leaves(
+        lambda sd, s: sharding.zeros_placed(sd.shape, sd.dtype, mesh, s,
+                                            dev), shapes, spec)
+
+
+class _ShapeDtype:
+    """A cache tensor's shape and dtype (a tree leaf)."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+
+
+def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                  enc_len: int) -> dict:
+    """:func:`init_cache`'s tree, shapes and dtypes only."""
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {}
     if cfg.family != "ssm":
@@ -468,18 +609,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
             shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
                      cfg.resolved_head_dim)
             shapes = (shape, shape)
-        cache["kv"] = tuple(torch.zeros(s, dtype=dt, device=dev)
-                            for s in shapes)
+        cache["kv"] = tuple(_ShapeDtype(s, dt) for s in shapes)
     if cfg.family == "ssm" or cfg.hybrid_ssm:
         one = S.ssm_cache_init(cfg, batch, dt, "meta")
         cache["ssm"] = S.SSMCache(*(
-            torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
-                        device=dev) for a in one))
+            _ShapeDtype((cfg.n_layers,) + tuple(a.shape), a.dtype)
+            for a in one))
     if cfg.n_enc_layers:
         shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
-        cache["cross"] = (torch.zeros(shape, dtype=dt, device=dev),
-                          torch.zeros(shape, dtype=dt, device=dev))
+        cache["cross"] = (_ShapeDtype(shape, dt), _ShapeDtype(shape, dt))
     return cache
 
 
@@ -494,8 +633,11 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
     b, t, _ = x.shape
     caches = init_cache(cfg, b, max_len or t,
                         0 if enc_out is None else enc_out.shape[1],
-                        device=x.device)
-    positions = torch.arange(t, device=x.device)[None, :]
+                        device=x.device,
+                        mesh=x.device_mesh if _device.is_dtensor(x)
+                        else None)
+    positions = _device.replicate_like(
+        torch.arange(t, device=x.device)[None, :], x)
     x = _run_blocks(cfg, params["blocks"], x, positions=positions,
                     caches=caches, cache_len=0, mode="prefill",
                     enc_out=enc_out)
@@ -515,8 +657,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, cache_len: int,
     x = _embed_tokens(params, cfg, batch["tokens"],
                       embeds=batch.get("embeds"))
     cache_len = int(cache_len)
-    positions = (cache_len
-                 + torch.arange(x.shape[1], device=x.device))[None, :]
+    positions = _device.replicate_like(
+        (cache_len + torch.arange(x.shape[1], device=x.device))[None, :], x)
     x = _run_blocks(cfg, params["blocks"], x, positions=positions,
                     caches=cache, cache_len=cache_len, mode="decode")
     return _logits(params, cfg, x), cache

@@ -19,7 +19,14 @@ Two paths:
   ``(c, B·n, V)·(c, V, D)``, with opt-in ``verify=``.
 * :func:`private_lookup_inline` — the LM's own lookup when
   ``cfg.private_embed`` is set (``models.lm``): the batched path over the
-  parameters' pre-shared table, with a fresh key per call.
+  parameters' pre-shared table, with a fresh key per call. On a mesh
+  (``DTensor`` parameters or tokens) each rank looks up its own tokens in
+  its own block of the table: one ``share_onehot`` launch and one
+  contraction on local tensors, the one-hots over the block's vocabulary
+  (token ids offset by the block's first row, so an id in another block
+  shares a zero row), and, where the vocabulary is split, the partial
+  shares summed over those mesh dims in int64 and reduced mod p before
+  they open (:func:`_lookup_on_mesh`).
 
 :func:`as_embed_relation` wraps the shared table as a relation so it runs
 behind a ``QueryClient`` like any other (``EmbedLookup`` plans, sharded
@@ -44,9 +51,11 @@ from ..core import encoding, shamir
 from ..core.engine import SecretSharedDB
 from ..core.costs import CostLedger
 from ..core.queries.aggregate import _verify_openings
+from ..core import field
 from ..core.queries.embed import (QUANT_RANGE, QUANT_SCALE, EmbedJob,
                                   check_tokens, dequantize_from_field,
-                                  lookup_shares, quantize_to_field)
+                                  lookup_shares, quantize_to_field,
+                                  share_tokens, token_coeffs)
 from ..core.shamir import Shares
 from .config import ModelConfig
 
@@ -197,7 +206,11 @@ def private_lookup_inline(params: dict, cfg: ModelConfig, tokens, *,
     untied ``embed`` gets none.
     """
     key = _next_inline_key(params) if key is None else _device.as_key(key)
+    table = params.get("embed_shares", params.get("embed"))
     with torch.no_grad():        # the reference's stop_gradient
+        if _device.is_dtensor(table) or _device.is_dtensor(tokens):
+            return _lookup_on_mesh(params, key, tokens).to(
+                getattr(torch, cfg.dtype))
         if "embed_shares" in params:
             sh = Shares(params["embed_shares"], 1)
         else:
@@ -206,3 +219,68 @@ def private_lookup_inline(params: dict, cfg: ModelConfig, tokens, *,
                                      n_shares=4, device=embed.device)
         out = private_lookup_batched(_device.fold(key, 1), sh, tokens)
     return out.to(getattr(torch, cfg.dtype))
+
+
+def _lookup_on_mesh(params: dict, key: _device.Key, tokens) -> torch.Tensor:
+    """:func:`private_lookup_inline` on a mesh -> a float32 ``DTensor``
+    (*tokens.shape, D): split as the tokens over their mesh dims, and on
+    the last dim where the table's columns are split.
+
+    Each rank shares its own tokens' one-hots over its own vocabulary
+    block [lo, lo + V_b) in one ``share_onehot`` launch (ids minus lo: an
+    id outside the block gives a zero one-hot row) and contracts them with
+    its block of the table (``embed_shares``, or ``embed`` quantized and
+    shared here with c = 4) in one ``ss_matmul``, all on local tensors.
+    Where the vocabulary is split, the blocks' (c, N, D) partial shares
+    (each below p = 2^31 - 1) are summed over those mesh dims in int64 and
+    reduced mod p, then opened. Every id is first checked against the
+    whole vocabulary. A rank's sharing randomness is the call's key
+    folded with the rank's mesh coordinate."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from .. import sharding
+    shared = "embed_shares" in params
+    table = params["embed_shares"] if shared else params["embed"]
+    vdim = 1 if shared else 0
+    mesh = (table if _device.is_dtensor(table) else tokens).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    t_pls = list(table.placements) if _device.is_dtensor(table) else whole
+    k_pls = list(tokens.placements) if _device.is_dtensor(tokens) else whole
+    tok = _device.local(tokens)
+    flat = check_tokens(tok, table.shape[vdim])
+    lo = sharding.local_block(table.shape, mesh, t_pls)[vdim].start
+    rkey = key + tuple(mesh.get_coordinate())
+    block = _device.local(table)
+    sh = (Shares(block, 1) if shared else setup_private_embed(
+        _device.fold(rkey, 0), block, n_shares=4, device=block.device))
+    c, v_b = sh.values.shape[0], sh.values.shape[1]
+    be = _backend(None)
+    a1 = token_coeffs(_device.fold(rkey, 1), flat.size, v_b, block.device)
+    onehots = share_tokens(None, torch.from_numpy(flat - lo), vocab=v_b,
+                           n_shares=c, be=be, a1=a1)
+    del a1
+    part = be.ss_matmul(onehots.values, sh.values)           # (c, N, D_b)
+    del onehots
+    vsplit = [p.is_shard(vdim) for p in t_pls]
+    if any(vsplit):
+        wide = DTensor.from_local(
+            part.to(torch.int64), mesh,
+            [Partial() if v else Replicate() for v in vsplit],
+            run_check=False).full_tensor()
+        part = torch.remainder(wide, field.P).to(field.DTYPE)
+        del wide
+    out = dequantize_from_field(shamir.interpolate(
+        Shares(part, 1 + sh.degree)))
+    out = out.reshape(*tok.shape, out.shape[-1])
+    out_pls = []
+    for tp, kp in zip(t_pls, k_pls):
+        if tp.is_shard(vdim + 1):
+            if kp.is_shard():
+                raise ValueError("tokens and table columns split on one "
+                                 "mesh dim")
+            out_pls.append(Shard(out.ndim - 1))
+        else:
+            out_pls.append(kp if kp.is_shard() else Replicate())
+    shape = tuple(tokens.shape) + (table.shape[vdim + 1],)
+    return DTensor.from_local(out, mesh, out_pls, run_check=False,
+                              shape=shape,
+                              stride=_device.contiguous_strides(shape))

@@ -96,7 +96,7 @@ def _segsum(a: Tensor) -> Tensor:
     cs = torch.cumsum(a, dim=-1)
     s = cs[..., :, None] - cs[..., None, :]
     li = torch.arange(a.shape[-1], device=a.device)
-    mask = li[:, None] >= li[None, :]
+    mask = _device.replicate_like(li[:, None] >= li[None, :], s)
     return torch.where(mask, s, -math.inf)
 
 
@@ -134,7 +134,7 @@ def ssd_chunked(x: Tensor, a_dt: Tensor, B: Tensor, C: Tensor, *,
 
     # 3) inter-chunk recurrence: the state before each chunk, then final
     chunk_decay = torch.exp(A_cum[..., -1])                  # (b,H,nc)
-    carry = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    carry = (torch.zeros_like(states[:, 0], dtype=torch.float32)
              if init_state is None else init_state.float())
     prev = []
     for c in range(nc):

@@ -26,14 +26,23 @@ Fallbacks where an axis does not divide, as the reference's:
     width splits;
   * SSM heads split iff ssm_n_heads % model == 0.
 
-The reference's ``param_shardings`` wraps each spec in a ``NamedSharding``
-of its mesh; a grid has no such object, so the port's returns the specs.
+The rules read a grid's axis names and sizes: a ``DeviceGrid`` or a
+stand-in (``axis_names``, ``shape[axis]``) or a ``torch.distributed``
+``DeviceMesh`` (``mesh_dim_names``, ``size(i)``). On a ``DeviceMesh``,
+:func:`param_shardings` returns, as the reference's does, a
+:class:`NamedSharding` a leaf: the spec bound to the mesh, whose
+``placements`` (:func:`placements`) are one ``Shard(d)`` or
+``Replicate()`` a mesh dim; :func:`distribute` puts a tree there as
+``DTensor``s, each rank holding only its own block. On a grid or a
+stand-in, which has no ranks to place on, it returns the specs.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
-from . import _tree
+import torch
+
+from . import _device, _tree
 from .models.config import ModelConfig, ShapeConfig
 
 if TYPE_CHECKING:
@@ -45,22 +54,37 @@ Spec = Tuple[Any, ...]
 REP: Spec = ()
 
 
+def axis_names(grid) -> Tuple[str, ...]:
+    """A grid's axis names: a ``DeviceMesh``'s ``mesh_dim_names``, else
+    its ``axis_names``."""
+    names = getattr(grid, "mesh_dim_names", None)
+    return tuple(names if names is not None else grid.axis_names)
+
+
+def axis_size(grid, name: str) -> int:
+    """The size of axis ``name``: a ``DeviceMesh``'s ``size(i)``, else
+    ``shape[name]``."""
+    if getattr(grid, "mesh_dim_names", None) is not None:
+        return int(grid.size(grid.mesh_dim_names.index(name)))
+    return int(grid.shape[name])
+
+
 def dp_axes(grid) -> Tuple[str, ...]:
-    return ("pod", "data") if "pod" in grid.axis_names else ("data",)
+    return ("pod", "data") if "pod" in axis_names(grid) else ("data",)
 
 
 def dp_size(grid) -> int:
     n = 1
     for a in dp_axes(grid):
-        n *= int(grid.shape[a])
+        n *= axis_size(grid, a)
     return n
 
 
 def model_size(grid) -> int:
-    return int(grid.shape["model"])
+    return axis_size(grid, "model")
 
 
-def _dp_entry(grid):
+def dp_entry(grid):
     """The data axes as one entry of a spec: one name alone, several as a
     tuple (as ``PartitionSpec`` normalises them)."""
     dp = dp_axes(grid)
@@ -164,8 +188,138 @@ def param_specs(cfg: ModelConfig, grid, params_tree) -> Any:
 
 
 def param_shardings(cfg: ModelConfig, grid, params_tree) -> Any:
-    """The placement of every parameter: its spec over ``grid``."""
-    return param_specs(cfg, grid, params_tree)
+    """The placement of every parameter: on a ``DeviceMesh`` a
+    :class:`NamedSharding` a leaf, on a grid or a stand-in its spec."""
+    specs = param_specs(cfg, grid, params_tree)
+    if not _is_mesh(grid):
+        return specs
+    return _tree.map_leaves(lambda leaf, spec: NamedSharding(grid, spec),
+                            params_tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# placement on a DeviceMesh: specs -> DTensor placements
+# ---------------------------------------------------------------------------
+
+def _is_mesh(grid) -> bool:
+    return getattr(grid, "mesh_dim_names", None) is not None
+
+
+class NamedSharding(tuple):
+    """A spec bound to a ``DeviceMesh`` (the reference's
+    ``NamedSharding``). It is its spec tuple, and compares equal to it;
+    :attr:`placements` are the mesh's placements of it."""
+
+    def __new__(cls, mesh, spec: Spec):
+        obj = super().__new__(cls, spec)
+        obj.mesh = mesh
+        return obj
+
+    @property
+    def spec(self) -> Spec:
+        return tuple(self)
+
+    @property
+    def placements(self) -> list:
+        return placements(tuple(self), self.mesh)
+
+
+def placements(spec: Spec, mesh) -> list:
+    """A spec tuple -> one placement a mesh dim: ``Shard(d)`` where tensor
+    dim ``d`` names the mesh dim, ``Replicate()`` where nothing does. A
+    tuple of axes on one tensor dim, such as ``("pod", "data")``, splits
+    it over those mesh dims major to minor, which DTensor does when they
+    come in the mesh's order; another order, an axis named twice or one
+    the mesh lacks raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    out: List[Any] = [Replicate() for _ in names]
+    used = set()
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        dims = [names.index(a) for a in axes]   # ValueError if absent
+        if dims != sorted(dims) or used & set(dims) or len(set(dims)) \
+                != len(dims):
+            raise ValueError(f"spec {spec} cannot be placed on mesh axes "
+                             f"{names}")
+        used |= set(dims)
+        for i in dims:
+            out[i] = Shard(d)
+    return out
+
+
+def local_block(shape, mesh, pls) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of global ``shape`` placed by
+    ``pls`` on ``mesh``, as slices (``torch.chunk``'s split, DTensor's)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    lshape, offset = compute_local_shape_and_global_offset(
+        torch.Size(shape), mesh, pls)
+    return tuple(slice(o, o + n) for o, n in zip(offset, lshape))
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``: the current card of a CUDA mesh,
+    else the mesh's device type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def place(t: torch.Tensor, mesh, pls, device=None) -> torch.Tensor:
+    """A whole tensor ``t`` (on any device, the host included) -> the
+    ``DTensor`` of ``pls`` on ``mesh``: this rank keeps a copy of its own
+    block, on ``device`` (default ``t``'s when it lies on the mesh's
+    device type, else :func:`mesh_device`), and moves no byte to another
+    rank (every rank holds ``t``)."""
+    from torch.distributed.tensor import DTensor
+    block = t[local_block(t.shape, mesh, pls)]
+    if device is not None:
+        dev = torch.device(device)
+    elif t.device.type in (mesh.device_type, "meta"):
+        dev = t.device
+    else:
+        dev = mesh_device(mesh)
+    local = block.to(dev, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=t.shape,
+                              stride=_device.contiguous_strides(t.shape))
+
+
+def zeros_placed(shape, dtype, mesh, spec: Spec, device) -> torch.Tensor:
+    """A zero ``DTensor`` of global ``shape`` placed by ``spec`` on
+    ``mesh``: this rank allocates its block only, on ``device``."""
+    from torch.distributed.tensor import DTensor
+    pls = placements(tuple(spec), mesh)
+    block = local_block(shape, mesh, pls)
+    local = torch.zeros(tuple(s.stop - s.start for s in block),
+                        dtype=dtype, device=device)
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_device.contiguous_strides(shape))
+
+
+def distribute(tree, mesh, specs) -> Any:
+    """Every tensor leaf of ``tree`` as a ``DTensor`` on ``mesh``, placed
+    by its spec in ``specs`` (a tree of ``tree``'s structure: spec tuples
+    or :class:`NamedSharding`s); other leaves stay as they are."""
+    def one(leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return place(leaf, mesh, placements(tuple(spec), mesh))
+
+    return _tree.map_leaves(one, tree, specs)
+
+
+def rank() -> int:
+    """This process's rank in the default process group (0 without
+    one)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +328,7 @@ def param_shardings(cfg: ModelConfig, grid, params_tree) -> Any:
 
 def batch_spec(cfg: ModelConfig, grid, shape: ShapeConfig
                ) -> Dict[str, Spec]:
-    dp = _dp_entry(grid)
+    dp = dp_entry(grid)
     shard_b = shape.global_batch % dp_size(grid) == 0
     bspec = (dp,) if shard_b else REP
     out = {"tokens": (*bspec, None) if shard_b else (None, None)}
@@ -189,7 +343,7 @@ def batch_spec(cfg: ModelConfig, grid, shape: ShapeConfig
 
 def cache_spec(cfg: ModelConfig, grid, shape: ShapeConfig) -> Any:
     """A spec tree of ``models.init_cache``'s structure."""
-    dp = _dp_entry(grid)
+    dp = dp_entry(grid)
     div = Divisibility(cfg, grid)
     shard_b = shape.global_batch % dp_size(grid) == 0
     b_ax = dp if shard_b else None
@@ -226,7 +380,7 @@ def cache_spec(cfg: ModelConfig, grid, shape: ShapeConfig) -> Any:
 
 
 def logits_spec(cfg: ModelConfig, grid, shape: ShapeConfig) -> Spec:
-    dp = _dp_entry(grid)
+    dp = dp_entry(grid)
     div = Divisibility(cfg, grid)
     shard_b = shape.global_batch % dp_size(grid) == 0
     return (dp if shard_b else None, None, "model" if div.vocab else None)

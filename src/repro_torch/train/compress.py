@@ -11,6 +11,16 @@ quantization error to re-inject next step.
 
 A leaf quantizes alone, and :func:`roundtrip_` does it in place, a run of
 whole blocks at a time, so its transients are one run's, not the leaf's.
+
+A ``DTensor`` leaf split over a mesh (``train.step`` on a mesh) quantizes
+in the blocks of the WHOLE leaf's flat order, so its result is the
+unsharded leaf's bit for bit, however the split cuts those blocks: each
+rank reads the whole leaf's flat index of every element of its block
+(from its offset and the leaf's strides), takes the largest |g| of each
+block over its own elements, and one all-reduce (MAX) of those maxima,
+one float a block, over the mesh dims the leaf is split on gives every
+rank every block's scale; each rank then rounds its own elements. No
+gradient element leaves its rank.
 """
 from __future__ import annotations
 
@@ -19,7 +29,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from .. import _tree
+from .. import _device, _tree
 
 BLOCK = 256
 #: elements :func:`roundtrip_` quantizes at a time (a multiple of BLOCK)
@@ -69,12 +79,79 @@ def decompress_grads(packed) -> Any:
 def roundtrip_(g: torch.Tensor) -> torch.Tensor:
     """``decompress(compress(g))`` of one contiguous float32 leaf, written
     over ``g``, RUN elements at a time (runs start at multiples of BLOCK
-    from the leaf's start, so the blocks are the whole leaf's)."""
+    from the leaf's start, so the blocks are the whole leaf's). A
+    ``DTensor`` leaf is rounded in its own blocks' place on each rank,
+    in the whole leaf's blocks (:func:`_roundtrip_split_`)."""
+    if _device.is_dtensor(g):
+        if any(p.is_shard() for p in g.placements):
+            return _roundtrip_split_(g)
+        roundtrip_(g.to_local())
+        return g
     flat = g.view(-1)
     for lo in range(0, flat.shape[0], RUN):
         part = flat[lo:lo + RUN]
         q, scale = _quant_leaf(part)
         part.copy_(_dequant_leaf(q, scale, part.shape))
+    return g
+
+
+def _block_ids(lshape, offset, gstrides, row0: int, rows: int,
+               device) -> torch.Tensor:
+    """The whole leaf's block index of every element of local rows
+    [row0, row0 + rows) of a block at ``offset`` -> int64 (rows, ...)."""
+    flat = None
+    for d, (n, off, st) in enumerate(zip(lshape, offset, gstrides)):
+        lo, cnt = (row0, rows) if d == 0 else (0, n)
+        idx = (torch.arange(lo, lo + cnt, dtype=torch.int64, device=device)
+               + off) * st
+        idx = idx.reshape((cnt,) + (1,) * (len(lshape) - d - 1))
+        flat = idx if flat is None else flat + idx
+    return torch.div(flat, BLOCK, rounding_mode="floor")
+
+
+def _roundtrip_split_(g) -> torch.Tensor:
+    """:func:`roundtrip_` of a float32 ``DTensor`` split over its mesh:
+    the block maxima of each rank's elements, one all-reduce (MAX) of them
+    over the split mesh dims, then each rank's elements rounded with their
+    whole-leaf block's scale, in place."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pls = g.device_mesh, g.placements
+    local = g.to_local()
+    if local.ndim == 0 or not local.is_contiguous():
+        raise ValueError("a split leaf rounds as a contiguous block of "
+                         "one or more dims")
+    lshape, offset = compute_local_shape_and_global_offset(g.shape, mesh,
+                                                           pls)
+    gstrides, n = [], 1
+    for size in reversed(g.shape):
+        gstrides.append(n)
+        n *= size
+    gstrides = gstrides[::-1]
+    n_blocks = -(-g.numel() // BLOCK)
+    row = max(1, local[0].numel())
+    rows = max(1, (RUN // 4) // row)       # int64 ids: a quarter of a run
+
+    def chunks():
+        for r0 in range(0, local.shape[0], rows):
+            part = local[r0:r0 + rows]
+            ids = _block_ids(lshape, offset, gstrides, r0, part.shape[0],
+                             local.device)
+            yield part, ids.expand(part.shape).reshape(-1)
+
+    amax = torch.zeros(n_blocks, dtype=torch.float32, device=local.device)
+    for part, ids in chunks():
+        amax.scatter_reduce_(0, ids, part.reshape(-1).abs(), "amax")
+    amax = DTensor.from_local(
+        amax, mesh, [Partial("max") if p.is_shard() else Replicate()
+                     for p in pls], run_check=False).full_tensor()
+    scale = amax / 127.0 + 1e-12
+    del amax
+    for part, ids in chunks():
+        s = scale[ids].reshape(part.shape)
+        q = torch.clamp(torch.round(part / s), -127, 127).to(torch.int8)
+        part.copy_(q.to(torch.float32) * s)
     return g
 
 

@@ -15,6 +15,15 @@ A gradient of ``None`` (a parameter the loss did not reach, such as the
 untied ``embed`` behind the private lookup) counts as zero, as
 ``jax.grad`` returns zeros: its moments still decay, and so does the
 parameter.
+
+On a mesh the parameters are ``DTensor``s, and so are their moments, the
+step counter (replicated) and the gradients, which arrive reduced over
+the data axes and placed as their parameters (``train.step``). Each rank
+updates its own blocks in place, slice by slice of its local block (a
+``view(-1)`` of a leaf split on a later dim would gather it); the global
+norm sums each distinct block once: a block's sum of squares goes into an
+all-reduce only over the mesh dims its leaf is split on, so a leaf kept
+whole on ``model`` counts once, not once a model rank.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from typing import Any, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
-from .. import _tree
+from .. import _device, _tree
 
 #: elements a slice of an update touches at a time (float32: 256 MB)
 CHUNK = 1 << 26
@@ -56,15 +65,20 @@ def _device_of(params) -> torch.device:
 
 
 def init_state(params) -> AdamWState:
-    """Zero moments (float32, on each parameter's device) and step 0;
-    a leaf that is not a float tensor has no moments (``None``)."""
+    """Zero moments (float32, placed as each parameter) and step 0 (on
+    the parameters' device; replicated over their mesh when they are
+    ``DTensor``s); a leaf that is not a float tensor has no moments
+    (``None``)."""
     def zeros(p):
         if not isinstance(p, torch.Tensor) or not p.is_floating_point():
             return None
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
+    first = next(t for t in _tree.leaves(params)
+                 if isinstance(t, torch.Tensor))
+    step = torch.zeros((), dtype=torch.int32, device=_device_of(params))
     return AdamWState(
-        step=torch.zeros((), dtype=torch.int32, device=_device_of(params)),
+        step=_device.replicate_like(step, first),
         m=_tree.map_leaves(zeros, params), v=_tree.map_leaves(zeros, params))
 
 
@@ -92,14 +106,28 @@ def slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ g²) over every leaf in float32 (``None`` leaves count 0)."""
+    """sqrt(Σ g²) over every leaf in float32 (``None`` leaves count 0) ->
+    a plain 0-d tensor, on a mesh the same on every rank. A ``DTensor``
+    leaf's local block is summed here and its sum all-reduced over the
+    mesh dims the leaf is split on, once for every leaf split alike."""
     sq = None
+    split: dict = {}
     for g in _tree.leaves(tree):
         if g is None:
             continue
         part = sum(torch.sum(torch.square(s.to(torch.float32)))
-                   for s in slices(g))
+                   for s in slices(_device.local(g)))
+        if _device.is_dtensor(g):
+            key = (g.device_mesh, tuple(p.is_shard() for p in g.placements))
+            split[key] = part if key not in split else split[key] + part
+            continue
         sq = part if sq is None else sq + part
+    for (mesh, sharded), part in split.items():
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        whole = DTensor.from_local(
+            part, mesh, [Partial() if s else Replicate() for s in sharded],
+            run_check=False).full_tensor()
+        sq = whole if sq is None else sq + whole
     if sq is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(sq)
@@ -133,21 +161,24 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
     """One AdamW step, in place. ``grads``: a tree of ``params``'
     structure (any float dtype, read as float32; ``None`` for zero).
     Returns (params, state, {"lr", "grad_norm"}), the same objects."""
-    gnorm = global_norm(grads).to(state.step.device)
+    count = _device.local(state.step)   # writes through to a DTensor
+    gnorm = global_norm(grads).to(count.device)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    state.step.add_(1)
-    step = state.step.to(torch.float32)
-    lr = schedule(cfg, state.step)
+    count.add_(1)
+    step = count.to(torch.float32)
+    lr = schedule(cfg, count)
     bc1 = 1.0 - cfg.beta1 ** step
     bc2 = 1.0 - cfg.beta2 ** step
 
     def update(p, g, m, v):
         if not isinstance(p, torch.Tensor) or not p.is_floating_point():
             return
+        ndim = p.ndim
+        p, g, m, v = (_device.local(t) for t in (p, g, m, v))
         gs = itertools.repeat(None) if g is None else slices(g)
         for ps, gsl, ms, vs in zip(slices(p), gs, slices(m), slices(v)):
             _update_slice(ps, gsl, ms, vs, cfg=cfg, clip=clip, lr=lr,
-                          bc1=bc1, bc2=bc2, decay=p.ndim >= 2)
+                          bc1=bc1, bc2=bc2, decay=ndim >= 2)
 
     _tree.map_leaves(update, params, grads, state.m, state.v)
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -6,6 +6,14 @@ gradient accumulation over a microbatch-major batch, optional int8
 gradient compression, then AdamW. Parameters and optimizer state are
 updated in place and returned (the reference donates them to XLA).
 
+On a mesh the parameters and the batch are ``DTensor``s (placed by
+``repro_torch.sharding``): autograd's gradients come back partial over
+the data axes, and each is reduced and placed as its parameter before
+the accumulator, the compression and AdamW see it; the microbatches are
+the batch's unsharded leading (accumulation) axis, so slicing one moves
+nothing. The loss metric is reduced to a plain tensor, equal on every
+rank.
+
 ``make_serve_steps`` returns the port's ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
@@ -14,7 +22,7 @@ from typing import List
 
 import torch
 
-from .. import _tree
+from .. import _device, _tree
 from ..models import decode_step, prefill, train_loss
 from ..models.config import ModelConfig
 from .compress import roundtrip_
@@ -38,7 +46,10 @@ def _grads(cfg: ModelConfig, params, leaves: List[torch.Tensor], batch):
     finally:
         for t in leaves:
             t.requires_grad_(False)
-    return loss.detach(), list(grads)
+    # a DTensor gradient reduced over the axes it is partial on and
+    # placed as its parameter
+    return loss.detach(), [_device.placed_as(g, t)
+                           for g, t in zip(grads, leaves)]
 
 
 def _microbatch(batch: dict, i: int) -> dict:
@@ -60,8 +71,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     def train_step(params, opt_state: AdamWState, batch):
         leaves = _trainable(params)
         if grad_accum > 1:
-            acc = [torch.zeros(t.shape, dtype=torch.float32,
-                               device=t.device) for t in leaves]
+            acc = [torch.zeros_like(t, dtype=torch.float32)
+                   for t in leaves]
             loss = None
             for i in range(grad_accum):
                 mb_loss, grads = _grads(cfg, params, leaves,
@@ -85,6 +96,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         del by_id
         params, opt_state, om = apply_updates(opt_cfg, params, tree,
                                               opt_state)
+        if _device.is_dtensor(loss):
+            loss = loss.full_tensor()
         return params, opt_state, {"loss": loss, **om}
 
     return train_step

@@ -1,0 +1,215 @@
+"""The rank side of ``tests/test_torch_production_mesh.py``.
+
+Each of the test's gloo ranks runs :func:`run`: it starts the process
+group from a ``file://`` store under the test's ``tmp_path``, runs every
+scenario on ``DTensor``s over CPU meshes, and rank 0 saves what the test
+compares (whole tensors, gathered) to ``result.pt``. This module imports
+torch and the port only: the ranks never load JAX.
+"""
+import dataclasses
+import datetime
+import os
+import traceback
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import _tree, configs, sharding
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.data.pipeline import to_device
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as lmesh
+from repro_torch.launch import train as ltrain
+from repro_torch.models import private_embed as pe
+from repro_torch.models.lm import params_from_arrays
+from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+AXES = ("data", "model")
+
+
+def _whole(tree):
+    """A copy of every leaf, gathered whole (a collective: every rank
+    calls it; a replicated leaf's ``full_tensor`` is the leaf itself)."""
+    return _tree.map_leaves(
+        lambda t: t.full_tensor().clone() if hasattr(t, "full_tensor")
+        else t, tree)
+
+
+def _placements(tree):
+    return [(p, [repr(x) for x in t.placements])
+            for p, t in _tree.leaves_with_paths(tree)
+            if hasattr(t, "placements")]
+
+
+def _train(inp, mesh, out):
+    """Two sharded steps, then an accumulation-2 step with int8
+    compression, from the reference's parameters."""
+    cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"), dtype="float32")
+    params = params_from_arrays(inp["params"], device="cpu")
+    shardings = sharding.param_shardings(cfg, mesh, params)
+    params = sharding.distribute(params, mesh, shardings)
+    opt = init_state(params)
+    ocfg = AdamWConfig(**inp["opt"])
+    plain = make_train_step(cfg, ocfg)
+    accum = make_train_step(cfg, ocfg, grad_accum=2, compress=True)
+    dp = sharding.dp_entry(mesh)
+    metrics = []
+    for i, batch in enumerate(inp["batches"]):
+        row = (dp, None) if i < 2 else (None, dp, None)
+        tb = to_device(batch, "cpu", mesh=mesh,
+                       specs={"tokens": row, "labels": row})
+        fn = plain if i < 2 else accum
+        params, opt, m = fn(params, opt, tb)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 1:
+            out["params_after_2"] = _whole(params)
+    out["train_metrics"] = metrics
+    out["train_params"] = _whole(params)
+    out["train_opt_m"] = _whole(opt.m)
+    out["train_placements"] = _placements(params)
+    out["grad_placements_ok"] = all(
+        tuple(a.placements) == tuple(b.placements)
+        for a, b in zip(_tree.leaves(params), _tree.leaves(opt.m))
+        if hasattr(a, "placements"))
+    return params, opt, shardings
+
+
+def _lookup(inp, mesh, out, tag):
+    """The private lookup with the vocabulary split over ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"), dtype="float32")
+    embed = inp["embed"]
+    tokens = inp["lookup_tokens"]
+    if mesh.get_coordinate() is None:     # a rank outside a sub-mesh
+        return
+    model = mesh.mesh_dim_names.index("model")
+    data = mesh.mesh_dim_names.index("data")
+    tpl = [Replicate()] * mesh.ndim
+    tpl[data] = Shard(0)
+    dtok = sharding.place(tokens, mesh, tpl)
+    rows = {}
+    for name, table, vdim in (
+            ("embed", embed, 0),
+            ("embed_shares", inp["embed_shares"], 1)):
+        pl = [Replicate()] * mesh.ndim
+        pl[model] = Shard(vdim)
+        params = {name: sharding.place(table, mesh, pl)}
+        ops.reset_launch_counts()
+        got = pe.private_lookup_inline(params, cfg, dtok, key=(7,))
+        rows[name] = (got.full_tensor(), [repr(p) for p in got.placements],
+                      tuple(got.to_local().shape))
+    if dist.get_rank() == 0:
+        out[f"lookup_{tag}"] = rows
+
+
+def _checkpoint(inp, mesh, out, params, opt, shardings):
+    """Save at the training mesh; restore at (4, 1) and (1, 4)."""
+    root = inp["root"]
+    ck = os.path.join(root, "ckpt")
+    save_checkpoint(ck, 3, (params, opt))
+    dist.barrier()
+    cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"), dtype="float32")
+    for shape in ((4, 1), (1, 4)):
+        m2 = lmesh.make_mesh(shape, AXES, device_type="cpu")
+        p_sh = sharding.param_shardings(cfg, m2, out["train_params"])
+        o_sh = type(opt)(step=sharding.NamedSharding(m2, sharding.REP),
+                         m=p_sh, v=p_sh)
+        step, (p2, o2) = restore_checkpoint(ck, (params, opt),
+                                            shardings=(p_sh, o_sh))
+        out[f"restored_{shape[0]}x{shape[1]}"] = (
+            step, _whole(p2), _whole(o2.m), _placements(p2))
+
+
+def _roundtrip(inp, mesh, out):
+    """The int8 roundtrip of a (3, 6, 50) leaf split on dim 2 over
+    ``model``, and on dim 1 over ``data`` and dim 2 over ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.train.compress import roundtrip_
+    for tag, pls in (("model", [Replicate(), Shard(2)]),
+                     ("data_model", [Shard(1), Shard(2)])):
+        g = sharding.place(inp["grad"], mesh, pls)
+        out[f"roundtrip_{tag}"] = roundtrip_(g).full_tensor()
+
+
+def _serve(inp, out):
+    """A prefill and two decode steps: at (2, 2), heads split over
+    ``model``; at (1, 4) with 2 heads, attention whole on every model
+    rank and the cache split on its sequence (context-parallel)."""
+    from repro_torch.models import decode_step, init_params, prefill
+    for tag, shape, over in (("2x2", (2, 2), {}),
+                             ("1x4", (1, 4), {"n_heads": 2,
+                                              "n_kv_heads": 2})):
+        m = lmesh.make_mesh(shape, AXES, device_type="cpu")
+        cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"),
+                                  dtype="float32", **over)
+        params = init_params(11, cfg, device="cpu")
+        params = sharding.distribute(
+            params, m, sharding.param_shardings(cfg, m, params))
+        specs = {"tokens": (sharding.dp_entry(m), None)}
+        logits, cache = prefill(params, cfg, to_device(
+            {"tokens": inp["serve_tokens"][:, :6]}, "cpu", mesh=m,
+            specs=specs), max_len=8)
+        got = [logits.full_tensor()]
+        for i in range(2):
+            logits, cache = decode_step(params, cfg, cache, 6 + i, to_device(
+                {"tokens": inp["serve_tokens"][:, 6 + i:7 + i]}, "cpu",
+                mesh=m, specs=specs))
+            got.append(logits.full_tensor())
+        out[f"serve_{tag}"] = (got, _placements(cache))
+
+
+def _errors(mesh, out):
+    """No fallback: a world that is not the mesh's and a DTensor at a
+    kernel each raise."""
+    raised = {}
+    try:
+        lmesh.make_mesh((2, 1), AXES, device_type="cpu")
+    except ValueError as e:
+        raised["world"] = str(e)
+    from torch.distributed.tensor import Replicate
+    a = sharding.place(torch.zeros((2, 8, 8), dtype=torch.int32), mesh,
+                       [Replicate()] * mesh.ndim)
+    try:
+        ops.ss_matmul(a, a)
+    except TypeError as e:
+        raised["kernel"] = str(e)
+    out["raised"] = raised
+
+
+def _launcher(inp, mesh, out):
+    """``launch.train.main(mesh=)`` at the smoke config."""
+    ck = os.path.join(inp["root"], "launch_ckpt")
+    out["launch_loss"] = ltrain.main(inp["launch_argv"] + ["--ckpt-dir", ck],
+                                     mesh=mesh)
+
+
+def run(rank: int, world: int, root: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{root}/init",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    try:
+        inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+        inp["root"] = root
+        mesh = lmesh.make_mesh((2, 2), AXES, device_type="cpu")
+        params, opt, shardings = _train(inp, mesh, out)
+        _checkpoint(inp, mesh, out, params, opt, shardings)
+        _lookup(inp, mesh, out, "2x2")
+        from torch.distributed.device_mesh import DeviceMesh
+        sub = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                         mesh_dim_names=AXES)
+        _lookup(inp, sub, out, "1x2")
+        _roundtrip(inp, mesh, out)
+        _serve(inp, out)
+        _errors(mesh, out)
+        _launcher(inp, mesh, out)
+    except Exception:           # the test reads the traceback
+        out["error"] = traceback.format_exc()
+        with open(os.path.join(root, f"error{rank}.txt"), "w") as f:
+            f.write(out["error"])
+        raise
+    finally:
+        if rank == 0:
+            torch.save(out, os.path.join(root, "result.pt"))
+        dist.destroy_process_group()

@@ -63,7 +63,10 @@ def test_peaks_by_class():
     assert H.PEAKS["dot_tf32"] == 495e12 and H.PEAKS["float"] == 67e12
     assert H.PEAKS["int"] == 33.5e12 and H.PEAKS["dot_f64"] == 67e12
     assert H.HBM_BW == 3.35e12 and H.LINK_BW == {"nvlink": 450e9,
-                                                 "pcie": 64e9}
+                                                 "ib": 50e9, "pcie": 64e9}
+    assert H.link_of_ranks(range(8)) == "nvlink"
+    assert H.link_of_ranks(range(16)) == "ib"
+    assert H.link_of_ranks([0]) is None
     assert H.link_of(torch.device("cuda", 0), torch.device("cuda", 1)) \
         == "nvlink"
     assert H.link_of(torch.device("cpu"), torch.device("cuda", 0)) == "pcie"
@@ -74,6 +77,7 @@ def test_peaks_by_class():
     devs = {(0, 0): torch.device("cuda", 0), (0, 1): torch.device("cuda", 1),
             "client": torch.device("cuda", 0)}
     assert H.copies_detail(copies, devs.__getitem__) == {"nvlink": 107.0,
+                                                         "ib": 0.0,
                                                          "pcie": 0.0}
 
 

@@ -1,0 +1,284 @@
+"""The port's production-mesh path on 4 gloo ranks of the CPU.
+
+One module fixture spawns 4 ranks (``tests/_torch_mesh_ranks.py``; a
+``file://`` store in ``tmp_path``, no port) that run every scenario on a
+("data", "model") ``DeviceMesh`` of the CPU; the tests read what rank 0
+saved and hold it here against the port's unsharded path and the JAX
+reference, on the Qwen smoke configuration in float32 (4 heads, d_ff 128,
+vocabulary 256: every rule splits over a model axis of 2):
+
+* at (2, 2), two sharded steps, then an accumulation-2 step with int8
+  compression, from the reference's parameters: the loss, lr and grad
+  norm of every step within 1e-5 of the port's unsharded steps and of the
+  reference's, and so is every parameter (after the int8 step, all but
+  an element in 10,000: see the test); the moments keep their
+  parameters' placements; the int8 roundtrip of a leaf split on later
+  dims is the whole leaf's, bit for bit;
+* the private lookup with the vocabulary split over ``model`` at (1, 2)
+  and (2, 2), from the plaintext table and from a pre-shared one: opened
+  rows bit-identical to the unsharded lookup's;
+* a checkpoint saved at (2, 2) restores at (4, 1), at (1, 4), unsharded,
+  and through the reference's ``restore_checkpoint``, bit for bit;
+* ``launch.train.main(mesh=)`` at (2, 2) gives the one-device run's loss;
+* no fallback: a world that is not the mesh's, a DTensor at a kernel, a
+  missing process group and a backend PyTorch lacks each raise.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+import _torch_mesh_ranks as ranks
+import repro.configs as jconfigs
+from repro.checkpoint import restore_checkpoint as jrestore
+from repro.models import lm as jlm
+from repro.train import optim as jopt
+from repro.train import step as jstep
+from repro_torch import _tree, configs
+from repro_torch.checkpoint import restore_checkpoint
+from repro_torch.launch import mesh as lmesh
+from repro_torch.launch import train as ltrain
+from repro_torch.models import private_embed as pe
+from repro_torch.models.lm import params_from_arrays
+from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+WORLD = 4
+TOL = 1e-5
+#: AdamWConfig's default lr. AdamW moves an element by about lr·g/|g|, so
+#: where a float32 rounding of the reduction order (or of an int8 block's
+#: code) changes a small gradient, the parameters move apart by a share
+#: of lr: at lr 1e-3 the unsharded port and the reference already differ
+#: by 9.6e-6 after these three steps, and one int8 code flips between the
+#: sharded and unsharded runs (1.8e-5).
+OPT = dict(lr=3e-4, warmup_steps=1, total_steps=10)
+LAUNCH = ["--arch", "qwen1.5-4b", "--smoke", "--steps", "2", "--batch", "4",
+          "--seq", "16", "--device", "cpu", "--log-every", "1"]
+
+
+def _cfgs():
+    return (dataclasses.replace(jconfigs.smoke("qwen1_5_4b"),
+                                dtype="float32"),
+            dataclasses.replace(configs.smoke("qwen1_5_4b"),
+                                dtype="float32"))
+
+
+def _batches(vocab):
+    rng = np.random.default_rng(3)
+
+    def one(shape):
+        return {k: rng.integers(0, vocab, shape).astype(np.int32)
+                for k in ("tokens", "labels")}
+
+    return [one((4, 16)), one((4, 16)), one((2, 2, 16))]
+
+
+def _reference_steps(jcfg, jp, batches):
+    """-> (metrics a step, the parameters after each step as numpy)."""
+    cfg = jopt.AdamWConfig(**OPT)
+    plain = jax.jit(jstep.make_train_step(jcfg, cfg))
+    accum = jax.jit(jstep.make_train_step(jcfg, cfg, grad_accum=2,
+                                          compress=True))
+    state, metrics, after = jopt.init_state(jp), [], []
+    for i, b in enumerate(batches):
+        jp, state, m = (plain if i < 2 else accum)(
+            jp, state, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        after.append(jax.tree.leaves(jax.tree.map(np.asarray, jp)))
+    return metrics, after
+
+
+def _port_steps(tcfg, params_np, batches):
+    """-> (metrics a step, the parameters after each step, copied)."""
+    params = params_from_arrays(params_np, device="cpu")
+    opt = init_state(params)
+    ocfg = AdamWConfig(**OPT)
+    plain = make_train_step(tcfg, ocfg)
+    accum = make_train_step(tcfg, ocfg, grad_accum=2, compress=True)
+    metrics, after = [], []
+    for i, b in enumerate(batches):
+        params, opt, m = (plain if i < 2 else accum)(
+            params, opt, {k: torch.as_tensor(v) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        after.append([t.clone() for t in _tree.leaves(params)])
+    return metrics, after
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """Spawn the ranks once -> (rank 0's results, the inputs, the root)."""
+    root = tmp_path_factory.mktemp("mesh")
+    jcfg, _ = _cfgs()
+    jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(5)
+    embed = torch.from_numpy(
+        (rng.standard_normal((256, 64)) / 8).astype(np.float32))
+    inp = {"params": jax.tree.map(np.asarray, jp),
+           "batches": _batches(jcfg.vocab_size), "opt": OPT,
+           "embed": embed,
+           "embed_shares": pe.setup_private_embed(
+               (3,), embed, device="cpu").values,
+           "lookup_tokens": torch.from_numpy(
+               rng.integers(0, 256, (4, 8)).astype(np.int64)),
+           "launch_argv": LAUNCH,
+           "grad": torch.from_numpy(
+               rng.standard_normal((3, 6, 50)).astype(np.float32)),
+           "serve_tokens": rng.integers(0, 256, (4, 8)).astype(np.int32)}
+    torch.save(inp, root / "inputs.pt")
+    mp.spawn(ranks.run, args=(WORLD, str(root)), nprocs=WORLD, join=True)
+    out = torch.load(root / "result.pt", weights_only=False)
+    assert "error" not in out, out.get("error")
+    return out, inp, root, jp
+
+
+@pytest.fixture(scope="module")
+def unsharded(run):
+    """The port's and the reference's unsharded runs of the same steps."""
+    _, inp, _, jp = run
+    jcfg, tcfg = _cfgs()
+    return (_port_steps(tcfg, inp["params"], inp["batches"]),
+            _reference_steps(jcfg, jp, inp["batches"]))
+
+
+def _far(got, port, ref):
+    """-> (the elements over TOL from either, the largest gap), leaf by
+    leaf over the two unsharded runs' leaves."""
+    far, worst = 0, 0.0
+    for g, p, r in zip(_tree.leaves(got), port, ref):
+        for d in (np.abs(g.numpy() - p.numpy()), np.abs(g.numpy() - r)):
+            far += int((d > TOL).sum())
+            worst = max(worst, float(d.max()))
+    return far, worst
+
+
+@pytest.mark.parametrize("n_steps", [2, 3])
+def test_sharded_steps_match_unsharded_port_and_reference(run, unsharded,
+                                                          n_steps):
+    """Losses, lr and grad norms within 1e-5 at every step; after the two
+    plain steps every parameter within 1e-5 of both unsharded runs. The
+    third step rounds its gradients to int8 codes, and a gradient within
+    float32 rounding (of the reduction order) of a code's edge takes the
+    next code in one run of the three: the parameters then stay within
+    1e-5 but at most one element in 10,000, which stays within lr. (The
+    unsharded port and the reference differ in the same way.)"""
+    out = run[0]
+    (want_port, port_after), (want_ref, ref_after) = unsharded
+    for got, port, ref in zip(out["train_metrics"][:n_steps], want_port,
+                              want_ref):
+        for k in ("loss", "lr", "grad_norm"):
+            assert abs(got[k] - port[k]) <= TOL, (k, got[k], port[k])
+            assert abs(got[k] - ref[k]) <= TOL, (k, got[k], ref[k])
+    got = out["params_after_2" if n_steps == 2 else "train_params"]
+    far, worst = _far(got, port_after[n_steps - 1],
+                      ref_after[n_steps - 1])
+    n = sum(t.numel() for t in _tree.leaves(got))
+    if n_steps == 2:
+        assert far == 0, worst
+    else:
+        assert far <= n // 10_000 and worst <= OPT["lr"], (far, worst)
+
+
+def test_split_leaf_compression_is_the_whole_leafs(run):
+    """The int8 roundtrip of a leaf split on later dims (blocks of 256
+    cut by the split) equals the whole leaf's, bit for bit."""
+    from repro_torch.train.compress import roundtrip_
+    out, inp = run[0], run[1]
+    want = roundtrip_(inp["grad"].clone())
+    for tag in ("model", "data_model"):
+        assert torch.equal(out[f"roundtrip_{tag}"], want), tag
+
+
+def test_parameters_and_moments_keep_their_placements(run):
+    out = run[0]
+    pls = dict(out["train_placements"])
+    assert pls["blocks/mlp/w_up"] == ["Replicate()", "Shard(dim=2)"]
+    assert pls["blocks/attn/wo"] == ["Replicate()", "Shard(dim=1)"]
+    assert pls["embed"] == ["Replicate()", "Shard(dim=0)"]
+    assert pls["lm_head"] == ["Replicate()", "Shard(dim=1)"]
+    assert pls["final_norm"] == ["Replicate()", "Replicate()"]
+    assert out["grad_placements_ok"]
+
+
+@pytest.mark.parametrize("grid", ["1x2", "2x2"])
+@pytest.mark.parametrize("table", ["embed", "embed_shares"])
+def test_vocab_split_lookup_is_bit_identical(run, grid, table):
+    out, inp = run[0], run[1]
+    _, tcfg = _cfgs()
+    want = pe.private_lookup_inline({table: inp[table]}, tcfg,
+                                    inp["lookup_tokens"], key=(7,))
+    got, placements, local_shape = out[f"lookup_{grid}"][table]
+    assert torch.equal(got, want)
+    data_rows = 4 // int(grid[0])
+    assert local_shape == (data_rows, 8, 64)
+    assert placements[1] == "Replicate()"
+
+
+def test_checkpoint_crosses_grids_and_packages(run):
+    out, inp, root, jp = run
+    saved_p = out["train_params"]
+    for grid in ("4x1", "1x4"):
+        step, p2, m2, pls = out[f"restored_{grid}"]
+        assert step == 3
+        for a, b in zip(_tree.leaves(p2), _tree.leaves(saved_p)):
+            assert torch.equal(a, b)
+        for a, b in zip(_tree.leaves(m2), _tree.leaves(out["train_opt_m"])):
+            assert torch.equal(a, b)
+        assert dict(pls)["blocks/mlp/w_up"] == ["Replicate()",
+                                                 "Shard(dim=2)"]
+    template = (params_from_arrays(inp["params"], device="cpu"), None)
+    template = (template[0], init_state(template[0]))
+    step, (p, o) = restore_checkpoint(str(root / "ckpt"), template)
+    assert step == 3
+    for a, b in zip(_tree.leaves(p), _tree.leaves(saved_p)):
+        assert torch.equal(a, b)
+    jtemplate = (jp, jopt.init_state(jp))
+    step, (jp2, _) = jrestore(str(root / "ckpt"), jtemplate)
+    assert step == 3
+    for a, b in zip(jax.tree.leaves(jp2), _tree.leaves(saved_p)):
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("grid", ["2x2", "1x4"])
+def test_prefill_and_decode_on_a_mesh(run, grid):
+    """The dry-run's serving cells on real ranks: a prefill and two decode
+    steps within 1e-4 (float32) of one device's, with the cache split on
+    heads (2 x 2) or on its sequence (1 x 4, 2 heads)."""
+    from repro_torch.models import decode_step, init_params, prefill
+    out, inp = run[0], run[1]
+    over = {} if grid == "2x2" else {"n_heads": 2, "n_kv_heads": 2}
+    cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"), dtype="float32",
+                              **over)
+    params = init_params(11, cfg, device="cpu")
+    toks = torch.as_tensor(inp["serve_tokens"])
+    logits, cache = prefill(params, cfg, {"tokens": toks[:, :6]}, max_len=8)
+    want = [logits]
+    for i in range(2):
+        logits, cache = decode_step(params, cfg, cache, 6 + i,
+                                    {"tokens": toks[:, 6 + i:7 + i]})
+        want.append(logits)
+    got, placements = out[f"serve_{grid}"]
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4
+    split = "Shard(dim=3)" if grid == "2x2" else "Shard(dim=2)"
+    assert dict(placements)["kv/0"][1] == split
+
+
+def test_launcher_on_a_mesh_matches_one_device(run, capsys):
+    out = run[0]
+    want = ltrain.main(LAUNCH)
+    assert abs(out["launch_loss"] - want) <= 2e-2 * abs(want)
+
+
+def test_no_fallback(run):
+    raised = run[0]["raised"]
+    assert "needs 2 ranks, the world has 4" in raised["world"]
+    assert "DTensor reached a kernel" in raised["kernel"]
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no process group"):
+        lmesh.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    with pytest.raises(RuntimeError, match="no mpi backend"):
+        lmesh.init_ranks(backend="mpi", device="cpu")
