@@ -7,7 +7,7 @@
     python3 chip_smoke.py --setup-peak SRC    # only the table set-up peak
     python3 chip_smoke.py --decode-times SRC  # only LM prefill/decode times
     python3 chip_smoke.py --onehot-times SRC  # only the share_onehot times
-    python3 chip_smoke.py --mesh-only         # only t1 and slice 13
+    python3 chip_smoke.py --mesh-only         # only t1, slices 13 and 14
 
 Phases, any failure exits non-zero:
 
@@ -175,7 +175,7 @@ Phases, any failure exits non-zero:
    gives the uninterrupted run's losses, and the restored tensors equal
    the saved ones bit for bit (the smoke config, checkpoints under
    ``build/``).
-   Slice 13 (last, after slice 10): the production mesh, a
+   Slice 13 (after slice 10): the production mesh, a
    (1, 1) ``DeviceMesh`` of one NCCL rank started by
    ``launch.mesh.init_ranks`` from ``torchrun``'s environment variables
    (a free localhost port). 3 steps of ``launch.train.main(mesh=)`` at
@@ -192,6 +192,25 @@ Phases, any failure exits non-zero:
    With two or more cards, (1, 2) and (2, 1) grids of two spawned NCCL
    ranks run the 3 steps too (losses within 2e-3 of the (1, 1) mesh's);
    on one card a line says they did not run.
+   Slice 14 (last, after slice 13, on a freed card): the MoE family on
+   the production mesh, at the full Granite-3.0-3B-A800M configuration
+   (32 layers, d 1,536, 24 heads with 8 KV heads, 40 experts top-8 of
+   expert d_ff 512, V 49,155, bf16, remat, the einsum dispatch; 3.37 B
+   synthetic parameters from ``--seed``) on slice 10's batches and AdamW.
+   (a) 3 steps of ``launch.train.main`` unsharded: finite losses, ms a
+   step, the idle share over a profiled step, the peak; (b) the same on
+   a (1, 1) NCCL mesh, losses within 1e-6 (step 0) and 2e-3 (steps 1–2)
+   relative of (a)'s; (c) one step with the sort dispatch at capacity
+   1.25, unsharded and on the mesh, losses within 1e-6 relative, and the
+   pairs the unsharded forward drops; (d) one private-embedding step on
+   the mesh, slice 13's check at this configuration: exactly one
+   ``share_onehot`` and one general ``ss_matmul`` (4, 2,048, 49,155) @
+   (4, 49,155, 1,536), each equal to its plain version afterwards, the
+   opened rows the unsharded lookup's; (e) with two or more cards, (1, 2)
+   (20 experts a rank) and (2, 1) grids run (b)'s steps, losses within
+   2e-3 of (1, 1)'s; on one card a line says they did not run. A
+   ``slice-14 summary`` line gives the card, ms a step, peaks, idle
+   shares, the largest loss difference and the seconds.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -3482,15 +3501,16 @@ def slice13_train(torch, args, mesh, t1_losses):
     return out
 
 
-def slice13_private(torch, args, mesh, errs):
+def slice13_private(torch, args, mesh, errs, cfg=None, tag="slice 13"):
     """One private-embedding step at full width on the (1, 1) mesh
-    (``make_train_step`` on DTensor parameters and batch): launch counters
-    zeroed just before it; the DTensor path's ``share_onehot`` and
-    ``ss_matmul`` calls (the kernels' wrappers in ``kernels.ss_matmul``
-    wrapped, their operands kept) held after the step, on a freed card,
-    against their plain versions (the contraction PLAIN_COLS columns at
-    a time); the opened rows equal to the unsharded lookup's (the
-    dequantized table's rows) bit for bit."""
+    (``make_train_step`` on DTensor parameters and batch) of ``cfg``
+    (default slice 10's configuration): launch counters zeroed just
+    before it; the DTensor path's ``share_onehot`` and ``ss_matmul`` calls
+    (the kernels' wrappers in ``kernels.ss_matmul`` wrapped, their
+    operands kept) held after the step, on a freed card, against their
+    plain versions (the contraction PLAIN_COLS columns at a time); the
+    opened rows equal to the unsharded lookup's (the dequantized table's
+    rows) bit for bit. ``tag`` names the slice in its lines."""
     import dataclasses
 
     from repro_torch import sharding
@@ -3503,7 +3523,7 @@ def slice13_private(torch, args, mesh, errs):
     from repro_torch.models import private_embed as pe
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
-    pcfg = dataclasses.replace(train_cfg(torch), private_embed=True)
+    pcfg = dataclasses.replace(cfg or train_cfg(torch), private_embed=True)
     _free(torch)
     params = lm.init_params((args.seed, 13), pcfg)
     params = sharding.distribute(params, mesh,
@@ -3556,18 +3576,18 @@ def slice13_private(torch, args, mesh, errs):
     finally:
         ssm.share_onehot_cuda, ssm.ss_matmul_cuda = inner_share, inner_mm
         pe.private_lookup_inline = inner_lookup
-    check_onehot_quad(ops, "slice 13 private step")
+    check_onehot_quad(ops, f"{tag} private step")
     for name in SLICE13_KERNELS:
         check(launches[name] == 1 and calls[name] == 1,
-              f"slice 13: the private step launched {launches}, wrapper "
+              f"{tag}: the private step launched {launches}, wrapper "
               f"calls {dict(calls)}: one {name} a step wanted")
     check(seen.get("type") == "DTensor" and torch.equal(seen["rows"],
                                                         want_rows),
-          "slice 13: the mesh lookup's opened rows differ from the "
+          f"{tag}: the mesh lookup's opened rows differ from the "
           "unsharded lookup's (the dequantized table's rows)")
     m = {k: float(v) for k, v in m.items()}
     check(math.isfinite(m["loss"]) and m["grad_norm"] > 0,
-          f"slice 13 private step: {m}")
+          f"{tag} private step: {m}")
     # the kernels' calls against their plain versions, on a freed card
     del params, state, dbatch, want_rows
     _free(torch)
@@ -3576,7 +3596,7 @@ def slice13_private(torch, args, mesh, errs):
     if not torch.equal(shared, want):
         errs["share_onehot"] = max(errs["share_onehot"],
                                    max_err(torch, shared, want))
-        check(False, "slice 13: share_onehot on the mesh path differs "
+        check(False, f"{tag}: share_onehot on the mesh path differs "
               "from its plain version")
     del want, a1, tokens
     a, b, got = seen.pop("matmul")
@@ -3585,14 +3605,15 @@ def slice13_private(torch, args, mesh, errs):
         if not torch.equal(got[..., lo:lo + PLAIN_COLS], want):
             errs["ss_matmul"] = max(errs["ss_matmul"], max_err(
                 torch, got[..., lo:lo + PLAIN_COLS], want))
-            check(False, f"slice 13: ss_matmul on the mesh path differs "
+            check(False, f"{tag}: ss_matmul on the mesh path differs "
                   f"from its plain version at columns {lo}..")
         del want
     out = {"launches": {k: launches[k] for k in SLICE13_KERNELS},
            "shapes": {"share_onehot": list(shared.shape),
                       "ss_matmul": [list(a.shape), list(b.shape)]},
            "step_s": step_s, "metrics": m}
-    log("slice-13 private step (DTensor path) " + json.dumps(out))
+    log(f"{tag.replace(' ', '-')} private step (DTensor path) "
+        + json.dumps(out))
     del seen, shared, a, b, got
     _free(torch)
     return launches
@@ -3731,36 +3752,38 @@ def slice13_rank(rank, world, port, shape, argv, out_path):
         dist.destroy_process_group()
 
 
-def slice13_grids(torch, args, want):
+def slice13_grids(torch, args, want, argv=None, tag="slice 13"):
     """On a host with two or more cards, (1, 2) and (2, 1) grids of two
-    spawned NCCL ranks run slice 13's steps; their losses must match the
-    (1, 1) mesh's within SLICE13_LOSS_RTOL. On one card this logs that
-    they did not run."""
+    spawned NCCL ranks run ``argv`` (default slice 13's steps) through
+    ``launch.train.main(mesh=)``; their losses must match ``want``, the
+    (1, 1) mesh's, within SLICE13_LOSS_RTOL. On one card this logs that
+    they did not run. ``tag`` names the slice in its lines."""
     import socket
 
     import torch.multiprocessing as mp
+    argv = argv or slice13_argv(args, SLICE13_STEPS)
+    label = tag.replace(" ", "-")
     n = torch.cuda.device_count()
     if n < 2:
-        log(f"slice-13 grids (1, 2) and (2, 1): not run, {n} card")
+        log(f"{label} grids (1, 2) and (2, 1): not run, {n} card")
         return {"ran": False}
     out = {"ran": True}
     for shape in ((1, 2), (2, 1)):
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
-        path = os.path.join(ROOT, "build", f"slice13_{shape[0]}x{shape[1]}"
+        path = os.path.join(ROOT, "build", f"{label}_{shape[0]}x{shape[1]}"
                             ".json")
-        mp.spawn(slice13_rank, args=(2, port, shape,
-                                     slice13_argv(args, SLICE13_STEPS),
-                                     path), nprocs=2, join=True)
+        mp.spawn(slice13_rank, args=(2, port, shape, argv, path), nprocs=2,
+                 join=True)
         with open(path) as f:
             losses = json.load(f)
         out[f"{shape[0]}x{shape[1]}"] = losses
-        check(len(losses) == SLICE13_STEPS and all(
+        check(len(losses) == len(want) and all(
             abs(a - b) <= SLICE13_LOSS_RTOL * abs(b)
             for a, b in zip(losses, want)),
-            f"slice 13 {shape}: losses {losses}, the (1, 1) mesh's {want}")
-    log("slice-13 grids " + json.dumps(out))
+            f"{tag} {shape}: losses {losses}, the (1, 1) mesh's {want}")
+    log(f"{label} grids " + json.dumps(out))
     return out
 
 
@@ -3791,6 +3814,215 @@ def slice13_path(torch, args, errs, t1_losses):
         "loss_rel_diff": train["loss_rel_diff"],
         "walk_flops": walk["flops"][1], "grids_ran": grids["ran"],
         "seconds": time.perf_counter() - t0}))
+    return launches
+
+
+#: slice 14: the MoE family on the production mesh, training the full
+#: Granite-3.0-3B-A800M configuration of the port's registry (32 layers,
+#: d 1,536, 24 heads with 8 KV heads, 40 experts top-8 of expert d_ff
+#: 512, V 49,155, bf16, remat, the einsum dispatch) on synthetic weights
+#: from ``--seed`` and slice 10's batches (4 x 512 tokens) and AdamW
+SLICE14_ARCH = "granite_moe_3b_a800m"
+SLICE14_FIELDS = dict(n_layers=32, d_model=1536, n_heads=24, n_kv_heads=8,
+                      d_ff=512, vocab_size=49155, n_experts=40, top_k=8,
+                      n_shared_experts=0, dtype="bfloat16", remat=True,
+                      moe_dispatch="einsum")
+#: steps of (a) and (b), and the capacity factor of (c)'s sort dispatch
+SLICE14_STEPS, SLICE14_SORT_CAPACITY = 3, 1.25
+SLICE14_KERNELS = ("share_onehot", "ss_matmul")
+
+
+def slice14_cfg(torch):
+    """The full Granite-3.0-3B-A800M configuration, checked against its
+    published fields."""
+    from repro_torch import configs
+    cfg = configs.full(SLICE14_ARCH)
+    bad = {k: getattr(cfg, k) for k, v in SLICE14_FIELDS.items()
+           if getattr(cfg, k) != v}
+    check(not bad, f"slice 14: {SLICE14_ARCH} is not the published "
+          f"configuration: {bad}")
+    return cfg
+
+
+def slice14_argv(args, steps):
+    return ["--arch", SLICE14_ARCH, "--steps", str(steps), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--seed", str(args.seed)]
+
+
+def slice14_train(torch, args, label, mesh=None):
+    """SLICE14_STEPS steps of ``launch.train.main`` (on ``mesh`` when it
+    is given, DTensor parameters, moments and batches): finite losses and
+    grad norms; ms a step (host clock between synchronizes, step 2), the
+    idle share over a profiled step 1 and the peak memory."""
+    from repro_torch.launch import train as train_launcher
+    from torch.profiler import ProfilerActivity, profile
+
+    marks, rec, prof, seen = [], [], {}, {}
+
+    def on_step(step, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        m = {k: float(v) for k, v in metrics.items()}
+        rec.append(m)
+        check(math.isfinite(m["loss"]) and m["grad_norm"] > 0,
+              f"slice 14 {label} step {step}: {m}")
+        if step == 0:
+            w = params["blocks"]["moe"]["w_up"]
+            seen["type"] = type(w).__name__
+            seen["placements"] = [repr(p) for p in getattr(w, "placements",
+                                                           ())]
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        if step == 1:
+            prof["p"].__exit__(None, None, None)
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = train_launcher.main(slice14_argv(args, SLICE14_STEPS),
+                                mesh=mesh, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(rec) == SLICE14_STEPS and final == rec[-1]["loss"],
+          f"slice 14 {label}: main did not run every step")
+    check(seen["type"] == ("Tensor" if mesh is None else "DTensor"),
+          f"slice 14 {label}: the expert weights were a {seen['type']}")
+    kinds, launches = collections.Counter(), 0
+    for e in prof["p"].key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us:
+            launches += e.count
+            kinds[train_kernel_kind(e.key)] += us / 1e3
+    device_ms = sum(kinds.values())
+    step_ms = 1e3 * (marks[1] - marks[0])             # step 1, profiled
+    plain_ms = 1e3 * (marks[2] - marks[1])            # step 2
+    out = {"losses": [r["loss"] for r in rec],
+           "grad_norms": [r["grad_norm"] for r in rec],
+           "placements_w_up": seen["placements"], "ms_per_step": plain_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (plain_ms / 1e3),
+           "profiled_step_ms": step_ms, "profiled_step_device_ms": device_ms,
+           "idle_share": 1.0 - device_ms / step_ms,
+           "profiled_step_kernels": launches,
+           "device_ms_by_kind": dict(kinds), "peak_gb": peak,
+           "first_step_and_init_s": marks[0] - t0}
+    log(f"slice-14 {label} (launch.train.main) " + json.dumps(out))
+    _free(torch)
+    return out
+
+
+def slice14_sort_step(torch, args, cfg, mesh):
+    """(c): one step of ``make_train_step`` with the sort dispatch at
+    capacity SLICE14_SORT_CAPACITY, unsharded and on ``mesh``, each on
+    fresh weights from ``--seed`` and t1's first batch: the losses within
+    SLICE13_STEP0_RTOL relative. Counts the (token, expert) pairs the
+    unsharded step's first forward drops (past an expert's capacity)."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.data import make_lm_batches
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    scfg = dataclasses.replace(cfg, moe_dispatch="sort",
+                               capacity_factor=SLICE14_SORT_CAPACITY)
+    batch = make_lm_batches(scfg, TRAIN_BATCH, TRAIN_SEQ,
+                            seed=args.seed).batch_at(0)
+    dp = sharding.dp_entry(mesh)
+    drops, inner = [], L._moe_sort_dispatch
+
+    def spy(p, c, x2, weights, idx, *a, **kw):
+        if len(drops) < c.n_layers:           # the first forward's layers
+            cap = math.ceil(x2.shape[0] * c.top_k / c.n_experts
+                            * c.capacity_factor)
+            counts = torch.bincount(idx.reshape(-1), minlength=c.n_experts)
+            drops.append(int((counts - cap).clamp(min=0).sum()))
+        return inner(p, c, x2, weights, idx, *a, **kw)
+
+    out = {}
+    for name in ("unsharded", "mesh"):
+        _free(torch)
+        params = lm.init_params(args.seed, scfg)
+        if name == "mesh":
+            params = sharding.distribute(
+                params, mesh, sharding.param_shardings(scfg, mesh, params))
+            dbatch = to_device(batch, "cuda", mesh=mesh,
+                               specs={k: (dp, None) for k in batch})
+        else:
+            dbatch = to_device(batch, "cuda")
+        state = init_state(params)
+        step_fn = make_train_step(scfg, AdamWConfig(lr=TRAIN_LR,
+                                                    warmup_steps=2,
+                                                    total_steps=2))
+        L._moe_sort_dispatch = spy if name == "unsharded" else inner
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = step_fn(params, state, dbatch)
+            torch.cuda.synchronize()
+        finally:
+            L._moe_sort_dispatch = inner
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "step_s": time.perf_counter() - t0}
+        del params, state, dbatch, step_fn, m
+    _free(torch)
+    a, b = out["unsharded"]["loss"], out["mesh"]["loss"]
+    out["loss_rel_diff"] = abs(a - b) / abs(a)
+    out["dropped_pairs_first_forward"] = sum(drops)
+    out["pairs_first_forward"] = (cfg.n_layers * TRAIN_BATCH * TRAIN_SEQ
+                                  * cfg.top_k)
+    log("slice-14 (c) sort dispatch at capacity "
+        f"{SLICE14_SORT_CAPACITY} " + json.dumps(out))
+    check(math.isfinite(a) and out["loss_rel_diff"] <= SLICE13_STEP0_RTOL,
+          f"slice 14 (c): the sort dispatch's loss {b} on the mesh, {a} "
+          f"unsharded (rtol {SLICE13_STEP0_RTOL})")
+    return out
+
+
+def slice14_path(torch, args, errs):
+    """Phase 3, slice 14 (last, after slice 13, on a freed card): the MoE
+    family on the production mesh at the full Granite-3.0-3B-A800M
+    configuration — (a) SLICE14_STEPS steps through ``launch.train.main``
+    unsharded, (b) the same on a (1, 1) NCCL mesh, its losses against
+    (a)'s, (c) one sort-dispatch step unsharded and on the mesh, (d) one
+    private-embedding step on the mesh (slice 13's check at this
+    configuration) and (e), with two or more cards, (1, 2) and (2, 1)
+    grids. Returns (d)'s launches."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    cfg = slice14_cfg(torch)
+    a = slice14_train(torch, args, "(a) unsharded")
+    mesh = slice13_mesh(torch)
+    try:
+        b = slice14_train(torch, args, "(b) on the (1, 1) mesh", mesh=mesh)
+        diffs = [abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                     a["losses"])]
+        for i, d in enumerate(diffs):
+            tol = SLICE13_STEP0_RTOL if i == 0 else SLICE13_LOSS_RTOL
+            check(d <= tol, f"slice 14 (b) step {i}: loss {b['losses'][i]} "
+                  f"on the mesh, {a['losses'][i]} unsharded (rtol {tol})")
+        c = slice14_sort_step(torch, args, cfg, mesh)
+        launches = slice13_private(torch, args, mesh, errs, cfg=cfg,
+                                   tag="slice 14")
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    grids = slice13_grids(torch, args, b["losses"],
+                          argv=slice14_argv(args, SLICE14_STEPS),
+                          tag="slice 14")
+    log("slice-14 summary " + json.dumps({
+        "card": smi("name,power.limit"),
+        "ms_per_step": {"a": a["ms_per_step"], "b": b["ms_per_step"]},
+        "peak_gb": {"a": a["peak_gb"], "b": b["peak_gb"]},
+        "idle_share": {"a": a["idle_share"], "b": b["idle_share"]},
+        "max_loss_rel_diff": max(diffs + [c["loss_rel_diff"]]),
+        "sort_dropped_pairs": c["dropped_pairs_first_forward"],
+        "launches": {k: launches[k] for k in SLICE14_KERNELS},
+        "grids_ran": grids["ran"], "seconds": time.perf_counter() - t0}))
     return launches
 
 
@@ -4960,9 +5192,10 @@ def main() -> int:
                          "replays, the kernels inside them, routes) and "
                          "print the rows as JSON")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="only build the kernels, run slice 10's t1 and "
-                         "slice 13 (the production-mesh path), and print "
-                         "slice 13's summary")
+                    help="only build the kernels, run slice 10's t1, "
+                         "slice 13 (the production-mesh path) and slice 14 "
+                         "(the MoE family on it), and print their "
+                         "summaries")
     ap.add_argument("--decode-times", metavar="SRC",
                     help="only time prefill and decode steps and count a "
                          "decode step's aten calls for slices 7, 8 and 9's "
@@ -5012,7 +5245,10 @@ def main() -> int:
         t1 = train_t1(torch, args, train_cfg(torch))
         _free(torch)
         launches = slice13_path(torch, args, errs, t1["losses"])
-        print(json.dumps({"slice13_launches": launches, "errs": errs}))
+        _free(torch)
+        launches14 = slice14_path(torch, args, errs)
+        print(json.dumps({"slice13_launches": launches,
+                          "slice14_launches": launches14, "errs": errs}))
         return 0
     compare_small(torch, dev, errs)
     log("kernels == plain versions on extremes and ragged shapes")
@@ -5099,11 +5335,17 @@ def main() -> int:
         "slice 10's, the private lookup runs its kernels on each rank's "
         "blocks, checkpoints cross grids and the walker prices the mesh "
         "step as the unsharded one")
+    gc.collect()
+    torch.cuda.empty_cache()
+    path14 = slice14_path(torch, args, errs)
+    log("slice-14 path: full-width Granite-3.0-3B-A800M steps on a (1, 1) "
+        "NCCL mesh match the unsharded ones with both MoE dispatches, and "
+        "the private step runs its kernels on each rank's blocks")
     for entry in kernels:
         name = entry["name"].split("[")[0]
         entry["launches"] += sum(p.get(name, 0) for p in (path7, path8,
                                                           path9, path10,
-                                                          path13))
+                                                          path13, path14))
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[name])
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -209,11 +210,14 @@ def _record(arch, shape_name, cost, args_b, temp_b, mf, t0, *,
 
 
 def price_cell(arch: str, shape: ShapeConfig, *, smoke: bool = False,
-               grid: str = GRID) -> dict:
+               grid: str = GRID, **over) -> dict:
     """One cell's record: the arch's full configuration (``smoke`` for its
-    reduced sibling) at ``shape``, its step on meta under the walker, on
-    ``grid`` (rank 0's share of it)."""
+    reduced sibling; ``over`` replaces fields of it, e.g.
+    ``moe_dispatch="sort"``) at ``shape``, its step on meta under the
+    walker, on ``grid`` (rank 0's share of it)."""
     cfg = configs.smoke(arch) if smoke else configs.full(arch)
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
     t0 = time.time()
     extra = {}
     with fake_mesh(grid) as mesh:

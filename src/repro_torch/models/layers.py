@@ -6,16 +6,18 @@ dtype-explicit, as ``repro.models.layers`` is plain ``jnp``.
 
 On a mesh (``DTensor`` weights placed by ``repro_torch.sharding``, a
 residual stream split over the data axes only) the GQA self-attention
-(with its cache's local block in a prefill or decode step) and the gated
-MLP run as tensor-parallel layers on each rank's local blocks
-(:func:`_on_local_blocks`): column-split projections in, row-split
-projections out, so a layer's output is a partial sum over the mesh dims
-its weights split on, which the caller reduces (one all-reduce a layer),
-and a layer whose weights are whole on ``model`` runs whole on every
-model rank. The gradients of the local blocks are declared partial where
-the ranks' shares of the work differ, so autograd reduces them as
-DTensor would. Cross-attention, MLA, MoE and the SSM run on DTensors op
-by op, their constants replicated over the mesh.
+(with its cache's local block in a prefill or decode step), the gated
+MLP and the MoE layer (both dispatches, its experts split on ``model``
+or else their FFN width, plus its shared experts) run as tensor-parallel
+layers on each rank's local blocks (:func:`_on_local_blocks`):
+column-split projections in, row-split projections out, so a layer's
+output is a partial sum over the mesh dims its weights split on, which
+the caller reduces (one all-reduce a layer), and a layer whose weights
+are whole on ``model`` runs whole on every model rank. The gradients of
+the local blocks are declared partial where the ranks' shares of the
+work differ, so autograd reduces them as DTensor would. Cross-attention,
+MLA and the SSM run on DTensors op by op, their constants replicated
+over the mesh.
 
 Attention upcasts to float32 as the reference does. ``flash_attention``
 is the reference's blockwise online softmax: a loop over 512-key blocks
@@ -676,16 +678,33 @@ def moe_init(key, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
+def _moe_route(p: dict, cfg: ModelConfig, x2: Tensor
+               ) -> Tuple[Tensor, Tensor]:
+    """The router: a float32 softmax over the experts, ``topk`` (sorted),
+    the weights renormalized and cast to the activation dtype -> (weights,
+    expert ids), each (n, k)."""
+    logits = x2.float() @ p["router"]
+    weights, idx = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k,
+                              dim=-1, sorted=True)
+    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    return weights.to(x2.dtype), idx
+
+
 def _moe_einsum_dispatch(p: dict, cfg: ModelConfig, x2: Tensor,
-                         weights: Tensor, idx: Tensor) -> Tensor:
+                         weights: Tensor, idx: Tensor,
+                         first: int = 0) -> Tensor:
     """Dense one-hot dispatch: every expert runs on every token whose
-    combine weight is positive, through einsums."""
+    combine weight is positive, through einsums. ``p`` holds the experts
+    [first, first + E_l) (all of them off a mesh): the combine's columns
+    of those experts are used."""
     n, _ = x2.shape
-    e = cfg.n_experts
+    e, e_l = cfg.n_experts, p["w_gate"].shape[0]
     comb = None             # 0 + the first choice's column is the column
     for j in range(cfg.top_k):
         col = F.one_hot(idx[:, j], e).to(x2.dtype) * weights[:, j:j + 1]
         comb = col if comb is None else comb + col
+    if e_l != e:
+        comb = comb[:, first:first + e_l]
     xe = torch.einsum("ne,nd->end", (comb > 0).to(x2.dtype), x2)
     h = torch.einsum("end,edf->enf", xe, p["w_gate"])
     u = torch.einsum("end,edf->enf", xe, p["w_up"])
@@ -695,51 +714,140 @@ def _moe_einsum_dispatch(p: dict, cfg: ModelConfig, x2: Tensor,
 
 
 def _moe_sort_dispatch(p: dict, cfg: ModelConfig, x2: Tensor,
-                       weights: Tensor, idx: Tensor) -> Tensor:
+                       weights: Tensor, idx: Tensor, first: int = 0,
+                       n_total: Optional[int] = None,
+                       before: Optional[Tensor] = None) -> Tensor:
     """Capacity dispatch: the n·k (token, expert) pairs sorted stably by
-    expert, each expert's first cap = ceil(n·k/E · capacity_factor) rows
-    gathered into an (E, cap, d) buffer (the rest go to an overflow slot
-    E·cap and are dropped), the experts run on their rows, and the
-    weighted rows are added back per token (``index_add_``: atomic on
-    CUDA, so equal to the reference's ``.at[].add`` within float
-    rounding)."""
+    expert; a pair's position is its rank among its expert's pairs, and
+    each expert keeps its first cap = ceil(N·k/E · capacity_factor)
+    (the rest go to an overflow slot and are dropped); the kept rows are
+    gathered into a buffer of min(cap, n) rows an expert, the experts run
+    on their rows, and each token's k weighted rows, put back in token
+    order, are summed (the same sum on every run, where ``index_add_``'s
+    atomics on CUDA add in a varying order; equal to the reference's
+    ``.at[].add`` within float rounding).
+
+    Off a mesh N = n and the positions are the reference's. On a mesh the
+    rank holds n of the N tokens (a block of batch rows) and the experts
+    [first, first + E_l) of ``p``: ``before`` (E,) counts each expert's
+    pairs in the tokens before the block, so a pair's position is its
+    rank in the global order b·T + t, and the rank keeps the pairs of its
+    own experts that the unsharded layer keeps."""
     n, d = x2.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_l = p["w_gate"].shape[0]
     dev = x2.device
-    cap = int(math.ceil(n * k / e * cfg.capacity_factor))
+    cap = int(math.ceil((n if n_total is None else n_total) * k / e
+                        * cfg.capacity_factor))
+    rows = min(cap, n)         # an expert takes a token at most once
     flat_expert = idx.reshape(-1)                          # (n·k,)
     flat_weight = weights.reshape(-1)
     flat_token = torch.arange(n, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_expert, stable=True)
     se, st, sw = flat_expert[order], flat_token[order], flat_weight[order]
-    pos = torch.arange(n * k, device=dev) - torch.searchsorted(se, se,
-                                                               side="left")
+    rank = torch.arange(n * k, device=dev) - torch.searchsorted(
+        se, se, side="left")
+    pos = rank if before is None else rank + before[se]
     keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, e * cap)      # overflow slot
-    buf = torch.zeros((e * cap + 1, d), dtype=x2.dtype, device=dev)
+    if e_l != e:                                   # another rank's experts
+        keep = keep & (se >= first) & (se < first + e_l)
+    slot = torch.where(keep, (se - first) * rows + rank, e_l * rows)
+    buf = torch.zeros((e_l * rows + 1, d), dtype=x2.dtype, device=dev)
     buf[slot] = x2[st]
-    xe = buf[:e * cap].reshape(e, cap, d)
+    xe = buf[:e_l * rows].reshape(e_l, rows, d)
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", xe, p["w_up"])
-    y = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(e * cap, d)
+    y = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(e_l * rows, d)
     y = torch.cat([y, y.new_zeros((1, d))], dim=0)
-    out = torch.zeros((n, d), dtype=x2.dtype, device=dev)
-    out.index_add_(0, st, y[slot] * sw[:, None].to(y.dtype)
-                   * keep[:, None])
-    return out
+    rows_sorted = y[slot] * sw[:, None].to(y.dtype) * keep[:, None]
+    unsort = torch.empty_like(order)
+    unsort[order] = torch.arange(n * k, device=dev)
+    return rows_sorted[unsort].reshape(n, k, d).sum(dim=1)
+
+
+def _pairs_before(cfg: ModelConfig, idx: Tensor, x: Tensor) -> Tensor:
+    """(E,) each expert's (token, expert) pairs in the batch rows before
+    this rank's block of ``x`` (a ``DTensor`` split on its batch rows over
+    the data dims, as ``sharding.batch_spec`` places a batch, or whole):
+    the per-row counts of every block, summed over those dims (one
+    all-reduce of (B, E) int64 a dim), added up over the rows before the
+    block."""
+    from torch.distributed import _functional_collectives as funcol
+    from .. import sharding
+    mesh = x.device_mesh
+    dims = [i for i, pl in enumerate(x.placements) if pl.is_shard()]
+    rows = sharding.local_block(x.shape, mesh, x.placements)[0]
+    e = cfg.n_experts
+    counts = torch.zeros((x.shape[0], e), dtype=torch.int64,
+                         device=idx.device)
+    block = idx.reshape(rows.stop - rows.start, -1)
+    counts[rows].scatter_add_(1, block, torch.ones_like(block))
+    for i in dims:
+        counts = funcol.all_reduce(counts, "sum", (mesh, i))
+    return counts[:rows.start].sum(dim=0)
+
+
+def _moe_on_mesh(p: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """The MoE layer on each rank's local blocks (:func:`_on_local_blocks`),
+    ``x`` a ``DTensor`` split over the data axes only. The router is whole
+    on every rank: each routes the tokens it holds, so the model ranks of
+    a data row route them alike. The experts split on ``model`` (a rank
+    holds E/m of them, its block of ``sharding.local_block``) or, failing
+    that, their FFN width (every expert on F/m columns); either way a
+    rank's output is a partial sum over ``model``, to which the shared
+    experts (``mlp_forward``'s local path) add theirs, and the block's
+    caller reduces it: one all-reduce a layer. Shared experts whole on a
+    dim the routed ones split on (the experts divide ``model``, d_ff does
+    not) are added on that dim's first rank only. The sort dispatch keeps
+    the unsharded layer's capacity and drops (:func:`_pairs_before`)."""
+    from .. import sharding
+    mesh = x.device_mesh
+    b, t, d = x.shape
+    flat = {k: v for k, v in p.items() if k != "shared"}
+    flat.update({f"shared/{k}": v for k, v in p.get("shared", {}).items()})
+
+    def split_dims(names):
+        return {i for k in names if _device.is_dtensor(flat[k])
+                for i, pl in enumerate(flat[k].placements) if pl.is_shard()}
+
+    routed = split_dims(("w_gate", "w_up", "w_down"))
+    shared = split_dims([k for k in flat if k.startswith("shared/")])
+    coord = mesh.get_coordinate()
+    # every rank computes the shared experts (their gradients must reach
+    # every rank); the first rank of the dims only the routed experts
+    # split on adds them
+    add_shared = all(coord[i] == 0 for i in routed - shared)
+    w = p["w_gate"]
+    first = (sharding.local_block(w.shape, mesh, w.placements)[0].start
+             if _device.is_dtensor(w) else 0)
+    n_total = b * t
+
+    def local(pl: dict, xl: Tensor) -> Tensor:
+        x2 = xl.reshape(-1, d)
+        weights, idx = _moe_route(pl, cfg, x2)
+        if cfg.moe_dispatch == "sort":
+            y = _moe_sort_dispatch(pl, cfg, x2, weights, idx, first,
+                                   n_total, _pairs_before(cfg, idx, x))
+        else:
+            y = _moe_einsum_dispatch(pl, cfg, x2, weights, idx, first)
+        if cfg.n_shared_experts:
+            s = mlp_forward({k[len("shared/"):]: v for k, v in pl.items()
+                             if k.startswith("shared/")}, x2, cfg.act)
+            y = y + (s if add_shared else s * 0)
+        return y.reshape(xl.shape)
+
+    return _on_local_blocks(local, flat, x)
 
 
 def moe_forward(p: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
-    """Top-k MoE: a float32 softmax router, ``topk`` (sorted), the weights
-    renormalized and cast to the activation dtype, then the dispatch that
-    ``cfg.moe_dispatch`` names, plus the shared experts."""
+    """Top-k MoE: the router (:func:`_moe_route`), then the dispatch that
+    ``cfg.moe_dispatch`` names, plus the shared experts; on a mesh on
+    local blocks (:func:`_moe_on_mesh`)."""
+    if _device.is_dtensor(x):
+        return _moe_on_mesh(p, cfg, x)
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
-    logits = x2.float() @ p["router"]
-    weights, idx = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k,
-                              dim=-1, sorted=True)
-    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
-    weights = weights.to(x.dtype)
+    weights, idx = _moe_route(p, cfg, x2)
     if cfg.moe_dispatch == "sort":
         y = _moe_sort_dispatch(p, cfg, x2, weights, idx)
     else:

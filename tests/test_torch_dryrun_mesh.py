@@ -11,6 +11,13 @@ process never starts one) prices, with ``launch.dryrun`` and the walker:
 * a (1, 1) mesh of ``DTensor``s: train, prefill and decode steps give the
   unsharded walk's flops, flops by class and HBM bytes exactly, with no
   collective;
+* a Granite smoke prefill at ``single_pod_256``: its 4 experts do not
+  divide 16 model ranks, so the expert FFN width splits (2 columns a
+  rank) and attention runs whole; rank 0's matmul flops and all-reduce
+  bytes equal a hand count (below), one all-reduce a layer;
+* both MoE families' smoke train, prefill and decode cells, with the
+  einsum and the sort dispatch, at ``single_pod_256`` and
+  ``multi_pod_512``: status ok, no unpriced op, all-reduces only;
 * every family's smoke train cell at ``single_pod_256``: status ok and no
   unpriced op, or the family listed in ``ROADMAP.md`` as a sharded cell
   that errors;
@@ -44,14 +51,27 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.config import ShapeConfig
 from repro_torch.train import AdamWConfig, make_serve_steps, make_train_step
 
-out = {"prefill": {}, "one_by_one": {}, "families": {}}
+out = {"prefill": {}, "one_by_one": {}, "families": {}, "moe": {}}
 prefill = ShapeConfig("prefill_s", 32, 32, "prefill")
+KEYS = ("status", "n_chips", "flops_by_class", "collective_kinds",
+        "collective_detail", "collectives", "unpriced", "t_collective",
+        "memory")
 for grid in ("single_pod_256", "multi_pod_512"):
     r = dryrun.price_cell("qwen1_5_4b", prefill, smoke=True, grid=grid)
-    out["prefill"][grid] = {k: r[k] for k in (
-        "status", "n_chips", "flops_by_class", "collective_kinds",
-        "collective_detail", "collectives", "unpriced", "t_collective",
-        "memory")}
+    out["prefill"][grid] = {k: r[k] for k in KEYS}
+r = dryrun.price_cell("granite_moe_3b_a800m", prefill, smoke=True,
+                      grid="single_pod_256")
+out["granite_prefill"] = {k: r[k] for k in KEYS}
+for arch in ("granite_moe_3b_a800m", "moonshot_v1_16b_a3b"):
+    for dispatch in ("einsum", "sort"):
+        for grid in ("single_pod_256", "multi_pod_512"):
+            for shape in (ShapeConfig("train_s", 32, 32, "train"), prefill,
+                          ShapeConfig("decode_s", 32, 32, "decode")):
+                r = dryrun.price_cell(arch, shape, smoke=True, grid=grid,
+                                      moe_dispatch=dispatch)
+                out["moe"][f"{arch}/{dispatch}/{grid}/{shape.kind}"] = {
+                    k: r[k] for k in ("status", "unpriced",
+                                      "collective_kinds")}
 
 cfg = configs.smoke("qwen1_5_4b")
 for kind, shape in (("train", ShapeConfig("t", 32, 8, "train")),
@@ -141,6 +161,61 @@ def test_prefill_matches_the_hand_count(priced, grid, b):
     assert r["collective_detail"]["nvlink"] == 0
     assert r["t_collective"] == pytest.approx(allreduce / 50e9)
     assert r["memory"]["device_gb"] == 80.0 and r["memory"]["fits"]
+
+
+#: Granite smoke: 2 layers, d 64, 4 heads of 16 (2 KV heads), 4 experts
+#: top-2 of expert d_ff 32, vocabulary 256, bf16. On a 16-way model axis
+#: the heads and the experts do not divide (attention whole, every expert
+#: on d_ff / 16 = 2 columns a rank), the vocabulary does.
+G_H, G_KV, G_E, G_K, G_FF = 4, 2, 4, 2, 32
+
+
+def _granite_hand_count(b):
+    """(bf16 matmul flops, float32 flops, all-reduce bytes) of rank 0's
+    Granite prefill over ``b`` local sequences (n = b·T tokens)."""
+    n = b * T
+    proj = 2 * n * D * (G_H + 2 * G_KV) * HD + 2 * n * G_H * HD * D
+    experts = 3 * 2 * G_E * n * D * (G_FF // 16)   # gate, up, down: 1/16
+    combine = 2 * n * G_E * D                      # "end,ne->nd", whole
+    head = 2 * b * 1 * D * (V // 16)               # last token, 1/16 vocab
+    attn = 2 * (2 * b * G_H * T * T * HD)          # scores and p·v, f32
+    router = 2 * n * D * G_E                       # float32 logits, whole
+    # the embedding's partial rows and each MoE layer's partial output,
+    # (b, T, D) in bf16, summed over the model axis: one a layer
+    allreduce = (1 + L) * b * T * D * 2
+    return (L * (proj + experts + combine) + head, L * (attn + router),
+            allreduce)
+
+
+def test_granite_prefill_matches_the_hand_count(priced):
+    """The dispatch einsum ("ne,nd->end", no contracted index) is priced
+    as elementwise products, not a matmul; the combine, the router and
+    the attention run whole on every model rank."""
+    r = priced["granite_prefill"]
+    assert r["status"] == "ok" and not r["unpriced"]
+    bf16, f32, allreduce = _granite_hand_count(2)
+    assert r["flops_by_class"]["dot_bf16"] == bf16
+    assert r["flops_by_class"]["dot_f32"] == f32
+    assert r["collective_kinds"] == {"all-reduce": allreduce}
+    assert r["collectives"]["count"] == 1 + L
+    assert r["collective_detail"]["ib"] == allreduce
+
+
+MOE_CELLS = [f"{a}/{d}/{g}/{k}"
+             for a in ("granite_moe_3b_a800m", "moonshot_v1_16b_a3b")
+             for d in ("einsum", "sort")
+             for g in ("single_pod_256", "multi_pod_512")
+             for k in ("train", "prefill", "decode")]
+
+
+@pytest.mark.parametrize("cell", MOE_CELLS)
+def test_moe_cells_price_on_the_production_meshes(priced, cell):
+    """No all-to-all and no gather of expert weights: the MoE layer's
+    collectives are all-reduces (its partial output; with the sort
+    dispatch also the (B, E) pair counts over the data axes)."""
+    r = priced["moe"][cell]
+    assert r["status"] == "ok" and not r["unpriced"], r
+    assert set(r["collective_kinds"]) == {"all-reduce"}, r
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
