@@ -7,7 +7,8 @@
     python3 chip_smoke.py --setup-peak SRC    # only the table set-up peak
     python3 chip_smoke.py --decode-times SRC  # only LM prefill/decode times
     python3 chip_smoke.py --onehot-times SRC  # only the share_onehot times
-    python3 chip_smoke.py --mesh-only         # only t1, slices 13 and 14
+    python3 chip_smoke.py --mesh-only         # only t1, slices 13 to 15
+    python3 chip_smoke.py --serve-grid        # only slice 15 (a) and (c)
 
 Phases, any failure exits non-zero:
 
@@ -211,6 +212,28 @@ Phases, any failure exits non-zero:
    2e-3 of (1, 1)'s; on one card a line says they did not run. A
    ``slice-14 summary`` line gives the card, ms a step, peaks, idle
    shares, the largest loss difference and the seconds.
+   Slice 15 (last, after slice 14, on a freed card): serving on the
+   production mesh, at the full ChatGLM3-6B configuration (28 layers, d
+   4,096, 32 query heads with 2 KV heads, d_ff 13,696, V 65,024, partial
+   RoPE 0.5, QKV bias, bf16; 6.24 B synthetic parameters from ``--seed``,
+   the table shared over c = 4 clouds). (a) Slice 8's private and
+   plaintext ``BatchServer`` generation, 4 requests of 128 prompt tokens
+   and 32 new ones: identical tokens and prefill logits, one
+   ``share_onehot`` and one contraction a lookup (the general
+   ``ss_matmul`` at the 512-row prefills, the tall one at the decode
+   steps), each kernel shape equal to its plain version; (b) the same
+   prompts through ``lm.prefill`` and ``lm.decode_step`` on a (1, 1) NCCL
+   mesh, DTensor parameters, batches and a cache placed by
+   ``sharding.cache_spec``: greedy tokens equal to (a)'s and the first
+   two steps' logits equal to the unsharded run's bit for bit; (c) on a
+   host with 4 or more cards, a (1, 4) grid of spawned NCCL ranks (8
+   query heads a rank, the 2 KV heads whole, the cache split on its
+   sequence): tokens equal to (a)'s; on fewer cards a line says it did
+   not run. Then Gemma3-1B in full (26 layers, d 1,152, 4 heads with 1 KV
+   head of 256, a 512-token window on 5 of 6 layers, V 262,144, tied
+   embeddings) as (a), 4 × 64 prompt tokens. A ``slice-15 summary`` line
+   gives the card's name and power limit, (a)'s prefill ms, ms a decode
+   step, tokens/s, idle share and peak, (b)'s, Gemma3's and the seconds.
    Every count, address list, row and value is checked against a plaintext
    evaluation of the rows, every embedding against the quantized table;
    each path's kernel launch counters are zeroed just before it and must
@@ -2522,7 +2545,7 @@ def dequantized(torch, embed, rows: int = 16384):
 
 
 def family_path(torch, args, idx, arch, layers, t, fields, frontend=None,
-                slice_no=8):
+                slice_no=8, keep=None):
     """Slice 8 or 9, one family: the full published configuration ``arch``
     (``layers`` kept when not None) on synthetic weights from ``--seed``,
     the table shared once (c = 4, degree 1) into ``params["embed_shares"]``,
@@ -2542,8 +2565,10 @@ def family_path(torch, args, idx, arch, layers, t, fields, frontend=None,
     families of DECODE_HELD, decode matches forward in float32 (the bf16
     errors are logged). Logs the lookup kernels' times against their
     bounds at the path's shapes and, for an encoder-decoder, the
-    encoder's. Returns (the route windows' launches, the family's
-    summary)."""
+    encoder's. With ``keep`` (a dict), stores there the configuration
+    (``cfg``), the prompts, route (a)'s tokens and route (c)'s parameters
+    (``plain``) for a later phase. Returns (the route windows' launches,
+    the family's summary)."""
     import dataclasses
 
     from repro_torch import configs
@@ -2593,6 +2618,10 @@ def family_path(torch, args, idx, arch, layers, t, fields, frontend=None,
     params["embed_shares"] = table.values
     plain = {k: v for k, v in params.items() if k != "embed_shares"}
     plain["embed"] = dequantized(torch, params["embed"])
+    if cfg.tie_embeddings:
+        # a tied head reads the table, which the operator holds as its
+        # quantized form: both routes' heads read the dequantized rows
+        params["embed"] = plain["embed"]
     log(f"{tag}: {cfg.n_layers} layers, {n_params} parameters "
         f"({weights_gb:.3f} GB) drawn in {timings['init_params_s']:.3f} s; "
         f"table shared over {EMBED_SHARES} clouds "
@@ -2779,6 +2808,8 @@ def family_path(torch, args, idx, arch, layers, t, fields, frontend=None,
         "peak_gb": path_peak / 1e9, "setup_margin_gb": margin,
         "encoder_ms": encoder_ms, "kernels": kernel_ms}
     log(f"{tag} summary " + json.dumps(summary))
+    if keep is not None:
+        keep.update(cfg=cfg, prompts=prompts, tokens=toks_a, plain=plain)
     del servers, table, params, plain
     if arch in DECODE_HELD:
         f32_cfg = dataclasses.replace(cfg, n_layers=F32_LAYERS.get(
@@ -4026,6 +4057,316 @@ def slice14_path(torch, args, errs):
     return launches
 
 
+#: slice 15: serving on the production mesh at the full ChatGLM3-6B
+#: configuration of the port's registry (28 layers, d 4,096, 32 query
+#: heads with 2 KV heads, d_ff 13,696, V 65,024, partial RoPE on half of
+#: each head, QKV bias, bf16; 6.24 B synthetic parameters from --seed),
+#: SLICE8_BATCH requests of SLICE15_PROMPT tokens and SLICE8_NEW new ones.
+#: 4 x 128 prompt rows are not tall-skinny, so the private prefill runs
+#: the general ``ss_matmul`` and the decode steps the tall one
+SLICE15_ARCH, SLICE15_PROMPT = "chatglm3_6b", 128
+SLICE15_FIELDS = dict(n_layers=28, d_model=4096, n_heads=32, n_kv_heads=2,
+                      d_ff=13696, vocab_size=65024, rope_fraction=0.5,
+                      qkv_bias=True, family="dense")
+#: Gemma3-1B in full (26 layers, d 1,152, 4 query heads with 1 KV head of
+#: 256 dims, a 512-token window on 5 of every 6 layers, d_ff 6,912,
+#: V 262,144, QK-norm, GeGLU, tied embeddings), 4 x 64 prompt tokens
+SLICE15_GEMMA, SLICE15_GEMMA_PROMPT = "gemma3_1b", 64
+SLICE15_GEMMA_FIELDS = dict(n_layers=26, d_model=1152, n_heads=4,
+                            n_kv_heads=1, head_dim=256, d_ff=6912,
+                            vocab_size=262144, sliding_window=512,
+                            global_every=6, qk_norm=True,
+                            tie_embeddings=True, act="geglu")
+#: (b)'s first two steps' logits against the unsharded run's: on the
+#: (1, 1) mesh no dim splits over more than one rank, so every layer runs
+#: the unsharded ops on whole local tensors and an all-reduce over one
+#: rank is a copy: bit for bit
+SLICE15_LOGIT_ATOL = 0.0
+#: (c)'s grid: 8 query heads a rank, the 2 KV heads whole on every rank,
+#: the cache split on its sequence over the 4 model ranks
+SLICE15_GRID = (1, 4)
+#: (c)'s near-tie: a gap between a request's two largest unsharded
+#: logits that another order of bf16 sums may close. (a) logs bf16's
+#: noise floor for ChatGLM3-6B, the same forward's logits at two lengths,
+#: at 0.078; this is 1.6 times that
+SLICE15_TIE_ATOL = 0.125
+
+
+def slice15_generate(torch, params, cfg, prompts, mesh, n_new):
+    """Greedy generation of ``n_new`` tokens after ``prompts`` (B, T)
+    through ``lm.prefill`` and ``lm.decode_step`` on ``mesh``: DTensor
+    parameters, batches and cache (``lm.prefill`` places it by
+    ``sharding.cache_spec``). Returns the tokens (B, n_new), the first
+    two steps' whole logits, the cache's placements, prefill ms and ms a
+    decode step (host clock between synchronizes)."""
+    from repro_torch import sharding
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+
+    spec = (sharding.dp_entry(mesh), None)
+    pls = sharding.placements(spec, mesh)
+    t = prompts.shape[1]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, to_device(
+            {"tokens": prompts.astype(np.int32)}, "cuda", mesh=mesh,
+            specs={"tokens": spec}), max_len=t + n_new)
+        first = [logits.full_tensor()]
+        gen = [torch.argmax(first[0][:, -1], dim=-1)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(n_new - 1):            # tokens stay on the card
+            tok = sharding.place(gen[-1][:, None].to(torch.int32), mesh, pls)
+            logits, cache = lm.decode_step(params, cfg, cache, t + i,
+                                           {"tokens": tok})
+            whole = logits.full_tensor()
+            if i == 0:
+                first.append(whole)
+            gen.append(torch.argmax(whole[:, -1], dim=-1))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    kv = cache["kv"][0]
+    out = {"tokens": torch.stack(gen, 1).cpu().numpy().astype(np.int32),
+           "logits": first, "cache_type": type(kv).__name__,
+           "cache_placements": [repr(p) for p in kv.placements],
+           "cache_local_shape": list(kv.to_local().shape),
+           "wq_placements": [repr(p) for p in
+                             params["blocks"]["attn"]["wq"].placements],
+           "prefill_ms": 1e3 * (t1 - t0),
+           "decode_ms_per_step": 1e3 * (t2 - t1) / (n_new - 1)}
+    want = sharding.placements(sharding.cache_spec(cfg, mesh, ShapeConfig(
+        "cache", t + n_new, prompts.shape[0], "decode"))["kv"][0], mesh)
+    out["cache_placed_by_spec"] = list(kv.placements) == list(want)
+    del cache, logits
+    return out
+
+
+def slice15_unsharded(torch, keep):
+    """Route (c)'s greedy generation again, unsharded, through
+    ``lm.prefill`` and ``lm.decode_step``: its tokens (route (a)'s), the
+    first two steps' logits, and each step's gap between the two largest
+    logits of each request (where a grid's other order of sums may pick
+    the other token)."""
+    from repro_torch.models import lm
+    plain, cfg, prompts = keep["plain"], keep["cfg"], keep["prompts"]
+    dev = plain["final_norm"].device
+    t = prompts.shape[1]
+    first, gen, gaps = [], [], []
+    with torch.no_grad():
+        logits, cache = lm.prefill(plain, cfg, {"tokens": torch.as_tensor(
+            prompts, dtype=torch.int64, device=dev)},
+            max_len=t + SLICE8_NEW)
+        for i in range(SLICE8_NEW):
+            if i:
+                logits, cache = lm.decode_step(plain, cfg, cache, t + i - 1,
+                                               {"tokens": gen[-1]})
+            if i < 2:
+                first.append(logits)
+            top = torch.topk(logits[:, -1], 2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+            gen.append(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+    del cache
+    out = {"logits": first,
+           "tokens": torch.cat(gen, 1).cpu().numpy().astype(np.int32),
+           "gaps": torch.stack(gaps, 1).cpu().numpy()}
+    check(np.array_equal(out["tokens"], keep["tokens"]),
+          "slice 15: the unsharded greedy loop's tokens differ from route "
+          "(a)'s")
+    return out
+
+
+def slice15_mesh(torch, keep, want, mesh):
+    """(b): route (c)'s parameters as DTensors on the (1, 1) NCCL mesh,
+    the same prompts through ``lm.prefill`` and ``lm.decode_step`` with a
+    DTensor cache placed by ``sharding.cache_spec``: the greedy tokens must
+    equal route (a)'s and the first two steps' logits the unsharded
+    run's within SLICE15_LOGIT_ATOL. Frees route (c)'s parameters."""
+    from repro_torch import sharding
+
+    cfg = keep["cfg"]
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = sharding.distribute(keep["plain"], mesh, sharding.
+                                 param_shardings(cfg, mesh, keep["plain"]))
+    del keep["plain"]
+    _free(torch)
+    res = slice15_generate(torch, params, cfg, keep["prompts"], mesh,
+                           SLICE8_NEW)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    diffs = [float((g - w).abs().max()) for g, w in zip(res.pop("logits"),
+                                                        want["logits"])]
+    tokens = res.pop("tokens")
+    del params
+    _free(torch)
+    out = dict(res, logits_max_abs_diff=diffs, peak_gb=peak,
+               tokens_equal=bool(np.array_equal(tokens, keep["tokens"])))
+    log("slice-15 (b) on the (1, 1) mesh " + json.dumps(out))
+    check(out["cache_type"] == "DTensor" and out["cache_placed_by_spec"],
+          f"slice 15 (b): the cache was not placed by cache_spec: {out}")
+    check(out["tokens_equal"], "slice 15 (b): the mesh's greedy tokens "
+          "differ from the unsharded route (a)'s")
+    check(all(d <= SLICE15_LOGIT_ATOL for d in diffs),
+          f"slice 15 (b): the first two steps' logits differ from the "
+          f"unsharded run's by {diffs} (atol {SLICE15_LOGIT_ATOL})")
+    return out
+
+
+def slice15_rank(rank, world, port, shape, seed, prompts, out_path):
+    """One rank of (c) (a spawned process): NCCL over a localhost port,
+    its card, the full ChatGLM3-6B weights from ``seed`` with route (c)'s
+    dequantized table, placed on the grid, and greedy generation after
+    ``prompts``; rank 0 saves the tokens and the placements."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs, sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    try:
+        mesh = make_mesh(shape, ("data", "model"))
+        cfg = configs.full(SLICE15_ARCH)
+        params = lm.init_params(seed, cfg)
+        params["embed"] = dequantized(torch, params["embed"])
+        params = sharding.distribute(params, mesh, sharding.param_shardings(
+            cfg, mesh, params))
+        _free(torch)
+        res = slice15_generate(torch, params, cfg, prompts, mesh,
+                               SLICE8_NEW)
+        res["logits"] = [x.cpu() for x in res["logits"]]
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if rank == 0:
+            torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def slice15_grid(torch, args, prompts, want):
+    """(c): on a host with 4 or more cards, SLICE15_GRID's spawned NCCL
+    ranks generate after the same prompts, the query heads split and the
+    KV heads whole over a cache split on its sequence. The row-split
+    output projection sums bf16 partials over the ranks in another order
+    than one card's matmul, so a request's greedy tokens may part from
+    the unsharded ones where its two largest logits lie within
+    SLICE15_TIE_ATOL: the tokens must equal route (a)'s (``want``, from
+    :func:`slice15_unsharded`) up to such a step, and every parting is
+    logged with its gap; the first two steps' logits against the
+    unsharded run's are logged. On fewer cards this logs that it did not
+    run."""
+    import socket
+
+    import torch.multiprocessing as mp
+    n, world = torch.cuda.device_count(), math.prod(SLICE15_GRID)
+    if n < world:
+        log(f"slice-15 (c) grid {SLICE15_GRID}: not run, {n} card")
+        return {"ran": False}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    path = os.path.join(ROOT, "build", "slice15_grid.pt")
+    t0 = time.perf_counter()
+    mp.spawn(slice15_rank, args=(world, port, SLICE15_GRID, args.seed,
+                                 prompts, path), nprocs=world, join=True)
+    res = torch.load(path, weights_only=False)
+    got = res.pop("tokens")
+    res["logits_max_abs_diff"] = [
+        float((g - w.cpu()).abs().max())
+        for g, w in zip(res.pop("logits"), want["logits"])]
+    parted = {}
+    for r in range(got.shape[0]):
+        steps = np.flatnonzero(got[r] != want["tokens"][r])
+        if steps.size:
+            parted[r] = (int(steps[0]), float(want["gaps"][r, steps[0]]))
+    res.update(ran=True, seconds=time.perf_counter() - t0,
+               tokens_equal=not parted, parted_at_step_gap=parted)
+    log(f"slice-15 (c) grid {SLICE15_GRID} " + json.dumps(res))
+    check(res["cache_placements"][1] == "Shard(dim=2)"
+          and res["wq_placements"][1] == "Shard(dim=2)",
+          f"slice 15 (c): not the query-split, sequence-split layout: {res}")
+    check(all(gap <= SLICE15_TIE_ATOL for _, gap in parted.values()),
+          f"slice 15 (c): the {SLICE15_GRID} grid's greedy tokens part "
+          f"from route (a)'s where no near-tie lies: {parted}")
+    return res
+
+
+def slice15_grid_only(torch, args) -> int:
+    """``--serve-grid``: slice 15's (a) for ChatGLM3-6B and its (c) grid
+    (4 or more cards), nothing else of the script."""
+    keep = {}
+    family_path(torch, args, 0, SLICE15_ARCH, None, SLICE15_PROMPT,
+                SLICE15_FIELDS, slice_no=15, keep=keep)
+    want = slice15_unsharded(torch, keep)
+    prompts = keep["prompts"]
+    keep.clear()
+    _free(torch)
+    res = slice15_grid(torch, args, prompts, want)
+    check(res["ran"], f"slice 15 (c) needs {math.prod(SLICE15_GRID)} "
+          "cards")
+    print(json.dumps({"slice15_grid": res}))
+    return 0
+
+
+def slice15_path(torch, args, errs):
+    """Phase 3, slice 15 (last, after slice 14, on a freed card): serving
+    on the production mesh. (a) ChatGLM3-6B's private and plaintext
+    generation unsharded (:func:`family_path`: tokens equal, its
+    ``share_onehot`` and tall and general ``ss_matmul`` launches held
+    against their plain versions); (b) the same prompts on a (1, 1) NCCL
+    mesh (:func:`slice15_mesh`); (c) with 4 or more cards, SLICE15_GRID's
+    ranks (:func:`slice15_grid`); then Gemma3-1B's private and plaintext
+    generation unsharded. Returns the launches of (a)'s and Gemma3's
+    route windows."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    keep, launches = {}, collections.Counter()
+    got, chat = family_path(torch, args, 0, SLICE15_ARCH, None,
+                            SLICE15_PROMPT, SLICE15_FIELDS, slice_no=15,
+                            keep=keep)
+    launches.update(got)
+    check(got["ss_matmul"] > 0 and got["ss_matmul_tall"] > 0,
+          f"slice 15 (a) launched {got}: the general and the tall "
+          "ss_matmul wanted")
+    want = slice15_unsharded(torch, keep)
+    mesh = slice13_mesh(torch)
+    try:
+        b = slice15_mesh(torch, keep, want, mesh)
+    finally:
+        dist.destroy_process_group()
+    prompts = keep["prompts"]
+    keep.clear()
+    _free(torch)
+    c = slice15_grid(torch, args, prompts, want)
+    del want
+    _free(torch)
+    got, gemma = family_path(torch, args, 1, SLICE15_GEMMA, None,
+                             SLICE15_GEMMA_PROMPT, SLICE15_GEMMA_FIELDS,
+                             slice_no=15)
+    launches.update(got)
+    for name in SLICE8_KERNELS + ("ss_matmul",):
+        check(launches[name] > 0, f"slice 15 launched no {name}")
+    log("slice-15 summary " + json.dumps({
+        "card": smi("name,power.limit"),
+        "chatglm3_6b": {k: chat[k] for k in (
+            "prefill_ms", "decode_ms_per_step", "tokens_per_s",
+            "idle_share", "peak_gb")},
+        "mesh_1x1": {k: b[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                       "peak_gb", "logits_max_abs_diff")},
+        "grid_1x4_ran": c["ran"],
+        "gemma3_1b": {k: gemma[k] for k in ("prefill_ms",
+                                            "decode_ms_per_step",
+                                            "peak_gb")},
+        "launches": {k: launches[k] for k in SLICE8_KERNELS
+                     + ("ss_matmul",)},
+        "seconds": time.perf_counter() - t0}))
+    return dict(launches)
+
+
 #: vocabularies of the families whose lookups phase 4 re-times:
 #: SeamlessM4T-medium (slice 9), Granite-3.0-3B-A800M and Hymba-1.5B
 #: (slice 8), InternVL2-76B (slice 9); V % 4 = 2, 3, 1 and 0
@@ -5193,9 +5534,13 @@ def main() -> int:
                          "print the rows as JSON")
     ap.add_argument("--mesh-only", action="store_true",
                     help="only build the kernels, run slice 10's t1, "
-                         "slice 13 (the production-mesh path) and slice 14 "
-                         "(the MoE family on it), and print their "
-                         "summaries")
+                         "slice 13 (the production-mesh path), slice 14 "
+                         "(the MoE family on it) and slice 15 (serving on "
+                         "it), and print their summaries")
+    ap.add_argument("--serve-grid", action="store_true",
+                    help="only build the kernels and run slice 15's "
+                         "unsharded ChatGLM3-6B generation and its (1, 4) "
+                         "grid of NCCL ranks (4 or more cards)")
     ap.add_argument("--decode-times", metavar="SRC",
                     help="only time prefill and decode steps and count a "
                          "decode step's aten calls for slices 7, 8 and 9's "
@@ -5241,14 +5586,19 @@ def main() -> int:
                                  "ss_matmul", "ss_matmul_tall",
                                  "ripple_segment", "ripple_carry",
                                  "share_onehot")}
+    if args.serve_grid:
+        return slice15_grid_only(torch, args)
     if args.mesh_only:
         t1 = train_t1(torch, args, train_cfg(torch))
         _free(torch)
         launches = slice13_path(torch, args, errs, t1["losses"])
         _free(torch)
         launches14 = slice14_path(torch, args, errs)
+        _free(torch)
+        launches15 = slice15_path(torch, args, errs)
         print(json.dumps({"slice13_launches": launches,
-                          "slice14_launches": launches14, "errs": errs}))
+                          "slice14_launches": launches14,
+                          "slice15_launches": launches15, "errs": errs}))
         return 0
     compare_small(torch, dev, errs)
     log("kernels == plain versions on extremes and ragged shapes")
@@ -5341,11 +5691,16 @@ def main() -> int:
     log("slice-14 path: full-width Granite-3.0-3B-A800M steps on a (1, 1) "
         "NCCL mesh match the unsharded ones with both MoE dispatches, and "
         "the private step runs its kernels on each rank's blocks")
+    gc.collect()
+    torch.cuda.empty_cache()
+    path15 = slice15_path(torch, args, errs)
+    log("slice-15 path: full ChatGLM3-6B and Gemma3-1B generate the same "
+        "tokens privately and in plaintext, and ChatGLM3-6B the same on a "
+        "(1, 1) NCCL mesh")
     for entry in kernels:
         name = entry["name"].split("[")[0]
-        entry["launches"] += sum(p.get(name, 0) for p in (path7, path8,
-                                                          path9, path10,
-                                                          path13, path14))
+        entry["launches"] += sum(p.get(name, 0) for p in (
+            path7, path8, path9, path10, path13, path14, path15))
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[name])
 
     print(json.dumps({"kernels": kernels}), flush=True)

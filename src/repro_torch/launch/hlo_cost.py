@@ -114,7 +114,7 @@ _SCATTER = {"index_put", "_index_put_impl", "index_add", "scatter",
             "masked_scatter", "index_reduce"}
 
 #: data made or moved without arithmetic: operands and outputs
-_MOVE = {"clone", "copy", "cat", "stack", "constant_pad_nd", "flip",
+_MOVE = {"clone", "copy", "cat", "stack", "constant_pad_nd", "pad", "flip",
          "roll", "repeat", "repeat_interleave", "slice_scatter",
          "select_scatter", "diagonal_scatter", "as_strided_scatter",
          "lift_fresh_copy", "unfold_backward", "select_backward",

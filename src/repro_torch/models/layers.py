@@ -6,18 +6,21 @@ dtype-explicit, as ``repro.models.layers`` is plain ``jnp``.
 
 On a mesh (``DTensor`` weights placed by ``repro_torch.sharding``, a
 residual stream split over the data axes only) the GQA self-attention
-(with its cache's local block in a prefill or decode step), the gated
-MLP and the MoE layer (both dispatches, its experts split on ``model``
-or else their FFN width, plus its shared experts) run as tensor-parallel
-layers on each rank's local blocks (:func:`_on_local_blocks`):
+(with its cache's local block in a prefill or decode step), MLA's
+cached steps, the gated MLP and the MoE layer (both dispatches, its
+experts split on ``model`` or else their FFN width, plus its shared
+experts) run as tensor-parallel layers on each rank's local blocks
+(:func:`_on_local_blocks`):
 column-split projections in, row-split projections out, so a layer's
 output is a partial sum over the mesh dims its weights split on, which
 the caller reduces (one all-reduce a layer), and a layer whose weights
 are whole on ``model`` runs whole on every model rank. The gradients of
 the local blocks are declared partial where the ranks' shares of the
-work differ, so autograd reduces them as DTensor would. Cross-attention,
-MLA and the SSM run on DTensors op by op, their constants replicated
-over the mesh.
+work differ, so autograd reduces them as DTensor would. A cache split
+on its sequence (a context-parallel cache) is never gathered: each
+rank's partial softmax over its positions is merged by all-reduces
+(:func:`_combine_blocks`). Cross-attention, MLA without a cache and the
+SSM run on DTensors op by op, their constants replicated over the mesh.
 
 Attention upcasts to float32 as the reference does. ``flash_attention``
 is the reference's blockwise online softmax: a loop over 512-key blocks
@@ -356,111 +359,163 @@ def _attention_on_mesh(p: dict, cfg: ModelConfig, x: Tensor,
     """GQA attention on a mesh, each rank on its own heads (all of them
     where the weights are whole on ``model``). Where the query heads
     split and the KV heads do not (the reference's replicated-KV
-    fallback), each local query head takes the KV head the whole layer
-    would give it. A cache (``DTensor``s placed by ``sharding.
-    cache_spec``) is written in its local block: one split on heads
-    holds this rank's heads; one split on the sequence (a
-    context-parallel cache) holds this rank's positions, and then a
-    prefill into an empty cache attends to the step's own keys and a
-    one-token decode step combines the ranks' partial softmaxes
-    (:func:`_decode_on_blocks`); the cache is never gathered."""
+    fallback), each rank computes every KV head and each local query head
+    attends with the KV head the whole layer would give it. A cache
+    (``DTensor``s placed by ``sharding.cache_spec``) is written in its
+    local block with the step's own KV heads, all this rank computes: one
+    split on heads holds this rank's heads; one split on the sequence (a
+    context-parallel cache, always so where the KV heads are whole) holds
+    this rank's positions, and then a prefill into an empty cache attends
+    to the step's own keys and a step into a filled one combines the
+    ranks' partial softmaxes (:func:`_attend_blocks`); the cache is never
+    gathered."""
+    from .. import sharding
     hd = cfg.resolved_head_dim
-    q_split = [i for i, pl in enumerate(p["wq"].placements) if pl.is_shard()]
-    kv_split = any(pl.is_shard() for pl in p["wk"].placements)
     mesh = x.device_mesh
-    rank = mesh.get_coordinate()
-    if kv_cache is not None:
-        seq_dims = [i for i, pl in enumerate(kv_cache[0].placements)
-                    if pl.is_shard(1)]
-        if q_split and not kv_split:
-            raise NotImplementedError(
-                "a cached step with query heads split and KV heads whole "
-                "on a mesh")
+    q_dims = [i for i, pl in enumerate(p["wq"].placements) if pl.is_shard()]
+    kv_split = any(pl.is_shard() for pl in p["wk"].placements)
+    first = sharding.local_block(p["wq"].shape, mesh,
+                                 p["wq"].placements)[-1].start // hd
+    seq_dims = [] if kv_cache is None else [
+        i for i, pl in enumerate(kv_cache[0].placements) if pl.is_shard(1)]
 
     def local(pl: dict, xl: Tensor, pos: Tensor, freq: Tensor) -> Tensor:
         hq, hkv = pl["wq"].shape[-1] // hd, pl["wk"].shape[-1] // hd
         lcfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
                                    head_dim=hd)
         q, k, v = attention_qkv(pl, lcfg, xl, pos, freq)
-        if q_split and not kv_split:
-            first = rank[q_split[0]] * hq
-            idx = torch.div(first + torch.arange(hq, device=xl.device),
-                            cfg.n_heads // cfg.n_kv_heads,
-                            rounding_mode="floor")
-            k, v = k[:, :, idx], v[:, :, idx]
+        heads = None
+        if q_dims and not kv_split:       # the local query heads' KV heads
+            heads = torch.div(first + torch.arange(hq, device=xl.device),
+                              cfg.n_heads // cfg.n_kv_heads,
+                              rounding_mode="floor")
         b, t = xl.shape[:2]
         if kv_cache is None:
+            if heads is not None:
+                k, v = k[:, :, heads], v[:, :, heads]
             out = flash_attention(q, k, v, window=window, causal=causal,
                                   softcap=cfg.logit_softcap)
         else:
             out = _cached_on_blocks(cfg, q, k, v, kv_cache, cache_len,
-                                    window, causal, seq_dims)
+                                    window, causal, seq_dims, heads,
+                                    q_dims, first)
         return out.reshape(b, t, hq * hd) @ pl["wo"]
 
     return _on_local_blocks(local, p, x, positions, inv_freq)
 
 
+def _write_block(cache, steps, cache_len: int):
+    """Write a step's rows ``steps`` (each (B, T, ...), positions
+    [cache_len, cache_len + T)) into this rank's block of each cache
+    ``DTensor`` of ``cache`` (split on its sequence, dim 1, or not) ->
+    (the local blocks, the block's positions as a slice)."""
+    from .. import sharding
+    first = cache[0]
+    end = cache_len + steps[0].shape[1]
+    if end > first.shape[1]:
+        raise ValueError(f"cache holds {first.shape[1]} positions, the "
+                         f"step needs {end}")
+    rows = sharding.local_block(first.shape, first.device_mesh,
+                                first.placements)[1]
+    lo, hi = max(cache_len, rows.start), min(end, rows.stop)
+    blocks = [c.to_local() for c in cache]
+    if lo < hi:                       # the step's positions in this block
+        for blk, new in zip(blocks, steps):
+            blk[:, lo - rows.start:hi - rows.start].copy_(
+                new[:, lo - cache_len:hi - cache_len])
+    return blocks, rows
+
+
+def _gather_heads(x: Tensor, mesh, dims) -> Tensor:
+    """``x`` (B, T, H_local, ...) gathered whole over its heads, split
+    over the mesh dims ``dims`` (major to minor)."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in reversed(dims):
+        x = funcol.all_gather_tensor(x.contiguous(), 2, (mesh, i))
+    return x
+
+
 def _cached_on_blocks(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
                       kv_cache, cache_len: int, window: Optional[int],
-                      causal: bool, seq_dims) -> Tensor:
+                      causal: bool, seq_dims, heads: Optional[Tensor],
+                      q_dims, first: int) -> Tensor:
     """A cached step's attention on this rank's block of the cache (see
-    :func:`_attention_on_mesh`); q, k, v are the step's local heads."""
-    from .. import sharding
-    k_dt, v_dt = kv_cache
-    kc, vc = k_dt.to_local(), v_dt.to_local()
-    t = q.shape[1]
-    end = cache_len + t
-    if end > k_dt.shape[1]:
-        raise ValueError(f"cache holds {k_dt.shape[1]} positions, the step "
-                         f"needs {end}")
-    rows = sharding.local_block(k_dt.shape, k_dt.device_mesh,
-                                k_dt.placements)[1]
-    lo, hi = max(cache_len, rows.start), min(end, rows.stop)
-    if lo < hi:                       # the step's positions in this block
-        kc[:, lo - rows.start:hi - rows.start].copy_(
-            k[:, lo - cache_len:hi - cache_len])
-        vc[:, lo - rows.start:hi - rows.start].copy_(
-            v[:, lo - cache_len:hi - cache_len])
+    :func:`_attention_on_mesh`). q: the step's local query heads; k, v:
+    its KV heads as the cache holds them (this rank's, or all where the
+    KV heads are whole); ``heads``: the KV head of each local query head
+    where those differ, else None. A step into a filled context-parallel
+    cache with the query heads split and the KV heads whole gathers the
+    step's queries (B, T, H, D) over the query heads' dims, attends with
+    every head over this rank's positions, and keeps its own heads
+    [first, first + H_local)."""
+    (kc, vc), rows = _write_block(kv_cache, (k, v), cache_len)
+    end = cache_len + q.shape[1]
+
+    def pick(a):
+        return a if heads is None else a[:, :, heads]
+
     if not seq_dims:
-        return flash_attention(q, kc[:, :end], vc[:, :end],
+        return flash_attention(q, pick(kc[:, :end]), pick(vc[:, :end]),
                                q_offset=cache_len, window=window,
                                causal=causal, softcap=cfg.logit_softcap)
     if cache_len == 0:                # the step's keys are the cache's
-        return flash_attention(q, k, v, window=window, causal=causal,
-                               softcap=cfg.logit_softcap)
-    if t != 1:
-        raise NotImplementedError("a multi-token step into a non-empty "
-                                  "context-parallel cache")
-    return _decode_on_blocks(q, kc, vc, rows.start, end, window,
-                             cfg.logit_softcap, k_dt.device_mesh, seq_dims)
+        return flash_attention(q, pick(k), pick(v), window=window,
+                               causal=causal, softcap=cfg.logit_softcap)
+    mesh = kv_cache[0].device_mesh
+    hq = q.shape[2]
+    if heads is not None:
+        q = _gather_heads(q, mesh, q_dims)
+    out = _attend_blocks(q, kc, vc, rows.start, cache_len, window, causal,
+                         cfg.logit_softcap, mesh, seq_dims)
+    return out if heads is None else out[:, :, first:first + hq]
 
 
-def _decode_on_blocks(q: Tensor, kc: Tensor, vc: Tensor, first: int,
-                      end: int, window: Optional[int], softcap: float,
-                      mesh, seq_dims) -> Tensor:
-    """One query token against a cache whose positions are split over
-    ``seq_dims``: this rank's positions [first, first + S_b) give a
-    partial max ``m``, normalizer ``l`` and output ``acc`` (float32, the
-    positions at or past ``end`` masked), and three all-reduces over the
-    split dims combine them (max of ``m``; sums of ``l`` and ``acc``
-    rescaled by exp(m - max)): each rank exchanges (B, H) and (B, H, D)
-    values, never its block."""
-    from torch.distributed import _functional_collectives as funcol
-    b, _, hq, d = q.shape
+def _attend_blocks(q: Tensor, kc: Tensor, vc: Tensor, first: int,
+                   cache_len: int, window: Optional[int], causal: bool,
+                   softcap: float, mesh, seq_dims) -> Tensor:
+    """The T query tokens at positions [cache_len, cache_len + T) against
+    a cache whose positions are split over ``seq_dims``: this rank's
+    positions [first, first + S_b) give a partial max, normalizer and
+    output (float32; masked past each query's position, and outside its
+    window), which :func:`_combine_blocks` merges over the split dims:
+    each rank exchanges (B, H, T) and (B, H, T, D) values, never its
+    block."""
+    b, t, hq, d = q.shape
     hkv = kc.shape[2]
-    g = hq // hkv
-    qf = (q.float() / math.sqrt(d)).reshape(b, hkv, g, d)
-    s = torch.einsum("bkgd,bskd->bkgs", qf, kc.float())
+    qf = (q.float() * (1.0 / math.sqrt(d))).reshape(b, t, hkv, hq // hkv,
+                                                    d)
+    s = torch.einsum("btkgd,bskd->bkgts", qf, kc.float())
     s = _softcap(s, softcap)
-    pos = first + torch.arange(kc.shape[1], device=q.device)
-    mask = pos < end
-    if window is not None:
-        mask = mask & ((end - 1) - pos < window)
-    s = torch.where(mask, s, NEG_INF)
-    m = torch.amax(s, dim=-1)                              # (B, Hkv, G)
+    s = torch.where(_block_mask(first, kc.shape[1], cache_len, t, window,
+                                causal, q.device), s, NEG_INF)
+    m = torch.amax(s, dim=-1)                          # (B, Hkv, G, T)
     p = torch.exp(s - m[..., None])
-    l = torch.sum(p, dim=-1)
-    acc = torch.einsum("bkgs,bskd->bkgd", p, vc.float())
+    acc = torch.einsum("bkgts,bskd->bkgtd", p, vc.float())
+    out = _combine_blocks(m, torch.sum(p, dim=-1), acc, mesh, seq_dims)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d).to(q.dtype)
+
+
+def _block_mask(first: int, n: int, cache_len: int, t: int,
+                window: Optional[int], causal: bool, device) -> Tensor:
+    """(T, n): which of the positions [first, first + n) each query token
+    at [cache_len, cache_len + T) sees: the filled ones, at or before its
+    own position when ``causal``, within ``window`` of it."""
+    pos = first + torch.arange(n, device=device)[None, :]
+    q_pos = cache_len + torch.arange(t, device=device)[:, None]
+    mask = pos <= q_pos if causal else pos < cache_len + t
+    if window is not None:
+        mask = mask & (q_pos - pos < window)
+    return mask
+
+
+def _combine_blocks(m: Tensor, l: Tensor, acc: Tensor, mesh,
+                    seq_dims) -> Tensor:
+    """The ranks' partial softmaxes over their blocks of positions, each
+    a max ``m``, normalizer ``l`` and output ``acc`` (``m``'s shape plus
+    a last dim), merged over the mesh dims ``seq_dims`` by three
+    all-reduces (max of ``m``; sums of ``l`` and ``acc`` rescaled by
+    exp(m - max)) -> acc / l."""
+    from torch.distributed import _functional_collectives as funcol
     top = m
     for i in seq_dims:
         top = funcol.all_reduce(top, "max", (mesh, i))
@@ -469,8 +524,7 @@ def _decode_on_blocks(q: Tensor, kc: Tensor, vc: Tensor, first: int,
     for i in seq_dims:
         l = funcol.all_reduce(l, "sum", (mesh, i))
         acc = funcol.all_reduce(acc, "sum", (mesh, i))
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+    return acc / torch.clamp(l[..., None], min=1e-30)
 
 
 def attention_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
@@ -565,56 +619,84 @@ def mla_forward(p: dict, cfg: ModelConfig, x: Tensor, *, positions: Tensor,
     cache_len + 1. Every other call (forward, a prefill into the cache)
     expands K and V from the latent rows, zero-pads V to dn + dr and runs
     ``flash_attention`` at scale 1/sqrt(dn + dr); a cached call attends
-    to the cache's filled prefix. Returns the layer output (B, T, d).
+    to the cache's filled prefix. On a mesh a cached step runs on local
+    blocks (:func:`_mla_cached_on_mesh`); a step without a cache runs on
+    DTensors op by op. Returns the layer output (B, T, d).
     """
-    b, t, _ = x.shape
-    nh = cfg.n_heads
-    r = cfg.kv_lora_rank
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-
-    ql = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    q = (ql @ p["wuq"]).reshape(b, t, nh, dn + dr)
-    q_nope, q_pe = q[..., :dn], q[..., dn:]
-    q_pe = apply_rope(q_pe, positions, inv_freq_rope)
-
-    dkv = x @ p["wdkv"]                                   # (B, T, r + dr)
-    c_kv = rmsnorm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
-    k_pe = apply_rope(dkv[..., None, r:], positions,
-                      inv_freq_rope)[:, :, 0]             # (B, T, dr)
-
+    if kv_cache is not None and _device.is_dtensor(x):
+        return _mla_cached_on_mesh(p, cfg, x, positions, inv_freq_rope,
+                                   kv_cache, cache_len)
+    q_nope, q_pe, c_kv, k_pe = _mla_project(p, cfg, x, positions,
+                                            inv_freq_rope)
     if kv_cache is None:
-        c_all, kpe_all, q_offset = c_kv, k_pe, 0
+        out = _mla_expanded(p, cfg, q_nope, q_pe, c_kv, k_pe, 0)
     else:
         ckv_cache, kpe_cache = kv_cache
-        end = cache_len + t
+        end = cache_len + x.shape[1]
         s_max = ckv_cache.shape[1]
         if end > s_max:
             raise ValueError(f"cache holds {s_max} positions, the step "
                              f"needs {end}")
         ckv_cache[:, cache_len:end].copy_(c_kv)
         kpe_cache[:, cache_len:end].copy_(k_pe)
-        if t == 1:
-            scale = 1.0 / math.sqrt(dn + dr)
-            c32 = ckv_cache.float()
-            wuk = p["wuk"].reshape(r, nh, dn)
-            q_eff = torch.einsum("bthd,rhd->bthr", q_nope.float(),
-                                 wuk.float())
-            s_lat = torch.einsum("bthr,bsr->bhts", q_eff, c32)
-            s_pe = torch.einsum("bthd,bsd->bhts", q_pe.float(),
-                                kpe_cache.float())
-            s_all = (s_lat + s_pe) * scale                # (B, H, 1, S)
-            pos = torch.arange(s_max, device=x.device)
-            s_all = torch.where(_device.replicate_like(pos < end, s_all),
-                                s_all, NEG_INF)
-            probs = torch.softmax(s_all, dim=-1)
-            o_lat = torch.einsum("bhts,bsr->bthr", probs, c32)
-            wuv = p["wuv"].reshape(r, nh, dv)
-            out = torch.einsum("bthr,rhd->bthd", o_lat, wuv.float())
-            out = out.reshape(b, t, nh * dv).to(x.dtype)
-            return out @ p["wo"]
-        c_all, kpe_all, q_offset = ckv_cache[:, :end], kpe_cache[:, :end], \
-            cache_len
+        out = _mla_cached(p, cfg, q_nope, q_pe, ckv_cache, kpe_cache,
+                          cache_len, end)
+    return out.to(x.dtype) @ p["wo"]
 
+
+def _mla_project(p: dict, cfg: ModelConfig, x: Tensor, positions: Tensor,
+                 inv_freq_rope: Tensor):
+    """-> (q_nope (B, T, H, dn), roped q_pe (B, T, H, dr), the step's
+    latent rows c_kv (B, T, r) and roped k_pe (B, T, dr))."""
+    b, t, _ = x.shape
+    r, dn = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    ql = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (ql @ p["wuq"]).reshape(b, t, cfg.n_heads,
+                                dn + cfg.qk_rope_head_dim)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, inv_freq_rope)
+    dkv = x @ p["wdkv"]                                   # (B, T, r + dr)
+    c_kv = rmsnorm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(dkv[..., None, r:], positions,
+                      inv_freq_rope)[:, :, 0]             # (B, T, dr)
+    return q_nope, q_pe, c_kv, k_pe
+
+
+def _mla_cached(p: dict, cfg: ModelConfig, q_nope: Tensor, q_pe: Tensor,
+                ckv_cache: Tensor, kpe_cache: Tensor, cache_len: int,
+                end: int) -> Tensor:
+    """A cached step over a whole cache, filled to ``end``: the absorbed
+    decode for one token, the expanded attention to the filled prefix
+    otherwise -> (B, T, H·dv) before ``wo``."""
+    b, t, nh, dn = q_nope.shape
+    if t != 1:
+        return _mla_expanded(p, cfg, q_nope, q_pe, ckv_cache[:, :end],
+                             kpe_cache[:, :end], cache_len)
+    r, dr, dv = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = 1.0 / math.sqrt(dn + dr)
+    c32 = ckv_cache.float()
+    q_eff = torch.einsum("bthd,rhd->bthr", q_nope.float(),
+                         p["wuk"].reshape(r, nh, dn).float())
+    s_lat = torch.einsum("bthr,bsr->bhts", q_eff, c32)
+    s_pe = torch.einsum("bthd,bsd->bhts", q_pe.float(), kpe_cache.float())
+    s_all = (s_lat + s_pe) * scale                        # (B, H, 1, S)
+    pos = torch.arange(ckv_cache.shape[1], device=q_nope.device)
+    s_all = torch.where(pos < end, s_all, NEG_INF)
+    probs = torch.softmax(s_all, dim=-1)
+    o_lat = torch.einsum("bhts,bsr->bthr", probs, c32)
+    out = torch.einsum("bthr,rhd->bthd", o_lat,
+                       p["wuv"].reshape(r, nh, dv).float())
+    return out.reshape(b, t, nh * dv)
+
+
+def _mla_expanded(p: dict, cfg: ModelConfig, q_nope: Tensor, q_pe: Tensor,
+                  c_all: Tensor, kpe_all: Tensor, q_offset: int) -> Tensor:
+    """Attention with K and V expanded from the latent rows ``c_all`` (B,
+    S, r) and ``kpe_all`` (B, S, dr), V zero-padded to dn + dr, through
+    ``flash_attention`` (causal from ``q_offset``) -> (B, T, H·dv) before
+    ``wo``."""
+    b, t, nh, dn = q_nope.shape
+    dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
     s = c_all.shape[1]
     k_nope = (c_all @ p["wuk"]).reshape(b, s, nh, dn)
     v = (c_all @ p["wuv"]).reshape(b, s, nh, dv)
@@ -623,8 +705,89 @@ def mla_forward(p: dict, cfg: ModelConfig, x: Tensor, *, positions: Tensor,
     q_full = torch.cat([q_nope, q_pe], dim=-1)
     out = flash_attention(q_full, k, F.pad(v, (0, dn + dr - dv)),
                           q_offset=q_offset)
-    out = out[..., :dv].reshape(b, t, nh * dv)
-    return out @ p["wo"]
+    return out[..., :dv].reshape(b, t, nh * dv)
+
+
+def _mla_cached_on_mesh(p: dict, cfg: ModelConfig, x: Tensor,
+                        positions: Tensor, inv_freq_rope: Tensor, kv_cache,
+                        cache_len: int) -> Tensor:
+    """An MLA cached step on a mesh, on each rank's local blocks: its
+    heads (all of them where ``wuq`` is whole on ``model``) and its block
+    of the latent cache (``sharding.cache_spec``: split on its sequence
+    over ``model``, or over the data axes where the batch cannot split).
+    Every rank writes the step's latent rows at its own positions. A
+    prefill into an empty cache expands the step's own rows; a step into
+    a filled cache split on its sequence is the absorbed decode over this
+    rank's positions, its partial softmax merged over the sequence's mesh
+    dims (:func:`_combine_blocks`) — the latent output (B, H, T, r), never
+    the cache, crosses ranks — with the absorbed queries gathered first
+    over the dims that split both the heads and the sequence; a cache
+    that is not split runs the unsharded step on the local heads. The
+    output is partial over the dims the heads split on."""
+    from .. import sharding
+    mesh = x.device_mesh
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    h_dims = [i for i, pl in enumerate(p["wuq"].placements) if pl.is_shard()]
+    first = sharding.local_block(p["wuq"].shape, mesh,
+                                 p["wuq"].placements)[-1].start // qk
+    seq_dims = [i for i, pl in enumerate(kv_cache[0].placements)
+                if pl.is_shard(1)]
+    both = [i for i in h_dims if i in seq_dims]
+
+    def local(pl: dict, xl: Tensor, pos: Tensor, freq: Tensor) -> Tensor:
+        nh = pl["wuq"].shape[-1] // qk
+        lcfg = dataclasses.replace(cfg, n_heads=nh)
+        q_nope, q_pe, c_kv, k_pe = _mla_project(pl, lcfg, xl, pos, freq)
+        (cc, kc), rows = _write_block(kv_cache, (c_kv, k_pe), cache_len)
+        end = cache_len + xl.shape[1]
+        if cache_len == 0:            # the step's rows are the cache's
+            out = _mla_expanded(pl, lcfg, q_nope, q_pe, c_kv, k_pe, 0)
+        elif not seq_dims:
+            out = _mla_cached(pl, lcfg, q_nope, q_pe, cc, kc, cache_len,
+                              end)
+        else:
+            out = _mla_absorbed_blocks(pl, lcfg, q_nope, q_pe, cc, kc,
+                                       rows.start, cache_len, mesh,
+                                       seq_dims, both, first)
+        return out.to(xl.dtype) @ pl["wo"]
+
+    return _on_local_blocks(local, p, x, positions, inv_freq_rope)
+
+
+def _mla_absorbed_blocks(p: dict, cfg: ModelConfig, q_nope: Tensor,
+                         q_pe: Tensor, cc: Tensor, kc: Tensor, first_pos: int,
+                         cache_len: int, mesh, seq_dims, both,
+                         first: int) -> Tensor:
+    """The absorbed decode of T query tokens over this rank's positions
+    [first_pos, first_pos + S_b) of the latent cache (``cc`` (B, S_b, r),
+    ``kc`` (B, S_b, dr)), causal, merged over ``seq_dims``. The absorbed
+    queries are gathered over ``both`` (the dims that split the heads and
+    the sequence) and this rank's heads [first, first + H_local) kept
+    after the merge -> (B, T, H_local·dv) before ``wo``."""
+    b, t, nh, dn = q_nope.shape
+    r, dr, dv = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_eff = torch.einsum("bthd,rhd->bthr", q_nope.float(),
+                         p["wuk"].reshape(r, nh, dn).float())
+    q_rope = q_pe.float()
+    if both:
+        q_eff = _gather_heads(q_eff, mesh, both)
+        q_rope = _gather_heads(q_rope, mesh, both)
+    c32 = cc.float()
+    s = (torch.einsum("bthr,bsr->bhts", q_eff, c32)
+         + torch.einsum("bthd,bsd->bhts", q_rope, kc.float())) \
+        * (1.0 / math.sqrt(dn + dr))                      # (B, H, T, S_b)
+    s = torch.where(_block_mask(first_pos, cc.shape[1], cache_len, t, None,
+                                True, q_nope.device), s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    e = torch.exp(s - m[..., None])
+    o_lat = _combine_blocks(m, torch.sum(e, dim=-1),
+                            torch.einsum("bhts,bsr->bhtr", e, c32), mesh,
+                            seq_dims)                     # (B, H, T, r)
+    if both:
+        o_lat = o_lat[:, first:first + nh]
+    out = torch.einsum("bhtr,rhd->bthd", o_lat,
+                       p["wuv"].reshape(r, nh, dv).float())
+    return out.reshape(b, t, nh * dv)
 
 
 # ---------------------------------------------------------------------------

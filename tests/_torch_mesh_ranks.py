@@ -131,31 +131,69 @@ def _roundtrip(inp, mesh, out):
         out[f"roundtrip_{tag}"] = roundtrip_(g).full_tensor()
 
 
+#: the serving cases on real ranks: (tag, grid, arch, config fields
+#: replaced, decode steps' token counts). At (2, 2) Qwen's heads split
+#: over ``model``; at (1, 4) with 2 heads its attention runs whole on every
+#: model rank. ChatGLM3's and InternVL2's 4 query heads split over a model
+#: axis of 4 and their 2 KV heads do not: the cache splits on its sequence
+#: (the reference's replicated-KV, context-parallel case). MiniCPM3 at 6
+#: heads keeps its MLA weights whole, its latent cache split on its
+#: sequence. The last two-token step writes into a filled
+#: context-parallel cache.
+SERVE_CASES = (
+    ("2x2", (2, 2), "qwen1_5_4b", {}, (1, 1)),
+    ("1x4", (1, 4), "qwen1_5_4b", {"n_heads": 2, "n_kv_heads": 2}, (1, 1)),
+    ("1x4_chatglm3", (1, 4), "chatglm3_6b", {}, (1, 1, 2)),
+    ("1x4_internvl2", (1, 4), "internvl2_76b", {}, (1, 1)),
+    ("1x4_minicpm3", (1, 4), "minicpm3_4b", {"n_heads": 6, "n_kv_heads": 6},
+     (1, 1, 2)),
+)
+
+
+def serve_batches(inp, cfg, steps):
+    """-> (the 6-token prompt's batch, the decode steps' batches): the
+    prompt is the first 6 of ``inp["serve_tokens"]``, each one-token
+    step the next token, a two-token step the prompt's first two again; a
+    ViT prefix's patches go with the prompt."""
+    toks = inp["serve_tokens"]
+    first = {"tokens": toks[:, :6]}
+    if cfg.frontend == "vit":
+        first["patches"] = inp["serve_patches"]
+    later, pos = [], 6
+    for n in steps:
+        later.append({"tokens": toks[:, pos:pos + 1] if n == 1
+                      else toks[:, :n]})
+        pos += n
+    return first, later
+
+
 def _serve(inp, out):
-    """A prefill and two decode steps: at (2, 2), heads split over
-    ``model``; at (1, 4) with 2 heads, attention whole on every model
-    rank and the cache split on its sequence (context-parallel)."""
+    """A prefill and the decode steps of every case of SERVE_CASES on its
+    grid: the logits, the cache gathered whole, and the placements of the
+    cache and the attention weights."""
     from repro_torch.models import decode_step, init_params, prefill
-    for tag, shape, over in (("2x2", (2, 2), {}),
-                             ("1x4", (1, 4), {"n_heads": 2,
-                                              "n_kv_heads": 2})):
+    for tag, shape, arch, over, steps in SERVE_CASES:
         m = lmesh.make_mesh(shape, AXES, device_type="cpu")
-        cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"),
-                                  dtype="float32", **over)
+        cfg = dataclasses.replace(configs.smoke(arch), dtype="float32",
+                                  **over)
         params = init_params(11, cfg, device="cpu")
         params = sharding.distribute(
             params, m, sharding.param_shardings(cfg, m, params))
-        specs = {"tokens": (sharding.dp_entry(m), None)}
+        dp = sharding.dp_entry(m)
+        specs = {"tokens": (dp, None), "patches": (dp, None, None)}
+        first, later = serve_batches(inp, cfg, steps)
+        prefix = cfg.n_prefix if cfg.frontend == "vit" else 0
+        pos = prefix + 6
         logits, cache = prefill(params, cfg, to_device(
-            {"tokens": inp["serve_tokens"][:, :6]}, "cpu", mesh=m,
-            specs=specs), max_len=8)
+            first, "cpu", mesh=m, specs=specs), max_len=pos + sum(steps))
         got = [logits.full_tensor()]
-        for i in range(2):
-            logits, cache = decode_step(params, cfg, cache, 6 + i, to_device(
-                {"tokens": inp["serve_tokens"][:, 6 + i:7 + i]}, "cpu",
-                mesh=m, specs=specs))
+        for b in later:
+            logits, cache = decode_step(params, cfg, cache, pos, to_device(
+                b, "cpu", mesh=m, specs=specs))
             got.append(logits.full_tensor())
-        out[f"serve_{tag}"] = (got, _placements(cache))
+            pos += b["tokens"].shape[1]
+        out[f"serve_{tag}"] = (got, _placements(cache), _whole(cache),
+                               _placements(params["blocks"]["attn"]))
 
 
 def _errors(mesh, out):

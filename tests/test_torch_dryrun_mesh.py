@@ -18,9 +18,10 @@ process never starts one) prices, with ``launch.dryrun`` and the walker:
 * both MoE families' smoke train, prefill and decode cells, with the
   einsum and the sort dispatch, at ``single_pod_256`` and
   ``multi_pod_512``: status ok, no unpriced op, all-reduces only;
-* every family's smoke train cell at ``single_pod_256``: status ok and no
-  unpriced op, or the family listed in ``ROADMAP.md`` as a sharded cell
-  that errors;
+* every family's smoke train, prefill and decode cells at
+  ``single_pod_256``, with the published configuration's divisibility by
+  16 (heads, KV heads, experts, SSM heads, vocabulary): status ok and no
+  unpriced op;
 * ``hlo_analysis.analyze(fn, n_chips=)`` and ``collective_bytes(cost)``,
   the counterparts of the reference's, on a walk in this process.
 """
@@ -98,15 +99,39 @@ for kind, shape in (("train", ShapeConfig("t", 32, 8, "train")),
             dist.destroy_process_group()
     out["one_by_one"][kind] = costs
 
-train = ShapeConfig("train_s", 32, 32, "train")
+M = 16
+
+
+def published(arch):
+    """The smoke configuration's fields set so that what divides a model
+    axis of 16 is what divides it in the published configuration: the
+    heads and KV heads (8 dims a head), the experts, the SSM heads, the
+    vocabulary."""
+    full, smoke = configs.full(arch), configs.smoke(arch)
+    over = {"n_heads": full.n_heads, "n_kv_heads": full.n_kv_heads}
+    if smoke.attn_type == "gqa":
+        over["head_dim"] = 8
+    if full.n_experts % M == 0 and full.n_experts:
+        over["n_experts"] = M
+    if (full.family == "ssm" or full.hybrid_ssm) and full.ssm_n_heads % M \
+            == 0:
+        over["ssm_head_dim"] = smoke.d_inner // M
+    if full.vocab_size % M:
+        over["vocab_size"] = 255
+    return over
+
+
 for arch in configs.ARCH_IDS:
-    try:
-        r = dryrun.price_cell(arch, train, smoke=True, grid="single_pod_256")
-    except Exception as e:  # noqa: BLE001 — a family that errors
-        r = {"status": f"error: {type(e).__name__}: {e}"[:300],
-             "unpriced": {}}
-    out["families"][arch] = {"status": r["status"],
-                             "unpriced": r.get("unpriced", {})}
+    for shape in (ShapeConfig("train_s", 32, 32, "train"), prefill,
+                  ShapeConfig("decode_s", 32, 32, "decode")):
+        try:
+            r = dryrun.price_cell(arch, shape, smoke=True,
+                                  grid="single_pod_256", **published(arch))
+        except Exception as e:  # noqa: BLE001 — a cell that errors
+            r = {"status": f"error: {type(e).__name__}: {e}"[:300],
+                 "unpriced": {}}
+        out["families"][f"{arch}/{shape.kind}"] = {
+            "status": r["status"], "unpriced": r.get("unpriced", {})}
 print("RESULT " + json.dumps(out))
 '''
 
@@ -228,15 +253,23 @@ def test_one_by_one_mesh_prices_the_unsharded_step(priced, kind):
     assert not mesh["unpriced"] and not plain["unpriced"]
 
 
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
-def test_every_family_prices_on_the_mesh_or_is_queued(priced, arch):
-    r = priced["families"][arch]
-    if r["status"] == "ok" and not r["unpriced"]:
-        return
-    roadmap = (ROOT / "ROADMAP.md").read_text()
-    queued = [line for line in roadmap.splitlines()
-              if "sharded dry-run cell errors" in line]
-    assert queued and any(arch in line for line in queued), (arch, r)
+#: every family's train, prefill and decode cell; a train cell keeps the
+#: bare arch as its id
+FAMILY_CELLS = [pytest.param(arch, kind,
+                             id=arch if kind == "train" else f"{arch}-{kind}")
+                for kind in ("train", "prefill", "decode")
+                for arch in configs.ARCH_IDS]
+
+
+@pytest.mark.parametrize("arch,kind", FAMILY_CELLS)
+def test_every_family_prices_on_the_mesh_or_is_queued(priced, arch, kind):
+    """Every family's smoke cell at ``single_pod_256``, its heads, KV
+    heads, experts, SSM heads and vocabulary dividing a model axis of 16
+    as the published configuration's do (ChatGLM3's 32 query heads split
+    and its 2 KV heads do not; MiniCPM3's 40 MLA heads stay whole): status
+    ok and no unpriced op. No family is excused."""
+    r = priced["families"][f"{arch}/{kind}"]
+    assert r["status"] == "ok" and not r["unpriced"], (arch, kind, r)
 
 
 def test_analyze_and_collective_bytes_read_a_walk():

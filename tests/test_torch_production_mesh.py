@@ -20,6 +20,10 @@ vocabulary 256: every rule splits over a model axis of 2):
 * a checkpoint saved at (2, 2) restores at (4, 1), at (1, 4), unsharded,
   and through the reference's ``restore_checkpoint``, bit for bit;
 * ``launch.train.main(mesh=)`` at (2, 2) gives the one-device run's loss;
+* a prefill and decode steps of Qwen at (2, 2) and (1, 4), and of
+  ChatGLM3 (query heads split, KV heads whole), InternVL2 (the same,
+  through its ViT prefix) and MiniCPM3 (MLA heads whole) at (1, 4) over
+  a cache split on its sequence: the unsharded port's logits and cache;
 * no fallback: a world that is not the mesh's, a DTensor at a kernel, a
   missing process group and a backend PyTorch lacks each raise.
 """
@@ -128,6 +132,8 @@ def run(tmp_path_factory):
            "grad": torch.from_numpy(
                rng.standard_normal((3, 6, 50)).astype(np.float32)),
            "serve_tokens": rng.integers(0, 256, (4, 8)).astype(np.int32)}
+    inp["serve_patches"] = rng.standard_normal((4, 4, 32)).astype(
+        np.float32)
     torch.save(inp, root / "inputs.pt")
     mp.spawn(ranks.run, args=(WORLD, str(root)), nprocs=WORLD, join=True)
     out = torch.load(root / "result.pt", weights_only=False)
@@ -242,29 +248,61 @@ def test_checkpoint_crosses_grids_and_packages(run):
         assert np.array_equal(np.asarray(a), b.numpy())
 
 
-@pytest.mark.parametrize("grid", ["2x2", "1x4"])
+#: the cache's sequence split (dim 2 of the (L, B, S, ...) cache) or head
+#: split (dim 3), and the query projection's placement on the model axis,
+#: by serving case
+SERVE_PLACED = {"2x2": ("Shard(dim=3)", "Shard(dim=2)"),
+                "1x4": ("Shard(dim=2)", "Replicate()"),
+                "1x4_chatglm3": ("Shard(dim=2)", "Shard(dim=2)"),
+                "1x4_internvl2": ("Shard(dim=2)", "Shard(dim=2)"),
+                "1x4_minicpm3": ("Shard(dim=2)", "Replicate()")}
+
+
+@pytest.mark.parametrize("grid", list(SERVE_PLACED))
 def test_prefill_and_decode_on_a_mesh(run, grid):
-    """The dry-run's serving cells on real ranks: a prefill and two decode
-    steps within 1e-4 (float32) of one device's, with the cache split on
-    heads (2 x 2) or on its sequence (1 x 4, 2 heads)."""
+    """The dry-run's serving cells on real ranks: a 6-token prefill and
+    the decode steps (``ranks.SERVE_CASES``) within 1e-4 (float32) of one
+    device's logits, the cache gathered whole equal to one device's
+    (see below), with the cache split on heads (2 x 2) or on its
+    sequence (1 x 4): Qwen with 2 heads whole on every model rank,
+    ChatGLM3 and InternVL2 (through its ViT prefix) with their query
+    heads split and KV heads whole, MiniCPM3 at 6 heads with its MLA
+    weights whole and its latent cache split; ChatGLM3 and MiniCPM3 end
+    with a two-token step into the filled context-parallel cache."""
     from repro_torch.models import decode_step, init_params, prefill
     out, inp = run[0], run[1]
-    over = {} if grid == "2x2" else {"n_heads": 2, "n_kv_heads": 2}
-    cfg = dataclasses.replace(configs.smoke("qwen1_5_4b"), dtype="float32",
-                              **over)
+    _, _, arch, over, steps = next(c for c in ranks.SERVE_CASES
+                                   if c[0] == grid)
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32", **over)
     params = init_params(11, cfg, device="cpu")
-    toks = torch.as_tensor(inp["serve_tokens"])
-    logits, cache = prefill(params, cfg, {"tokens": toks[:, :6]}, max_len=8)
+    first, later = ranks.serve_batches(inp, cfg, steps)
+    pos = (cfg.n_prefix if cfg.frontend == "vit" else 0) + 6
+    logits, cache = prefill(params, cfg, {k: torch.as_tensor(v)
+                                          for k, v in first.items()},
+                            max_len=pos + sum(steps))
     want = [logits]
-    for i in range(2):
-        logits, cache = decode_step(params, cfg, cache, 6 + i,
-                                    {"tokens": toks[:, 6 + i:7 + i]})
+    for b in later:
+        logits, cache = decode_step(params, cfg, cache, pos, {
+            "tokens": torch.as_tensor(b["tokens"])})
         want.append(logits)
-    got, placements = out[f"serve_{grid}"]
+        pos += b["tokens"].shape[1]
+    got, placements, got_cache, attn = out[f"serve_{grid}"]
+    assert len(got) == len(want) == 1 + len(steps)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4
-    split = "Shard(dim=3)" if grid == "2x2" else "Shard(dim=2)"
-    assert dict(placements)["kv/0"][1] == split
+    # layer 0's keys and values come from the embedding: bit for bit; a
+    # later layer's from the previous layer's output, summed over the
+    # model ranks in another order (2.2e-6 at most in these cases)
+    for g, w in zip(_tree.leaves(got_cache), _tree.leaves(cache)):
+        assert g.shape == w.shape
+        assert torch.equal(g[0], w[0])
+        assert float((g - w).abs().max()) <= 1e-5
+    split, wq = SERVE_PLACED[grid]
+    placements = dict(placements)
+    assert placements["kv/0"][1] == split
+    assert placements["kv/1"][1] == split
+    q = "wuq" if cfg.attn_type == "mla" else "wq"
+    assert dict(attn)[q][1] == wq
 
 
 def test_launcher_on_a_mesh_matches_one_device(run, capsys):
