@@ -8,7 +8,7 @@
     python3 chip_smoke.py --decode-times SRC  # only LM prefill/decode times
     python3 chip_smoke.py --onehot-times SRC  # only the share_onehot times
     python3 chip_smoke.py --mesh-only         # only t1, slices 13 to 15
-    python3 chip_smoke.py --serve-grid        # only slice 15 (a) and (c)
+    python3 chip_smoke.py --grids             # only the multi-card phases
 
 Phases, any failure exits non-zero:
 
@@ -190,9 +190,6 @@ Phases, any failure exits non-zero:
    state saved at the mesh restore unsharded and at the mesh bit for
    bit. The walker prices a 2-layer full-width step on the mesh as the
    unsharded step (flops by class, HBM bytes), with no collective byte.
-   With two or more cards, (1, 2) and (2, 1) grids of two spawned NCCL
-   ranks run the 3 steps too (losses within 2e-3 of the (1, 1) mesh's);
-   on one card a line says they did not run.
    Slice 14 (last, after slice 13, on a freed card): the MoE family on
    the production mesh, at the full Granite-3.0-3B-A800M configuration
    (32 layers, d 1,536, 24 heads with 8 KV heads, 40 experts top-8 of
@@ -207,9 +204,7 @@ Phases, any failure exits non-zero:
    the mesh, slice 13's check at this configuration: exactly one
    ``share_onehot`` and one general ``ss_matmul`` (4, 2,048, 49,155) @
    (4, 49,155, 1,536), each equal to its plain version afterwards, the
-   opened rows the unsharded lookup's; (e) with two or more cards, (1, 2)
-   (20 experts a rank) and (2, 1) grids run (b)'s steps, losses within
-   2e-3 of (1, 1)'s; on one card a line says they did not run. A
+   opened rows the unsharded lookup's. A
    ``slice-14 summary`` line gives the card, ms a step, peaks, idle
    shares, the largest loss difference and the seconds.
    Slice 15 (last, after slice 14, on a freed card): serving on the
@@ -225,11 +220,8 @@ Phases, any failure exits non-zero:
    prompts through ``lm.prefill`` and ``lm.decode_step`` on a (1, 1) NCCL
    mesh, DTensor parameters, batches and a cache placed by
    ``sharding.cache_spec``: greedy tokens equal to (a)'s and the first
-   two steps' logits equal to the unsharded run's bit for bit; (c) on a
-   host with 4 or more cards, a (1, 4) grid of spawned NCCL ranks (8
-   query heads a rank, the 2 KV heads whole, the cache split on its
-   sequence): tokens equal to (a)'s; on fewer cards a line says it did
-   not run. Then Gemma3-1B in full (26 layers, d 1,152, 4 heads with 1 KV
+   two steps' logits equal to the unsharded run's bit for bit. Then
+   Gemma3-1B in full (26 layers, d 1,152, 4 heads with 1 KV
    head of 256, a 512-token window on 5 of 6 layers, V 262,144, tied
    embeddings) as (a), 4 × 64 prompt tokens. A ``slice-15 summary`` line
    gives the card's name and power limit, (a)'s prefill ms, ms a decode
@@ -271,6 +263,38 @@ Phases, any failure exits non-zero:
    operations per modular multiply-accumulate). Prints the phase's peak device
    memory.
 
+The default run takes one card and logs one line for each multi-card
+phase, which it does not run. ``--grids`` runs only those, on NCCL ranks
+over the cards of one host (4 or more run them all; each phase that needs
+more cards than the host has logs that it did not run). For each grid
+size (1, 2 and 4 cards) a world of that many ranks is spawned as
+``torchrun --nproc-per-node=N`` starts one (its environment variables);
+each rank starts through the port's ``launch.mesh.init_ranks``, lays each
+grid of that size over the whole world with ``make_mesh`` (row by row)
+and tears its process group down at the end. Qwen1.5-4B at
+t1's shapes (4 x 512, 3 steps of ``launch.train.main(mesh=)``) on (1, 1),
+(1, 2), (2, 1) and (2, 2): losses within 2e-3 of (1, 1)'s, and one
+private-embedding step a grid with one ``share_onehot`` and one
+``ss_matmul`` on each rank's card, each equal to its plain version, the
+opened rows the unsharded lookup's. Checkpoints: the smoke configuration's
+parameters and AdamW state saved at (2, 2), restored at (1, 4) and
+unsharded bit for bit, and a run killed after a save at (2, 2) restarted
+at (1, 4) within 2e-3 of the uninterrupted losses. Granite-3.0-3B-A800M
+on (1, 1), (1, 2), (2, 1), (1, 4) and (2, 2): 3 einsum-dispatch steps
+within 2e-3 of (1, 1)'s, one sort-dispatch step at capacity 1.25 in bf16
+within 2e-3 of the unsharded step's and, at full width in float32 on 16
+of its 32 layers, within 1e-6 with the unsharded forward's dropped
+pairs. ChatGLM3-6B served on
+(1, 4) and (2, 2): tokens equal to the unsharded run's up to near-ties,
+the cache and ``wq`` placed as each grid splits them. One step of Qwen at
+(2, 2) and of Granite at (1, 4) profiled: NCCL's kernels' device ms by
+collective beside the cost walker's bytes and ``t_collective`` for the
+same step. ``MeshDispatcher`` (slice 11 (b)) over 2 and 4 distinct cards
+in strict mode, equal to the 1 x 1 grid, group 0's clouds unmoved, every
+kernel launched on each card. Logs ms a step, each rank's peak and rank
+0's idle share; every failed check is gathered and fails the run at its
+end.
+
 Prints the kernels JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
 """
@@ -310,8 +334,12 @@ PLANT = {"one_round": "Zorro", "tree": "Quinn", "absent": "Nobody"}
 ELL = {"Zorro": 3, "Quinn": 16}
 
 
+#: a spawned rank's lines begin with its rank (:func:`rank_main`)
+LOG_PREFIX = ""
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(LOG_PREFIX + msg, flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -884,11 +912,19 @@ def price_step(torch, label, fn, kernels=()):
     return rec
 
 
+def employee_db(rows: np.ndarray, seed: int):
+    """The Employee relation outsourced as the README's schema: c = 20
+    clouds, degree 1, words of 8, Salary also in SALARY_BITS-bit binary."""
+    from repro_torch.core import Codec, outsource
+    return outsource(rows.tolist(), n_shares=20, column_names=NAMES,
+                     codec=Codec(word_length=8), degree=1, seed=seed,
+                     numeric_columns={NAMES.index("Salary"): SALARY_BITS})
+
+
 def main_path(torch, args, expect_strategy):
     """Phase 3, slice 1: outsourcing, count and selection at full size
     through the public entry points."""
     from repro_torch.api import Count, Eq, Padding, QueryClient, Select
-    from repro_torch.core import Codec, outsource
     from repro_torch.kernels import ops
 
     rows = make_rows(args.tuples, args.seed)
@@ -914,9 +950,7 @@ def main_path(torch, args, expect_strategy):
     ops.reset_launch_counts()
     timings = {}
     t0 = time.perf_counter()
-    db = outsource(rows.tolist(), n_shares=20, column_names=NAMES,
-                   codec=Codec(word_length=8), degree=1, seed=args.seed,
-                   numeric_columns={NAMES.index("Salary"): SALARY_BITS})
+    db = employee_db(rows, args.seed)
     torch.cuda.synchronize()
     timings["outsource_s"] = time.perf_counter() - t0
     rel = db.relation.values
@@ -1757,7 +1791,7 @@ def slice11_check(torch, args, db, plans, want, grid, label):
     """Run ``plans`` on the 1 x 1 grid of ``cuda:0`` and on ``grid``; every
     answer must equal the plaintext and the 1 x 1 grid's, every ledger its
     ledger, and no byte may go from one cloud group's slot to another's.
-    Returns the launches of the ``grid`` run."""
+    Returns the launches of the ``grid`` run, in all and by card."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_dispatch_mesh
     peaks = {}
@@ -1774,7 +1808,7 @@ def slice11_check(torch, args, db, plans, want, grid, label):
     ops.reset_launch_counts()
     got, got_s, mesh = run(label, grid)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches, by_card = ops.launch_counts(), ops.card_launch_counts()
     for tag, (field, value) in want.items():
         for res, who in ((one[tag], "1 x 1"), (got[tag], label)):
             have = getattr(res, field)
@@ -1808,21 +1842,21 @@ def slice11_check(torch, args, db, plans, want, grid, label):
         f"grid) " + json.dumps({t: [round(got_s[t], 4), round(one_s[t], 4)]
                                for t in plans}))
     log(f"slice 11 {label}: strict transfers {mesh.strict_transfers}; "
-        f"launches {json.dumps(launches)}; peak device memory above the "
-        f"resident relations, GB " + json.dumps(
-            {k: round(v, 3) for k, v in peaks.items()}))
-    return launches
+        f"launches {json.dumps(launches)}, by card {json.dumps(by_card)}; "
+        f"peak device memory above the resident relations, GB "
+        + json.dumps({k: round(v, 3) for k, v in peaks.items()}))
+    return launches, by_card
 
 
 def slice11_isolation(torch, args, db, plans, want, grid, label):
     """The non-communicating clouds on ``grid``: run the count and the
     one-round select with every cloud step run twice, the first time with
-    each share of the clouds outside group 0 raised by one (mod p) in
-    place (the blocks on the relation's own card are views of it), then
-    as shared. Group 0's clouds of each step's result must be
-    bit-identical in both runs and the other clouds must differ, so a
-    block that read another group's shares fails; the answers must stay
-    the plaintext's."""
+    each share of the blocks of the cloud groups after group 0 raised by
+    one (mod p) in place (a block on the relation's own card is a view of
+    it, a block on another card its copy there), then as shared. Group
+    0's clouds of each step's result must be bit-identical in both runs
+    and the other clouds must differ, so a block that read another
+    group's shares fails; the answers must stay the plaintext's."""
     from repro_torch import _tree
     from repro_torch.api import MeshDispatcher, QueryClient
 
@@ -1831,15 +1865,17 @@ def slice11_isolation(torch, args, db, plans, want, grid, label):
 
         def run_set(self, plane, ds):
             k = self.groups(plane.db.n_shares)[0][1]
-            held = [plane.db.relation.values] + [
-                s.values for s in plane.db.numeric.values()]
+            self.bind_plane(plane)
+            held = [t for blk, view in plane._placed.items() if blk.group
+                    for t in [view.relation.values] + [
+                        s.values for s in view.numeric.values()]]
             for t in held:
-                t[k:].add_(1).remainder_(P)
+                t.add_(1).remainder_(P)
             try:
                 changed = super().run_set(plane, ds)
             finally:
                 for t in held:
-                    t[k:].sub_(1).remainder_(P)
+                    t.sub_(1).remainder_(P)
             out = super().run_set(plane, ds)
             a, b = _tree.leaves(out), _tree.leaves(changed)
             check(len(a) == len(b), f"slice 11 {label} isolation: the "
@@ -1877,6 +1913,17 @@ def slice11_isolation(torch, args, db, plans, want, grid, label):
         f"clouds changed in {Isolating.moved}")
 
 
+def slice11_child(args, rows, n_child):
+    """(rows, shares) of the first ``n_child`` rows of slice 5's
+    Assignment relation over ``rows``, the PK/FK join's child."""
+    from repro_torch.core import Codec, outsource
+    assign = make_assignments(rows, args.seed)[:n_child]
+    return assign, outsource(assign.tolist(), n_shares=20,
+                             column_names=ASSIGN_NAMES,
+                             codec=Codec(word_length=8), degree=1,
+                             seed=args.seed + 5)
+
+
 def slice11_path(torch, args, db, rows):
     """Phase 3, slice 11: the Employee relation's cloud steps through
     ``MeshDispatcher`` on a grid. (a) A 2 x 2 grid of ``cuda:0`` at the
@@ -1885,22 +1932,14 @@ def slice11_path(torch, args, db, rows):
     their count is even) at the full n, or on a one-card host
     ``[cuda:0, cpu]`` on the model axis at HOST_HALF_TUPLES, cloud group 1
     on the host. Returns the launches of both grid runs."""
-    from repro_torch.core import Codec, outsource
     from repro_torch.launch.mesh import make_dispatch_mesh
 
-    def child(rows_, n_child):
-        assign = make_assignments(rows_, args.seed)[:n_child]
-        return assign, outsource(assign.tolist(), n_shares=20,
-                                 column_names=ASSIGN_NAMES,
-                                 codec=Codec(word_length=8), degree=1,
-                                 seed=args.seed + 5)
-
     t0 = time.perf_counter()
-    assign, child_db = child(rows, N_ASSIGN)
+    assign, child_db = slice11_child(args, rows, N_ASSIGN)
     plans, want = slice11_cases(rows, assign, child_db, args.seed)
     grid = make_dispatch_mesh(2, devices=["cuda:0"] * 4)
-    launches = slice11_check(torch, args, db, plans, want, grid,
-                             "(a) 2 x 2 grid of cuda:0")
+    launches, _ = slice11_check(torch, args, db, plans, want, grid,
+                                "(a) 2 x 2 grid of cuda:0")
     slice11_isolation(torch, args, db, plans, want, grid,
                       "(a) 2 x 2 grid of cuda:0")
     for name in SLICE11_KERNELS:
@@ -1918,16 +1957,13 @@ def slice11_path(torch, args, db, rows):
         grid = make_dispatch_mesh(2, devices=["cuda:0", "cpu"])
         label = "(b) cuda:0 and the host"
         rows_b = make_rows(HOST_HALF_TUPLES, args.seed)
-        db_b = outsource(rows_b.tolist(), n_shares=20, column_names=NAMES,
-                         codec=Codec(word_length=8), degree=1,
-                         seed=args.seed,
-                         numeric_columns={NAMES.index("Salary"):
-                                          SALARY_BITS})
-        assign_b, child_b = child(rows_b, HOST_HALF_CHILD)
+        db_b = employee_db(rows_b, args.seed)
+        assign_b, child_b = slice11_child(args, rows_b, HOST_HALF_CHILD)
     log(f"slice 11 {label}: {db_b.n_tuples} tuples, a "
         f"{child_b.n_tuples}-row child relation")
     plans, want = slice11_cases(rows_b, assign_b, child_b, args.seed)
-    launches_b = slice11_check(torch, args, db_b, plans, want, grid, label)
+    launches_b, _ = slice11_check(torch, args, db_b, plans, want, grid,
+                                  label)
     log(f"slice 11 (b) took {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] + launches_b[k] for k in launches}
 
@@ -2936,10 +2972,13 @@ def _free(torch):
 
 
 def train_kernel_kind(name: str) -> str:
-    """A profiled kernel's kind by its name: matrix products (cuBLAS's
-    ``nvjet``/``gemm``/``cutlass`` kernels), elementwise, reductions, or
-    other (copies, index and scatter kernels, the log-softmax)."""
+    """A profiled kernel's kind by its name: NCCL's collectives, matrix
+    products (cuBLAS's ``nvjet``/``gemm``/``cutlass`` kernels),
+    elementwise, reductions, or other (copies, index and scatter kernels,
+    the log-softmax)."""
     low = name.lower()
+    if "nccl" in low:
+        return "nccl"
     if any(k in low for k in ("nvjet", "gemm", "cutlass", "sm90_xmma")):
         return "matmul"
     if "elementwise" in low:
@@ -3454,13 +3493,8 @@ def slice13_mesh(torch):
     """A one-rank NCCL process group on this card, started as ``torchrun``
     would (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, a free localhost
     port) through ``launch.mesh.init_ranks``, and its (1, 1) mesh."""
-    import socket
-
     from repro_torch.launch.mesh import init_ranks, make_mesh
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
                       RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
     dev = init_ranks()
     check(dev == torch.device("cuda", 0), f"slice 13: init_ranks gave {dev}")
@@ -3533,10 +3567,11 @@ def slice13_train(torch, args, mesh, t1_losses):
 
 
 def slice13_private(torch, args, mesh, errs, cfg=None, tag="slice 13"):
-    """One private-embedding step at full width on the (1, 1) mesh
-    (``make_train_step`` on DTensor parameters and batch) of ``cfg``
-    (default slice 10's configuration): launch counters zeroed just
-    before it; the DTensor path's ``share_onehot`` and ``ss_matmul`` calls
+    """One private-embedding step at full width on ``mesh`` (the (1, 1)
+    mesh, or a grid of ``--grids``; ``make_train_step`` on DTensor
+    parameters and batch) of ``cfg`` (default slice 10's configuration):
+    launch counters zeroed just before it, each kernel launched once, on
+    this rank's card, its operands there too; the DTensor path's ``share_onehot`` and ``ss_matmul`` calls
     (the kernels' wrappers in ``kernels.ss_matmul`` wrapped, their
     operands kept) held after the step, on a freed card, against their
     plain versions (the contraction PLAIN_COLS columns at a time); the
@@ -3564,11 +3599,11 @@ def slice13_private(torch, args, mesh, errs, cfg=None, tag="slice 13"):
                                                 total_steps=2))
     batch = TokenStream(pcfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
                         seed=args.seed).batch_at(0)
-    dp = sharding.dp_entry(mesh)
-    dbatch = to_device(batch, "cuda", mesh=mesh,
+    dp, card = sharding.dp_entry(mesh), sharding.mesh_device(mesh)
+    dbatch = to_device(batch, card, mesh=mesh,
                        specs={k: (dp, None) for k in batch})
     rows = params["embed"].full_tensor()[
-        torch.as_tensor(batch["tokens"], device="cuda").long()]
+        torch.as_tensor(batch["tokens"], device=card).long()]
     want_rows = eq.dequantize_from_field(eq.quantize_to_field(
         rows, device=rows.device)).to(rows.dtype)
     del rows
@@ -3603,15 +3638,21 @@ def slice13_private(torch, args, mesh, errs, cfg=None, tag="slice 13"):
         params, state, m = step_fn(params, state, dbatch)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        launches = ops.launch_counts()
+        launches, by_card = ops.launch_counts(), ops.card_launch_counts()
     finally:
         ssm.share_onehot_cuda, ssm.ss_matmul_cuda = inner_share, inner_mm
         pe.private_lookup_inline = inner_lookup
     check_onehot_quad(ops, f"{tag} private step")
     for name in SLICE13_KERNELS:
-        check(launches[name] == 1 and calls[name] == 1,
-              f"{tag}: the private step launched {launches}, wrapper "
-              f"calls {dict(calls)}: one {name} a step wanted")
+        check(launches[name] == 1 and calls[name] == 1
+              and by_card[name] == {card.index: 1},
+              f"{tag}: the private step launched {launches} (by card "
+              f"{by_card}), wrapper calls {dict(calls)}: one {name} a step "
+              f"on this rank's card {card} wanted")
+    on = {str(t.device) for t in seen["share"][:2] + seen["share"][3:]
+          + seen["matmul"]}
+    check(on == {str(card)}, f"{tag}: the kernels' operands lie on {on}, "
+          f"not on this rank's card {card}")
     check(seen.get("type") == "DTensor" and torch.equal(seen["rows"],
                                                         want_rows),
           f"{tag}: the mesh lookup's opened rows differ from the "
@@ -3640,6 +3681,7 @@ def slice13_private(torch, args, mesh, errs, cfg=None, tag="slice 13"):
                   f"from its plain version at columns {lo}..")
         del want
     out = {"launches": {k: launches[k] for k in SLICE13_KERNELS},
+           "card": str(card),
            "shapes": {"share_onehot": list(shared.shape),
                       "ss_matmul": [list(a.shape), list(b.shape)]},
            "step_s": step_s, "metrics": m}
@@ -3758,73 +3800,13 @@ def slice13_walk(torch, args, mesh):
     return out
 
 
-def slice13_rank(rank, world, port, shape, argv, out_path):
-    """One rank of a multi-card grid (a spawned process): NCCL over a
-    localhost port, its card, ``launch.train.main(mesh=)``; rank 0 writes
-    the losses."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch import train as train_launcher
-    from repro_torch.launch.mesh import make_mesh
-    torch.cuda.set_device(rank)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            device_id=torch.device("cuda", rank))
-    try:
-        mesh = make_mesh(shape, ("data", "model"))
-        losses = []
-        train_launcher.main(argv, mesh=mesh, on_step=lambda s, p, o, m:
-                            losses.append(float(m["loss"])))
-        if rank == 0:
-            with open(out_path, "w") as f:
-                json.dump(losses, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def slice13_grids(torch, args, want, argv=None, tag="slice 13"):
-    """On a host with two or more cards, (1, 2) and (2, 1) grids of two
-    spawned NCCL ranks run ``argv`` (default slice 13's steps) through
-    ``launch.train.main(mesh=)``; their losses must match ``want``, the
-    (1, 1) mesh's, within SLICE13_LOSS_RTOL. On one card this logs that
-    they did not run. ``tag`` names the slice in its lines."""
-    import socket
-
-    import torch.multiprocessing as mp
-    argv = argv or slice13_argv(args, SLICE13_STEPS)
-    label = tag.replace(" ", "-")
-    n = torch.cuda.device_count()
-    if n < 2:
-        log(f"{label} grids (1, 2) and (2, 1): not run, {n} card")
-        return {"ran": False}
-    out = {"ran": True}
-    for shape in ((1, 2), (2, 1)):
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        path = os.path.join(ROOT, "build", f"{label}_{shape[0]}x{shape[1]}"
-                            ".json")
-        mp.spawn(slice13_rank, args=(2, port, shape, argv, path), nprocs=2,
-                 join=True)
-        with open(path) as f:
-            losses = json.load(f)
-        out[f"{shape[0]}x{shape[1]}"] = losses
-        check(len(losses) == len(want) and all(
-            abs(a - b) <= SLICE13_LOSS_RTOL * abs(b)
-            for a, b in zip(losses, want)),
-            f"{tag} {shape}: losses {losses}, the (1, 1) mesh's {want}")
-    log(f"{label} grids " + json.dumps(out))
-    return out
-
-
 def slice13_path(torch, args, errs, t1_losses):
     """Phase 3, slice 13 (after slice 10, on a freed card): the
     production-mesh path on a (1, 1) mesh of one NCCL rank — full-width
     training through ``launch.train.main(mesh=)``, a private-embedding
     step through the DTensor path, a checkpoint across grids, the walker
-    on a mesh step — and, with two or more cards, (1, 2) and (2, 1)
-    grids. Returns the private step's launches."""
+    on a mesh step. Its grids across cards are ``--grids``' (
+    :func:`grids_path`). Returns the private step's launches."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -3837,13 +3819,12 @@ def slice13_path(torch, args, errs, t1_losses):
     finally:
         dist.destroy_process_group()
     _free(torch)
-    grids = slice13_grids(torch, args, train["losses"])
     card = smi("name,power.limit")
     log("slice-13 summary " + json.dumps({
         "card": card, "ms_per_step": train["ms_per_step"],
         "peak_gb": train["peak_gb"], "idle_share": train["idle_share"],
         "loss_rel_diff": train["loss_rel_diff"],
-        "walk_flops": walk["flops"][1], "grids_ran": grids["ran"],
+        "walk_flops": walk["flops"][1],
         "seconds": time.perf_counter() - t0}))
     return launches
 
@@ -3942,12 +3923,17 @@ def slice14_train(torch, args, label, mesh=None):
     return out
 
 
-def slice14_sort_step(torch, args, cfg, mesh):
-    """(c): one step of ``make_train_step`` with the sort dispatch at
-    capacity SLICE14_SORT_CAPACITY, unsharded and on ``mesh``, each on
-    fresh weights from ``--seed`` and t1's first batch: the losses within
-    SLICE13_STEP0_RTOL relative. Counts the (token, expert) pairs the
-    unsharded step's first forward drops (past an expert's capacity)."""
+def sort_step(torch, args, cfg, mesh=None):
+    """One step of ``make_train_step`` with the sort dispatch at capacity
+    SLICE14_SORT_CAPACITY, on fresh weights from ``--seed`` and t1's first
+    batch, unsharded or on ``mesh`` -> its loss, grad norm and seconds,
+    and the (token, expert) pairs of this rank's tokens that the first
+    forward drops past an expert's capacity: an expert's pairs are ranked
+    in token order over the whole batch (on a mesh after the pairs of the
+    rows before this rank's block, ``_pairs_before``), and those ranked
+    at the capacity or past it drop. Every model rank of a data row
+    counts the same pairs, so a grid's drops are the sum over its ranks
+    at model coordinate 0."""
     import dataclasses
 
     from repro_torch import sharding
@@ -3961,48 +3947,58 @@ def slice14_sort_step(torch, args, cfg, mesh):
                                capacity_factor=SLICE14_SORT_CAPACITY)
     batch = make_lm_batches(scfg, TRAIN_BATCH, TRAIN_SEQ,
                             seed=args.seed).batch_at(0)
-    dp = sharding.dp_entry(mesh)
     drops, inner = [], L._moe_sort_dispatch
 
-    def spy(p, c, x2, weights, idx, *a, **kw):
+    def spy(p, c, x2, weights, idx, first=0, n_total=None, before=None):
         if len(drops) < c.n_layers:           # the first forward's layers
-            cap = math.ceil(x2.shape[0] * c.top_k / c.n_experts
-                            * c.capacity_factor)
-            counts = torch.bincount(idx.reshape(-1), minlength=c.n_experts)
-            drops.append(int((counts - cap).clamp(min=0).sum()))
-        return inner(p, c, x2, weights, idx, *a, **kw)
+            cap = math.ceil((x2.shape[0] if n_total is None else n_total)
+                            * c.top_k / c.n_experts * c.capacity_factor)
+            se = torch.sort(idx.reshape(-1), stable=True).values
+            pos = torch.arange(se.numel(), device=se.device) \
+                - torch.searchsorted(se, se, side="left")
+            if before is not None:
+                pos = pos + before[se]
+            drops.append(int((pos >= cap).sum()))
+        return inner(p, c, x2, weights, idx, first, n_total, before)
 
-    out = {}
-    for name in ("unsharded", "mesh"):
-        _free(torch)
-        params = lm.init_params(args.seed, scfg)
-        if name == "mesh":
-            params = sharding.distribute(
-                params, mesh, sharding.param_shardings(scfg, mesh, params))
-            dbatch = to_device(batch, "cuda", mesh=mesh,
-                               specs={k: (dp, None) for k in batch})
-        else:
-            dbatch = to_device(batch, "cuda")
-        state = init_state(params)
-        step_fn = make_train_step(scfg, AdamWConfig(lr=TRAIN_LR,
-                                                    warmup_steps=2,
-                                                    total_steps=2))
-        L._moe_sort_dispatch = spy if name == "unsharded" else inner
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, _, m = step_fn(params, state, dbatch)
-            torch.cuda.synchronize()
-        finally:
-            L._moe_sort_dispatch = inner
-        out[name] = {"loss": float(m["loss"]),
-                     "grad_norm": float(m["grad_norm"]),
-                     "step_s": time.perf_counter() - t0}
-        del params, state, dbatch, step_fn, m
     _free(torch)
+    params = lm.init_params(args.seed, scfg)
+    if mesh is not None:
+        params = sharding.distribute(
+            params, mesh, sharding.param_shardings(scfg, mesh, params))
+        dp = sharding.dp_entry(mesh)
+        dbatch = to_device(batch, sharding.mesh_device(mesh), mesh=mesh,
+                           specs={k: (dp, None) for k in batch})
+    else:
+        dbatch = to_device(batch, "cuda")
+    state = init_state(params)
+    step_fn = make_train_step(scfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                                total_steps=2))
+    L._moe_sort_dispatch = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, state, dbatch)
+        torch.cuda.synchronize()
+    finally:
+        L._moe_sort_dispatch = inner
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "step_s": time.perf_counter() - t0, "dropped_pairs": sum(drops),
+           "coordinate": None if mesh is None else mesh.get_coordinate()}
+    del params, state, dbatch, step_fn, m
+    _free(torch)
+    return out
+
+
+def slice14_sort_step(torch, args, cfg, mesh):
+    """(c): :func:`sort_step` unsharded and on ``mesh``: the losses within
+    SLICE13_STEP0_RTOL relative; logs the pairs the unsharded step's
+    first forward drops."""
+    out = {"unsharded": sort_step(torch, args, cfg),
+           "mesh": sort_step(torch, args, cfg, mesh)}
     a, b = out["unsharded"]["loss"], out["mesh"]["loss"]
     out["loss_rel_diff"] = abs(a - b) / abs(a)
-    out["dropped_pairs_first_forward"] = sum(drops)
+    out["dropped_pairs_first_forward"] = out["unsharded"]["dropped_pairs"]
     out["pairs_first_forward"] = (cfg.n_layers * TRAIN_BATCH * TRAIN_SEQ
                                   * cfg.top_k)
     log("slice-14 (c) sort dispatch at capacity "
@@ -4020,8 +4016,8 @@ def slice14_path(torch, args, errs):
     unsharded, (b) the same on a (1, 1) NCCL mesh, its losses against
     (a)'s, (c) one sort-dispatch step unsharded and on the mesh, (d) one
     private-embedding step on the mesh (slice 13's check at this
-    configuration) and (e), with two or more cards, (1, 2) and (2, 1)
-    grids. Returns (d)'s launches."""
+    configuration). Its grids across cards are ``--grids``' (
+    :func:`grids_path`). Returns (d)'s launches."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -4042,9 +4038,6 @@ def slice14_path(torch, args, errs):
     finally:
         dist.destroy_process_group()
     _free(torch)
-    grids = slice13_grids(torch, args, b["losses"],
-                          argv=slice14_argv(args, SLICE14_STEPS),
-                          tag="slice 14")
     log("slice-14 summary " + json.dumps({
         "card": smi("name,power.limit"),
         "ms_per_step": {"a": a["ms_per_step"], "b": b["ms_per_step"]},
@@ -4053,7 +4046,7 @@ def slice14_path(torch, args, errs):
         "max_loss_rel_diff": max(diffs + [c["loss_rel_diff"]]),
         "sort_dropped_pairs": c["dropped_pairs_first_forward"],
         "launches": {k: launches[k] for k in SLICE14_KERNELS},
-        "grids_ran": grids["ran"], "seconds": time.perf_counter() - t0}))
+        "seconds": time.perf_counter() - t0}))
     return launches
 
 
@@ -4082,10 +4075,7 @@ SLICE15_GEMMA_FIELDS = dict(n_layers=26, d_model=1152, n_heads=4,
 #: the unsharded ops on whole local tensors and an all-reduce over one
 #: rank is a copy: bit for bit
 SLICE15_LOGIT_ATOL = 0.0
-#: (c)'s grid: 8 query heads a rank, the 2 KV heads whole on every rank,
-#: the cache split on its sequence over the 4 model ranks
-SLICE15_GRID = (1, 4)
-#: (c)'s near-tie: a gap between a request's two largest unsharded
+#: a grid's near-tie (``--grids``): a gap between a request's two largest unsharded
 #: logits that another order of bf16 sums may close. (a) logs bf16's
 #: noise floor for ChatGLM3-6B, the same forward's logits at two lengths,
 #: at 0.078; this is 1.6 times that
@@ -4145,10 +4135,10 @@ def slice15_generate(torch, params, cfg, prompts, mesh, n_new):
 
 def slice15_unsharded(torch, keep):
     """Route (c)'s greedy generation again, unsharded, through
-    ``lm.prefill`` and ``lm.decode_step``: its tokens (route (a)'s), the
-    first two steps' logits, and each step's gap between the two largest
-    logits of each request (where a grid's other order of sums may pick
-    the other token)."""
+    ``lm.prefill`` and ``lm.decode_step``: its tokens (route (a)'s, when
+    ``keep`` holds them), the first two steps' logits, and each step's gap
+    between the two largest logits of each request (where a grid's other
+    order of sums may pick the other token)."""
     from repro_torch.models import lm
     plain, cfg, prompts = keep["plain"], keep["cfg"], keep["prompts"]
     dev = plain["final_norm"].device
@@ -4171,7 +4161,8 @@ def slice15_unsharded(torch, keep):
     out = {"logits": first,
            "tokens": torch.cat(gen, 1).cpu().numpy().astype(np.int32),
            "gaps": torch.stack(gaps, 1).cpu().numpy()}
-    check(np.array_equal(out["tokens"], keep["tokens"]),
+    check("tokens" not in keep or np.array_equal(out["tokens"],
+                                                 keep["tokens"]),
           "slice 15: the unsharded greedy loop's tokens differ from route "
           "(a)'s")
     return out
@@ -4213,113 +4204,15 @@ def slice15_mesh(torch, keep, want, mesh):
     return out
 
 
-def slice15_rank(rank, world, port, shape, seed, prompts, out_path):
-    """One rank of (c) (a spawned process): NCCL over a localhost port,
-    its card, the full ChatGLM3-6B weights from ``seed`` with route (c)'s
-    dequantized table, placed on the grid, and greedy generation after
-    ``prompts``; rank 0 saves the tokens and the placements."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch import configs, sharding
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import lm
-    torch.cuda.set_device(rank)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            device_id=torch.device("cuda", rank))
-    try:
-        mesh = make_mesh(shape, ("data", "model"))
-        cfg = configs.full(SLICE15_ARCH)
-        params = lm.init_params(seed, cfg)
-        params["embed"] = dequantized(torch, params["embed"])
-        params = sharding.distribute(params, mesh, sharding.param_shardings(
-            cfg, mesh, params))
-        _free(torch)
-        res = slice15_generate(torch, params, cfg, prompts, mesh,
-                               SLICE8_NEW)
-        res["logits"] = [x.cpu() for x in res["logits"]]
-        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        if rank == 0:
-            torch.save(res, out_path)
-    finally:
-        dist.destroy_process_group()
-
-
-def slice15_grid(torch, args, prompts, want):
-    """(c): on a host with 4 or more cards, SLICE15_GRID's spawned NCCL
-    ranks generate after the same prompts, the query heads split and the
-    KV heads whole over a cache split on its sequence. The row-split
-    output projection sums bf16 partials over the ranks in another order
-    than one card's matmul, so a request's greedy tokens may part from
-    the unsharded ones where its two largest logits lie within
-    SLICE15_TIE_ATOL: the tokens must equal route (a)'s (``want``, from
-    :func:`slice15_unsharded`) up to such a step, and every parting is
-    logged with its gap; the first two steps' logits against the
-    unsharded run's are logged. On fewer cards this logs that it did not
-    run."""
-    import socket
-
-    import torch.multiprocessing as mp
-    n, world = torch.cuda.device_count(), math.prod(SLICE15_GRID)
-    if n < world:
-        log(f"slice-15 (c) grid {SLICE15_GRID}: not run, {n} card")
-        return {"ran": False}
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    path = os.path.join(ROOT, "build", "slice15_grid.pt")
-    t0 = time.perf_counter()
-    mp.spawn(slice15_rank, args=(world, port, SLICE15_GRID, args.seed,
-                                 prompts, path), nprocs=world, join=True)
-    res = torch.load(path, weights_only=False)
-    got = res.pop("tokens")
-    res["logits_max_abs_diff"] = [
-        float((g - w.cpu()).abs().max())
-        for g, w in zip(res.pop("logits"), want["logits"])]
-    parted = {}
-    for r in range(got.shape[0]):
-        steps = np.flatnonzero(got[r] != want["tokens"][r])
-        if steps.size:
-            parted[r] = (int(steps[0]), float(want["gaps"][r, steps[0]]))
-    res.update(ran=True, seconds=time.perf_counter() - t0,
-               tokens_equal=not parted, parted_at_step_gap=parted)
-    log(f"slice-15 (c) grid {SLICE15_GRID} " + json.dumps(res))
-    check(res["cache_placements"][1] == "Shard(dim=2)"
-          and res["wq_placements"][1] == "Shard(dim=2)",
-          f"slice 15 (c): not the query-split, sequence-split layout: {res}")
-    check(all(gap <= SLICE15_TIE_ATOL for _, gap in parted.values()),
-          f"slice 15 (c): the {SLICE15_GRID} grid's greedy tokens part "
-          f"from route (a)'s where no near-tie lies: {parted}")
-    return res
-
-
-def slice15_grid_only(torch, args) -> int:
-    """``--serve-grid``: slice 15's (a) for ChatGLM3-6B and its (c) grid
-    (4 or more cards), nothing else of the script."""
-    keep = {}
-    family_path(torch, args, 0, SLICE15_ARCH, None, SLICE15_PROMPT,
-                SLICE15_FIELDS, slice_no=15, keep=keep)
-    want = slice15_unsharded(torch, keep)
-    prompts = keep["prompts"]
-    keep.clear()
-    _free(torch)
-    res = slice15_grid(torch, args, prompts, want)
-    check(res["ran"], f"slice 15 (c) needs {math.prod(SLICE15_GRID)} "
-          "cards")
-    print(json.dumps({"slice15_grid": res}))
-    return 0
-
-
 def slice15_path(torch, args, errs):
     """Phase 3, slice 15 (last, after slice 14, on a freed card): serving
     on the production mesh. (a) ChatGLM3-6B's private and plaintext
     generation unsharded (:func:`family_path`: tokens equal, its
     ``share_onehot`` and tall and general ``ss_matmul`` launches held
     against their plain versions); (b) the same prompts on a (1, 1) NCCL
-    mesh (:func:`slice15_mesh`); (c) with 4 or more cards, SLICE15_GRID's
-    ranks (:func:`slice15_grid`); then Gemma3-1B's private and plaintext
-    generation unsharded. Returns the launches of (a)'s and Gemma3's
+    mesh (:func:`slice15_mesh`); then Gemma3-1B's private and plaintext
+    generation unsharded. Its grids across cards are ``--grids``' (
+    :func:`grids_path`). Returns the launches of (a)'s and Gemma3's
     route windows."""
     import torch.distributed as dist
 
@@ -4338,10 +4231,7 @@ def slice15_path(torch, args, errs):
         b = slice15_mesh(torch, keep, want, mesh)
     finally:
         dist.destroy_process_group()
-    prompts = keep["prompts"]
     keep.clear()
-    _free(torch)
-    c = slice15_grid(torch, args, prompts, want)
     del want
     _free(torch)
     got, gemma = family_path(torch, args, 1, SLICE15_GEMMA, None,
@@ -4357,7 +4247,6 @@ def slice15_path(torch, args, errs):
             "idle_share", "peak_gb")},
         "mesh_1x1": {k: b[k] for k in ("prefill_ms", "decode_ms_per_step",
                                        "peak_gb", "logits_max_abs_diff")},
-        "grid_1x4_ran": c["ran"],
         "gemma3_1b": {k: gemma[k] for k in ("prefill_ms",
                                             "decode_ms_per_step",
                                             "peak_gb")},
@@ -4365,6 +4254,792 @@ def slice15_path(torch, args, errs):
                      + ("ss_matmul",)},
         "seconds": time.perf_counter() - t0}))
     return dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# --grids: the production mesh across the cards of one host
+# ---------------------------------------------------------------------------
+
+#: --grids spawns one world of ranks for each size in GRID_WORLDS that the
+#: host's cards allow, one rank a card, as ``torchrun --nproc-per-node=N``
+#: does, and lays each grid of that size over the whole world with the
+#: port's ``make_mesh`` (rank r at (r // n_model, r % n_model))
+GRID_WORLDS = (1, 2, 4)
+GRID_AXES = ("data", "model")
+#: a world's ranks must end, their process group torn down, within this
+#: many seconds of their start
+WORLD_DEADLINE_S = 300
+#: the grids of each phase. Qwen1.5-4B trains at t1's shapes, and its
+#: private-embedding step runs on each grid; Granite-3.0-3B-A800M's 40
+#: experts split 20 a rank at (1, 2), 10 at (1, 4) and (2, 2), and stay
+#: whole at (2, 1), where only the tokens split
+QWEN_GRIDS = ((1, 1), (1, 2), (2, 1), (2, 2))
+GRANITE_GRIDS = ((1, 1), (1, 2), (2, 1), (1, 4), (2, 2))
+#: the grid of each family whose step 1 is profiled for its NCCL kernels
+#: and walked by the cost walker
+PROFILED_GRID = {"qwen": (2, 2), "granite": (1, 4)}
+#: the collectives timed alone (:func:`grid_links`) on LINK_GRID's
+#: groups, LINK_BYTES of output a call
+LINK_GRID, LINK_BYTES = (2, 2), 1 << 28
+#: checkpoints: saved at CKPT_GRID, restored at CKPT_RESTORE_GRID (and
+#: unsharded on one card); a run killed after a save at CKPT_GRID
+#: restarts at CKPT_RESTORE_GRID
+CKPT_GRID, CKPT_RESTORE_GRID = (2, 2), (1, 4)
+#: serving ChatGLM3-6B: each grid's (cache, wq) placements on ``model``.
+#: At (1, 4) the 32 query heads split and the 2 KV heads do not, so the
+#: cache splits on its sequence (dim 2 of (L, B, T, Hkv, hd)); at (2, 2)
+#: one KV head a model rank, the cache split on its heads (dim 3), the 4
+#: requests split over ``data``
+SERVE_GRIDS = {(1, 4): ("Shard(dim=2)", "Shard(dim=2)"),
+               (2, 2): ("Shard(dim=3)", "Shard(dim=2)")}
+#: the sort dispatch held exactly across grids: Granite's full width in
+#: float32 on SORT_EXACT_LAYERS of its 32 layers (the unsharded reference
+#: step runs on one card: float32 weights, gradients and moments of all
+#: 32 layers with their activations would need about 85 GB). In bf16 a
+#: grid's partial sums round otherwise than one card's and the router then
+#: picks other experts at near-ties: the full bf16 step is held to
+#: SLICE13_LOSS_RTOL and its dropped pairs logged (at the smoke
+#: configuration on 4 gloo ranks, bf16 dropped 9 pairs to one card's 10,
+#: float32 the same 9 at an equal loss)
+SORT_EXACT_LAYERS = 16
+#: MeshDispatcher (slice 11 (b)) over this many distinct cards at n_model
+#: 2: a 1 x 2 and a 2 x 2 grid
+DISPATCH_CARDS = (2, 4)
+#: the grids' device type (a CPU rehearsal of the ranks sets "cpu")
+MESH_DEVICE = "cuda"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_main(rank, world, port, device_type, fn, fn_args):
+    """A spawned rank, started as ``torchrun --nproc-per-node=world``
+    starts one: its environment variables (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), then the port's
+    entry ``launch.mesh.init_ranks`` (NCCL, ``cuda:LOCAL_RANK`` made
+    current and bound to the group; gloo for ``device_type`` "cpu"),
+    then ``fn(torch, *fn_args)``, a world barrier and the process group
+    torn down. An error ends the rank, and ``spawn_ranks`` the others."""
+    global LOG_PREFIX
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks
+    LOG_PREFIX = f"[rank {rank}/{world}] "
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    if device_type == "cuda":
+        dev = init_ranks()
+        check(dev == torch.device("cuda", rank)
+              and torch.cuda.current_device() == rank,
+              f"rank {rank}: init_ranks gave {dev}")
+    else:
+        init_ranks(device=device_type)
+    fn(torch, *fn_args)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world, fn, *fn_args, deadline_s=WORLD_DEADLINE_S):
+    """``world`` ranks on a free localhost port, each :func:`rank_main`
+    on MESH_DEVICE. Raises if a rank fails (the others are ended) or if
+    the ranks have not all ended within ``deadline_s`` (all are then
+    killed), so no rank outlives the call."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(rank_main, args=(world, free_port(),
+                                              MESH_DEVICE, fn, fn_args),
+                             nprocs=world, join=False, start_method="spawn")
+    end = time.perf_counter() + deadline_s
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > end:
+            for proc in ctx.processes:
+                proc.kill()
+                proc.join()
+            raise TimeoutError(f"{world} ranks did not end within "
+                               f"{deadline_s} s")
+
+
+def grid_phases():
+    """(phase, grid, the cards it needs) of every multi-card phase."""
+    out = [("qwen1.5-4b training", s, math.prod(s)) for s in QWEN_GRIDS]
+    out += [("granite-3.0-3b-a800m training", s, math.prod(s))
+            for s in GRANITE_GRIDS]
+    out += [("checkpoint", f"{CKPT_GRID} -> {CKPT_RESTORE_GRID}", 4)]
+    out += [("chatglm3-6b serving", s, math.prod(s)) for s in SERVE_GRIDS]
+    out += [(f"collectives against the walker, {k}", s, math.prod(s))
+            for k, s in PROFILED_GRID.items()]
+    out += [("MeshDispatcher slice 11 (b)", f"{k} cards", k)
+            for k in DISPATCH_CARDS]
+    return [p for p in out if p[2] > 1]
+
+
+def log_grids_not_run(cards: int, default_run: bool = False) -> None:
+    """One line for each multi-card phase that does not run: in the
+    default run all of them but slice 11 (b) over every card of the host,
+    which slice 11 runs; under ``--grids`` those needing more cards than
+    the host has."""
+    for phase, grid, need in grid_phases():
+        if default_run and phase.startswith("MeshDispatcher") \
+                and need == cards:
+            continue
+        if default_run:
+            log(f"grids {phase} {grid}: not run, the default run takes one "
+                f"card; `chip_smoke.py --grids` runs it on {need} cards")
+        elif need > cards:
+            log(f"grids {phase} {grid}: not run, needs {need} cards, this "
+                f"host has {cards}")
+
+
+#: :func:`grid_mesh`'s meshes, by shape
+MESHES = {}
+
+
+def grid_mesh(torch, shape):
+    """The port's ``make_mesh(shape)`` over the whole world, made once a
+    shape. Every rank calls it (a new group is a collective of the
+    world)."""
+    from repro_torch.launch.mesh import make_mesh
+    if shape not in MESHES:
+        MESHES[shape] = make_mesh(shape, GRID_AXES, device_type=MESH_DEVICE)
+    return MESHES[shape]
+
+
+def nccl_kind(name: str):
+    """An NCCL kernel's collective (``hlo_analysis.COLLECTIVES``' names)
+    by its name, None for another kernel."""
+    low = name.lower().replace("_", "")
+    if "nccl" not in low:
+        return None
+    for key, kind in (("allreduce", "all-reduce"), ("allgather", "all-gather"),
+                      ("reducescatter", "reduce-scatter"),
+                      ("alltoall", "all-to-all"),
+                      ("sendrecv", "collective-permute"),
+                      ("broadcast", "collective-permute")):
+        if key in low:
+            return kind
+    return "other"
+
+
+def mesh_train(torch, argv, mesh):
+    """``launch.train.main(argv, mesh=)`` -> its losses and grad norms, ms
+    a step (host clock between synchronizes, step 2), over a profiled step
+    1 the device ms by kernel kind, NCCL's kernels' ms by collective and
+    the idle share, the ``w_up`` placements and this rank's peak."""
+    from repro_torch import _tree
+    from repro_torch.launch import train as train_launcher
+    from torch.profiler import ProfilerActivity, profile
+
+    marks, rec, prof, seen = [], [], {}, {}
+
+    def on_step(step, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        rec.append({k: float(v) for k, v in metrics.items()})
+        if step == 0:
+            seen.update({p: [repr(x) for x in t.placements] for p, t in
+                         _tree.leaves_with_paths(params)
+                         if p.endswith("w_up")})
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+        if step == 1:
+            prof["p"].__exit__(None, None, None)
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_launcher.main(argv, mesh=mesh, on_step=on_step)
+    kinds, nccl = collections.Counter(), collections.Counter()
+    for e in prof["p"].key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us:
+            kinds[train_kernel_kind(e.key)] += us / 1e3
+            if nccl_kind(e.key):
+                nccl[nccl_kind(e.key)] += us / 1e3
+    step_ms = 1e3 * (marks[1] - marks[0])
+    out = {"losses": [r["loss"] for r in rec],
+           "grad_norms": [r["grad_norm"] for r in rec],
+           "ms_per_step": 1e3 * (marks[2] - marks[1]),
+           "profiled_step_ms": step_ms,
+           "device_ms_by_kind": dict(kinds), "nccl_ms_by_kind": dict(nccl),
+           "idle_share": 1.0 - sum(kinds.values()) / step_ms,
+           "placements_w_up": seen,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_step_and_init_s": marks[0] - t0}
+    _free(torch)
+    return out
+
+
+def grid_walk(torch, args, cfg, mesh, steps):
+    """The cost walker (``hlo_cost.CostMode``) on step 1 of ``steps`` of
+    ``cfg`` on ``mesh`` as ``launch.train.main(mesh=)`` takes it (fresh
+    weights from ``--seed``, step 0 run first, unwalked) -> this rank's
+    collective output bytes by kind (``hlo_analysis.collective_bytes``),
+    link bytes, and ``t_collective`` at the Roofline's link rates, also by
+    kind at NVLINK_BW (every rank of a grid on one host)."""
+    from repro_torch import sharding
+    from repro_torch.data import make_lm_batches
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import hlo_analysis, hlo_cost
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    _free(torch)
+    params = lm.init_params(args.seed, cfg)
+    params = sharding.distribute(params, mesh, sharding.param_shardings(
+        cfg, mesh, params))
+    state = init_state(params)
+    step_fn = make_train_step(cfg, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(2, steps // 10), total_steps=steps))
+    stream = make_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=args.seed)
+    dp = sharding.dp_entry(mesh)
+
+    def batch(i):
+        b = stream.batch_at(i)
+        return to_device(b, sharding.mesh_device(mesh), mesh=mesh,
+                         specs={k: (dp, None) for k in b})
+
+    params, state, _ = step_fn(params, state, batch(0))
+    t0 = time.perf_counter()
+    with hlo_cost.CostMode(device=MESH_DEVICE) as mode:
+        step_fn(params, state, batch(1))
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    cost = mode.cost
+    kinds = hlo_analysis.collective_bytes(cost)
+    roof = cost.roofline(n_chips=mesh.size())
+    del params, state
+    _free(torch)
+    return {"collective_bytes": kinds, "link_bytes": dict(cost.collectives),
+            "t_collective_ms": 1e3 * roof.t_collective,
+            "predicted_ms_by_kind": {
+                k: 1e3 * kinds[k] / hlo_analysis.NVLINK_BW
+                for k in hlo_analysis.COLLECTIVES if kinds[k]},
+            "t_compute_ms": 1e3 * roof.t_compute,
+            "t_memory_ms": 1e3 * roof.t_memory,
+            "unpriced": dict(cost.unpriced), "walk_s": walk_s}
+
+
+def grid_qwen(torch, args, mesh, keep):
+    """Qwen1.5-4B on a grid: SLICE13_STEPS steps of ``launch.train.main``
+    at t1's shapes (:func:`mesh_train`), walked at PROFILED_GRID, then one
+    private-embedding step (:func:`slice13_private`: one ``share_onehot``
+    and one ``ss_matmul`` on this rank's card, each equal to its plain
+    version, the opened rows the unsharded lookup's)."""
+    shape = tuple(mesh.shape)
+    out = mesh_train(torch, slice13_argv(args, SLICE13_STEPS), mesh)
+    if shape == PROFILED_GRID["qwen"]:
+        out["walk"] = grid_walk(torch, args, train_cfg(torch), mesh,
+                                SLICE13_STEPS)
+    errs = collections.Counter()
+    out["private_launches"] = slice13_private(
+        torch, args, mesh, errs, tag=f"grids qwen {shape}")
+    out["private_errs"] = dict(errs)
+    return out
+
+
+def sort_steps(torch, args, mesh=None):
+    """:func:`sort_step` of the full Granite-3.0-3B-A800M configuration
+    (``bf16``) and of its full width in float32 on SORT_EXACT_LAYERS
+    layers (``float32``), unsharded or on ``mesh``."""
+    import dataclasses
+    cfg = slice14_cfg(torch)
+    exact = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=SORT_EXACT_LAYERS)
+    return {"bf16": sort_step(torch, args, cfg, mesh),
+            "float32": sort_step(torch, args, exact, mesh)}
+
+
+def grid_granite(torch, args, mesh, keep):
+    """Granite-3.0-3B-A800M on a grid: SLICE14_STEPS einsum-dispatch steps
+    of ``launch.train.main`` (:func:`mesh_train`), walked at PROFILED_GRID,
+    then the sort dispatch's steps (:func:`sort_steps`)."""
+    shape = tuple(mesh.shape)
+    out = mesh_train(torch, slice14_argv(args, SLICE14_STEPS), mesh)
+    if shape == PROFILED_GRID["granite"]:
+        out["walk"] = grid_walk(torch, args, slice14_cfg(torch), mesh,
+                                SLICE14_STEPS)
+    out["sort"] = sort_steps(torch, args, mesh)
+    return out
+
+
+def grid_sort_unsharded(torch, args, mesh, keep):
+    """Rank 0: :func:`sort_steps` unsharded, the grids' reference."""
+    return sort_steps(torch, args)
+
+
+def grid_checkpoint(torch, args, mesh, keep):
+    """Checkpoints across cards, on the smoke configuration (as slice 13):
+    the parameters and AdamW state at CKPT_GRID saved, restored at
+    CKPT_RESTORE_GRID and, on rank 0, unsharded on its card, every leaf
+    bit for bit; then a ``launch.train.main`` run at CKPT_GRID killed
+    after step 1 (its step-1 checkpoint written), restarted at
+    CKPT_RESTORE_GRID, gives an uninterrupted run's losses of steps 1 and
+    2 within SLICE13_LOSS_RTOL."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import _tree, configs, sharding
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import lm
+    from repro_torch.train import init_state
+    from repro_torch.train.optim import AdamWState
+
+    rank = dist.get_rank()
+    root = os.path.join(ROOT, "build", "grids_ckpt")
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    dist.barrier()
+    cfg = configs.smoke(TRAIN_ARCH)
+    params = lm.init_params(args.seed, cfg)
+    params = sharding.distribute(params, mesh, sharding.param_shardings(
+        cfg, mesh, params))
+    state = init_state(params)
+    state.m["final_norm"].to_local().add_(1.5)    # not all zeros
+    tree = (params, state)
+    whole = [t.full_tensor().clone() for t in _tree.leaves(tree)]
+    save_checkpoint(os.path.join(root, "tree"), 1, tree)
+    dist.barrier()                       # rank 0's writes are done
+    other = grid_mesh(torch, CKPT_RESTORE_GRID)
+    plain = lm.init_params(args.seed, cfg)
+    p_sh = sharding.param_shardings(cfg, other, plain)
+    o_sh = AdamWState(step=sharding.NamedSharding(other, sharding.REP),
+                      m=p_sh, v=p_sh)
+    _, again = restore_checkpoint(os.path.join(root, "tree"), tree,
+                                  shardings=(p_sh, o_sh))
+    at_other = [type(a).__name__ == "DTensor" and a.device_mesh is other
+                and torch.equal(a.full_tensor(), b)
+                for a, b in zip(_tree.leaves(again), whole)]
+    out = {"leaves": len(whole), "restored_at_grid_equal": all(at_other)}
+    if rank == 0:
+        _, back = restore_checkpoint(os.path.join(root, "tree"),
+                                     (plain, init_state(plain)),
+                                     device=plain["embed"].device)
+        out["restored_unsharded_equal"] = all(
+            torch.equal(a, b) for a, b in zip(_tree.leaves(back), whole))
+    del tree, params, state, again, whole
+    dist.barrier()
+
+    class Crash(Exception):
+        pass
+
+    def argv(ckpt):
+        return (["--arch", TRAIN_ARCH, "--smoke", "--steps", "3", "--batch",
+                 "4", "--seq", "64", "--seed", str(args.seed), "--log-every",
+                 "100"] + (["--ckpt-dir", os.path.join(root, ckpt),
+                            "--ckpt-every", "1"] if ckpt else []))
+
+    def die(step, params, opt_state, metrics):
+        if step == 1:
+            raise Crash
+
+    full, resumed = [], []
+    train_launcher.main(argv(None), mesh=mesh, on_step=lambda s, p, o, m:
+                        full.append(float(m["loss"])))
+    try:
+        train_launcher.main(argv("run"), mesh=mesh, on_step=die)
+        check(False, "grids checkpoint: the crash did not happen")
+    except Crash:
+        pass
+    if rank == 0:    # the step-1 writer thread outlives the crash
+        deadline = time.perf_counter() + 60
+        while latest_step(os.path.join(root, "run")) != 1 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.01)
+    dist.barrier()
+    train_launcher.main(argv("run"), mesh=other, on_step=lambda s, p, o, m:
+                        resumed.append((s, float(m["loss"]))))
+    out.update(losses=full, resumed=resumed)
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    check(all(at_other) and out.get("restored_unsharded_equal", True),
+          f"grids checkpoint: restored leaves differ: {out}")
+    check([s for s, _ in resumed] == [1, 2] and all(
+        abs(got - full[s]) <= SLICE13_LOSS_RTOL * abs(full[s])
+        for s, got in resumed),
+          f"grids checkpoint: the run restarted at {CKPT_RESTORE_GRID} "
+          f"gave {resumed}, the uninterrupted run {full}")
+    return out
+
+
+def serve_prompts(args, cfg):
+    """Slice 15 (a)'s ChatGLM3-6B prompts (:func:`family_path`'s draw)."""
+    rng = np.random.default_rng(args.seed + 15)
+    return rng.integers(0, cfg.vocab_size,
+                        (SLICE8_BATCH, SLICE15_PROMPT)).astype(np.int32)
+
+
+def grid_serve_want(torch, args, mesh, keep):
+    """Rank 0: ChatGLM3-6B's greedy generation unsharded
+    (:func:`slice15_unsharded`: route (c)'s weights, the dequantized
+    table, which slice 15 (a) holds to route (a)'s tokens), kept for the
+    serving grids."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = configs.full(SLICE15_ARCH)
+    plain = lm.init_params(args.seed, cfg)
+    plain["embed"] = dequantized(torch, plain["embed"])
+    want = slice15_unsharded(torch, {"plain": plain, "cfg": cfg,
+                                     "prompts": serve_prompts(args, cfg)})
+    want["logits"] = [x.cpu() for x in want["logits"]]
+    keep["want"] = want
+    return {"tokens_first_request": want["tokens"][0].tolist()}
+
+
+def grid_serve(torch, args, mesh, keep):
+    """ChatGLM3-6B on a serving grid: the full weights from ``--seed``
+    with the dequantized table, placed by ``sharding.param_shardings``,
+    greedy generation after slice 15's prompts (:func:`slice15_generate`).
+    Rank 0 holds its tokens to the unsharded run's up to a near-tie: a
+    request may part from them only at a step whose unsharded top-two gap
+    is at most SLICE15_TIE_ATOL (bf16 partial sums over the ranks, in
+    another order than one card's matmul); every parting is logged with
+    its gap. The cache and ``wq`` must sit as SERVE_GRIDS names."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, sharding
+    from repro_torch.models import lm
+
+    shape = tuple(mesh.shape)
+    cfg = configs.full(SLICE15_ARCH)
+    params = lm.init_params(args.seed, cfg)
+    params["embed"] = dequantized(torch, params["embed"])
+    params = sharding.distribute(params, mesh, sharding.param_shardings(
+        cfg, mesh, params))
+    _free(torch)
+    res = slice15_generate(torch, params, cfg, serve_prompts(args, cfg),
+                           mesh, SLICE8_NEW)
+    del params
+    logits, got = res.pop("logits"), res.pop("tokens")
+    if dist.get_rank() == 0:
+        want = keep["want"]
+        res["logits_max_abs_diff"] = [
+            float((g.cpu() - w).abs().max())
+            for g, w in zip(logits, want["logits"])]
+        parted = {}
+        for r in range(got.shape[0]):
+            steps = np.flatnonzero(got[r] != want["tokens"][r])
+            if steps.size:
+                parted[r] = (int(steps[0]),
+                             float(want["gaps"][r, steps[0]]))
+        res.update(tokens_equal=not parted, parted_at_step_gap=parted)
+        check(all(gap <= SLICE15_TIE_ATOL for _, gap in parted.values()),
+              f"grids chatglm3 {shape}: greedy tokens part from the "
+              f"unsharded run's where no near-tie lies: {parted}")
+    del logits
+    cache, wq = SERVE_GRIDS[shape]
+    check(res["cache_placed_by_spec"] and res["cache_placements"][1] == cache
+          and res["wq_placements"][1] == wq,
+          f"grids chatglm3 {shape}: not the layout {SERVE_GRIDS[shape]}: "
+          f"{res}")
+    return res
+
+
+def grid_links(torch, args, mesh, keep):
+    """NCCL's all-reduce, all-gather and reduce-scatter alone, each over
+    both axes' groups of ``mesh`` and over the whole world: a call's
+    device ms by CUDA events around it, the ranks set off together by a
+    barrier (the median of 5 after 2 untimed), for LINK_BYTES of output
+    -> the output bytes a second beside the walker's rate (NVLINK_BW,
+    the one every collective of a host is priced at) and the walker's
+    ms for those bytes."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.launch import hlo_analysis
+
+    dev, n = sharding.mesh_device(mesh), LINK_BYTES // 4
+    out = {}
+    for gname, group in (("world", dist.group.WORLD),
+                         ("data", mesh.get_group("data")),
+                         ("model", mesh.get_group("model"))):
+        k = dist.get_world_size(group)
+        dst = torch.ones(n, dtype=torch.float32, device=dev)
+        calls = {
+            "all-reduce": lambda: dist.all_reduce(dst, group=group),
+            "all-gather": lambda: dist.all_gather_into_tensor(
+                dst, src[:n // k], group=group),
+            "reduce-scatter": lambda: dist.reduce_scatter_tensor(
+                dst, src, group=group)}
+        src = torch.ones(n * k, dtype=torch.float32, device=dev)
+        for kind, call in calls.items():
+            for _ in range(2):
+                call()
+            ms = []
+            for _ in range(5):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                call()
+                t1.record()
+                torch.cuda.synchronize()
+                ms.append(t0.elapsed_time(t1))
+            med = sorted(ms)[len(ms) // 2]
+            out[f"{kind} {gname} ({k} ranks)"] = {
+                "ms": med, "output_gb_per_s": LINK_BYTES / med / 1e6,
+                "walker_ms": 1e3 * LINK_BYTES / hlo_analysis.NVLINK_BW}
+        del dst, src
+    return out
+
+
+def grid_units(world: int):
+    """(name, grid or None for rank 0 alone, function) of every unit a
+    world of ``world`` ranks runs, in order: the grids of that size, and
+    on one rank the unsharded sort-dispatch steps they are held to."""
+    units = [(f"qwen {s}", s, grid_qwen) for s in QWEN_GRIDS
+             if math.prod(s) == world]
+    if world == math.prod(LINK_GRID):
+        units.append(("links", LINK_GRID, grid_links))
+    if world == math.prod(CKPT_GRID):
+        units.append(("checkpoint", CKPT_GRID, grid_checkpoint))
+    if world == 1:
+        units.append(("granite sort unsharded", None, grid_sort_unsharded))
+    units += [(f"granite {s}", s, grid_granite) for s in GRANITE_GRIDS
+              if math.prod(s) == world]
+    serve = [s for s in SERVE_GRIDS if math.prod(s) == world]
+    if serve:
+        units.append(("chatglm3 unsharded", None, grid_serve_want))
+    units += [(f"chatglm3 {s}", s, grid_serve) for s in serve]
+    return units
+
+
+def grids_rank(torch, seed, out_dir):
+    """One rank of ``--grids``: every unit of :func:`grid_units` in turn,
+    each on every rank of the world (a unit of no grid on rank 0 alone),
+    a world barrier after each. A failed check is recorded and the rank
+    goes on to the next unit (every check follows the unit's collectives,
+    so the other ranks are not left waiting in one); any other error ends
+    the rank, and :func:`spawn_ranks` then ends the others. After each
+    unit the rank writes what it has to ``out_dir/rank<r>.json``, marked
+    ``done`` after the last."""
+    import torch.distributed as dist
+
+    args = argparse.Namespace(seed=seed)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "card": str(torch.device(
+        MESH_DEVICE, torch.cuda.current_device())), "units": {},
+        "failed": {}}
+    keep = {}
+    units = grid_units(world)
+    for i, (name, shape, fn) in enumerate(units):
+        mesh = grid_mesh(torch, shape) if shape else None
+        if shape or rank == 0:
+            t0 = time.perf_counter()
+            log(f"grids {name}: start")
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                res = fn(torch, args, mesh, keep)
+            except AssertionError as e:
+                out["failed"][name] = str(e)
+                log(f"grids {name}: failed: {e}")
+                res = {}
+            res["seconds"] = time.perf_counter() - t0
+            res.setdefault("peak_gb", torch.cuda.max_memory_allocated() / 1e9)
+            out["units"][name] = res
+            log(f"grids {name}: " + json.dumps(res, default=str))
+        _free(torch)
+        out["done"] = i == len(units) - 1
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        dist.barrier()
+
+
+def grids_losses(units, failed):
+    """Hold each family's grids to its (1, 1) mesh (losses within
+    SLICE13_LOSS_RTOL) and the sort dispatch to the unsharded steps: in
+    bf16 the loss within SLICE13_LOSS_RTOL (its dropped pairs logged), in
+    float32 within SLICE13_STEP0_RTOL relative with equal dropped pairs
+    (a grid's summed over its ranks at model coordinate 0) -> the summary
+    by grid. ``units`` maps a unit's name to its ranks' results, rank 0
+    first."""
+    out = {}
+    for fam, grids in (("qwen", QWEN_GRIDS), ("granite", GRANITE_GRIDS)):
+        base = units.get(f"{fam} (1, 1)", [{}])[0].get("losses")
+        for s in grids:
+            name = f"{fam} {s}"
+            ranks = units.get(name, [])
+            if not ranks or "losses" not in ranks[0]:
+                continue
+            got = ranks[0]["losses"]
+            diff = [abs(a - b) / abs(b) for a, b in zip(got, base or [])]
+            row = {"losses": got, "loss_rel_diff": diff,
+                   "ms_per_step": ranks[0]["ms_per_step"],
+                   "idle_share_rank0": ranks[0]["idle_share"],
+                   "nccl_ms_rank0": ranks[0]["nccl_ms_by_kind"],
+                   "peak_gb_by_rank": [r.get("peak_gb") for r in ranks]}
+            if not base or len(diff) != len(got) or not all(
+                    math.isfinite(x) for x in got) or max(diff) > \
+                    SLICE13_LOSS_RTOL:
+                failed[f"{name} losses"] = (f"{got} against the (1, 1) "
+                                            f"mesh's {base}")
+            if fam == "qwen":
+                row["private_launches_by_rank"] = [
+                    r.get("private_launches") for r in ranks]
+            elif all("sort" in r for r in ranks):
+                row["sort"] = {}
+                for prec, tol, same_drops in (
+                        ("bf16", SLICE13_LOSS_RTOL, False),
+                        ("float32", SLICE13_STEP0_RTOL, True)):
+                    want = units.get("granite sort unsharded",
+                                     [{}])[0].get(prec, {})
+                    sort = [r["sort"][prec] for r in ranks]
+                    drops = sum(x["dropped_pairs"] for x in sort
+                                if x["coordinate"][1] == 0)
+                    ref = want.get("loss", math.nan)
+                    rel = abs(sort[0]["loss"] - ref) / abs(ref)
+                    row["sort"][prec] = {
+                        "loss": sort[0]["loss"], "unsharded_loss": ref,
+                        "loss_rel_diff": rel, "dropped_pairs": drops,
+                        "unsharded_dropped_pairs": want.get("dropped_pairs")}
+                    if not rel <= tol or (same_drops and drops != want.get(
+                            "dropped_pairs")):
+                        failed[f"{name} sort dispatch {prec}"] = json.dumps(
+                            row["sort"][prec])
+            out[name] = row
+    return out
+
+
+def grids_collectives(units):
+    """Each profiled grid's NCCL kernels' device ms by collective on rank
+    0 against the walker's prediction (bytes at NVLINK_BW) by kind and
+    its ``t_collective``, with the ratio measured / predicted."""
+    out = {}
+    for fam, s in PROFILED_GRID.items():
+        unit = units.get(f"{fam} {s}", [{}])[0]
+        if "walk" not in unit:
+            continue
+        got, walk = unit["nccl_ms_by_kind"], unit["walk"]
+        pred = walk["predicted_ms_by_kind"]
+        out[f"{fam} {s}"] = {
+            "measured_ms_by_kind": got, "predicted_ms_by_kind": pred,
+            "ratio_by_kind": {k: got.get(k, 0.0) / v for k, v in pred.items()
+                              if v},
+            "measured_ms": sum(got.values()),
+            "t_collective_ms": walk["t_collective_ms"],
+            "ratio": sum(got.values()) / walk["t_collective_ms"]
+            if walk["t_collective_ms"] else None,
+            "collective_bytes": walk["collective_bytes"],
+            "profiled_step_ms": unit["profiled_step_ms"],
+            "walk_unpriced": walk["unpriced"]}
+        log(f"grids collectives {fam} {s} (measured on rank 0 against the "
+            f"walker) " + json.dumps(out[f"{fam} {s}"]))
+    return out
+
+
+def grids_dispatch(torch, args, cards, failed):
+    """Slice 11 (b) over DISPATCH_CARDS distinct cards (n_model 2: a 1 x 2
+    and a 2 x 2 grid) at ``--tuples``: the answers and ledgers the 1 x 1
+    grid's under strict mode (:func:`slice11_check`), group 0's clouds
+    bit-identical in the isolation steps, and every slice-11 kernel
+    launched on each card of the grid."""
+    from repro_torch.launch.mesh import make_dispatch_mesh
+
+    ks = [k for k in DISPATCH_CARDS if k <= cards]
+    if not ks:
+        return {}
+    rows = make_rows(args.tuples, args.seed)
+    db = employee_db(rows, args.seed)
+    assign, child_db = slice11_child(args, rows, N_ASSIGN)
+    plans, want = slice11_cases(rows, assign, child_db, args.seed)
+    out = {}
+    for k in ks:
+        t0 = time.perf_counter()
+        grid = make_dispatch_mesh(2, devices=[f"cuda:{i}" for i in range(k)])
+        label = f"(b) {k} cards"
+        try:
+            _, by_card = slice11_check(torch, args, db, plans, want, grid,
+                                       label)
+            slice11_isolation(torch, args, db, plans, want, grid, label)
+            missing = {n: sorted(set(range(k)) - set(by_card[n]))
+                       for n in SLICE11_KERNELS
+                       if set(range(k)) - set(by_card[n])}
+            check(not missing, f"slice 11 {label}: kernels launched on no "
+                  f"block of these cards: {missing}")
+            out[label] = {"launches_by_card": by_card}
+        except AssertionError as e:
+            failed[f"slice 11 {label}"] = str(e)
+        log(f"slice 11 {label} took {time.perf_counter() - t0:.1f} s")
+    del db, child_db
+    _free(torch)
+    return out
+
+
+def grids_path(torch, args) -> int:
+    """``--grids``: the production mesh across the cards of one host. For
+    each world size of GRID_WORLDS that the host's cards allow (none on
+    one card), that many ranks spawned through :func:`rank_main` run
+    :func:`grids_rank`'s units; then, in this process, MeshDispatcher
+    over distinct cards (:func:`grids_dispatch`). Phases needing more
+    cards than the host has log that they did not run. Every failure is
+    gathered and the run fails at its end."""
+    import shutil
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    worlds = [w for w in GRID_WORLDS if w <= cards] if cards >= 2 else []
+    log(f"grids: {cards} cards ({smi('name,power.limit')}), worlds of "
+        f"{worlds} ranks")
+    log_grids_not_run(cards)
+    failed, units = {}, {}
+    for world in worlds:
+        t1 = time.perf_counter()
+        out_dir = os.path.join(ROOT, "build", "grids", f"world{world}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        try:
+            spawn_ranks(world, grids_rank, args.seed, out_dir)
+        except Exception as e:               # a rank's error: reported
+            failed[f"world of {world}"] = repr(e)
+        res = []
+        for r in range(world):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    res.append(json.load(f))
+        for r in res:
+            failed.update({f"rank {r['rank']} of {world} {k}": v
+                           for k, v in r["failed"].items()})
+            for name, v in r["units"].items():
+                units.setdefault(name, []).append(v)
+        log(f"grids world of {world} ranks took "
+            f"{time.perf_counter() - t1:.1f} s; every rank ran every unit: "
+            f"{len(res) == world and all(r['done'] for r in res)}; "
+            f"ended: {f'world of {world}' not in failed}")
+    grids = grids_losses(units, failed)
+    log("grids training " + json.dumps(grids))
+    coll = grids_collectives(units)
+    links = units.get("links", [None])[0]
+    log("grids links (each collective alone, rank 0) " + json.dumps(links))
+    serve = {k: v[0] for k, v in units.items() if k.startswith("chatglm3 (")}
+    dispatch = grids_dispatch(torch, args, cards, failed)
+    log("grids summary " + json.dumps({
+        "card": smi("name,power.limit"), "cards": cards, "worlds": worlds,
+        "training": {k: {f: v[f] for f in ("ms_per_step", "loss_rel_diff",
+                                           "peak_gb_by_rank")}
+                     for k, v in grids.items()},
+        "checkpoint": units.get("checkpoint", [None])[0],
+        "serving": {k: {f: v.get(f) for f in (
+            "decode_ms_per_step", "tokens_equal", "parted_at_step_gap",
+            "cache_placements", "peak_gb")} for k, v in serve.items()},
+        "collectives_ratio": {k: v["ratio"] for k, v in coll.items()},
+        "links_gb_per_s": {k: v["output_gb_per_s"] for k, v in (
+            links or {}).items() if isinstance(v, dict)},
+        "dispatch": list(dispatch), "failed": failed,
+        "seconds": time.perf_counter() - t0}, default=str))
+    check(not failed, f"--grids: {len(failed)} checks failed: "
+          + json.dumps(failed, default=str))
+    return 0
 
 
 #: vocabularies of the families whose lookups phase 4 re-times:
@@ -5537,10 +6212,13 @@ def main() -> int:
                          "slice 13 (the production-mesh path), slice 14 "
                          "(the MoE family on it) and slice 15 (serving on "
                          "it), and print their summaries")
-    ap.add_argument("--serve-grid", action="store_true",
-                    help="only build the kernels and run slice 15's "
-                         "unsharded ChatGLM3-6B generation and its (1, 4) "
-                         "grid of NCCL ranks (4 or more cards)")
+    ap.add_argument("--grids", action="store_true",
+                    help="only build the kernels and run the multi-card "
+                         "phases: the production mesh's training, "
+                         "checkpoints and serving on NCCL ranks over 2 and "
+                         "4 cards, the collectives against the walker, and "
+                         "MeshDispatcher over distinct cards (a host with 4 "
+                         "or more cards runs them all)")
     ap.add_argument("--decode-times", metavar="SRC",
                     help="only time prefill and decode steps and count a "
                          "decode step's aten calls for slices 7, 8 and 9's "
@@ -5586,8 +6264,13 @@ def main() -> int:
                                  "ss_matmul", "ss_matmul_tall",
                                  "ripple_segment", "ripple_carry",
                                  "share_onehot")}
-    if args.serve_grid:
-        return slice15_grid_only(torch, args)
+    if args.grids:
+        grids_path(torch, args)
+        print(smi("name,power.limit"), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.mesh_only:
         t1 = train_t1(torch, args, train_cfg(torch))
         _free(torch)
@@ -5697,6 +6380,7 @@ def main() -> int:
     log("slice-15 path: full ChatGLM3-6B and Gemma3-1B generate the same "
         "tokens privately and in plaintext, and ChatGLM3-6B the same on a "
         "(1, 1) NCCL mesh")
+    log_grids_not_run(torch.cuda.device_count(), default_run=True)
     for entry in kernels:
         name = entry["name"].split("[")[0]
         entry["launches"] += sum(p.get(name, 0) for p in (

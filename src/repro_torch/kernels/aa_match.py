@@ -33,6 +33,7 @@ the kernels against them on the card.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import Dict, List, NamedTuple, Sequence, Tuple
@@ -57,10 +58,10 @@ _MAX_SMEM_BYTES = 232448
 _STAGE_BYTES = 72 * 1024
 _MAX_TILE_ROWS = 128
 
-#: match and slide kernel launches since the last reset (read by
-#: chip_smoke.py).
-launches = 0
-slide_launches = 0
+#: match and slide kernel launches since the last reset, by (counter
+#: name, CUDA device index): a grid of cards launches on each of them
+#: (read through ops.launch_counts and ops.card_launch_counts).
+card_launches: Dict[Tuple[str, int], int] = collections.Counter()
 #: kernels launch from pool and MapReduce threads too: += is not atomic
 _count_lock = threading.Lock()
 
@@ -279,7 +280,6 @@ def _launch(src: torch.Tensor, offsets: Sequence[int],
     """Launch the match (``k = 0``: a (W, A) pattern per row, output
     (c, B, height)) or the slide (a (k, A) tile, output
     (c, B, height, W − k + 1))."""
-    global launches, slide_launches
     c, nb = src.shape[0], len(offsets)
     if src.dtype != DTYPE or pat.dtype != DTYPE:
         raise TypeError("aa_match kernels take int32 field tensors")
@@ -310,10 +310,8 @@ def _launch(src: torch.Tensor, offsets: Sequence[int],
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     with _count_lock:
-        if k:
-            slide_launches += 1
-        else:
-            launches += 1
+        card_launches[("aa_slide_batch" if k else "aa_match_batch",
+                       dev.index)] += 1
     return out
 
 

@@ -218,27 +218,32 @@ def share_onehot(tokens: torch.Tensor, a1: torch.Tensor, *,
     return _ssm.share_onehot_cuda(tokens, a1, n_shares=n_shares)
 
 
+#: every kernel's counter name, as :func:`launch_counts` keys them
+KERNELS = ("aa_match_batch", "aa_slide_batch", "ss_matmul", "ss_matmul_tall",
+           "share_onehot", "ripple_segment", "ripple_carry")
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`
     (``ss_matmul`` counts the general kernel, ``ss_matmul_tall`` the
     tall-skinny one; ``ripple_carry`` counts the ripple kernel's k = 1
     launches, ``ripple_segment`` its k >= 2 launches)."""
-    return {"aa_match_batch": _aa.launches,
-            "aa_slide_batch": _aa.slide_launches,
-            "ss_matmul": _ssm.launches, "ss_matmul_tall": _ssm.tall_launches,
-            "share_onehot": _ssm.share_onehot_launches,
-            "ripple_segment": _rip.launches,
-            "ripple_carry": _rip.carry_launches}
+    return {k: sum(v.values()) for k, v in card_launch_counts().items()}
+
+
+def card_launch_counts() -> Dict[str, Dict[int, int]]:
+    """:func:`launch_counts` by card: ``{kernel: {CUDA device index:
+    launches}}`` since the last :func:`reset_launch_counts`."""
+    out: Dict[str, Dict[int, int]] = {k: {} for k in KERNELS}
+    for mod in (_aa, _ssm, _rip):
+        for (name, card), n in list(mod.card_launches.items()):
+            out[name][card] = n
+    return out
 
 
 def reset_launch_counts() -> None:
-    _aa.launches = 0
-    _aa.slide_launches = 0
-    _ssm.launches = 0
-    _ssm.tall_launches = 0
-    _ssm.share_onehot_launches = 0
-    _rip.launches = 0
-    _rip.carry_launches = 0
+    for mod in (_aa, _ssm, _rip):
+        mod.card_launches.clear()
     _rip.route_launches = dict.fromkeys(_rip.ROUTES, 0)
     _ssm.onehot_route_launches = dict.fromkeys(_ssm.ONEHOT_ROUTES, 0)
 

@@ -30,6 +30,7 @@ comes back.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
@@ -41,13 +42,13 @@ from ..core import field
 from ..core.field import DTYPE, P
 from . import _build
 
-#: launches at k >= 2 (``ripple_segment``) and at k = 1 (the
-#: ``ripple_carry`` form) since the last reset (read by chip_smoke.py).
-launches = 0
-carry_launches = 0
-#: the same launches by route (ROUTES), since the last reset.
+#: the launches by route (ROUTES), since the last reset.
 ROUTES = ("bit_major", "strided")
 route_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+#: launches at k >= 2 (``ripple_segment``) and at k = 1 (the
+#: ``ripple_carry`` form) since the last reset, by (counter name, CUDA
+#: device index): a grid of cards launches on each of them.
+card_launches: Dict[Tuple[str, int], int] = collections.Counter()
 #: kernels launch from pool and MapReduce threads too: += is not atomic
 _count_lock = threading.Lock()
 
@@ -252,7 +253,6 @@ def ripple_segment_cuda(a: torch.Tensor, b: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel (see :func:`ripple_segment_plain`) on the route that
     :func:`plan` picks; zero lanes return without a launch."""
-    global launches, carry_launches
     ops = [a, b] + ([] if carry is None else [carry])
     if any(t.dtype != DTYPE for t in ops):
         raise TypeError("ripple kernel takes int32 field tensors")
@@ -287,9 +287,7 @@ def ripple_segment_cuda(a: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ripple kernel launch failed: CUDA error {err}")
     with _count_lock:
-        if k == 1:
-            carry_launches += 1
-        else:
-            launches += 1
         route_launches[pl.route] += 1
+        card_launches[("ripple_carry" if k == 1 else "ripple_segment",
+                       a.device.index)] += 1
     return rb, co

@@ -22,6 +22,7 @@ The pure-Python :func:`onehot_plan` picks the kernel's route: ``quad``
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import Dict, Sequence, Tuple
@@ -51,14 +52,13 @@ K_CHUNK = 8192
 TALL_MAX_M = 256
 TALL_MIN_K = 1024
 
-#: general, tall and share_onehot kernel launches since the last reset
-#: (read by chip_smoke.py).
-launches = 0
-tall_launches = 0
-share_onehot_launches = 0
 #: the share_onehot launches by route (ONEHOT_ROUTES), since the last reset.
 ONEHOT_ROUTES = ("quad", "word")
 onehot_route_launches: Dict[str, int] = dict.fromkeys(ONEHOT_ROUTES, 0)
+#: general, tall and share_onehot kernel launches since the last reset,
+#: by (counter name, CUDA device index): a grid of cards launches on each
+#: of them.
+card_launches: Dict[Tuple[str, int], int] = collections.Counter()
 #: kernels launch from pool and MapReduce threads too: += is not atomic
 _count_lock = threading.Lock()
 
@@ -177,26 +177,24 @@ def _run(name, a, b, batch, m, k, n, out) -> None:
 def ss_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The general CUDA kernel; M = 0, N = 0 or K = 0 return without a
     launch."""
-    global launches
     a, b, batch, m, k, n, out, live = _prepare(a, b)
     if live:
         _run("ss_matmul_u32", a, b, batch, m, k, n, out)
         with _count_lock:
-            launches += 1
+            card_launches[("ss_matmul", a.device.index)] += 1
     return out
 
 
 def ss_matmul_tall_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The tall-skinny entry (M <= 256 rows): the same tensor-core body,
     counted apart; M = 0, N = 0 or K = 0 return without a launch."""
-    global tall_launches
     a, b, batch, m, k, n, out, live = _prepare(a, b)
     if m > TALL_MAX_M:
         raise ValueError(f"the tall kernel takes M <= {TALL_MAX_M}, got {m}")
     if live:
         _run("ss_matmul_tall_u32", a, b, batch, m, k, n, out)
         with _count_lock:
-            tall_launches += 1
+            card_launches[("ss_matmul_tall", a.device.index)] += 1
     return out
 
 
@@ -271,7 +269,6 @@ def share_onehot_cuda(tokens: torch.Tensor, a1: torch.Tensor, *,
     ``a1`` and the tokens are read through their strides and int64 ids are
     range-tested in the kernel, so int64 tokens cost one device kernel;
     int32 ones are widened first."""
-    global share_onehot_launches
     m, v = _check_onehot(tokens, a1, n_shares)
     if max(m, v, n_shares) >= 2**31:
         raise ValueError("share_onehot kernel dims must fit int32")
@@ -290,6 +287,6 @@ def share_onehot_cuda(tokens: torch.Tensor, a1: torch.Tensor, *,
         raise RuntimeError(f"share_onehot kernel launch failed: CUDA error "
                            f"{err}")
     with _count_lock:
-        share_onehot_launches += 1
         onehot_route_launches[route] += 1
+        card_launches[("share_onehot", a1.device.index)] += 1
     return out

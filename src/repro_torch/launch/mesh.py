@@ -56,7 +56,10 @@ def init_ranks(backend: Optional[str] = None, device=None) -> torch.device:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
-        dist.init_process_group(backend)
+        # NCCL binds the group to this rank's card, so its barriers and
+        # communicators need not guess a device from the rank number
+        dist.init_process_group(
+            backend, device_id=dev if dev.type == "cuda" else None)
     elif dist.get_backend() != backend:
         raise RuntimeError(f"the process group runs {dist.get_backend()}, "
                            f"not {backend}")

@@ -75,10 +75,14 @@ def main(argv=None, *, mesh=None, on_step: Optional[Callable] = None
     every step."""
     args = parse_args(argv)
     cfg = configs.smoke(args.arch) if args.smoke else configs.full(args.arch)
+    started = False                   # did this call start the ranks?
     if args.production_mesh:
         if mesh is not None:
             raise ValueError("pass a mesh or --production-mesh, not both")
+        import torch.distributed as dist
+
         from .mesh import init_ranks, make_production_mesh
+        started = not dist.is_initialized()
         dev = init_ranks(device=args.device)
         mesh = make_production_mesh(device_type=dev.type)
     elif mesh is not None:
@@ -147,6 +151,9 @@ def main(argv=None, *, mesh=None, on_step: Optional[Callable] = None
     if lead:
         print(json.dumps({"final_loss": final_loss,
                           "steps": args.steps - start_step}), flush=True)
+    if started:           # the process group this call started ends here
+        dist.barrier()
+        dist.destroy_process_group()
     return final_loss
 
 

@@ -777,7 +777,9 @@ def test_kernels_launch_on_their_operands_card(two_cards):
     ops.reset_launch_counts()
     with torch.cuda.device(home):
         a, b = _field((3, 300, 700), 1, other), _field((3, 700, 90), 2, other)
-        t = _field((3, 8, 700), 3, other)
+        # K >= 1024 and >= 8·max(M, N): the tall entry
+        t, tb = _field((3, 8, 1100), 3, other), _field((3, 1100, 90), 11,
+                                                        other)
         col = _field((3, 2, 257, 8, 69), 4, other)
         pat, tile = _field((3, 2, 8, 69), 5, other), _field((3, 2, 3, 69), 6,
                                                             other)
@@ -790,7 +792,7 @@ def test_kernels_launch_on_their_operands_card(two_cards):
                     height=257)
         cases = [
             (ops.ss_matmul(a, b), ss_matmul.ss_matmul_plain(a, b)),
-            (ops.ss_matmul(t, b), ss_matmul.ss_matmul_plain(t, b)),
+            (ops.ss_matmul(t, tb), ss_matmul.ss_matmul_plain(t, tb)),
             (ops.aa_match_batch(col, pat),
              aa_match.aa_match_batch_plain(col, pat)),
             (ops.aa_match_rows(rel, pat=pat, **rows),
@@ -809,6 +811,7 @@ def test_kernels_launch_on_their_operands_card(two_cards):
         assert got.device == other
         assert torch.equal(got, want)
     assert all(v > 0 for v in ops.launch_counts().values())
+    assert all(set(c) == {1} for c in ops.card_launch_counts().values())
 
 
 def test_mesh_dispatcher_on_two_cards_equals_serial(two_cards):
@@ -832,6 +835,149 @@ def test_mesh_dispatcher_on_two_cards_equals_serial(two_cards):
                                                   a.addresses)
         assert b.ledger.as_dict() == a.ledger.as_dict()
     assert mesh.cross_group_bytes() == 0
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def test_mesh_dispatcher_on_four_cards_equals_serial(four_cards):
+    """A 2 x 2 grid of four distinct cards (tuple shards over ``data``,
+    cloud groups over ``model``) in strict mode: the rows and ledgers are
+    the serial dispatcher's, no byte goes from one cloud group's card to
+    the other's, and every kernel the serial run launches launches on
+    each of the four cards."""
+    from repro_torch import api
+    from repro_torch.launch.mesh import make_dispatch_mesh
+    home = four_cards[0]
+    db = _serve_db(home)
+    serial = api.QueryClient(db, 4, device=home)
+    serial.attach(shards=2)
+    ops.reset_launch_counts()
+    want = serial.run_batch(_serve_plans())
+    ran = {k for k, v in ops.launch_counts().items() if v}
+    mesh = api.MeshDispatcher(make_dispatch_mesh(2, devices=four_cards),
+                              strict_transfers=True)
+    client = api.QueryClient(db, 4, device=home)
+    client.attach(shards=2, dispatcher=mesh)
+    ops.reset_launch_counts()
+    got = client.run_batch(_serve_plans())
+    torch.cuda.synchronize()
+    by_card = ops.card_launch_counts()
+    for a, b in zip(want, got):
+        assert (b.count, b.rows, b.addresses) == (a.count, a.rows,
+                                                  a.addresses)
+        assert b.ledger.as_dict() == a.ledger.as_dict()
+    assert mesh.cross_group_bytes() == 0
+    assert ran
+    for name in ran:
+        assert sorted(by_card[name]) == [0, 1, 2, 3], (name, by_card)
+
+
+def _nccl_rank(rank, world, port, root):
+    """A rank started as ``torchrun`` starts one, through the port's
+    ``init_ranks``: its card, the group's bound device, an all-reduce and
+    a barrier on the cards."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    try:
+        dev = init_ranks()
+        x = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(x)
+        dist.barrier()
+        out = {"device": str(dev), "current": torch.cuda.current_device(),
+               "bound": str(dist.group.WORLD.bound_device_id),
+               "sum": x.tolist(), "on": str(x.device)}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def test_init_ranks_binds_each_nccl_rank_to_its_card(two_cards, tmp_path):
+    """Two NCCL ranks from ``torchrun``'s environment through
+    ``init_ranks``: each on ``cuda:LOCAL_RANK``, made current and bound to
+    the process group (so NCCL's barrier need not guess a card); an
+    all-reduce and a barrier across the two cards."""
+    import json
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_nccl_rank, args=(2, port, str(tmp_path)), nprocs=2, join=True)
+    for r in range(2):
+        out = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert out["device"] == out["bound"] == out["on"] == f"cuda:{r}"
+        assert out["current"] == r
+        assert out["sum"] == [3.0] * 4
+
+
+def _mesh_rank(rank, world, port, root):
+    """A rank started as ``torchrun`` starts one, through the port's
+    ``init_ranks``, then ``make_mesh`` (2, 2) and (1, 4) over the world
+    (each splits its groups from the world's communicator), an all-reduce
+    over each mesh dim, the process group torn down and a normal exit."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    dev = init_ranks()
+    sums = {}
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_mesh(shape, ("data", "model"))
+        for dim, name in enumerate(mesh.mesh_dim_names):
+            x = torch.ones(2, device=dev)
+            dist.all_reduce(x, group=mesh.get_group(dim))
+            sums[f"{shape} {name}"] = x.tolist()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(sums, f)
+
+
+def test_ranks_end_after_meshes_on_four_cards(four_cards, tmp_path):
+    """The port's ranks on four cards, as ``torchrun`` then ``init_ranks``
+    then ``make_mesh`` start them: every all-reduce sums over its mesh
+    dim's group, and every rank tears its process group down and ends
+    within 120 s."""
+    import json
+    import socket
+    import time
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(_mesh_rank, args=(4, port, str(tmp_path)),
+                             nprocs=4, join=False, start_method="spawn")
+    end = time.perf_counter() + 120
+    while not ctx.join(timeout=1):
+        if time.perf_counter() > end:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail("the ranks did not end within 120 s")
+    for r in range(4):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert got == {"(2, 2) data": [2.0] * 2, "(2, 2) model": [2.0] * 2,
+                       "(1, 4) data": [1.0] * 2, "(1, 4) model": [4.0] * 2}
 
 
 # ---------------------------------------------------------------------------
