@@ -276,24 +276,30 @@ t1's shapes (4 x 512, 3 steps of ``launch.train.main(mesh=)``) on (1, 1),
 (1, 2), (2, 1) and (2, 2): losses within 2e-3 of (1, 1)'s, and one
 private-embedding step a grid with one ``share_onehot`` and one
 ``ss_matmul`` on each rank's card, each equal to its plain version, the
-opened rows the unsharded lookup's. Checkpoints: the smoke configuration's
-parameters and AdamW state saved at (2, 2), restored at (1, 4) and
-unsharded bit for bit, and a run killed after a save at (2, 2) restarted
-at (1, 4) within 2e-3 of the uninterrupted losses. Granite-3.0-3B-A800M
+opened rows the unsharded lookup's. Checkpoints: a full Qwen1.5-4B run
+at (2, 2) killed after its step-1 checkpoint (39.5 GB of parameters and
+AdamW moments), restored at (1, 4) and unsharded bit for bit against
+what the run held, and restarted at (1, 4) within 2e-3 of the
+uninterrupted losses. Granite-3.0-3B-A800M
 on (1, 1), (1, 2), (2, 1), (1, 4) and (2, 2): 3 einsum-dispatch steps
 within 2e-3 of (1, 1)'s, one sort-dispatch step at capacity 1.25 in bf16
-within 2e-3 of the unsharded step's and, at full width in float32 on 16
-of its 32 layers, within 1e-6 with the unsharded forward's dropped
-pairs. ChatGLM3-6B served on
-(1, 4) and (2, 2): tokens equal to the unsharded run's up to near-ties,
-the cache and ``wq`` placed as each grid splits them. One step of Qwen at
-(2, 2) and of Granite at (1, 4) profiled: NCCL's kernels' device ms by
-collective beside the cost walker's bytes and ``t_collective`` for the
-same step. ``MeshDispatcher`` (slice 11 (b)) over 2 and 4 distinct cards
-in strict mode, equal to the 1 x 1 grid, group 0's clouds unmoved, every
-kernel launched on each card. Logs ms a step, each rank's peak and rank
-0's idle share; every failed check is gathered and fails the run at its
-end.
+within 2e-3 of the unsharded step's and, at full width in float32,
+within 1e-6 with equal dropped pairs: on 16 of its 32 layers against the
+unsharded step at (1, 2), (2, 1) and (4, 1), on all 32 at (1, 4) and
+(2, 2) against (4, 1). Every family at its full width
+(``FAMILY_SERVE``, ChatGLM3-6B among them) on (1, 4) with one request
+and on (2, 2) with four, the first decode step private: tokens
+equal to the unsharded run's up to near-ties, the cache placed as each
+grid splits it, one ``share_onehot`` and one ``ss_matmul`` on each
+rank's card with the table's rows opened bit for bit. One step of Qwen
+at (2, 2) and of Granite at (1, 4) profiled: NCCL's kernels' device ms
+by collective beside the cost walker's bytes and ``t_collective`` for
+the same step; each collective alone beside the walker's time for it
+(logged, with their ratio). ``MeshDispatcher`` (slice 11 (b)) over 2 and 4 distinct
+cards in strict mode, equal to the 1 x 1 grid, group 0's clouds
+unmoved, every kernel launched on each card. Logs ms a step or a decode
+step, each rank's peak and rank 0's idle share; every failed check is
+gathered and fails the run at its end.
 
 Prints the kernels JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
@@ -4267,8 +4273,10 @@ def slice15_path(torch, args, errs):
 GRID_WORLDS = (1, 2, 4)
 GRID_AXES = ("data", "model")
 #: a world's ranks must end, their process group torn down, within this
-#: many seconds of their start
-WORLD_DEADLINE_S = 300
+#: many seconds of their start, by world size (the world of four serves
+#: every family of FAMILY_SERVE on two grids and checkpoints the full
+#: Qwen1.5-4B)
+WORLD_DEADLINE_S = {1: 300, 2: 300, 4: 1500}
 #: the grids of each phase. Qwen1.5-4B trains at t1's shapes, and its
 #: private-embedding step runs on each grid; Granite-3.0-3B-A800M's 40
 #: experts split 20 a rank at (1, 2), 10 at (1, 4) and (2, 2), and stay
@@ -4285,23 +4293,30 @@ LINK_GRID, LINK_BYTES = (2, 2), 1 << 28
 #: unsharded on one card); a run killed after a save at CKPT_GRID
 #: restarts at CKPT_RESTORE_GRID
 CKPT_GRID, CKPT_RESTORE_GRID = (2, 2), (1, 4)
-#: serving ChatGLM3-6B: each grid's (cache, wq) placements on ``model``.
-#: At (1, 4) the 32 query heads split and the 2 KV heads do not, so the
-#: cache splits on its sequence (dim 2 of (L, B, T, Hkv, hd)); at (2, 2)
-#: one KV head a model rank, the cache split on its heads (dim 3), the 4
-#: requests split over ``data``
-SERVE_GRIDS = {(1, 4): ("Shard(dim=2)", "Shard(dim=2)"),
-               (2, 2): ("Shard(dim=3)", "Shard(dim=2)")}
+#: seconds the killed run's step-1 checkpoint may take to be written
+#: (39.5 GB at the full Qwen1.5-4B configuration: bf16 parameters and
+#: float32 moments); the restarted run checkpoints every CKPT_NEVER
+#: steps, so only at its end
+CKPT_WAIT_S, CKPT_NEVER = 300, 1000
+#: the free disk the checkpoint unit needs before it starts: the killed
+#: run's step-1 checkpoint and the restarted run's last one, 39.5 GB
+#: each, with room to spare
+CKPT_MIN_FREE_GB = 85
 #: the sort dispatch held exactly across grids: Granite's full width in
-#: float32 on SORT_EXACT_LAYERS of its 32 layers (the unsharded reference
-#: step runs on one card: float32 weights, gradients and moments of all
-#: 32 layers with their activations would need about 85 GB). In bf16 a
+#: float32 on SORT_EXACT_LAYERS of its 32 layers against the unsharded
+#: step (which runs on one card: float32 weights, gradients and moments of
+#: all 32 layers with their activations would need about 85 GB). In bf16 a
 #: grid's partial sums round otherwise than one card's and the router then
 #: picks other experts at near-ties: the full bf16 step is held to
 #: SLICE13_LOSS_RTOL and its dropped pairs logged (at the smoke
 #: configuration on 4 gloo ranks, bf16 dropped 9 pairs to one card's 10,
-#: float32 the same 9 at an equal loss)
-SORT_EXACT_LAYERS = 16
+#: float32 the same 9 at an equal loss). The grids of SORT_FULL_GRIDS run
+#: all SORT_FULL_LAYERS in float32, held to SORT_BRIDGE_GRID, which splits
+#: only the batch (every expert whole on each rank, a quarter of the
+#: activations) and is itself held to the unsharded step at
+#: SORT_EXACT_LAYERS
+SORT_EXACT_LAYERS, SORT_FULL_LAYERS = 16, 32
+SORT_FULL_GRIDS, SORT_BRIDGE_GRID = ((1, 4), (2, 2)), (4, 1)
 #: MeshDispatcher (slice 11 (b)) over this many distinct cards at n_model
 #: 2: a 1 x 2 and a 2 x 2 grid
 DISPATCH_CARDS = (2, 4)
@@ -4345,12 +4360,14 @@ def rank_main(rank, world, port, device_type, fn, fn_args):
     dist.destroy_process_group()
 
 
-def spawn_ranks(world, fn, *fn_args, deadline_s=WORLD_DEADLINE_S):
+def spawn_ranks(world, fn, *fn_args, deadline_s=None):
     """``world`` ranks on a free localhost port, each :func:`rank_main`
     on MESH_DEVICE. Raises if a rank fails (the others are ended) or if
     the ranks have not all ended within ``deadline_s`` (all are then
     killed), so no rank outlives the call."""
     import torch.multiprocessing as mp
+    if deadline_s is None:
+        deadline_s = WORLD_DEADLINE_S[world]
     ctx = mp.start_processes(rank_main, args=(world, free_port(),
                                               MESH_DEVICE, fn, fn_args),
                              nprocs=world, join=False, start_method="spawn")
@@ -4370,7 +4387,11 @@ def grid_phases():
     out += [("granite-3.0-3b-a800m training", s, math.prod(s))
             for s in GRANITE_GRIDS]
     out += [("checkpoint", f"{CKPT_GRID} -> {CKPT_RESTORE_GRID}", 4)]
-    out += [("chatglm3-6b serving", s, math.prod(s)) for s in SERVE_GRIDS]
+    out += [(f"{arch} serving, batch {b}", s, math.prod(s))
+            for arch, *_ in FAMILY_SERVE for s, b in FAMILY_GRIDS]
+    out += [(f"granite-3.0-3b-a800m float32 sort step, {SORT_FULL_LAYERS} "
+             "layers", s, math.prod(s))
+            for s in (SORT_BRIDGE_GRID,) + SORT_FULL_GRIDS]
     out += [(f"collectives against the walker, {k}", s, math.prod(s))
             for k, s in PROFILED_GRID.items()]
     out += [("MeshDispatcher slice 11 (b)", f"{k} cards", k)
@@ -4480,8 +4501,8 @@ def grid_walk(torch, args, cfg, mesh, steps):
     ``cfg`` on ``mesh`` as ``launch.train.main(mesh=)`` takes it (fresh
     weights from ``--seed``, step 0 run first, unwalked) -> this rank's
     collective output bytes by kind (``hlo_analysis.collective_bytes``),
-    link bytes, and ``t_collective`` at the Roofline's link rates, also by
-    kind at NVLINK_BW (every rank of a grid on one host)."""
+    link bytes, and ``t_collective`` (each collective's bus bytes for its
+    kind and group size at the kind's bus rate), also by kind."""
     from repro_torch import sharding
     from repro_torch.data import make_lm_batches
     from repro_torch.data.pipeline import to_device
@@ -4518,8 +4539,8 @@ def grid_walk(torch, args, cfg, mesh, steps):
     return {"collective_bytes": kinds, "link_bytes": dict(cost.collectives),
             "t_collective_ms": 1e3 * roof.t_collective,
             "predicted_ms_by_kind": {
-                k: 1e3 * kinds[k] / hlo_analysis.NVLINK_BW
-                for k in hlo_analysis.COLLECTIVES if kinds[k]},
+                k: 1e3 * v for k, v in hlo_analysis.seconds_by_kind(
+                    cost.collective_groups).items()},
             "t_compute_ms": 1e3 * roof.t_compute,
             "t_memory_ms": 1e3 * roof.t_memory,
             "unpriced": dict(cost.unpriced), "walk_s": walk_s}
@@ -4533,6 +4554,7 @@ def grid_qwen(torch, args, mesh, keep):
     version, the opened rows the unsharded lookup's)."""
     shape = tuple(mesh.shape)
     out = mesh_train(torch, slice13_argv(args, SLICE13_STEPS), mesh)
+    keep[f"qwen {shape} losses"] = out["losses"]
     if shape == PROFILED_GRID["qwen"]:
         out["walk"] = grid_walk(torch, args, train_cfg(torch), mesh,
                                 SLICE13_STEPS)
@@ -4543,16 +4565,18 @@ def grid_qwen(torch, args, mesh, keep):
     return out
 
 
-def sort_steps(torch, args, mesh=None):
+def sort_steps(torch, args, mesh=None, exact=None, bf16=True):
     """:func:`sort_step` of the full Granite-3.0-3B-A800M configuration
-    (``bf16``) and of its full width in float32 on SORT_EXACT_LAYERS
-    layers (``float32``), unsharded or on ``mesh``."""
+    (``bf16``, unless ``bf16`` is False) and of its full width in float32
+    on each number of layers of ``exact`` (``float32 <layers>``; default
+    SORT_EXACT_LAYERS), unsharded or on ``mesh``."""
     import dataclasses
     cfg = slice14_cfg(torch)
-    exact = dataclasses.replace(cfg, dtype="float32",
-                                n_layers=SORT_EXACT_LAYERS)
-    return {"bf16": sort_step(torch, args, cfg, mesh),
-            "float32": sort_step(torch, args, exact, mesh)}
+    out = {"bf16": sort_step(torch, args, cfg, mesh)} if bf16 else {}
+    for n in exact or (SORT_EXACT_LAYERS,):
+        out[f"float32 {n}"] = sort_step(torch, args, dataclasses.replace(
+            cfg, dtype="float32", n_layers=n), mesh)
+    return out
 
 
 def grid_granite(torch, args, mesh, keep):
@@ -4564,8 +4588,17 @@ def grid_granite(torch, args, mesh, keep):
     if shape == PROFILED_GRID["granite"]:
         out["walk"] = grid_walk(torch, args, slice14_cfg(torch), mesh,
                                 SLICE14_STEPS)
-    out["sort"] = sort_steps(torch, args, mesh)
+    out["sort"] = sort_steps(torch, args, mesh, exact=(
+        SORT_FULL_LAYERS if shape in SORT_FULL_GRIDS else SORT_EXACT_LAYERS,))
     return out
+
+
+def grid_sort_bridge(torch, args, mesh, keep):
+    """SORT_BRIDGE_GRID: the float32 sort step at SORT_EXACT_LAYERS (held
+    to the unsharded step) and at SORT_FULL_LAYERS (the grids of
+    SORT_FULL_GRIDS are held to it)."""
+    return {"sort": sort_steps(torch, args, mesh, bf16=False, exact=(
+        SORT_EXACT_LAYERS, SORT_FULL_LAYERS))}
 
 
 def grid_sort_unsharded(torch, args, mesh, keep):
@@ -4574,95 +4607,135 @@ def grid_sort_unsharded(torch, args, mesh, keep):
 
 
 def grid_checkpoint(torch, args, mesh, keep):
-    """Checkpoints across cards, on the smoke configuration (as slice 13):
-    the parameters and AdamW state at CKPT_GRID saved, restored at
-    CKPT_RESTORE_GRID and, on rank 0, unsharded on its card, every leaf
-    bit for bit; then a ``launch.train.main`` run at CKPT_GRID killed
-    after step 1 (its step-1 checkpoint written), restarted at
-    CKPT_RESTORE_GRID, gives an uninterrupted run's losses of steps 1 and
-    2 within SLICE13_LOSS_RTOL."""
+    """Checkpoints across cards at the full Qwen1.5-4B configuration
+    (slice 10's, t1's shapes). A ``launch.train.main`` run at CKPT_GRID
+    writing a checkpoint every step is killed after step 1, its step-1
+    checkpoint written: the parameters and AdamW moments after step 0,
+    which rank 0 also gathers to its host leaf by leaf as the run held
+    them. The checkpoint restores at CKPT_RESTORE_GRID and, on rank 0,
+    unsharded on its card, every leaf bit for bit; the run restarted at
+    CKPT_RESTORE_GRID from it gives the uninterrupted run's losses of
+    steps 1 and 2 (:func:`grid_qwen`'s at CKPT_GRID) within
+    SLICE13_LOSS_RTOL. Logs the checkpoint's bytes and its disk's use
+    (``shutil.disk_usage``) before, at the checkpoint and at the end."""
     import shutil
 
     import torch.distributed as dist
 
-    from repro_torch import _tree, configs, sharding
-    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
-                                        save_checkpoint)
+    from repro_torch import _tree, sharding
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
     from repro_torch.launch import train as train_launcher
-    from repro_torch.models import lm
-    from repro_torch.train import init_state
     from repro_torch.train.optim import AdamWState
 
     rank = dist.get_rank()
     root = os.path.join(ROOT, "build", "grids_ckpt")
+    run = os.path.join(root, "run")
     if rank == 0:
         shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
     dist.barrier()
-    cfg = configs.smoke(TRAIN_ARCH)
-    params = lm.init_params(args.seed, cfg)
-    params = sharding.distribute(params, mesh, sharding.param_shardings(
-        cfg, mesh, params))
-    state = init_state(params)
-    state.m["final_norm"].to_local().add_(1.5)    # not all zeros
-    tree = (params, state)
-    whole = [t.full_tensor().clone() for t in _tree.leaves(tree)]
-    save_checkpoint(os.path.join(root, "tree"), 1, tree)
-    dist.barrier()                       # rank 0's writes are done
-    other = grid_mesh(torch, CKPT_RESTORE_GRID)
-    plain = lm.init_params(args.seed, cfg)
-    p_sh = sharding.param_shardings(cfg, other, plain)
-    o_sh = AdamWState(step=sharding.NamedSharding(other, sharding.REP),
-                      m=p_sh, v=p_sh)
-    _, again = restore_checkpoint(os.path.join(root, "tree"), tree,
-                                  shardings=(p_sh, o_sh))
-    at_other = [type(a).__name__ == "DTensor" and a.device_mesh is other
-                and torch.equal(a.full_tensor(), b)
-                for a, b in zip(_tree.leaves(again), whole)]
-    out = {"leaves": len(whole), "restored_at_grid_equal": all(at_other)}
-    if rank == 0:
-        _, back = restore_checkpoint(os.path.join(root, "tree"),
-                                     (plain, init_state(plain)),
-                                     device=plain["embed"].device)
-        out["restored_unsharded_equal"] = all(
-            torch.equal(a, b) for a, b in zip(_tree.leaves(back), whole))
-    del tree, params, state, again, whole
-    dist.barrier()
+
+    def disk():
+        u = shutil.disk_usage(root)
+        return {"total_gb": u.total / 1e9, "used_gb": u.used / 1e9,
+                "free_gb": u.free / 1e9}
+
+    out = {"disk_before": disk()}
+    check(out["disk_before"]["free_gb"] >= CKPT_MIN_FREE_GB,
+          f"grids checkpoint: {out['disk_before']} free, "
+          f"{CKPT_MIN_FREE_GB} GB wanted for two checkpoints")
+    held, tree = [], {}
 
     class Crash(Exception):
         pass
 
-    def argv(ckpt):
-        return (["--arch", TRAIN_ARCH, "--smoke", "--steps", "3", "--batch",
-                 "4", "--seq", "64", "--seed", str(args.seed), "--log-every",
-                 "100"] + (["--ckpt-dir", os.path.join(root, ckpt),
-                            "--ckpt-every", "1"] if ckpt else []))
+    def argv(every):
+        return slice13_argv(args, SLICE13_STEPS) + [
+            "--ckpt-dir", run, "--ckpt-every", str(every)]
 
     def die(step, params, opt_state, metrics):
+        if step == 0:             # what the step-1 checkpoint holds
+            tree["t"] = (params, opt_state)
+            for leaf in _tree.leaves(tree["t"]):
+                whole = (leaf.full_tensor() if hasattr(leaf, "full_tensor")
+                         else leaf)
+                if rank == 0:
+                    held.append(whole.to("cpu", copy=True))
+                del whole
         if step == 1:
             raise Crash
 
-    full, resumed = [], []
-    train_launcher.main(argv(None), mesh=mesh, on_step=lambda s, p, o, m:
-                        full.append(float(m["loss"])))
+    t0 = time.perf_counter()
     try:
-        train_launcher.main(argv("run"), mesh=mesh, on_step=die)
+        train_launcher.main(argv(1), mesh=mesh, on_step=die)
         check(False, "grids checkpoint: the crash did not happen")
     except Crash:
         pass
     if rank == 0:    # the step-1 writer thread outlives the crash
-        deadline = time.perf_counter() + 60
-        while latest_step(os.path.join(root, "run")) != 1 \
-                and time.perf_counter() < deadline:
-            time.sleep(0.01)
+        deadline = time.perf_counter() + CKPT_WAIT_S
+        while latest_step(run) != 1 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        step_dir = os.path.join(run, "step_1")
+        out["checkpoint_gb"] = sum(
+            os.path.getsize(os.path.join(step_dir, f))
+            for f in os.listdir(step_dir)) / 1e9 if os.path.isdir(
+                step_dir) else 0.0
+        out["leaves"] = len(held)
+        out["held_gb"] = sum(h.numel() * h.element_size()
+                             for h in held) / 1e9
     dist.barrier()
-    train_launcher.main(argv("run"), mesh=other, on_step=lambda s, p, o, m:
+    out.update(disk_at_checkpoint=disk(),
+               killed_run_s=time.perf_counter() - t0)
+    template = tree.pop("t")
+    _free(torch)
+    other = grid_mesh(torch, CKPT_RESTORE_GRID)
+    cfg = train_cfg(torch)
+    p_sh = sharding.param_shardings(cfg, other, template[0])
+    o_sh = AdamWState(step=sharding.NamedSharding(other, sharding.REP),
+                      m=p_sh, v=p_sh)
+    t1 = time.perf_counter()
+    _, again = restore_checkpoint(run, template, step=1,
+                                  shardings=(p_sh, o_sh))
+    out["restore_at_grid_s"] = time.perf_counter() - t1
+    at_other = []
+    for i, leaf in enumerate(_tree.leaves(again)):
+        ok = (type(leaf).__name__ != "DTensor"
+              or leaf.device_mesh is other)
+        whole = leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+        if rank == 0:
+            ok = ok and torch.equal(whole.cpu(), held[i])
+        at_other.append(ok)
+        del whole
+    del again
+    _free(torch)
+    out["restored_at_grid_equal"] = all(at_other)
+    if rank == 0:
+        t1 = time.perf_counter()
+        _, back = restore_checkpoint(run, template, step=1,
+                                     device=sharding.mesh_device(mesh))
+        out["restore_unsharded_s"] = time.perf_counter() - t1
+        out["restored_unsharded_equal"] = all(
+            torch.equal(a.cpu(), h)
+            for a, h in zip(_tree.leaves(back), held))
+        out["restored_unsharded_leaves"] = len(_tree.leaves(back))
+        del back
+    del template, held
+    _free(torch)
+    dist.barrier()
+    resumed = []
+    t1 = time.perf_counter()
+    train_launcher.main(argv(CKPT_NEVER), mesh=other,
+                        on_step=lambda s, p, o, m:
                         resumed.append((s, float(m["loss"]))))
-    out.update(losses=full, resumed=resumed)
+    out.update(resumed=resumed, restarted_run_s=time.perf_counter() - t1,
+               disk_after=disk())
+    full = keep.get(f"qwen {CKPT_GRID} losses", [])
+    out["losses"] = full
     if rank == 0:
         shutil.rmtree(root, ignore_errors=True)
     check(all(at_other) and out.get("restored_unsharded_equal", True),
           f"grids checkpoint: restored leaves differ: {out}")
-    check([s for s, _ in resumed] == [1, 2] and all(
+    check([s for s, _ in resumed] == [1, 2] and len(full) == 3 and all(
         abs(got - full[s]) <= SLICE13_LOSS_RTOL * abs(full[s])
         for s, got in resumed),
           f"grids checkpoint: the run restarted at {CKPT_RESTORE_GRID} "
@@ -4670,77 +4743,292 @@ def grid_checkpoint(torch, args, mesh, keep):
     return out
 
 
-def serve_prompts(args, cfg):
-    """Slice 15 (a)'s ChatGLM3-6B prompts (:func:`family_path`'s draw)."""
-    rng = np.random.default_rng(args.seed + 15)
-    return rng.integers(0, cfg.vocab_size,
-                        (SLICE8_BATCH, SLICE15_PROMPT)).astype(np.int32)
+#: every family served across four cards (``--grids``), each at its full
+#: published width, its fields checked, depth cut only as on one card
+#: (InternVL2-76B 20 of 80 layers, Moonlight 24 of 48: slices 8 and 9):
+#: (arch, layers kept or None, prompt tokens, published fields, frontend
+#: input and its length or None), the prompts and inputs of slices 8, 9
+#: and 15. At (1, 4) ChatGLM3-6B's 32 query heads split and its 2 KV heads
+#: do not, so its cache splits on the sequence
+FAMILY_SERVE = tuple(
+    [(TRAIN_ARCH, None, 64, TRAIN_FIELDS, None)]
+    + [f + (None,) for f in SLICE8_FAMILIES if f[0] == "minicpm3_4b"]
+    + [f for f in SLICE9_FAMILIES if f[0] == "internvl2_76b"]
+    + [f + (None,) for f in SLICE8_FAMILIES if f[0] != "minicpm3_4b"]
+    + [f for f in SLICE9_FAMILIES if f[0] == "seamless_m4t_medium"]
+    + [(SLICE15_GEMMA, None, SLICE15_GEMMA_PROMPT, SLICE15_GEMMA_FIELDS,
+        None),
+       (SLICE15_ARCH, None, SLICE15_PROMPT, SLICE15_FIELDS, None)])
+#: each family's serving grids and the requests a grid serves: one user
+#: on a model split over the four cards' ``model`` axis, and four split
+#: two by two; FAMILY_NEW new tokens a request, the first through the
+#: private lookup
+FAMILY_GRIDS = (((1, 4), 1), ((2, 2), 4))
+FAMILY_NEW = 32
 
 
-def grid_serve_want(torch, args, mesh, keep):
-    """Rank 0: ChatGLM3-6B's greedy generation unsharded
-    (:func:`slice15_unsharded`: route (c)'s weights, the dequantized
-    table, which slice 15 (a) holds to route (a)'s tokens), kept for the
-    serving grids."""
+def family_cfg(arch):
+    """A FAMILY_SERVE row's configuration (its published fields checked,
+    its depth cut where the row says), prompt length and frontend."""
+    import dataclasses
+
     from repro_torch import configs
+    _, layers, t, fields, frontend = next(f for f in FAMILY_SERVE
+                                          if f[0] == arch)
+    cfg = configs.full(arch)
+    bad = {k: getattr(cfg, k) for k, v in fields.items()
+           if getattr(cfg, k) != v}
+    check(not bad and cfg.dtype == "bfloat16",
+          f"grids {arch} is not the published configuration: {bad}")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, t, frontend
+
+
+def family_inputs(args, arch, cfg, t, frontend):
+    """A family's SLICE8_BATCH requests: prompt tokens and, for a
+    frontend, its frames or patches, drawn from ``--seed`` (numpy)."""
+    idx = [f[0] for f in FAMILY_SERVE].index(arch)
+    rng = np.random.default_rng(args.seed + 2100 + idx)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (SLICE8_BATCH, t)).astype(np.int32)}
+    if frontend is not None:
+        name, n = frontend
+        out[name] = rng.standard_normal(
+            (SLICE8_BATCH, n, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def family_params(torch, args, cfg, mesh=None):
+    """The family's weights from ``--seed`` with the dequantized table
+    (the rows the private lookup opens; a tied head reads them too),
+    placed by ``sharding.param_shardings`` on ``mesh``."""
+    from repro_torch import sharding
     from repro_torch.models import lm
-
-    cfg = configs.full(SLICE15_ARCH)
-    plain = lm.init_params(args.seed, cfg)
-    plain["embed"] = dequantized(torch, plain["embed"])
-    want = slice15_unsharded(torch, {"plain": plain, "cfg": cfg,
-                                     "prompts": serve_prompts(args, cfg)})
-    want["logits"] = [x.cpu() for x in want["logits"]]
-    keep["want"] = want
-    return {"tokens_first_request": want["tokens"][0].tolist()}
-
-
-def grid_serve(torch, args, mesh, keep):
-    """ChatGLM3-6B on a serving grid: the full weights from ``--seed``
-    with the dequantized table, placed by ``sharding.param_shardings``,
-    greedy generation after slice 15's prompts (:func:`slice15_generate`).
-    Rank 0 holds its tokens to the unsharded run's up to a near-tie: a
-    request may part from them only at a step whose unsharded top-two gap
-    is at most SLICE15_TIE_ATOL (bf16 partial sums over the ranks, in
-    another order than one card's matmul); every parting is logged with
-    its gap. The cache and ``wq`` must sit as SERVE_GRIDS names."""
-    import torch.distributed as dist
-
-    from repro_torch import configs, sharding
-    from repro_torch.models import lm
-
-    shape = tuple(mesh.shape)
-    cfg = configs.full(SLICE15_ARCH)
     params = lm.init_params(args.seed, cfg)
     params["embed"] = dequantized(torch, params["embed"])
-    params = sharding.distribute(params, mesh, sharding.param_shardings(
-        cfg, mesh, params))
+    if mesh is not None:
+        params = sharding.distribute(params, mesh, sharding.param_shardings(
+            cfg, mesh, params))
     _free(torch)
-    res = slice15_generate(torch, params, cfg, serve_prompts(args, cfg),
-                           mesh, SLICE8_NEW)
+    return params
+
+
+def serve_run(torch, params, cfg, inputs, n_new, mesh=None, private=None):
+    """Greedy generation of ``n_new`` tokens after ``inputs`` (numpy:
+    tokens (B, T), frames or patches) through ``lm.prefill`` and
+    ``lm.decode_step``, unsharded or on ``mesh`` (DTensor parameters,
+    batch and cache) -> the tokens (B, n_new), the first two steps' whole
+    logits, each step's top-two gap, prefill ms and ms a plaintext decode
+    step (host clock between synchronizes). With ``private`` (a dict),
+    the first decode step looks its tokens up through
+    ``private_lookup_inline`` (``cfg.private_embed``): its launches by
+    kernel, by card and by route, its wrapper calls, its opened rows and
+    the tokens it looked up, and its ms go there."""
+    import dataclasses
+
+    from repro_torch import sharding
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+    from repro_torch.models import lm
+    from repro_torch.models import private_embed as pe
+
+    if mesh is None:
+        dev = params["final_norm"].device
+        batch = to_device(inputs, dev)
+
+        def put(tok):
+            return tok
+    else:
+        dev = sharding.mesh_device(mesh)
+        dp = sharding.dp_entry(mesh)
+        batch = to_device(inputs, dev, mesh=mesh, specs={
+            k: (dp,) + (None,) * (v.ndim - 1) for k, v in inputs.items()})
+        pls = sharding.placements((dp, None), mesh)
+
+        def put(tok):
+            return sharding.place(tok, mesh, pls)
+
+    def whole(x):
+        return x.full_tensor() if mesh is not None else x
+
+    t = inputs["tokens"].shape[1] + (cfg.n_prefix if "patches" in inputs
+                                     else 0)
+    first, gen, gaps = [], [], []
+
+    def take(logits):
+        w = whole(logits)
+        if len(first) < 2:
+            first.append(w.cpu())
+        w = w[:, -1].float()
+        top = torch.topk(w, 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        gen.append(torch.argmax(w, dim=-1, keepdim=True).to(torch.int32))
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, batch, max_len=t + n_new)
+        take(logits)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if private is not None:
+            pcfg = dataclasses.replace(cfg, private_embed=True)
+            calls = collections.Counter()
+            inner = {k: getattr(ssm, k) for k in (
+                "share_onehot_cuda", "ss_matmul_cuda", "ss_matmul_tall_cuda")}
+            inner_lookup = pe.private_lookup_inline
+
+            def counted(name):
+                def fn(*a, **kw):
+                    calls[name] += 1
+                    return inner[name](*a, **kw)
+                return fn
+
+            def lookup(p, c, tokens, **kw):
+                out = inner_lookup(p, c, tokens, **kw)
+                private["rows"] = whole(out).clone()
+                private["type"] = type(out).__name__
+                return out
+
+            for k in inner:
+                setattr(ssm, k, counted(k))
+            pe.private_lookup_inline = lookup
+            try:
+                ops.reset_launch_counts()
+                logits, cache = lm.decode_step(params, pcfg, cache, t,
+                                               {"tokens": put(gen[-1])})
+                torch.cuda.synchronize()
+                private.update(
+                    launches=ops.launch_counts(),
+                    by_card=ops.card_launch_counts(),
+                    routes=ops.onehot_route_counts(), calls=dict(calls),
+                    tokens=gen[-1].cpu(),
+                    ms=1e3 * (time.perf_counter() - t1))
+            finally:
+                for k, fn in inner.items():
+                    setattr(ssm, k, fn)
+                pe.private_lookup_inline = inner_lookup
+            take(logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        plain_steps = n_new - len(gen)    # step k feeds gen[k] at t + k
+        for k in range(len(gen) - 1, n_new - 1):
+            logits, cache = lm.decode_step(params, cfg, cache, t + k,
+                                           {"tokens": put(gen[-1])})
+            take(logits)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    out = {"tokens": torch.cat(gen, 1).cpu().numpy(), "logits": first,
+           "gaps": torch.stack(gaps, 1).cpu().numpy(),
+           "prefill_ms": 1e3 * (t1 - t0),
+           "decode_ms_per_step": 1e3 * (t3 - t2) / max(1, plain_steps)}
+    if mesh is not None:
+        from repro_torch import _tree
+        from repro_torch.models.config import ShapeConfig
+        spec = sharding.cache_spec(cfg, mesh, ShapeConfig(
+            "cache", t + n_new, inputs["tokens"].shape[0], "decode"))
+        placed = _tree.map_leaves(lambda c, sp: list(c.placements) == list(
+            sharding.placements(sp, mesh)), cache, spec)
+        out["cache_placements"] = {
+            p: [repr(x) for x in c.placements]
+            for p, c in _tree.leaves_with_paths(cache)}
+        out["cache_placed_by_spec"] = all(_tree.leaves(placed))
+    del cache, logits
+    return out
+
+
+def grid_family_want(torch, args, mesh, keep, arch):
+    """Rank 0: a FAMILY_SERVE family's greedy generation unsharded over
+    its SLICE8_BATCH requests (:func:`serve_run`, plaintext lookups in the
+    dequantized table), kept for its serving grids."""
+    cfg, t, frontend = family_cfg(arch)
+    params = family_params(torch, args, cfg)
+    want = serve_run(torch, params, cfg,
+                     family_inputs(args, arch, cfg, t, frontend), FAMILY_NEW)
     del params
+    _free(torch)
+    keep[arch] = want
+    return {"layers": cfg.n_layers, "prefill_ms": want["prefill_ms"],
+            "decode_ms_per_step": want["decode_ms_per_step"],
+            "tokens_first_request": want["tokens"][0].tolist()}
+
+
+def grid_family(torch, args, mesh, keep, arch, batch):
+    """A FAMILY_SERVE family on a serving grid of FAMILY_GRIDS: its weights
+    placed by ``sharding.param_shardings``, the first ``batch`` requests
+    served (:func:`serve_run`) with the first decode step private. That
+    step must launch one ``share_onehot`` and one contraction (the tall
+    ``ss_matmul`` where the shape calls for it) on this rank's own card,
+    each through its wrapper, and open the rows of the dequantized table
+    at its tokens bit for bit. The cache must sit as
+    ``sharding.cache_spec`` places it. Rank 0 holds the tokens to the
+    unsharded run's up to a near-tie (a request may part from them only
+    at a step whose unsharded top-two gap is at most SLICE15_TIE_ATOL;
+    every parting is logged with its gap) and logs the first two steps'
+    largest logit differences."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+
+    shape = tuple(mesh.shape)
+    tag = f"grids {arch} {shape}"
+    cfg, t, frontend = family_cfg(arch)
+    params = family_params(torch, args, cfg, mesh)
+    inputs = {k: v[:batch] for k, v in family_inputs(
+        args, arch, cfg, t, frontend).items()}
+    private = {}
+    res = serve_run(torch, params, cfg, inputs, FAMILY_NEW, mesh=mesh,
+                    private=private)
+    table = params["embed"].full_tensor()
+    rows_equal = private.get("type") == "DTensor" and torch.equal(
+        private["rows"], table[private["tokens"].to(table.device).long()])
+    del params, table
+    _free(torch)
+    card = sharding.mesh_device(mesh)
+    launches, by_card = private["launches"], private["by_card"]
+    mm = [k for k in ("ss_matmul", "ss_matmul_tall") if launches[k]]
+    res.update(layers=cfg.n_layers, batch=batch, card=str(card),
+               private_ms=private["ms"], private_rows_equal=rows_equal,
+               private_launches={k: launches[k] for k in (
+                   "share_onehot", "ss_matmul", "ss_matmul_tall")},
+               private_calls=private["calls"],
+               private_onehot_routes=private["routes"])
     logits, got = res.pop("logits"), res.pop("tokens")
+    res.pop("gaps")
     if dist.get_rank() == 0:
-        want = keep["want"]
+        want = keep[arch]
         res["logits_max_abs_diff"] = [
-            float((g.cpu() - w).abs().max())
+            float((g - w[:batch]).abs().max())
             for g, w in zip(logits, want["logits"])]
         parted = {}
-        for r in range(got.shape[0]):
+        for r in range(batch):
             steps = np.flatnonzero(got[r] != want["tokens"][r])
             if steps.size:
                 parted[r] = (int(steps[0]),
                              float(want["gaps"][r, steps[0]]))
         res.update(tokens_equal=not parted, parted_at_step_gap=parted)
         check(all(gap <= SLICE15_TIE_ATOL for _, gap in parted.values()),
-              f"grids chatglm3 {shape}: greedy tokens part from the "
-              f"unsharded run's where no near-tie lies: {parted}")
+              f"{tag}: greedy tokens part from the unsharded run's where "
+              f"no near-tie lies: {parted}")
+        check(all(np.isfinite(x) for x in res["logits_max_abs_diff"]),
+              f"{tag}: logits not finite: {res['logits_max_abs_diff']}")
     del logits
-    cache, wq = SERVE_GRIDS[shape]
-    check(res["cache_placed_by_spec"] and res["cache_placements"][1] == cache
-          and res["wq_placements"][1] == wq,
-          f"grids chatglm3 {shape}: not the layout {SERVE_GRIDS[shape]}: "
-          f"{res}")
+    check(launches["share_onehot"] == 1 and len(mm) == 1
+          and launches[mm[0]] == 1
+          and all(by_card[k] == {card.index: 1}
+                  for k in ["share_onehot"] + mm)
+          and private["calls"].get("share_onehot_cuda") == 1
+          and sum(private["calls"].values()) == 2,
+          f"{tag}: the private step launched {launches} (by card "
+          f"{by_card}, wrapper calls {private['calls']}): one share_onehot "
+          f"and one ss_matmul on this rank's card {card} wanted")
+    check(rows_equal, f"{tag}: the private step's opened rows differ from "
+          "the dequantized table's rows at its tokens")
+    check(res["cache_placed_by_spec"],
+          f"{tag}: the cache is not placed as cache_spec says: "
+          f"{res['cache_placements']}")
     return res
 
 
@@ -4749,19 +5037,23 @@ def grid_links(torch, args, mesh, keep):
     both axes' groups of ``mesh`` and over the whole world: a call's
     device ms by CUDA events around it, the ranks set off together by a
     barrier (the median of 5 after 2 untimed), for LINK_BYTES of output
-    -> the output bytes a second beside the walker's rate (NVLINK_BW,
-    the one every collective of a host is priced at) and the walker's
-    ms for those bytes."""
+    -> the output and NCCL's bus bytes a second, beside the walker's ms
+    for the same collective (``hlo_cost.CostMode`` over its
+    ``_functional_collectives`` form, run once: ``t_collective``, its bus
+    bytes at ``hlo_analysis.bus_rate``) and their ratio, logged: rates
+    measured on a card at another power limit, or on a busier host, move
+    the ratio without a fault in the walker."""
     import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
 
     from repro_torch import sharding
-    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch import hlo_analysis, hlo_cost
 
     dev, n = sharding.mesh_device(mesh), LINK_BYTES // 4
     out = {}
-    for gname, group in (("world", dist.group.WORLD),
-                         ("data", mesh.get_group("data")),
-                         ("model", mesh.get_group("model"))):
+    for gname, group, dim in (("world", dist.group.WORLD, None),
+                              ("data", mesh.get_group("data"), 0),
+                              ("model", mesh.get_group("model"), 1)):
         k = dist.get_world_size(group)
         dst = torch.ones(n, dtype=torch.float32, device=dev)
         calls = {
@@ -4770,6 +5062,13 @@ def grid_links(torch, args, mesh, keep):
                 dst, src[:n // k], group=group),
             "reduce-scatter": lambda: dist.reduce_scatter_tensor(
                 dst, src, group=group)}
+        ref = group if dim is None else (mesh, dim)
+        walked = {
+            "all-reduce": lambda: funcol.all_reduce(dst, "sum", ref),
+            "all-gather": lambda: funcol.all_gather_tensor(
+                src[:n // k], 0, ref),
+            "reduce-scatter": lambda: funcol.reduce_scatter_tensor(
+                src, "sum", 0, ref)}
         src = torch.ones(n * k, dtype=torch.float32, device=dev)
         for kind, call in calls.items():
             for _ in range(2):
@@ -4786,31 +5085,47 @@ def grid_links(torch, args, mesh, keep):
                 torch.cuda.synchronize()
                 ms.append(t0.elapsed_time(t1))
             med = sorted(ms)[len(ms) // 2]
+            with hlo_cost.CostMode(device=MESH_DEVICE) as mode:
+                funcol.wait_tensor(walked[kind]())
+            torch.cuda.synchronize()
+            walker_ms = 1e3 * mode.cost.roofline(
+                n_chips=dist.get_world_size()).t_collective
             out[f"{kind} {gname} ({k} ranks)"] = {
                 "ms": med, "output_gb_per_s": LINK_BYTES / med / 1e6,
-                "walker_ms": 1e3 * LINK_BYTES / hlo_analysis.NVLINK_BW}
+                "bus_gb_per_s": hlo_analysis.bus_factor(kind, k)
+                * LINK_BYTES / med / 1e6,
+                "walker_ms": walker_ms,
+                "walker_groups": dict(mode.cost.collective_groups),
+                "walker_over_measured": walker_ms / med}
         del dst, src
+    log("grids links measured " + json.dumps(out))
     return out
 
 
 def grid_units(world: int):
     """(name, grid or None for rank 0 alone, function) of every unit a
     world of ``world`` ranks runs, in order: the grids of that size, and
-    on one rank the unsharded sort-dispatch steps they are held to."""
+    on one rank the unsharded runs they are held to."""
+    import functools
     units = [(f"qwen {s}", s, grid_qwen) for s in QWEN_GRIDS
              if math.prod(s) == world]
     if world == math.prod(LINK_GRID):
         units.append(("links", LINK_GRID, grid_links))
-    if world == math.prod(CKPT_GRID):
-        units.append(("checkpoint", CKPT_GRID, grid_checkpoint))
+    grids = [(s, b) for s, b in FAMILY_GRIDS if math.prod(s) == world]
+    for arch, *_ in (FAMILY_SERVE if grids else ()):
+        units.append((f"{arch} unsharded", None, functools.partial(
+            grid_family_want, arch=arch)))
+        units += [(f"{arch} {s}", s, functools.partial(
+            grid_family, arch=arch, batch=b)) for s, b in grids]
     if world == 1:
         units.append(("granite sort unsharded", None, grid_sort_unsharded))
     units += [(f"granite {s}", s, grid_granite) for s in GRANITE_GRIDS
               if math.prod(s) == world]
-    serve = [s for s in SERVE_GRIDS if math.prod(s) == world]
-    if serve:
-        units.append(("chatglm3 unsharded", None, grid_serve_want))
-    units += [(f"chatglm3 {s}", s, grid_serve) for s in serve]
+    if world == math.prod(SORT_BRIDGE_GRID):
+        units.append((f"granite sort {SORT_BRIDGE_GRID}", SORT_BRIDGE_GRID,
+                      grid_sort_bridge))
+    if world == math.prod(CKPT_GRID):
+        units.append(("checkpoint", CKPT_GRID, grid_checkpoint))
     return units
 
 
@@ -4822,7 +5137,10 @@ def grids_rank(torch, seed, out_dir):
     so the other ranks are not left waiting in one); any other error ends
     the rank, and :func:`spawn_ranks` then ends the others. After each
     unit the rank writes what it has to ``out_dir/rank<r>.json``, marked
-    ``done`` after the last."""
+    ``done`` after the last. An error every rank meets alike (DTensor's
+    refusal of an op, say) is recorded as a failed check is; one that
+    leaves another rank waiting in a collective ends the world at its
+    deadline."""
     import torch.distributed as dist
 
     args = argparse.Namespace(seed=seed)
@@ -4840,9 +5158,12 @@ def grids_rank(torch, seed, out_dir):
             torch.cuda.reset_peak_memory_stats()
             try:
                 res = fn(torch, args, mesh, keep)
-            except AssertionError as e:
-                out["failed"][name] = str(e)
-                log(f"grids {name}: failed: {e}")
+            except Exception as e:
+                import traceback
+                out["failed"][name] = (
+                    str(e) if isinstance(e, AssertionError)
+                    else traceback.format_exc()[-4000:])
+                log(f"grids {name}: failed: {out['failed'][name]}")
                 res = {}
             res["seconds"] = time.perf_counter() - t0
             res.setdefault("peak_gb", torch.cuda.max_memory_allocated() / 1e9)
@@ -4855,15 +5176,52 @@ def grids_rank(torch, seed, out_dir):
         dist.barrier()
 
 
+def sort_held(ranks, want, tol, same_drops):
+    """A grid's sort step (each rank's :func:`sort_step`, rank 0 first)
+    against ``want`` (another's, or the unsharded one): the loss within
+    ``tol`` relative and, with ``same_drops``, equal dropped pairs (a
+    grid's summed over its ranks at model coordinate 0) -> (the row, held
+    or not)."""
+    def drops(rs):
+        return sum(x["dropped_pairs"] for x in rs
+                   if x["coordinate"] is None or x["coordinate"][1] == 0)
+
+    ref = want[0].get("loss", math.nan) if want else math.nan
+    rel = abs(ranks[0]["loss"] - ref) / abs(ref)
+    row = {"loss": ranks[0]["loss"], "held_to_loss": ref,
+           "loss_rel_diff": rel, "dropped_pairs": drops(ranks),
+           "held_to_dropped_pairs": drops(want) if want else None}
+    return row, rel <= tol and not (
+        same_drops and row["dropped_pairs"] != row["held_to_dropped_pairs"])
+
+
 def grids_losses(units, failed):
     """Hold each family's grids to its (1, 1) mesh (losses within
     SLICE13_LOSS_RTOL) and the sort dispatch to the unsharded steps: in
     bf16 the loss within SLICE13_LOSS_RTOL (its dropped pairs logged), in
     float32 within SLICE13_STEP0_RTOL relative with equal dropped pairs
-    (a grid's summed over its ranks at model coordinate 0) -> the summary
-    by grid. ``units`` maps a unit's name to its ranks' results, rank 0
+    (:func:`sort_held`); at SORT_FULL_LAYERS to SORT_BRIDGE_GRID's, which
+    is held to the unsharded step at SORT_EXACT_LAYERS -> the summary by
+    grid. ``units`` maps a unit's name to its ranks' results, rank 0
     first."""
     out = {}
+    plain = units.get("granite sort unsharded", [{}])[0]
+    bridge = units.get(f"granite sort {SORT_BRIDGE_GRID}", [])
+
+    def held_to(key):
+        """The ranks' results a grid's ``key`` sort step is held to."""
+        if key == f"float32 {SORT_FULL_LAYERS}":
+            return [r["sort"][key] for r in bridge]
+        return [plain[key]] if key in plain else []
+
+    if bridge:
+        key = f"float32 {SORT_EXACT_LAYERS}"
+        row, ok = sort_held([r["sort"][key] for r in bridge], held_to(key),
+                            SLICE13_STEP0_RTOL, True)
+        out[f"granite sort {SORT_BRIDGE_GRID}"] = {"sort": {key: row}}
+        if not ok:
+            failed[f"granite sort {SORT_BRIDGE_GRID} {key}"] = json.dumps(
+                row)
     for fam, grids in (("qwen", QWEN_GRIDS), ("granite", GRANITE_GRIDS)):
         base = units.get(f"{fam} (1, 1)", [{}])[0].get("losses")
         for s in grids:
@@ -4888,31 +5246,23 @@ def grids_losses(units, failed):
                     r.get("private_launches") for r in ranks]
             elif all("sort" in r for r in ranks):
                 row["sort"] = {}
-                for prec, tol, same_drops in (
-                        ("bf16", SLICE13_LOSS_RTOL, False),
-                        ("float32", SLICE13_STEP0_RTOL, True)):
-                    want = units.get("granite sort unsharded",
-                                     [{}])[0].get(prec, {})
-                    sort = [r["sort"][prec] for r in ranks]
-                    drops = sum(x["dropped_pairs"] for x in sort
-                                if x["coordinate"][1] == 0)
-                    ref = want.get("loss", math.nan)
-                    rel = abs(sort[0]["loss"] - ref) / abs(ref)
-                    row["sort"][prec] = {
-                        "loss": sort[0]["loss"], "unsharded_loss": ref,
-                        "loss_rel_diff": rel, "dropped_pairs": drops,
-                        "unsharded_dropped_pairs": want.get("dropped_pairs")}
-                    if not rel <= tol or (same_drops and drops != want.get(
-                            "dropped_pairs")):
-                        failed[f"{name} sort dispatch {prec}"] = json.dumps(
-                            row["sort"][prec])
+                for key in ranks[0]["sort"]:
+                    bf16 = key == "bf16"
+                    got, ok = sort_held(
+                        [r["sort"][key] for r in ranks], held_to(key),
+                        SLICE13_LOSS_RTOL if bf16 else SLICE13_STEP0_RTOL,
+                        not bf16)
+                    row["sort"][key] = got
+                    if not ok:
+                        failed[f"{name} sort dispatch {key}"] = json.dumps(
+                            got)
             out[name] = row
     return out
 
 
 def grids_collectives(units):
     """Each profiled grid's NCCL kernels' device ms by collective on rank
-    0 against the walker's prediction (bytes at NVLINK_BW) by kind and
+    0 against the walker's prediction (``hlo_analysis.seconds_by_kind``) by kind and
     its ``t_collective``, with the ratio measured / predicted."""
     out = {}
     for fam, s in PROFILED_GRID.items():
@@ -4934,6 +5284,44 @@ def grids_collectives(units):
             "walk_unpriced": walk["unpriced"]}
         log(f"grids collectives {fam} {s} (measured on rank 0 against the "
             f"walker) " + json.dumps(out[f"{fam} {s}"]))
+    return out
+
+
+def grids_families(units, cards, failed):
+    """The serving grids of FAMILY_SERVE by family and grid: rank 0's ms a
+    decode step, prefill ms, the private step's ms and launches, tokens
+    against the unsharded run's (partings and their gaps), the first two
+    steps' largest logit differences, and every rank's peak and private
+    launches by card; a family grid that the host's ``cards`` allow and
+    that did not run is a failure."""
+    out = {}
+    for arch, *_ in FAMILY_SERVE:
+        for s, b in FAMILY_GRIDS:
+            name = f"{arch} {s}"
+            ranks = units.get(name, [])
+            if math.prod(s) > cards:
+                continue                    # logged as not run
+            if not ranks:
+                failed[name] = "did not run"
+            if not ranks or "decode_ms_per_step" not in ranks[0]:
+                continue                    # its failure is recorded
+            r0 = ranks[0]
+            out[name] = {
+                "batch": b, "layers": r0.get("layers"),
+                "decode_ms_per_step": r0["decode_ms_per_step"],
+                "unsharded_decode_ms_per_step": units[
+                    f"{arch} unsharded"][0].get("decode_ms_per_step"),
+                "prefill_ms": r0["prefill_ms"],
+                "private_ms": r0.get("private_ms"),
+                "tokens_equal": r0.get("tokens_equal"),
+                "parted_at_step_gap": r0.get("parted_at_step_gap"),
+                "logits_max_abs_diff": r0.get("logits_max_abs_diff"),
+                "private_launches_by_rank": {
+                    r.get("card"): r.get("private_launches")
+                    for r in ranks},
+                "peak_gb_by_rank": [r.get("peak_gb") for r in ranks],
+                "seconds": r0.get("seconds")}
+    log("grids families " + json.dumps(out, default=str))
     return out
 
 
@@ -5021,20 +5409,22 @@ def grids_path(torch, args) -> int:
     coll = grids_collectives(units)
     links = units.get("links", [None])[0]
     log("grids links (each collective alone, rank 0) " + json.dumps(links))
-    serve = {k: v[0] for k, v in units.items() if k.startswith("chatglm3 (")}
+    families = grids_families(units, cards, failed)
     dispatch = grids_dispatch(torch, args, cards, failed)
     log("grids summary " + json.dumps({
         "card": smi("name,power.limit"), "cards": cards, "worlds": worlds,
         "training": {k: {f: v[f] for f in ("ms_per_step", "loss_rel_diff",
                                            "peak_gb_by_rank")}
-                     for k, v in grids.items()},
+                     for k, v in grids.items() if "ms_per_step" in v},
+        "sort": {k: v["sort"] for k, v in grids.items() if "sort" in v},
         "checkpoint": units.get("checkpoint", [None])[0],
-        "serving": {k: {f: v.get(f) for f in (
-            "decode_ms_per_step", "tokens_equal", "parted_at_step_gap",
-            "cache_placements", "peak_gb")} for k, v in serve.items()},
+        "families": families,
         "collectives_ratio": {k: v["ratio"] for k, v in coll.items()},
         "links_gb_per_s": {k: v["output_gb_per_s"] for k, v in (
             links or {}).items() if isinstance(v, dict)},
+        "links_walker_over_measured": {
+            k: v["walker_over_measured"] for k, v in (links or {}).items()
+            if isinstance(v, dict)},
         "dispatch": list(dispatch), "failed": failed,
         "seconds": time.perf_counter() - t0}, default=str))
     check(not failed, f"--grids: {len(failed)} checks failed: "

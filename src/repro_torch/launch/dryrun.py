@@ -33,10 +33,11 @@ Each record holds the arch, shape, grid, ``n_chips``, status,
 flops), the walk's seconds, aten ops and kernels priced, the memory terms
 (per rank, beside the card's 80 GB: ``fits``) and the ``Roofline`` terms
 (per rank: flops by class, HBM bytes, collective bytes by link in
-``collective_detail`` and by kind in ``collective_kinds``,
-``t_collective``). A cell whose step fails is recorded with
-``status: "error: ..."``. Results accumulate in a JSON file (re-running
-skips done cells unless ``--force``).
+``collective_detail``, by kind in ``collective_kinds`` and by kind,
+group size and link in ``collective_groups``, ``t_collective``). A cell
+whose step fails is recorded with ``status: "error: ..."``. Results
+accumulate in a JSON file (re-running skips done cells unless
+``--force``).
 
 Usage (from the repository root):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-4b
@@ -266,9 +267,9 @@ def price_paper_db(db_cfg=None, *, grid: str = GRID) -> dict:
                 red = reduction_cost(s, numel, 4, (s - 1) * numel * 4)
                 cost.add_flops("int", red["flops"])
                 cost.hbm_bytes += red["hbm_bytes"]
-                cost.collectives[link] += red["collective_bytes"]
-                cost.collective_kinds["reduce"] = cost.collective_kinds.get(
-                    "reduce", 0.0) + red["collective_bytes"]
+                key = hlo_analysis.group_key("reduce", s, link)
+                cost.collective_groups[key] = cost.collective_groups.get(
+                    key, 0.0) + red["collective_bytes"]
                 cost.collective_count += 1
     return _record("paper_db", "query_mix", cost, tree_bytes(blocks),
                    cost.peak_bytes, None, t0, grid=grid)

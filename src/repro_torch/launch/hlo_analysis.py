@@ -18,17 +18,22 @@ A card set below 700 W runs slower under load: the terms are a bound, not
 a prediction.
 
 On a mesh the walker prices one rank: each term is one card's, and a
-grid's totals are ``n_chips`` times as much. A collective is priced, as
+grid's totals are ``n_chips`` times as much. A collective is recorded, as
 the reference's ``collective_bytes`` sums them, by its output bytes and
 kind (``COLLECTIVES``), on the link its group crosses (:func:`link_of_
-ranks`): NVLink within one host, InfiniBand once the group spans hosts.
+ranks`): NVLink within one host, InfiniBand once the group spans hosts;
+and by kind, group size and link (``collective_groups``). It is priced
+(:func:`collective_seconds`) by the bytes NCCL moves through each rank's
+link for its kind and group size n, its bus bytes (:func:`bus_factor`
+times the output), at a bus rate by kind and group size measured on
+NVLink (``NVLINK_BUS_BW``) or at ``IB_BW`` across hosts.
 :func:`collective_bytes` and :func:`analyze` are the counterparts of the
 reference's, over a walk instead of HLO text and XLA's compiled object.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 HBM_BW = 3.35e12            # B/s, one card
 NVLINK_BW = 450e9           # B/s each way, card to card within a host
@@ -67,6 +72,87 @@ DEFAULT_CLASS = "dot_bf16"
 #: link rates by the kind of copy that crosses them
 LINK_BW: Dict[str, float] = {"nvlink": NVLINK_BW, "ib": IB_BW,
                              "pcie": PCIE_BW}
+
+#: NCCL's bus bytes a second on NVLink by collective kind and group size:
+#: NCCL's all-reduce, all-gather and reduce-scatter alone, 256 MiB of
+#: output, on 2 and on 4 NVIDIA H100 80GB HBM3 of one host at a 700.00 W
+#: power limit (``chip_smoke.py --grids``, ``grid_links``); each rate the
+#: geometric mean of the lowest and highest bus rate measured at that
+#: size (``PERF.md`` §6 lists the runs). The bus rate rises from 2 ranks
+#: to 4 (an all-gather's 181-215 GB/s to 214-290), so no one rate a kind
+#: holds both sizes within 25 %. A group takes the rate of the largest
+#: size measured that is not larger than it (the smallest below that); a
+#: kind not measured takes the all-gather's, the lowest.
+NVLINK_BUS_BW: Dict[str, Dict[int, float]] = {
+    "all-reduce": {2: 258e9, 4: 290e9},
+    "all-gather": {2: 197e9, 4: 249e9},
+    "reduce-scatter": {2: 225e9, 4: 312e9}}
+
+
+def bus_rate(kind: str, n: int) -> float:
+    """NCCL's bus bytes a second on NVLink for ``kind`` over ``n`` ranks
+    (``NVLINK_BUS_BW``)."""
+    rates = NVLINK_BUS_BW.get(kind, NVLINK_BUS_BW["all-gather"])
+    sizes = [m for m in sorted(rates) if m <= n] or [min(rates)]
+    return rates[sizes[-1]]
+
+
+def bus_factor(kind: str, n: int) -> float:
+    """NCCL's bus bytes through each rank's link per output byte of a
+    collective of ``kind`` over ``n`` ranks: 2(n-1)/n for an all-reduce,
+    (n-1)/n for an all-gather or an all-to-all, n-1 for a reduce-scatter
+    (whose output is 1/n of its input), 1 for the others; 0 for one
+    rank."""
+    if n <= 1:
+        return 0.0
+    return {"all-reduce": 2.0 * (n - 1) / n, "all-gather": (n - 1) / n,
+            "all-to-all": (n - 1) / n,
+            "reduce-scatter": float(n - 1)}.get(kind, 1.0)
+
+
+def collective_seconds(kind: str, n: int, nbytes: float, link: str
+                       ) -> float:
+    """The least time a collective of ``kind`` over ``n`` ranks with
+    ``nbytes`` of output takes on ``link``: its bus bytes at the link's
+    bus rate (:func:`bus_rate` on NVLink, the link's rate elsewhere).
+    ``reduce``, ``MeshDispatcher``'s partials copied between slots and
+    not an NCCL call, moves its bytes at the link's rate."""
+    rate = (bus_rate(kind, n) if link == "nvlink" and kind != "reduce"
+            else LINK_BW[link])
+    return bus_factor(kind, n) * nbytes / rate
+
+
+def group_key(kind: str, n: int, link: str) -> str:
+    """A ``collective_groups`` key (a string, so a record is JSON): kind,
+    group size and link; :func:`split_key` reads it back."""
+    return f"{kind}|{n}|{link}"
+
+
+def split_key(key: str) -> Tuple[str, int, str]:
+    """A :func:`group_key`'s kind, group size and link."""
+    kind, n, link = key.split("|")
+    return kind, int(n), link
+
+
+def bytes_by(groups: Dict[str, float], part: int) -> Dict[str, float]:
+    """``collective_groups``' output bytes summed by one part of the key:
+    0 the kind, 1 the group size, 2 the link."""
+    out: Dict = {}
+    for key, nb in groups.items():
+        k = split_key(key)[part]
+        out[k] = out.get(k, 0.0) + nb
+    return out
+
+
+def seconds_by_kind(groups: Dict[str, float]) -> Dict[str, float]:
+    """``collective_groups``' collectives priced
+    (:func:`collective_seconds`), summed by kind."""
+    out: Dict[str, float] = {}
+    for key, nb in groups.items():
+        kind, n, link = split_key(key)
+        out[kind] = out.get(kind, 0.0) + collective_seconds(kind, n, nb,
+                                                             link)
+    return out
 
 
 def link_of_ranks(ranks) -> Optional[str]:
@@ -129,6 +215,7 @@ class Roofline:
     peak_memory_per_device: Optional[float] = None
     flops_by_class: Optional[Dict[str, float]] = None
     collective_kinds: Optional[Dict[str, float]] = None
+    collective_groups: Optional[Dict[str, float]] = None
 
     @property
     def t_compute(self) -> float:
@@ -144,12 +231,20 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        """Each link's bytes over its rate; bytes the detail does not place
-        on a link count at the NVLink rate."""
+        """Each collective of ``collective_groups`` at its bus bytes and
+        rate (:func:`seconds_by_kind`); the bytes of ``collective_detail``
+        that no group holds (copies between devices: a Roofline built by
+        hand, as from ``copies_detail``, holds only these) over their
+        link's rate, and bytes the detail does not place on a link at the
+        NVLink rate."""
+        groups = self.collective_groups or {}
+        grouped = bytes_by(groups, 2)
         placed = {k: self.collective_detail.get(k, 0.0) for k in LINK_BW}
         rest = max(0.0, self.collective_bytes - sum(placed.values()))
-        return (sum(v / LINK_BW[k] for k, v in placed.items())
-                + rest / NVLINK_BW)
+        copies = sum(max(v - grouped.get(k, 0.0), 0.0) / LINK_BW[k]
+                     for k, v in placed.items())
+        return sum(seconds_by_kind(groups).values()) + copies + \
+            rest / NVLINK_BW
 
     @property
     def t_bound(self) -> float:
@@ -172,7 +267,8 @@ class Roofline:
                     peak_memory_per_device=self.peak_memory_per_device,
                     flops_by_class=dict(self.flops_by_class or {}),
                     collective_detail=dict(self.collective_detail),
-                    collective_kinds=dict(self.collective_kinds or {}))
+                    collective_kinds=dict(self.collective_kinds or {}),
+                    collective_groups=dict(self.collective_groups or {}))
 
 
 def analyze(fn, *args, n_chips: Optional[int] = None, **kw) -> Roofline:

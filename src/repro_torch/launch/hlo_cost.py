@@ -18,10 +18,13 @@ runs the forward again inside the backward) included, and it accumulates
                  nothing more), since eager ops are unfused as HLO's
                  top-level instructions are; a gather reads the rows it
                  takes; views and metadata ops cost nothing;
-  * link bytes — copies between devices, and collectives, by link
-                 (``hlo_analysis.LINK_BW``); collectives also by kind
-                 (``hlo_analysis.COLLECTIVES``), each its output bytes on
-                 the link its group crosses;
+  * link bytes — copies between devices by link (``Cost.copies``;
+                 ``hlo_analysis.LINK_BW``), and each collective's output
+                 bytes by kind (``hlo_analysis.COLLECTIVES``), group size
+                 and the link its group crosses (``Cost.collective_groups``;
+                 ``collectives`` and ``collective_kinds`` sum them by link
+                 and by kind), which the roofline prices at NCCL's bus
+                 bytes for the kind and group size;
   * the peak   — the most bytes held at once by storages the walk made
                  (each storage once, freed when PyTorch frees it, autograd's
                  saved tensors included), beside the bytes of the storages
@@ -64,7 +67,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels import ops as kops
 from ..kernels import ss_matmul as _ssm
-from .hlo_analysis import LINK_BW, Roofline, link_of, link_of_ranks
+from .hlo_analysis import (LINK_BW, Roofline, bytes_by, group_key,
+                           link_of, link_of_ranks)
 
 _FLOAT_TYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
@@ -303,11 +307,14 @@ KERNEL_PRICES: Dict[str, Callable[..., Tuple[str, int, int, str]]] = {
 class Cost:
     flops: float = 0.0
     hbm_bytes: float = 0.0
-    collectives: Dict[str, float] = dataclasses.field(
+    #: bytes copied between devices (and to the host), by link
+    copies: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {k: 0.0 for k in LINK_BW})
     flops_by_class: Dict[str, float] = dataclasses.field(
         default_factory=dict)
-    collective_kinds: Dict[str, float] = dataclasses.field(
+    #: collectives' output bytes by ``hlo_analysis.group_key`` (kind,
+    #: group size, link)
+    collective_groups: Dict[str, float] = dataclasses.field(
         default_factory=dict)
     collective_count: int = 0
     kernels: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -328,8 +335,9 @@ class Cost:
         self.ops += other.ops
         self.host_ops += other.host_ops
         self.collective_count += other.collective_count
-        for mine, theirs in ((self.collectives, other.collectives),
-                             (self.collective_kinds, other.collective_kinds),
+        for mine, theirs in ((self.copies, other.copies),
+                             (self.collective_groups,
+                              other.collective_groups),
                              (self.flops_by_class, other.flops_by_class),
                              (self.kernels, other.kernels),
                              (self.unpriced, other.unpriced),
@@ -345,14 +353,28 @@ class Cost:
         its trip count); the peak and the arguments stay one run's."""
         def times(d):
             return {k: v * mult for k, v in d.items()}
-        return Cost(self.flops * mult, self.hbm_bytes * mult,
-                    times(self.collectives), times(self.flops_by_class),
-                    times(self.collective_kinds),
-                    int(self.collective_count * mult),
-                    times(self.kernels), times(self.unpriced),
-                    times(self.op_counts), int(self.ops * mult),
-                    int(self.host_ops * mult), self.arg_bytes,
-                    self.peak_bytes)
+        return dataclasses.replace(
+            self, flops=self.flops * mult, hbm_bytes=self.hbm_bytes * mult,
+            copies=times(self.copies),
+            flops_by_class=times(self.flops_by_class),
+            collective_groups=times(self.collective_groups),
+            collective_count=int(self.collective_count * mult),
+            kernels=times(self.kernels), unpriced=times(self.unpriced),
+            op_counts=times(self.op_counts), ops=int(self.ops * mult),
+            host_ops=int(self.host_ops * mult))
+
+    @property
+    def collective_kinds(self) -> Dict[str, float]:
+        """Collectives' output bytes by kind."""
+        return bytes_by(self.collective_groups, 0)
+
+    @property
+    def collectives(self) -> Dict[str, float]:
+        """Bytes by link: the copies and the collectives' output."""
+        out = dict(self.copies)
+        for link, nb in bytes_by(self.collective_groups, 2).items():
+            out[link] = out.get(link, 0.0) + nb
+        return out
 
     @property
     def collective_bytes(self) -> float:
@@ -369,7 +391,8 @@ class Cost:
             peak_memory_per_device=(self.arg_bytes + self.peak_bytes
                                     if peak_memory is None else peak_memory),
             flops_by_class=dict(self.flops_by_class),
-            collective_kinds=dict(self.collective_kinds))
+            collective_kinds=dict(self.collective_kinds),
+            collective_groups=dict(self.collective_groups))
 
 
 class CostMode(TorchDispatchMode):
@@ -471,8 +494,8 @@ class CostMode(TorchDispatchMode):
         return out
 
     def _collective(self, func, args, out) -> None:
-        """Price a collective: its output bytes, by kind, on the link its
-        group crosses (nothing for a group of one rank)."""
+        """Record a collective's output bytes by kind, group size and the
+        link its group crosses (nothing for a group of one rank)."""
         name = func.overloadpacket.__name__
         if name in _COLLECTIVE_FREE:
             return
@@ -483,12 +506,13 @@ class CostMode(TorchDispatchMode):
             return
         cost = self.cost
         cost.collective_count += 1
-        link = link_of_ranks(_group_ranks(args) or ())
+        ranks = _group_ranks(args) or ()
+        link = link_of_ranks(ranks)
         if link is None:
             return
         nb = sum(nbytes(t) for t in _tensors(out))
-        cost.collectives[link] += nb
-        cost.collective_kinds[kind] = cost.collective_kinds.get(kind, 0) + nb
+        key = group_key(kind, len(ranks), link)
+        cost.collective_groups[key] = cost.collective_groups.get(key, 0) + nb
 
     def _price(self, name, func, args, kwargs, ins, outs) -> bool:
         """Add one op's work to the cost; False for an op in no class."""
@@ -499,7 +523,7 @@ class CostMode(TorchDispatchMode):
         if name == "_local_scalar_dense":
             link = link_of(ins[0].device, "cpu")
             if link is not None:
-                cost.collectives[link] += ins[0].element_size()
+                cost.copies[link] += ins[0].element_size()
             return True
         io = sum(nbytes(t) for t in ins) + sum(nbytes(t) for t in outs)
         out_n = sum(t.numel() for t in outs)
@@ -553,7 +577,7 @@ class CostMode(TorchDispatchMode):
             return False
         link = link_of(src_dev, dst_dev)
         if link is not None:
-            self.cost.collectives[link] += nbytes(src)
+            self.cost.copies[link] += nbytes(src)
             self.cost.hbm_bytes += nbytes(src)
         return True
 

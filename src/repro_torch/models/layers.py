@@ -6,10 +6,11 @@ dtype-explicit, as ``repro.models.layers`` is plain ``jnp``.
 
 On a mesh (``DTensor`` weights placed by ``repro_torch.sharding``, a
 residual stream split over the data axes only) the GQA self-attention
-(with its cache's local block in a prefill or decode step), MLA's
-cached steps, the gated MLP and the MoE layer (both dispatches, its
-experts split on ``model`` or else their FFN width, plus its shared
-experts) run as tensor-parallel layers on each rank's local blocks
+(with its cache's local block in a prefill or decode step) and
+cross-attention, MLA's cached steps, the gated MLP, the MoE layer (both
+dispatches, its experts split on ``model`` or else their FFN width, plus
+its shared experts) and a lone projection (:func:`linear`) run as
+tensor-parallel layers on each rank's local blocks
 (:func:`_on_local_blocks`):
 column-split projections in, row-split projections out, so a layer's
 output is a partial sum over the mesh dims its weights split on, which
@@ -19,8 +20,8 @@ the local blocks are declared partial where the ranks' shares of the
 work differ, so autograd reduces them as DTensor would. A cache split
 on its sequence (a context-parallel cache) is never gathered: each
 rank's partial softmax over its positions is merged by all-reduces
-(:func:`_combine_blocks`). Cross-attention, MLA without a cache and the
-SSM run on DTensors op by op, their constants replicated over the mesh.
+(:func:`_combine_blocks`). MLA without a cache runs on DTensors op by
+op, its constants replicated over the mesh.
 
 Attention upcasts to float32 as the reference does. ``flash_attention``
 is the reference's blockwise online softmax: a loop over 512-key blocks
@@ -319,42 +320,85 @@ def attention_qkv(p: dict, cfg: ModelConfig, x: Tensor, positions: Tensor,
     return q, apply_rope(k, positions, inv_freq), v
 
 
-def _on_local_blocks(fn: Callable, p: dict, x: Tensor, *consts
-                     ) -> Tensor:
-    """``fn(local weights, local x, *local consts) -> local out`` for a
-    tensor-parallel layer on a mesh -> the output as a ``DTensor``: split
-    as ``x`` over the dims ``x`` is split on, partial over the dims a
-    weight of ``p`` is split on (the row-split projection's partial
-    sums), replicated elsewhere. ``x``'s gradient is declared partial over
-    the weights' split dims (each rank's columns use all of ``x``), and a
-    whole weight's gradient partial over every dim the work is split on
-    (``x``'s and the weights')."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+def _on_local_blocks(fn: Callable, p: dict, x: Tensor, *consts,
+                     inputs: Tuple[Tensor, ...] = (), cols=(),
+                     width: Optional[int] = None) -> Tensor:
+    """``fn(local weights, local x, *local inputs, *local consts) -> local
+    out`` for a tensor-parallel layer on a mesh -> the output as a
+    ``DTensor``: split as ``x`` over the dims ``x`` is split on, split on
+    its last dim (of global size ``width``) over the dims ``cols`` (a
+    column-split projection's output), partial over the other dims a
+    weight of ``p`` is split on (the row-split projection's partial sums),
+    replicated elsewhere. ``x``'s gradient, and that of each of
+    ``inputs`` (more activations placed as ``x``, such as an encoder's
+    output), is declared partial over the weights' split dims (each
+    rank's columns use all of ``x``), and a whole weight's gradient
+    partial over every dim the work is split on (``x``'s and the
+    weights')."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = x.device_mesh
     xp = list(x.placements)
     split = {i for w in p.values() if _device.is_dtensor(w)
              for i, pl in enumerate(w.placements) if pl.is_shard()}
     work = split | {i for i, pl in enumerate(xp) if pl.is_shard()}
-    xl = x.to_local(grad_placements=[
-        Partial() if i in split and not pl.is_shard() else pl
-        for i, pl in enumerate(xp)])
+
+    def act(a: Tensor) -> Tensor:
+        return a.to_local(grad_placements=[
+            Partial() if i in split and not pl.is_shard() else pl
+            for i, pl in enumerate(a.placements)])
+
     local = {k: (w.to_local(grad_placements=[
         Partial() if pl.is_replicate() and i in work else pl
         for i, pl in enumerate(w.placements)])
         if _device.is_dtensor(w) else w) for k, w in p.items()}
-    out = fn(local, xl, *(_device.local(c) for c in consts))
-    pls = [pl if pl.is_shard() else (Partial() if i in split
-                                     else Replicate())
+    out = fn(local, act(x), *(act(a) for a in inputs),
+             *(_device.local(c) for c in consts))
+    pls = [pl if pl.is_shard() else Shard(out.ndim - 1) if i in cols
+           else Partial() if i in split else Replicate()
            for i, pl in enumerate(xp)]
-    shape = tuple(x.shape[:-1]) + (out.shape[-1],)
+    shape = tuple(x.shape[:-1]) + (out.shape[-1] if width is None
+                                   else width,)
     return DTensor.from_local(out, mesh, pls, run_check=False, shape=shape,
                               stride=_device.contiguous_strides(shape))
+
+
+def linear(x: Tensor, w: Tensor) -> Tensor:
+    """``x @ w`` for a (in, out) weight. On a mesh (``x`` split over its
+    batch dims only, ``w`` split on its rows or its columns) on local
+    blocks: a rank's columns give the output split on its last dim, a
+    rank's rows (against its slice of ``x``'s features) a partial sum,
+    which the caller reduces. No op of it reshapes the batch dims of a
+    ``DTensor``, so any batch serves."""
+    if not _device.is_dtensor(x):
+        return x @ w
+    from .. import sharding
+    cols = [i for i, pl in enumerate(w.placements) if pl.is_shard(1)]
+    rows = (sharding.local_block(w.shape, x.device_mesh, w.placements)[0]
+            if any(pl.is_shard(0) for pl in w.placements) else None)
+
+    def local(pl: dict, xl: Tensor) -> Tensor:
+        return (xl if rows is None else xl[..., rows]) @ pl["w"]
+
+    return _on_local_blocks(local, {"w": w}, x, cols=cols,
+                            width=w.shape[1])
+
+
+def sum_over(t: Tensor, mesh, dims) -> Tensor:
+    """``t`` (a rank's local tensor) summed over the mesh dims ``dims``
+    (one all-reduce a dim): the same sum on every rank of those dims. Its
+    gradient is summed alike, each rank's copy feeding only its own
+    work."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, "sum", (mesh, i)))
+    return t
 
 
 def _attention_on_mesh(p: dict, cfg: ModelConfig, x: Tensor,
                        positions: Tensor, inv_freq: Tensor,
                        window: Optional[int], causal: bool,
-                       kv_cache=None, cache_len: Optional[int] = None
+                       kv_cache=None, cache_len: Optional[int] = None,
+                       enc: Optional[Tensor] = None, cross_cache=None
                        ) -> Tensor:
     """GQA attention on a mesh, each rank on its own heads (all of them
     where the weights are whole on ``model``). Where the query heads
@@ -368,7 +412,14 @@ def _attention_on_mesh(p: dict, cfg: ModelConfig, x: Tensor,
     this rank's positions, and then a prefill into an empty cache attends
     to the step's own keys and a step into a filled one combines the
     ranks' partial softmaxes (:func:`_attend_blocks`); the cache is never
-    gathered."""
+    gathered.
+
+    Cross-attention (``enc``, the encoder's output placed as ``x``, and
+    or ``cross_cache``, the layer's ``cache["cross"]``): the keys and
+    values are this rank's KV heads of ``enc``'s, which a prefill also
+    writes into its block of the cache (split on heads as the KV weights
+    are, whole on the encoder's positions), or those a decode step reads
+    there; the queries attend to them all, not causally."""
     from .. import sharding
     hd = cfg.resolved_head_dim
     mesh = x.device_mesh
@@ -378,18 +429,33 @@ def _attention_on_mesh(p: dict, cfg: ModelConfig, x: Tensor,
                                  p["wq"].placements)[-1].start // hd
     seq_dims = [] if kv_cache is None else [
         i for i, pl in enumerate(kv_cache[0].placements) if pl.is_shard(1)]
+    cross = enc is not None or cross_cache is not None
 
-    def local(pl: dict, xl: Tensor, pos: Tensor, freq: Tensor) -> Tensor:
+    def local(pl: dict, xl: Tensor, *rest) -> Tensor:
+        *encl, pos, freq = rest
         hq, hkv = pl["wq"].shape[-1] // hd, pl["wk"].shape[-1] // hd
         lcfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
                                    head_dim=hd)
-        q, k, v = attention_qkv(pl, lcfg, xl, pos, freq)
         heads = None
         if q_dims and not kv_split:       # the local query heads' KV heads
             heads = torch.div(first + torch.arange(hq, device=xl.device),
                               cfg.n_heads // cfg.n_kv_heads,
                               rounding_mode="floor")
         b, t = xl.shape[:2]
+        if cross:
+            q = attention_q(pl, lcfg, xl, pos, freq)
+            if encl:
+                k, v = attention_kv(pl, lcfg, encl[0])
+                for dst, src in zip(cross_cache or (), (k, v)):
+                    dst.to_local().copy_(src)
+            else:
+                k, v = (c.to_local() for c in cross_cache)
+            if heads is not None:
+                k, v = k[:, :, heads], v[:, :, heads]
+            out = flash_attention(q, k, v, causal=False,
+                                  softcap=cfg.logit_softcap)
+            return out.reshape(b, t, hq * hd) @ pl["wo"]
+        q, k, v = attention_qkv(pl, lcfg, xl, pos, freq)
         if kv_cache is None:
             if heads is not None:
                 k, v = k[:, :, heads], v[:, :, heads]
@@ -401,7 +467,8 @@ def _attention_on_mesh(p: dict, cfg: ModelConfig, x: Tensor,
                                     q_dims, first)
         return out.reshape(b, t, hq * hd) @ pl["wo"]
 
-    return _on_local_blocks(local, p, x, positions, inv_freq)
+    return _on_local_blocks(local, p, x, positions, inv_freq,
+                            inputs=() if enc is None else (enc,))
 
 
 def _write_block(cache, steps, cache_len: int):
@@ -577,6 +644,30 @@ def attention_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
                                   causal=causal, softcap=cfg.logit_softcap)
     out = out.reshape(b, t, cfg.n_heads * cfg.resolved_head_dim)
     return out @ p["wo"]
+
+
+def cross_attention(p: dict, cfg: ModelConfig, x: Tensor, *,
+                    positions: Tensor, inv_freq: Tensor,
+                    enc_out: Optional[Tensor] = None,
+                    cache: Optional[Tuple[Tensor, Tensor]] = None
+                    ) -> Tensor:
+    """A decoder layer's cross-attention to the encoder's output: its keys
+    and values come from ``enc_out`` (train; a prefill also copies them
+    into ``cache``, the layer's ``cache["cross"]`` slots (B, T_enc, Hkv,
+    D)) or, with no ``enc_out``, from ``cache`` (decode). On a mesh on
+    local blocks (:func:`_attention_on_mesh`). Returns the layer output
+    (B, T, d_model)."""
+    if _device.is_dtensor(x):
+        return _attention_on_mesh(p, cfg, x, positions, inv_freq, None,
+                                  False, enc=enc_out, cross_cache=cache)
+    if enc_out is None:
+        kv = cache
+    else:
+        kv = attention_kv(p, cfg, enc_out)
+        for dst, src in zip(cache or (), kv):
+            dst.copy_(src)
+    return attention_forward(p, cfg, x, positions=positions,
+                             inv_freq=inv_freq, window=None, cross_kv=kv)
 
 
 # ---------------------------------------------------------------------------

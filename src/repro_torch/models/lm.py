@@ -54,11 +54,13 @@ float32 logits; ``train.make_train_step`` differentiates it.
 On a mesh (parameters and batch ``DTensor``s placed by
 ``repro_torch.sharding``) the residual stream is split over the data
 axes only: each block's partial output (a tensor-parallel layer's, see
-``layers``) is reduced before the residual add, the embedding and the
-label logits are looked up in each rank's vocabulary block
-(:func:`_embed_rows`, :func:`_label_logits`), the constants a forward
-makes (positions, RoPE tables, masks) are replicated over the mesh, and
-a prefill makes its cache placed by ``sharding.cache_spec``.
+``layers``; the Mamba-2 mixer's, ``ssm.ssm_on_mesh``) is reduced before
+the residual add, the embedding and the label logits are looked up in
+each rank's vocabulary block (:func:`_embed_rows`,
+:func:`_label_logits`), the frontend and head projections run on local
+blocks (``layers.linear``), the constants a forward makes (positions,
+RoPE tables, masks) are replicated over the mesh, and a prefill makes
+its cache placed by ``sharding.cache_spec``.
 """
 from __future__ import annotations
 
@@ -249,7 +251,11 @@ def layer_windows(cfg: ModelConfig):
 def _ssm_apply(p: dict, cfg: ModelConfig, u: Tensor, mode: str,
                cache: Optional[dict]) -> Tensor:
     """The Mamba-2 mixer; a prefill or decode writes its conv buffers and
-    state over the layer's cache slots."""
+    state over the layer's cache slots. On a mesh on local blocks
+    (``ssm.ssm_on_mesh``)."""
+    if _device.is_dtensor(u):
+        return S.ssm_on_mesh(p, cfg, u, mode=mode,
+                             cache=None if cache is None else cache["ssm"])
     out, sc = S.ssm_forward(p, cfg, u,
                             cache=cache["ssm"] if mode == "decode" else None,
                             return_cache=(mode == "prefill"))
@@ -295,16 +301,11 @@ def _block_apply(cfg: ModelConfig, p: dict, x: Tensor, *, positions: Tensor,
         x = x + a
     if cfg.n_enc_layers and (enc_out is not None or mode == "decode"):
         yc = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-        if mode == "decode":
-            cross_kv = cache["cross"]
-        else:
-            cross_kv = L.attention_kv(p["cross"], cfg, enc_out)
-            if mode == "prefill":
-                for dst, src in zip(cache["cross"], cross_kv):
-                    dst.copy_(src)
-        x = x + _device.reduced(L.attention_forward(
+        x = x + _device.reduced(L.cross_attention(
             p["cross"], cfg, yc, positions=positions, inv_freq=inv_freq,
-            window=None, cross_kv=cross_kv))
+            enc_out=None if mode == "decode" else enc_out,
+            cache=cache["cross"] if mode in ("prefill", "decode")
+            else None))
     y2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         return x + _device.reduced(L.moe_forward(p["moe"], cfg, y2))
@@ -362,6 +363,14 @@ def _embed_tokens(params: dict, cfg: ModelConfig, tokens,
     elif cfg.private_embed:
         from .private_embed import private_lookup_inline
         x = private_lookup_inline(params, cfg, tokens)
+        if _device.is_dtensor(x):
+            # rows split over d_model (a table split on its columns) are
+            # gathered, as _embed_rows' are: the residual stream is split
+            # over the data axes only
+            from torch.distributed.tensor import Replicate
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p.is_shard(x.ndim - 1) else p
+                for p in x.placements])
     else:
         x = _embed_rows(params["embed"], torch.as_tensor(tokens, device=dev))
     if cfg.embed_scale:
@@ -419,22 +428,25 @@ def _prefix_inputs(params: dict, cfg: ModelConfig, batch: dict) -> Tensor:
                       embeds=batch.get("embeds"))
     if cfg.frontend == "vit" and "patches" in batch:
         patches = torch.as_tensor(batch["patches"]).to(x.device, x.dtype)
-        # on a mesh the projection leaves split over d_model: gathered to
-        # the patches' placements, as the residual stream is
-        x = torch.cat([_device.placed_as(patches @ params["frontend_proj"],
-                                         patches), x], dim=1)
+        x = torch.cat([_frontend(params, patches), x], dim=1)
     return x
+
+
+def _frontend(params: dict, inputs: Tensor) -> Tensor:
+    """Frames or patches (B, T, frontend_dim) projected by
+    ``frontend_proj``. On a mesh (``L.linear``) the projection leaves
+    split over d_model: gathered to the inputs' placements, as the
+    residual stream is."""
+    return _device.placed_as(L.linear(inputs, params["frontend_proj"]),
+                             inputs)
 
 
 def _logits(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["lm_head"]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     # on a mesh a head split on d_model leaves partial sums: reduced; one
     # split on the vocabulary stays split
-    return _device.reduced(logits).float()
+    return _device.reduced(L.linear(x, head)).float()
 
 
 def _encode(params: dict, cfg: ModelConfig, frames) -> Tensor:
@@ -448,7 +460,7 @@ def _encode(params: dict, cfg: ModelConfig, frames) -> Tensor:
     follows the code, so both give the same encoder output."""
     dev = _params_device(params)
     frames = torch.as_tensor(frames).to(dev, _dtype(cfg))
-    x = _device.placed_as(frames @ params["frontend_proj"], frames)
+    x = _frontend(params, frames)
     positions = _device.replicate_like(
         torch.arange(x.shape[1], device=dev)[None, :], x)
     inv_freq = _device.replicate_like(

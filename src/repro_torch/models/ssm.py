@@ -5,7 +5,8 @@ Forward and prefill run the chunked SSD algorithm: attention-like einsums
 inside fixed-size chunks and a linear recurrence over the chunks' states
 (a Python loop where the reference has ``lax.scan``). Decode is the
 one-token recurrent update on a float32 (B, H, P, N) state, the SSM's
-counterpart of a KV cache.
+counterpart of a KV cache, run once a token. On a mesh the mixer runs
+on each rank's heads (:func:`ssm_on_mesh`).
 
 The head-indexed parameters are head-shaped, (D, H, P) and (H, P, D), as
 in the reference, so ``models.lm.params_from_arrays`` carries them across
@@ -83,10 +84,17 @@ def _conv1d(x: Tensor, w: Tensor, b: Tensor, hist: Optional[Tensor]
     return F.silu(out + b)
 
 
-def _rmsnorm_hp(x: Tensor, w: Tensor, eps: float) -> Tensor:
-    """RMS norm over the joint (H, P) feature dims."""
+def _rmsnorm_hp(x: Tensor, w: Tensor, eps: float, norm=None) -> Tensor:
+    """RMS norm over the joint (H, P) feature dims. ``norm``, where ``x``
+    holds some of the heads, is (a function that sums a local sum of
+    squares over the ranks that hold the others, the whole H·P): the mean
+    is then that sum over H·P."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=(-2, -1), keepdim=True)
+    if norm is None:
+        var = torch.mean(xf * xf, dim=(-2, -1), keepdim=True)
+    else:
+        total, n = norm
+        var = total(torch.sum(xf * xf, dim=(-2, -1), keepdim=True)) / n
     return (xf * torch.rsqrt(var + eps) * (1.0 + w)).to(x.dtype)
 
 
@@ -163,7 +171,7 @@ def _hist(v: Tensor, k: int) -> Tensor:
 
 def ssm_forward(p: dict, cfg: ModelConfig, u: Tensor, *,
                 cache: Optional[SSMCache] = None,
-                return_cache: bool = False
+                return_cache: bool = False, norm=None
                 ) -> Tuple[Tensor, Optional[SSMCache]]:
     """Full Mamba-2 block.
 
@@ -171,7 +179,10 @@ def ssm_forward(p: dict, cfg: ModelConfig, u: Tensor, *,
     cache=None, return_cache=True:  prefill (chunked SSD + a decode cache:
                                     the last k-1 raw, pre-convolution
                                     x/B/C rows and the final state)
-    cache=SSMCache:                 one-token recurrent decode
+    cache=SSMCache:                 recurrent decode, the reference's
+                                    one-token update once a token (a
+                                    T-token step equals T one-token steps)
+    ``p`` may hold some of the heads (``norm``: see :func:`_rmsnorm_hp`).
     Returns (out (B, T, d), the new cache or None); the caller writes a
     returned cache where it keeps one.
     """
@@ -207,8 +218,6 @@ def ssm_forward(p: dict, cfg: ModelConfig, u: Tensor, *,
                                  conv_B=_hist(B_raw, k),
                                  conv_C=_hist(C_raw, k), state=final)
     else:
-        if t != 1:
-            raise ValueError(f"the recurrent update takes one token, got {t}")
         k = cfg.ssm_conv
 
         def step_conv(hist_buf, new, w, bias):
@@ -216,20 +225,66 @@ def ssm_forward(p: dict, cfg: ModelConfig, u: Tensor, *,
             val = sum(buf[:, i] * w[i][None] for i in range(k))
             return F.silu(val + bias), buf[:, 1:]
 
-        xv, cx = step_conv(cache.conv_x, x_raw, p["conv_x"], p["conv_bx"])
-        Bv, cb = step_conv(cache.conv_B, B_raw, p["conv_B"], p["conv_bB"])
-        Cv, cc = step_conv(cache.conv_C, C_raw, p["conv_C"], p["conv_bC"])
-        dA = torch.exp(dt[:, 0] * A[None])                     # (b,h)
-        dBx = torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bv.float(),
-                           xv.float())
-        state = cache.state * dA[..., None, None] + dBx
-        y = torch.einsum("bhpn,bn->bhp", state, Cv.float())[:, None]
-        y = y + xv[:, None].float() * p["D"][None, None, :, None]
+        cx, cb, cc, state = cache
+        ys = []
+        for i in range(t):
+            xv, cx = step_conv(cx, x_raw[:, i:i + 1], p["conv_x"],
+                               p["conv_bx"])
+            Bv, cb = step_conv(cb, B_raw[:, i:i + 1], p["conv_B"],
+                               p["conv_bB"])
+            Cv, cc = step_conv(cc, C_raw[:, i:i + 1], p["conv_C"],
+                               p["conv_bC"])
+            dA = torch.exp(dt[:, i] * A[None])                 # (b,h)
+            dBx = torch.einsum("bh,bn,bhp->bhpn", dt[:, i], Bv.float(),
+                               xv.float())
+            state = state * dA[..., None, None] + dBx
+            yi = torch.einsum("bhpn,bn->bhp", state, Cv.float())[:, None]
+            ys.append(yi + xv[:, None].float() * p["D"][None, None, :, None])
+        y = ys[0] if t == 1 else torch.cat(ys, dim=1)
         new_cache = SSMCache(conv_x=cx, conv_B=cb, conv_C=cc, state=state)
 
     y = _rmsnorm_hp(y.to(u.dtype) * F.silu(z.float()).to(u.dtype),
-                    p["norm"], cfg.norm_eps)
+                    p["norm"], cfg.norm_eps, norm)
     return torch.einsum("bthp,hpd->btd", y, p["out_proj"]), new_cache
+
+
+def ssm_on_mesh(p: dict, cfg: ModelConfig, u: Tensor, *, mode: str,
+                cache: Optional[SSMCache]) -> Tensor:
+    """The Mamba-2 mixer on a mesh, on each rank's local blocks (``u`` a
+    ``DTensor`` split over the data axes only; ``cache``, in a prefill or
+    decode step, the layer's ``DTensor``s placed by
+    ``sharding.cache_spec``). Where ``sharding`` splits the SSM heads over
+    ``model``, each rank runs its own heads: its columns of ``w_z``,
+    ``w_x`` and ``w_dt``, its heads' conv, scan or recurrent step, norm
+    (the sum of squares over H·P summed over the ranks that hold the
+    other heads: one all-reduce of (B, T) values) and rows of
+    ``out_proj``, so the output is a partial sum the caller reduces. The
+    replicated ``w_B``/``w_C`` and their conv run whole on every rank.
+    Each rank writes its blocks of the conv buffers and the state: its
+    heads of ``conv_x`` and ``state``, the whole ``conv_B``/``conv_C``.
+    Where the heads stay whole the mixer runs whole on every rank. No op
+    reshapes a ``DTensor``, so any batch serves."""
+    from .layers import _on_local_blocks, sum_over
+    w = p["w_x"]
+    split = [i for i, pl in enumerate(w.placements) if pl.is_shard()]
+    norm = None
+    if split:
+        mesh = u.device_mesh
+        norm = (lambda s: sum_over(s, mesh, split),
+                w.shape[1] * w.shape[2])
+
+    def local(pl: dict, ul: Tensor) -> Tensor:
+        lc = None if cache is None else SSMCache(
+            *(c.to_local() for c in cache))
+        out, sc = ssm_forward(pl, cfg, ul,
+                              cache=lc if mode == "decode" else None,
+                              return_cache=(mode == "prefill"), norm=norm)
+        if sc is not None:
+            for dst, src in zip(lc, sc):
+                dst.copy_(src)
+        return out
+
+    return _on_local_blocks(local, p, u)
 
 
 def ssm_cache_init(cfg: ModelConfig, batch: int, dtype, device

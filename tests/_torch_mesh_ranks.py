@@ -132,33 +132,45 @@ def _roundtrip(inp, mesh, out):
 
 
 #: the serving cases on real ranks: (tag, grid, arch, config fields
-#: replaced, decode steps' token counts). At (2, 2) Qwen's heads split
-#: over ``model``; at (1, 4) with 2 heads its attention runs whole on every
-#: model rank. ChatGLM3's and InternVL2's 4 query heads split over a model
-#: axis of 4 and their 2 KV heads do not: the cache splits on its sequence
-#: (the reference's replicated-KV, context-parallel case). MiniCPM3 at 6
-#: heads keeps its MLA weights whole, its latent cache split on its
-#: sequence. The last two-token step writes into a filled
-#: context-parallel cache.
+#: replaced, decode steps' token counts, batch). At (2, 2) Qwen's heads
+#: split over ``model``; at (1, 4) with 2 heads its attention runs whole
+#: on every model rank. ChatGLM3's and InternVL2's 4 query heads split over
+#: a model axis of 4 and their 2 KV heads do not: the cache splits on its
+#: sequence (the reference's replicated-KV, context-parallel case).
+#: MiniCPM3 at 6 heads keeps its MLA weights whole, its latent cache split
+#: on its sequence. A two-token step writes into a filled cache. At (1, 4)
+#: and batches of one and two: Mamba-2 and Hymba with their 8 SSM heads
+#: split (2 a rank), SeamlessM4T with its frames projection split on
+#: d_model and its 4 cross-attention heads split, and Gemma3 with 4 query
+#: heads over one KV head and its sliding window of 8 crossed.
 SERVE_CASES = (
-    ("2x2", (2, 2), "qwen1_5_4b", {}, (1, 1)),
-    ("1x4", (1, 4), "qwen1_5_4b", {"n_heads": 2, "n_kv_heads": 2}, (1, 1)),
-    ("1x4_chatglm3", (1, 4), "chatglm3_6b", {}, (1, 1, 2)),
-    ("1x4_internvl2", (1, 4), "internvl2_76b", {}, (1, 1)),
+    ("2x2", (2, 2), "qwen1_5_4b", {}, (1, 1), 4),
+    ("1x4", (1, 4), "qwen1_5_4b", {"n_heads": 2, "n_kv_heads": 2}, (1, 1),
+     4),
+    ("1x4_chatglm3", (1, 4), "chatglm3_6b", {}, (1, 1, 2), 4),
+    ("1x4_internvl2", (1, 4), "internvl2_76b", {}, (1, 1), 4),
     ("1x4_minicpm3", (1, 4), "minicpm3_4b", {"n_heads": 6, "n_kv_heads": 6},
-     (1, 1, 2)),
-)
+     (1, 1, 2), 4),
+) + tuple(
+    (f"1x4_{name}_b{b}", (1, 4), arch, {}, (1, 1, 2), b)
+    for name, arch in (("mamba2", "mamba2_2_7b"), ("hymba", "hymba_1_5b"),
+                       ("seamless", "seamless_m4t_medium"),
+                       ("gemma3", "gemma3_1b"))
+    for b in (1, 2))
 
 
-def serve_batches(inp, cfg, steps):
-    """-> (the 6-token prompt's batch, the decode steps' batches): the
-    prompt is the first 6 of ``inp["serve_tokens"]``, each one-token
-    step the next token, a two-token step the prompt's first two again; a
-    ViT prefix's patches go with the prompt."""
-    toks = inp["serve_tokens"]
+def serve_batches(inp, cfg, steps, batch=4):
+    """-> (the 6-token prompt's batch, the decode steps' batches) of the
+    first ``batch`` rows: the prompt is the first 6 of
+    ``inp["serve_tokens"]``, each one-token step the next token, a
+    two-token step the prompt's first two again; a ViT prefix's patches and
+    an encoder's frames go with the prompt."""
+    toks = inp["serve_tokens"][:batch]
     first = {"tokens": toks[:, :6]}
     if cfg.frontend == "vit":
-        first["patches"] = inp["serve_patches"]
+        first["patches"] = inp["serve_patches"][:batch]
+    if cfg.n_enc_layers:
+        first["frames"] = inp["serve_frames"][:batch]
     later, pos = [], 6
     for n in steps:
         later.append({"tokens": toks[:, pos:pos + 1] if n == 1
@@ -167,12 +179,12 @@ def serve_batches(inp, cfg, steps):
     return first, later
 
 
-def _serve(inp, out):
-    """A prefill and the decode steps of every case of SERVE_CASES on its
+def _serve(inp, out, cases=SERVE_CASES):
+    """A prefill and the decode steps of every case of ``cases`` on its
     grid: the logits, the cache gathered whole, and the placements of the
-    cache and the attention weights."""
+    cache and of the attention (or SSM) weights."""
     from repro_torch.models import decode_step, init_params, prefill
-    for tag, shape, arch, over, steps in SERVE_CASES:
+    for tag, shape, arch, over, steps, batch in cases:
         m = lmesh.make_mesh(shape, AXES, device_type="cpu")
         cfg = dataclasses.replace(configs.smoke(arch), dtype="float32",
                                   **over)
@@ -180,8 +192,9 @@ def _serve(inp, out):
         params = sharding.distribute(
             params, m, sharding.param_shardings(cfg, m, params))
         dp = sharding.dp_entry(m)
-        specs = {"tokens": (dp, None), "patches": (dp, None, None)}
-        first, later = serve_batches(inp, cfg, steps)
+        specs = {"tokens": (dp, None), "patches": (dp, None, None),
+                 "frames": (dp, None, None)}
+        first, later = serve_batches(inp, cfg, steps, batch)
         prefix = cfg.n_prefix if cfg.frontend == "vit" else 0
         pos = prefix + 6
         logits, cache = prefill(params, cfg, to_device(
@@ -192,8 +205,9 @@ def _serve(inp, out):
                 b, "cpu", mesh=m, specs=specs))
             got.append(logits.full_tensor())
             pos += b["tokens"].shape[1]
+        mixer = params["blocks"]["ssm" if cfg.family == "ssm" else "attn"]
         out[f"serve_{tag}"] = (got, _placements(cache), _whole(cache),
-                               _placements(params["blocks"]["attn"]))
+                               _placements(mixer))
 
 
 def _errors(mesh, out):
@@ -212,6 +226,35 @@ def _errors(mesh, out):
     except TypeError as e:
         raised["kernel"] = str(e)
     out["raised"] = raised
+
+
+#: float32 elements of each priced collective's output (4 KiB)
+PRICED_OUT = 1024
+
+
+def _price_collectives(out):
+    """The walker over an all-reduce, an all-gather and a reduce-scatter,
+    each with ``PRICED_OUT`` float32 elements of output, over the model
+    axis of (2, 2) (2 ranks) and of (1, 4) (4 ranks) -> (the walk's
+    output bytes by kind, group size and link, its ``t_collective``)."""
+    from torch.distributed import _functional_collectives as funcol
+    from repro_torch.launch import hlo_cost
+    n_out = PRICED_OUT
+    for shape in ((2, 2), (1, 4)):
+        m = lmesh.make_mesh(shape, AXES, device_type="cpu")
+        n = shape[1]
+        calls = {
+            "all-reduce": lambda: funcol.all_reduce(
+                torch.ones(n_out), "sum", (m, 1)),
+            "all-gather": lambda: funcol.all_gather_tensor(
+                torch.ones(n_out // n), 0, (m, 1)),
+            "reduce-scatter": lambda: funcol.reduce_scatter_tensor(
+                torch.ones(n_out * n), "sum", 0, (m, 1))}
+        for kind, call in calls.items():
+            cost = hlo_cost.analyze(lambda: funcol.wait_tensor(call()))
+            out[f"priced/{kind}/{n}"] = (
+                dict(cost.collective_groups),
+                cost.roofline(n_chips=dist.get_world_size()).t_collective)
 
 
 def _launcher(inp, mesh, out):
@@ -241,6 +284,7 @@ def run(rank: int, world: int, root: str) -> None:
         _roundtrip(inp, mesh, out)
         _serve(inp, out)
         _errors(mesh, out)
+        _price_collectives(out)
         _launcher(inp, mesh, out)
     except Exception:           # the test reads the traceback
         out["error"] = traceback.format_exc()

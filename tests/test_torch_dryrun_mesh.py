@@ -56,7 +56,7 @@ out = {"prefill": {}, "one_by_one": {}, "families": {}, "moe": {}}
 prefill = ShapeConfig("prefill_s", 32, 32, "prefill")
 KEYS = ("status", "n_chips", "flops_by_class", "collective_kinds",
         "collective_detail", "collectives", "unpriced", "t_collective",
-        "memory")
+        "memory", "collective_groups")
 for grid in ("single_pod_256", "multi_pod_512"):
     r = dryrun.price_cell("qwen1_5_4b", prefill, smoke=True, grid=grid)
     out["prefill"][grid] = {k: r[k] for k in KEYS}
@@ -184,7 +184,11 @@ def test_prefill_matches_the_hand_count(priced, grid, b):
     assert r["collectives"]["count"] == 1 + L
     assert r["collective_detail"]["ib"] == allreduce
     assert r["collective_detail"]["nvlink"] == 0
-    assert r["t_collective"] == pytest.approx(allreduce / 50e9)
+    # each all-reduce over the 16 model ranks (two hosts of 8): NCCL's
+    # bus bytes, 2·15/16 of its output, at InfiniBand's 50 GB/s
+    assert r["collective_groups"] == {"all-reduce|16|ib": allreduce}
+    assert r["t_collective"] == pytest.approx(allreduce * 2 * 15 / 16
+                                              / 50e9)
     assert r["memory"]["device_gb"] == 80.0 and r["memory"]["fits"]
 
 

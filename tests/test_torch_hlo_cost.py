@@ -58,6 +58,45 @@ def test_roofline_terms_and_bottleneck():
         assert key in d
 
 
+def test_collectives_priced_by_bus_bytes():
+    """A collective's time is its bus bytes over its kind's bus rate, the
+    other bytes on a link (a copy) at the link's rate."""
+    assert H.bus_factor("all-reduce", 4) == 1.5
+    assert H.bus_factor("all-gather", 4) == 0.75
+    assert H.bus_factor("reduce-scatter", 4) == 3.0
+    assert H.bus_factor("all-reduce", 1) == 0.0
+    r = H.Roofline(flops=0.0, bytes_accessed=0.0,
+                   collective_bytes=3e9 + 64e9, n_chips=4,
+                   collective_detail={"nvlink": 3e9, "pcie": 64e9},
+                   collective_groups={"all-reduce|4|nvlink": 1e9,
+                                      "all-gather|2|nvlink": 2e9})
+    want = (1.5e9 / H.NVLINK_BUS_BW["all-reduce"][4]
+            + 1e9 / H.NVLINK_BUS_BW["all-gather"][2] + 1.0)
+    assert abs(r.t_collective - want) < 1e-12
+    assert H.collective_seconds("all-reduce", 16, 50e9, "ib") == 1.875
+    # a group size not measured takes the largest measured below it
+    assert H.bus_rate("all-gather", 8) == H.NVLINK_BUS_BW["all-gather"][4]
+    assert H.bus_rate("all-to-all", 2) == H.NVLINK_BUS_BW["all-gather"][2]
+    # MeshDispatcher's reduce (copies between slots) at the link's rate
+    assert H.collective_seconds("reduce", 2, 450e9, "nvlink") == 1.0
+    key = H.group_key("all-reduce", 4, "nvlink")
+    assert H.split_key(key) == ("all-reduce", 4, "nvlink")
+    assert H.seconds_by_kind({key: 1e9}) == {
+        "all-reduce": 1.5e9 / H.NVLINK_BUS_BW["all-reduce"][4]}
+    # a walk's bytes by link and by kind are sums of its copies and groups
+    cost = hlo_cost.Cost()
+    cost.copies["pcie"] += 5.0
+    cost.collective_groups[key] = 7.0
+    cost.collective_groups[H.group_key("all-gather", 2, "nvlink")] = 2.0
+    assert cost.collectives == {"nvlink": 9.0, "ib": 0.0, "pcie": 5.0}
+    assert cost.collective_kinds == {"all-reduce": 7.0, "all-gather": 2.0}
+    twice = cost.scaled(2)
+    assert twice.collectives == {"nvlink": 18.0, "ib": 0.0, "pcie": 10.0}
+    assert cost.roofline(n_chips=4).t_collective == pytest.approx(
+        5.0 / H.PCIE_BW + 10.5 / H.NVLINK_BUS_BW["all-reduce"][4]
+        + 1.0 / H.NVLINK_BUS_BW["all-gather"][2])
+
+
 def test_peaks_by_class():
     assert H.PEAKS["dot_bf16"] == 989e12 and H.PEAKS["int8"] == 1.979e15
     assert H.PEAKS["dot_tf32"] == 495e12 and H.PEAKS["float"] == 67e12

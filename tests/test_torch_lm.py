@@ -205,6 +205,32 @@ def test_forward_prefill_decode_match_reference(arch):
                 _close(got, want)
 
 
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b"])
+def test_multi_token_decode_step_matches_reference(arch):
+    """A two-token decode step of an SSM family (the reference's SSM
+    update takes one token) gives the reference's logits and cache after
+    two one-token steps: the SSM's conv buffers and state, and Hymba's KV
+    cache, every leaf."""
+    jcfg, tcfg, jp, tp = _pair(arch)
+    toks = _tokens(jcfg, (B, 10))
+    lj, cj = jlm.prefill(jp, jcfg, _jbatch(toks[:, :8], {}), max_len=12)
+    _, ct = tlm.prefill(tp, tcfg, _tbatch(toks[:, :8], {}), max_len=12)
+    want = []
+    for s in range(2):
+        lj, cj = jlm.decode_step(jp, jcfg, cj, 8 + s,
+                                 {"tokens": jnp.asarray(toks[:, 8 + s:9 + s])})
+        want.append(np.asarray(lj))
+    lt, ct = tlm.decode_step(tp, tcfg, ct, 8,
+                             {"tokens": torch.as_tensor(toks[:, 8:10])})
+    assert lt.shape == (B, 2, tcfg.vocab_size)
+    _close(lt, np.concatenate(want, 1))
+    assert sorted(ct) == sorted(cj)
+    for part in cj:
+        for got, w in zip(ct[part], cj[part], strict=True):
+            assert tuple(got.shape) == w.shape
+            _close(got, w)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_tokens_match_reference(arch):
     """Greedy decoding through each package picks the same tokens."""

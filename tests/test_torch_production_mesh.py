@@ -23,7 +23,12 @@ vocabulary 256: every rule splits over a model axis of 2):
 * a prefill and decode steps of Qwen at (2, 2) and (1, 4), and of
   ChatGLM3 (query heads split, KV heads whole), InternVL2 (the same,
   through its ViT prefix) and MiniCPM3 (MLA heads whole) at (1, 4) over
-  a cache split on its sequence: the unsharded port's logits and cache;
+  a cache split on its sequence, and at (1, 4) with batches of one and
+  two of Mamba-2 and Hymba (SSM heads split), SeamlessM4T (frames and
+  cross-attention) and Gemma3: the unsharded port's logits and cache,
+  the cache placed as ``sharding.cache_spec`` says;
+* the walker prices an all-reduce, an all-gather and a reduce-scatter
+  over 2 and 4 ranks at NCCL's bus bytes for the kind and group size;
 * no fallback: a world that is not the mesh's, a DTensor at a kernel, a
   missing process group and a backend PyTorch lacks each raise.
 """
@@ -133,6 +138,8 @@ def run(tmp_path_factory):
                rng.standard_normal((3, 6, 50)).astype(np.float32)),
            "serve_tokens": rng.integers(0, 256, (4, 8)).astype(np.int32)}
     inp["serve_patches"] = rng.standard_normal((4, 4, 32)).astype(
+        np.float32)
+    inp["serve_frames"] = rng.standard_normal((4, 8, 32)).astype(
         np.float32)
     torch.save(inp, root / "inputs.pt")
     mp.spawn(ranks.run, args=(WORLD, str(root)), nprocs=WORLD, join=True)
@@ -250,32 +257,66 @@ def test_checkpoint_crosses_grids_and_packages(run):
 
 #: the cache's sequence split (dim 2 of the (L, B, S, ...) cache) or head
 #: split (dim 3), and the query projection's placement on the model axis,
-#: by serving case
+#: by serving case (for Mamba-2: the SSM state's head split, dim 2 of the
+#: (L, B, H, P, N) state, and ``w_x``'s, dim 2 of the (L, D, H, P) weight)
 SERVE_PLACED = {"2x2": ("Shard(dim=3)", "Shard(dim=2)"),
                 "1x4": ("Shard(dim=2)", "Replicate()"),
                 "1x4_chatglm3": ("Shard(dim=2)", "Shard(dim=2)"),
                 "1x4_internvl2": ("Shard(dim=2)", "Shard(dim=2)"),
                 "1x4_minicpm3": ("Shard(dim=2)", "Replicate()")}
+for _b in (1, 2):
+    SERVE_PLACED.update({f"1x4_mamba2_b{_b}": ("Shard(dim=2)",
+                                               "Shard(dim=2)"),
+                         f"1x4_hymba_b{_b}": ("Shard(dim=2)",
+                                              "Shard(dim=2)"),
+                         f"1x4_seamless_b{_b}": ("Shard(dim=3)",
+                                                 "Shard(dim=2)"),
+                         f"1x4_gemma3_b{_b}": ("Shard(dim=2)",
+                                               "Shard(dim=2)")})
+
+#: cache leaves whose layer 0 is not a projection of the embedding alone:
+#: the SSM state (through dt's projection onto a rank's 2 heads, which the
+#: CPU's GEMM rounds apart from its 8 columns, and the scan) and the cross
+#: cache (from the encoder's output); held within 1e-5 as later layers are
+NOT_FROM_EMBEDDING = ("ssm/state", "cross/0", "cross/1")
+
+
+class _Grid:
+    """A stand-in for a mesh of ``shape``: the rules read its axis names
+    and sizes only."""
+    axis_names = ("data", "model")
+
+    def __init__(self, shape):
+        self.shape = dict(zip(self.axis_names, shape))
 
 
 @pytest.mark.parametrize("grid", list(SERVE_PLACED))
 def test_prefill_and_decode_on_a_mesh(run, grid):
     """The dry-run's serving cells on real ranks: a 6-token prefill and
-    the decode steps (``ranks.SERVE_CASES``) within 1e-4 (float32) of one
-    device's logits, the cache gathered whole equal to one device's
-    (see below), with the cache split on heads (2 x 2) or on its
-    sequence (1 x 4): Qwen with 2 heads whole on every model rank,
-    ChatGLM3 and InternVL2 (through its ViT prefix) with their query
-    heads split and KV heads whole, MiniCPM3 at 6 heads with its MLA
+    the decode steps (``ranks.SERVE_CASES``) within 1e-4 (float32; 1e-5
+    for the cases of batch 1 and 2) of one device's logits, the cache
+    gathered whole equal to one device's (see below) and placed as
+    ``sharding.cache_spec`` says, with the cache split on heads (2 x 2)
+    or on its sequence (1 x 4): Qwen with 2 heads whole on every model
+    rank, ChatGLM3 and InternVL2 (through its ViT prefix) with their
+    query heads split and KV heads whole, MiniCPM3 at 6 heads with its MLA
     weights whole and its latent cache split; ChatGLM3 and MiniCPM3 end
-    with a two-token step into the filled context-parallel cache."""
+    with a two-token step into the filled context-parallel cache. At
+    (1, 4) with batches of one and two, each ending with a two-token
+    step: Mamba-2 and Hymba with their SSM heads split (the mixer on local
+    blocks, its conv buffers and state on each rank's heads),
+    SeamlessM4T with its frames projection and cross-attention on local
+    blocks (the cross cache split on heads), and Gemma3 (one KV head, a
+    context-parallel cache, its window crossed)."""
+    from repro_torch import sharding
     from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.config import ShapeConfig
     out, inp = run[0], run[1]
-    _, _, arch, over, steps = next(c for c in ranks.SERVE_CASES
-                                   if c[0] == grid)
+    _, shape, arch, over, steps, batch = next(
+        c for c in ranks.SERVE_CASES if c[0] == grid)
     cfg = dataclasses.replace(configs.smoke(arch), dtype="float32", **over)
     params = init_params(11, cfg, device="cpu")
-    first, later = ranks.serve_batches(inp, cfg, steps)
+    first, later = ranks.serve_batches(inp, cfg, steps, batch)
     pos = (cfg.n_prefix if cfg.frontend == "vit" else 0) + 6
     logits, cache = prefill(params, cfg, {k: torch.as_tensor(v)
                                           for k, v in first.items()},
@@ -286,23 +327,55 @@ def test_prefill_and_decode_on_a_mesh(run, grid):
             "tokens": torch.as_tensor(b["tokens"])})
         want.append(logits)
         pos += b["tokens"].shape[1]
-    got, placements, got_cache, attn = out[f"serve_{grid}"]
+    got, placements, got_cache, mixer = out[f"serve_{grid}"]
     assert len(got) == len(want) == 1 + len(steps)
+    tol = 1e-4 if batch == 4 else 1e-5
     for g, w in zip(got, want):
-        assert float((g - w).abs().max()) <= 1e-4
-    # layer 0's keys and values come from the embedding: bit for bit; a
-    # later layer's from the previous layer's output, summed over the
-    # model ranks in another order (2.2e-6 at most in these cases)
-    for g, w in zip(_tree.leaves(got_cache), _tree.leaves(cache)):
         assert g.shape == w.shape
-        assert torch.equal(g[0], w[0])
-        assert float((g - w).abs().max()) <= 1e-5
-    split, wq = SERVE_PLACED[grid]
+        assert float((g - w).abs().max()) <= tol
+    # layer 0's keys and values (and the SSM's conv buffers) come from the
+    # embedding: bit for bit; a later layer's from the previous layer's
+    # output, summed over the model ranks in another order (2.2e-6 at
+    # most in these cases)
+    for (path, g), w in zip(_tree.leaves_with_paths(got_cache),
+                            _tree.leaves(cache)):
+        assert g.shape == w.shape
+        if path not in NOT_FROM_EMBEDDING:
+            assert torch.equal(g[0], w[0]), path
+        assert float((g - w).abs().max()) <= 1e-5, path
     placements = dict(placements)
-    assert placements["kv/0"][1] == split
-    assert placements["kv/1"][1] == split
-    q = "wuq" if cfg.attn_type == "mla" else "wq"
-    assert dict(attn)[q][1] == wq
+    spec = sharding.cache_spec(cfg, _Grid(shape), ShapeConfig(
+        "cache", 0, batch, "decode"))
+    want_pls = _tree.map_leaves(
+        lambda t, s: " ".join(map(repr, sharding.placements(s, _Grid(
+            shape)))), got_cache, spec)
+    assert {k: " ".join(v) for k, v in placements.items()} == dict(
+        _tree.leaves_with_paths(want_pls))
+    split, w_split = SERVE_PLACED[grid]
+    state = "ssm/state" if cfg.family == "ssm" else "kv/0"
+    assert placements[state][1] == split
+    w = ("w_x" if cfg.family == "ssm" else
+         "wuq" if cfg.attn_type == "mla" else "wq")
+    assert dict(mixer)[w][1] == w_split
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("kind", ["all-reduce", "all-gather",
+                                  "reduce-scatter"])
+def test_walker_prices_collectives_by_bus_bytes(run, kind, n):
+    """Each collective alone, 4 KiB of output over n ranks of one host:
+    recorded by kind, group size and link, and priced at NCCL's bus bytes
+    (2(n-1)/n of the output for an all-reduce, (n-1)/n for an all-gather,
+    n-1 for a reduce-scatter) over the NVLink bus rate measured for the
+    kind at n ranks."""
+    from repro_torch.launch import hlo_analysis as H
+    groups, t = run[0][f"priced/{kind}/{n}"]
+    nb = 4 * ranks.PRICED_OUT
+    assert groups == {f"{kind}|{n}|nvlink": nb}
+    bus = {"all-reduce": 2 * (n - 1) / n, "all-gather": (n - 1) / n,
+           "reduce-scatter": n - 1}[kind]
+    assert t == pytest.approx(bus * nb / H.NVLINK_BUS_BW[kind][n],
+                              rel=1e-12)
 
 
 def test_launcher_on_a_mesh_matches_one_device(run, capsys):

@@ -8,7 +8,8 @@ within atol 1e-4 / rtol 1e-4:
 * ``ssd_chunked`` with and without an initial state, several chunks of 4;
   ``ssm_forward`` at lengths that are a multiple of the chunk and ragged
   (padded), with the prefill cache (the last k-1 raw rows, left-padded
-  below k-1 tokens) and the one-token recurrent update;
+  below k-1 tokens) and the one-token recurrent update; a recurrent step
+  of 2 and 3 tokens against as many of the reference's one-token updates;
 * ``softplus`` against ``jax.nn.softplus`` across float32's range;
 * each MoE dispatch against the reference's, the sort at the default
   capacity and at 0.5 (pairs overflow and are dropped); the port's sort
@@ -121,6 +122,39 @@ def test_ssm_prefill_and_recurrent_update_match_reference(t):
         _close(yt, yj)
         for got, want in zip(ct, cj):
             _close(got, want)
+
+
+@pytest.mark.parametrize("t", [2, 3])
+def test_ssm_multi_token_recurrent_step_matches_one_token_steps(t):
+    """A recurrent step of ``t`` tokens (the port's; the reference's
+    update takes one) equals the reference's ``t`` one-token updates from
+    the same prefill cache: the outputs and every cache leaf. It also
+    equals the port's own ``t`` one-token steps, up to float32 rounding
+    of the projections over ``t`` rows at once."""
+    jcfg, tcfg = _cfgs("mamba2_2_7b", ssm_chunk=4)
+    jp, tp = _params(jcfg, jssm.ssm_init)
+    rng = np.random.default_rng(20 + t)
+    u = _rand(rng, (2, 8 + t, jcfg.d_model))
+    _, cj = jssm.ssm_forward(jp, jcfg, jnp.asarray(u[:, :8]),
+                             return_cache=True)
+    _, c0 = tssm.ssm_forward(tp, tcfg, torch.as_tensor(u[:, :8]),
+                             return_cache=True)
+    yj, ys, c1 = [], [], c0
+    for s in range(8, 8 + t):
+        y, cj = jssm.ssm_forward(jp, jcfg, jnp.asarray(u[:, s:s + 1]),
+                                 cache=cj)
+        yj.append(np.asarray(y))
+        y, c1 = tssm.ssm_forward(tp, tcfg, torch.as_tensor(u[:, s:s + 1]),
+                                 cache=c1)
+        ys.append(y)
+    yt, ct = tssm.ssm_forward(tp, tcfg, torch.as_tensor(u[:, 8:]), cache=c0)
+    assert tuple(yt.shape) == (2, t, tcfg.d_model)
+    _close(yt, np.concatenate(yj, 1))
+    _close(yt, torch.cat(ys, 1), atol=1e-6, rtol=1e-5)
+    for got, want, own in zip(ct, cj, c1, strict=True):
+        assert tuple(got.shape) == want.shape and got.dtype == own.dtype
+        _close(got, want)
+        _close(got, own, atol=1e-6, rtol=1e-5)
 
 
 def test_ssm_cache_init_and_init_tree():
