@@ -286,12 +286,16 @@ within 2e-3 of (1, 1)'s, one sort-dispatch step at capacity 1.25 in bf16
 within 2e-3 of the unsharded step's and, at full width in float32,
 within 1e-6 with equal dropped pairs: on 16 of its 32 layers against the
 unsharded step at (1, 2), (2, 1) and (4, 1), on all 32 at (1, 4) and
-(2, 2) against (4, 1). Every family at its full width
-(``FAMILY_SERVE``, ChatGLM3-6B among them) on (1, 4) with one request
-and on (2, 2) with four, the first decode step private: tokens
-equal to the unsharded run's up to near-ties, the cache placed as each
-grid splits it, one ``share_onehot`` and one ``ss_matmul`` on each
-rank's card with the table's rows opened bit for bit. One step of Qwen
+(2, 2) against (4, 1). Every family at its full width and depth
+(``FAMILY_SERVE``, ChatGLM3-6B among them; InternVL2-76B's 80 layers at
+(1, 4), 20 at (2, 2)) on (1, 4) with one request and on (2, 2) with
+four, each rank drawing only its own parameter blocks
+(``init_params(mesh=)``), the first decode step private: tokens equal
+to the unsharded run's up to near-ties (for InternVL2-76B and Moonlight
+an unsharded run on rank 0's card that draws each layer when it reaches
+it), the cache placed as each grid splits it, one ``share_onehot`` and
+one ``ss_matmul`` on each rank's card with the table's rows opened bit
+for bit, each rank's peak logged beside its reckoning. One step of Qwen
 at (2, 2) and of Granite at (1, 4) profiled: NCCL's kernels' device ms
 by collective beside the cost walker's bytes and ``t_collective`` for
 the same step; each collective alone beside the walker's time for it
@@ -3507,6 +3511,31 @@ def slice13_mesh(torch):
     return make_mesh((1, 1), ("data", "model"))
 
 
+def placed_params(torch, seed, cfg, mesh, tag):
+    """``lm.init_params(seed, cfg, mesh=mesh)``: this rank draws each
+    leaf and keeps its own block only. On a one-rank mesh (the default
+    run's slices 13 and 14), where the rank's blocks are the whole tree, the
+    largest leaf of the decoder stack is held with ``torch.equal`` to the
+    whole init's (drawn after it on the same card, then dropped)."""
+    from repro_torch import _tree, sharding
+    from repro_torch.models import lm
+    params = lm.init_params(seed, cfg, mesh=mesh)
+    if mesh.size() == 1:
+        path, got = max(((p, t) for p, t in _tree.leaves_with_paths(params)
+                         if p.startswith("blocks/")),
+                        key=lambda pt: pt[1].numel())
+        whole = lm.init_params(seed, cfg, device=sharding.mesh_device(mesh))
+        same = torch.equal(got.to_local(),
+                           dict(_tree.leaves_with_paths(whole))[path])
+        del whole
+        _free(torch)
+        log(f"{tag}: the placed init's {path} {tuple(got.shape)} equals "
+            f"the whole init's: {same}")
+        check(same, f"{tag}: the placed init's {path} differs from the "
+              "whole init's")
+    return params
+
+
 def slice13_argv(args, steps):
     return ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
@@ -3591,15 +3620,12 @@ def slice13_private(torch, args, mesh, errs, cfg=None, tag="slice 13"):
     from repro_torch.data.pipeline import to_device
     from repro_torch.kernels import ops
     from repro_torch.kernels import ss_matmul as ssm
-    from repro_torch.models import lm
     from repro_torch.models import private_embed as pe
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
     pcfg = dataclasses.replace(cfg or train_cfg(torch), private_embed=True)
     _free(torch)
-    params = lm.init_params((args.seed, 13), pcfg)
-    params = sharding.distribute(params, mesh,
-                                 sharding.param_shardings(pcfg, mesh, params))
+    params = placed_params(torch, (args.seed, 13), pcfg, mesh, tag)
     state = init_state(params)
     step_fn = make_train_step(pcfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
                                                 total_steps=2))
@@ -3711,9 +3737,8 @@ def slice13_checkpoint(torch, args, mesh):
     from repro_torch.train.optim import AdamWState
 
     cfg = configs.smoke(TRAIN_ARCH)
-    params = lm.init_params(args.seed, cfg)
+    params = placed_params(torch, args.seed, cfg, mesh, "slice 13")
     p_sh = sharding.param_shardings(cfg, mesh, params)
-    params = sharding.distribute(params, mesh, p_sh)
     state = init_state(params)
     state.m["final_norm"].to_local().add_(1.5)    # not all zeros
     tree = (params, state)
@@ -3764,13 +3789,12 @@ def slice13_walk(torch, args, mesh):
     costs = {}
     for name in ("unsharded", "mesh"):
         _free(torch)
-        params = lm.init_params(args.seed, cfg)
         if name == "mesh":
-            params = sharding.distribute(
-                params, mesh, sharding.param_shardings(cfg, mesh, params))
+            params = placed_params(torch, args.seed, cfg, mesh, "slice 13")
             dbatch = to_device(batch, "cuda", mesh=mesh,
                                specs={k: (dp, None) for k in batch})
         else:
+            params = lm.init_params(args.seed, cfg)
             dbatch = to_device(batch, "cuda")
         state = init_state(params)
         step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
@@ -3968,14 +3992,13 @@ def sort_step(torch, args, cfg, mesh=None):
         return inner(p, c, x2, weights, idx, first, n_total, before)
 
     _free(torch)
-    params = lm.init_params(args.seed, scfg)
     if mesh is not None:
-        params = sharding.distribute(
-            params, mesh, sharding.param_shardings(scfg, mesh, params))
+        params = placed_params(torch, args.seed, scfg, mesh, "sort step")
         dp = sharding.dp_entry(mesh)
         dbatch = to_device(batch, sharding.mesh_device(mesh), mesh=mesh,
                            specs={k: (dp, None) for k in batch})
     else:
+        params = lm.init_params(args.seed, scfg)
         dbatch = to_device(batch, "cuda")
     state = init_state(params)
     step_fn = make_train_step(scfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
@@ -4511,9 +4534,7 @@ def grid_walk(torch, args, cfg, mesh, steps):
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
     _free(torch)
-    params = lm.init_params(args.seed, cfg)
-    params = sharding.distribute(params, mesh, sharding.param_shardings(
-        cfg, mesh, params))
+    params = lm.init_params(args.seed, cfg, mesh=mesh)
     state = init_state(params)
     step_fn = make_train_step(cfg, AdamWConfig(
         lr=TRAIN_LR, warmup_steps=max(2, steps // 10), total_steps=steps))
@@ -4744,17 +4765,20 @@ def grid_checkpoint(torch, args, mesh, keep):
 
 
 #: every family served across four cards (``--grids``), each at its full
-#: published width, its fields checked, depth cut only as on one card
-#: (InternVL2-76B 20 of 80 layers, Moonlight 24 of 48: slices 8 and 9):
-#: (arch, layers kept or None, prompt tokens, published fields, frontend
-#: input and its length or None), the prompts and inputs of slices 8, 9
-#: and 15. At (1, 4) ChatGLM3-6B's 32 query heads split and its 2 KV heads
-#: do not, so its cache splits on the sequence
+#: published width and depth, its fields checked (slices 8 and 9 cut
+#: InternVL2-76B to 20 of 80 layers and Moonlight to 24 of 48 on one card;
+#: on a grid each rank draws its own blocks only, ``init_params(mesh=)``):
+#: (arch, None, prompt tokens, published fields, frontend input and its
+#: length or None), the prompts and inputs of slices 8, 9 and 15. At
+#: (1, 4) ChatGLM3-6B's 32 query heads split and its 2 KV heads do not, so
+#: its cache splits on the sequence
 FAMILY_SERVE = tuple(
     [(TRAIN_ARCH, None, 64, TRAIN_FIELDS, None)]
     + [f + (None,) for f in SLICE8_FAMILIES if f[0] == "minicpm3_4b"]
-    + [f for f in SLICE9_FAMILIES if f[0] == "internvl2_76b"]
-    + [f + (None,) for f in SLICE8_FAMILIES if f[0] != "minicpm3_4b"]
+    + [(f[0], None) + f[2:] for f in SLICE9_FAMILIES
+       if f[0] == "internvl2_76b"]
+    + [(f[0], None) + f[2:] + (None,) for f in SLICE8_FAMILIES
+       if f[0] != "minicpm3_4b"]
     + [f for f in SLICE9_FAMILIES if f[0] == "seamless_m4t_medium"]
     + [(SLICE15_GEMMA, None, SLICE15_GEMMA_PROMPT, SLICE15_GEMMA_FIELDS,
         None),
@@ -4765,11 +4789,39 @@ FAMILY_SERVE = tuple(
 #: private lookup
 FAMILY_GRIDS = (((1, 4), 1), ((2, 2), 4))
 FAMILY_NEW = 32
+#: the depths cut on a grid: InternVL2-76B's 80 layers would put ~68 GB of
+#: weights on each rank of (2, 2), where only the data axis splits the
+#: batch, so it serves 20 there (its 80 at (1, 4): ~34 GB a rank)
+FAMILY_DEPTH = {("internvl2_76b", (2, 2)): 20}
+#: the families held to an unsharded run that draws each layer when it is
+#: reached (:class:`DrawnLayers`) instead of the whole tree: InternVL2-76B's
+#: 80 layers (~141 GB) fit no card, and Moonlight's 48 (57.8 GB) would
+#: leave rank 0's card little room
+FAMILY_STREAMED = ("internvl2_76b", "moonshot_v1_16b_a3b")
+#: each family's peak a rank reckoned before the four-card run (GB, low
+#: and high), at (1, 4) with one request and at (2, 2) with four: its
+#: blocks (exact from the shapes), the table's and head's blocks, the
+#: private step's shares of its block of the table (c = 4, int32) and
+#: their set-up, the cache and activations; logged beside the measured
+#: peak, not checked
+FAMILY_PEAK_GB = {
+    "qwen1_5_4b": ((5, 7), (9, 12)),
+    "minicpm3_4b": ((4, 6), (7, 9.5)),
+    "internvl2_76b": ((45, 55), (34, 40)),
+    "granite_moe_3b_a800m": ((2.3, 4), (4.5, 6.5)),
+    "moonshot_v1_16b_a3b": ((17.5, 24), (34, 40)),
+    "mamba2_2_7b": ((2.5, 4.5), (4.8, 7)),
+    "hymba_1_5b": ((2.3, 4), (2.6, 4.5)),
+    "seamless_m4t_medium": ((2.8, 4), (5, 6.5)),
+    "gemma3_1b": ((3.1, 4.5), (5.6, 7)),
+    "chatglm3_6b": ((5.5, 7.5), (10, 12)),
+}
 
 
-def family_cfg(arch):
+def family_cfg(arch, shape=None):
     """A FAMILY_SERVE row's configuration (its published fields checked,
-    its depth cut where the row says), prompt length and frontend."""
+    its depth cut where FAMILY_DEPTH says for grid ``shape``), prompt
+    length and frontend."""
     import dataclasses
 
     from repro_torch import configs
@@ -4780,9 +4832,28 @@ def family_cfg(arch):
            if getattr(cfg, k) != v}
     check(not bad and cfg.dtype == "bfloat16",
           f"grids {arch} is not the published configuration: {bad}")
+    layers = FAMILY_DEPTH.get((arch, shape), layers)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     return cfg, t, frontend
+
+
+def family_depths(arch):
+    """The depths ``arch`` serves at on FAMILY_GRIDS, in the grids'
+    order."""
+    out = []
+    for s, _ in FAMILY_GRIDS:
+        n = family_cfg(arch, s)[0].n_layers
+        if n not in out:
+            out.append(n)
+    return out
+
+
+def want_unit(arch, layers):
+    """The name of the unsharded unit a grid of ``arch`` at ``layers`` is
+    held to (its depth named where the family serves at two)."""
+    deep = len(family_depths(arch)) > 1
+    return f"{arch} unsharded" + (f", {layers} layers" if deep else "")
 
 
 def family_inputs(args, arch, cfg, t, frontend):
@@ -4799,19 +4870,58 @@ def family_inputs(args, arch, cfg, t, frontend):
     return out
 
 
-def family_params(torch, args, cfg, mesh=None):
+def family_params(torch, args, cfg, mesh=None, streamed=False):
     """The family's weights from ``--seed`` with the dequantized table
-    (the rows the private lookup opens; a tied head reads them too),
-    placed by ``sharding.param_shardings`` on ``mesh``."""
-    from repro_torch import sharding
+    (the rows the private lookup opens; a tied head reads them too). On
+    ``mesh`` each rank draws its own blocks only
+    (``init_params(mesh=)``) and dequantizes its block of the table (the
+    dequantization is elementwise). ``streamed`` leaves the decoder
+    stack out: its layers are drawn as they are reached
+    (:class:`DrawnLayers`)."""
+    import dataclasses
+
+    from repro_torch import _device
     from repro_torch.models import lm
-    params = lm.init_params(args.seed, cfg)
-    params["embed"] = dequantized(torch, params["embed"])
-    if mesh is not None:
-        params = sharding.distribute(params, mesh, sharding.param_shardings(
-            cfg, mesh, params))
+    if streamed:
+        # the table's, the head's and the frontend's keys do not depend
+        # on the depth: the stem of the same tree
+        params = lm.init_params(args.seed, dataclasses.replace(
+            cfg, n_layers=0))
+        params["blocks"] = DrawnLayers(args.seed, cfg,
+                                       params["final_norm"].device)
+    else:
+        params = lm.init_params(args.seed, cfg, mesh=mesh)
+    table = _device.local(params["embed"])
+    table.copy_(dequantized(torch, table))
+    del table
     _free(torch)
     return params
+
+
+class DrawnLayers:
+    """The decoder stack of ``init_params(seed, cfg)`` a layer at a time:
+    indexing it draws layer ``i`` on ``device`` (``lm.block_params``, the
+    same bits as the stack's row ``i``), which ``lm``'s block loop runs
+    and drops before the next: an unsharded run of a model larger than
+    one card. ``draws`` counts the layers drawn."""
+
+    def __init__(self, seed, cfg, device):
+        self.seed, self.cfg, self.device = seed, cfg, device
+        self.draws = 0
+
+    def __getitem__(self, i):
+        from repro_torch.models import lm
+        self.draws += 1
+        return lm.block_params(self.seed, self.cfg, i, self.device)
+
+
+def rank_gb(torch, tree) -> float:
+    """GB of this rank's blocks of a tree's tensors (a plain tensor whole;
+    a :class:`DrawnLayers` stack none)."""
+    from repro_torch import _device, _tree
+    return sum(_device.local(t).numel() * t.element_size()
+               for t in _tree.leaves(tree)
+               if isinstance(t, torch.Tensor)) / 1e9
 
 
 def serve_run(torch, params, cfg, inputs, n_new, mesh=None, private=None):
@@ -4939,20 +5049,36 @@ def serve_run(torch, params, cfg, inputs, n_new, mesh=None, private=None):
     return out
 
 
-def grid_family_want(torch, args, mesh, keep, arch):
-    """Rank 0: a FAMILY_SERVE family's greedy generation unsharded over
-    its SLICE8_BATCH requests (:func:`serve_run`, plaintext lookups in the
-    dequantized table), kept for its serving grids."""
+def grid_family_want(torch, args, mesh, keep, arch, layers):
+    """Rank 0: a FAMILY_SERVE family's greedy generation at ``layers``
+    unsharded over its SLICE8_BATCH requests (:func:`serve_run`,
+    plaintext lookups in the dequantized table), kept for its serving
+    grids at that depth. A family of FAMILY_STREAMED draws each layer when
+    the block loop reaches it (:class:`DrawnLayers`: every step draws
+    every layer), so no card holds its stack; its ms then count the
+    draws."""
+    import dataclasses
     cfg, t, frontend = family_cfg(arch)
-    params = family_params(torch, args, cfg)
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    streamed = arch in FAMILY_STREAMED
+    params = family_params(torch, args, cfg, streamed=streamed)
     want = serve_run(torch, params, cfg,
                      family_inputs(args, arch, cfg, t, frontend), FAMILY_NEW)
+    draws = params["blocks"].draws if streamed else None
+    weights_gb = rank_gb(torch, params)
     del params
     _free(torch)
-    keep[arch] = want
-    return {"layers": cfg.n_layers, "prefill_ms": want["prefill_ms"],
-            "decode_ms_per_step": want["decode_ms_per_step"],
-            "tokens_first_request": want["tokens"][0].tolist()}
+    keep[(arch, layers)] = want
+    out = {"layers": cfg.n_layers, "streamed": streamed,
+           "layer_draws": draws, "weights_gb": weights_gb,
+           "prefill_ms": want["prefill_ms"],
+           "decode_ms_per_step": want["decode_ms_per_step"],
+           "tokens_first_request": want["tokens"][0].tolist()}
+    if streamed:
+        check(draws == layers * FAMILY_NEW,
+              f"grids {arch}: the layer-streamed run drew {draws} layers, "
+              f"{layers} a step of {FAMILY_NEW} wanted")
+    return out
 
 
 def grid_family(torch, args, mesh, keep, arch, batch):
@@ -4974,8 +5100,9 @@ def grid_family(torch, args, mesh, keep, arch, batch):
 
     shape = tuple(mesh.shape)
     tag = f"grids {arch} {shape}"
-    cfg, t, frontend = family_cfg(arch)
+    cfg, t, frontend = family_cfg(arch, shape)
     params = family_params(torch, args, cfg, mesh)
+    weights_gb = rank_gb(torch, params)
     inputs = {k: v[:batch] for k, v in family_inputs(
         args, arch, cfg, t, frontend).items()}
     private = {}
@@ -4990,6 +5117,9 @@ def grid_family(torch, args, mesh, keep, arch, batch):
     launches, by_card = private["launches"], private["by_card"]
     mm = [k for k in ("ss_matmul", "ss_matmul_tall") if launches[k]]
     res.update(layers=cfg.n_layers, batch=batch, card=str(card),
+               weights_gb=weights_gb,
+               predicted_peak_gb=FAMILY_PEAK_GB[arch][
+                   [s for s, _ in FAMILY_GRIDS].index(shape)],
                private_ms=private["ms"], private_rows_equal=rows_equal,
                private_launches={k: launches[k] for k in (
                    "share_onehot", "ss_matmul", "ss_matmul_tall")},
@@ -4998,7 +5128,7 @@ def grid_family(torch, args, mesh, keep, arch, batch):
     logits, got = res.pop("logits"), res.pop("tokens")
     res.pop("gaps")
     if dist.get_rank() == 0:
-        want = keep[arch]
+        want = keep[(arch, cfg.n_layers)]
         res["logits_max_abs_diff"] = [
             float((g - w[:batch]).abs().max())
             for g, w in zip(logits, want["logits"])]
@@ -5113,8 +5243,9 @@ def grid_units(world: int):
         units.append(("links", LINK_GRID, grid_links))
     grids = [(s, b) for s, b in FAMILY_GRIDS if math.prod(s) == world]
     for arch, *_ in (FAMILY_SERVE if grids else ()):
-        units.append((f"{arch} unsharded", None, functools.partial(
-            grid_family_want, arch=arch)))
+        for layers in family_depths(arch):
+            units.append((want_unit(arch, layers), None, functools.partial(
+                grid_family_want, arch=arch, layers=layers)))
         units += [(f"{arch} {s}", s, functools.partial(
             grid_family, arch=arch, batch=b)) for s, b in grids]
     if world == 1:
@@ -5306,11 +5437,14 @@ def grids_families(units, cards, failed):
             if not ranks or "decode_ms_per_step" not in ranks[0]:
                 continue                    # its failure is recorded
             r0 = ranks[0]
+            want = units.get(want_unit(arch, r0.get("layers")), [{}])[0]
             out[name] = {
                 "batch": b, "layers": r0.get("layers"),
                 "decode_ms_per_step": r0["decode_ms_per_step"],
-                "unsharded_decode_ms_per_step": units[
-                    f"{arch} unsharded"][0].get("decode_ms_per_step"),
+                "unsharded_decode_ms_per_step": want.get(
+                    "decode_ms_per_step"),
+                "unsharded_streamed": want.get("streamed"),
+                "unsharded_peak_gb": want.get("peak_gb"),
                 "prefill_ms": r0["prefill_ms"],
                 "private_ms": r0.get("private_ms"),
                 "tokens_equal": r0.get("tokens_equal"),
@@ -5320,6 +5454,8 @@ def grids_families(units, cards, failed):
                     r.get("card"): r.get("private_launches")
                     for r in ranks},
                 "peak_gb_by_rank": [r.get("peak_gb") for r in ranks],
+                "weights_gb_by_rank": [r.get("weights_gb") for r in ranks],
+                "predicted_peak_gb": r0.get("predicted_peak_gb"),
                 "seconds": r0.get("seconds")}
     log("grids families " + json.dumps(out, default=str))
     return out

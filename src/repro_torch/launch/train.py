@@ -95,13 +95,13 @@ def main(argv=None, *, mesh=None, on_step: Optional[Callable] = None
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                           total_steps=args.steps)
     step_fn = make_train_step(cfg, opt_cfg, grad_accum=args.grad_accum)
-    params = init_params(args.seed, cfg, device=dev)
+    # on a mesh each rank draws its own blocks only (no whole tree)
+    params = init_params(args.seed, cfg, device=dev, mesh=mesh)
     p_shard = o_shard = None
     if mesh is not None:
         p_shard = shd.param_shardings(cfg, mesh, params)
         o_shard = AdamWState(step=shd.NamedSharding(mesh, shd.REP),
                              m=p_shard, v=p_shard)
-        params = shd.distribute(params, mesh, p_shard)
     opt_state = init_state(params)
 
     start_step = 0

@@ -128,7 +128,7 @@ def _block_init(key, cfg: ModelConfig, device, *, cross: bool = False
     return p
 
 
-def init_params(key, cfg: ModelConfig, device=None) -> dict:
+def init_params(key, cfg: ModelConfig, device=None, *, mesh=None) -> dict:
     """Synthetic weights drawn from ``key`` (an int seed or a key tuple) on
     ``device`` (default CUDA; ``device="cpu"`` for the CPU), in the
     reference's tree and scales: dense weights standard normal /
@@ -142,45 +142,97 @@ def init_params(key, cfg: ModelConfig, device=None) -> dict:
     head) draw the same whether or not a family has them.
 
     Layers are drawn one at a time into the stacked tensors, so the
-    float32 transient is one layer's weight, not the stack's."""
-    dev = _device.resolve(device)
+    float32 transient is one layer's weight, not the stack's.
+
+    With ``mesh`` (a ``DeviceMesh``) every leaf is a ``DTensor`` placed by
+    ``sharding.param_shardings``, bit for bit what
+    ``sharding.distribute`` makes of the tree drawn without it, but no
+    rank holds the whole tree (``sharding.ParamPlacer``): a leaf outside
+    the stacks (the table, the head, the norms, ``frontend_proj``) is
+    drawn whole and placed at once, and each layer is drawn whole (the
+    draws of :func:`block_params`) and only this rank's block of it is
+    kept. The draws go to ``device``, default this rank's device of the
+    mesh. A rank's peak is then its blocks, one layer's draw and one leaf
+    outside the stacks."""
+    put = None
+    if mesh is None:
+        dev = _device.resolve(device)
+    else:
+        from .. import sharding
+        dev = (sharding.mesh_device(mesh) if device is None
+               else _device.resolve(device))
+        put = sharding.ParamPlacer(cfg, mesh, dev)
+
+    def whole(path: str, t: Tensor) -> Tensor:
+        return t if put is None else put.whole(path, t)
+
     dt = _dtype(cfg)
     k_emb, k_blocks, k_head, k_enc, k_fe = _device.split(
         _device.as_key(key), 5)
     gen = _device.generator(k_emb, dev)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         device=dev, dtype=torch.float32)
-    params: Dict[str, Any] = {
-        "embed": embed.mul_(1.0 / math.sqrt(cfg.d_model)).to(dt),
-        "final_norm": L.rmsnorm_init(cfg.d_model, dev),
-    }
+    table = embed.mul_(1.0 / math.sqrt(cfg.d_model)).to(dt)
     del embed
+    params: Dict[str, Any] = {
+        "embed": whole("embed", table),
+        "final_norm": whole("final_norm", L.rmsnorm_init(cfg.d_model, dev)),
+    }
+    del table
+    # the head and the frontend before the stacks (each from its own
+    # generator, so the order moves no value): their whole float32 draws
+    # then never sit beside a rank's blocks
+    if not cfg.tie_embeddings:
+        params["lm_head"] = whole("lm_head", L.dense_init(
+            k_head, cfg.d_model, cfg.vocab_size, dt, dev))
+    if cfg.frontend:
+        params["frontend_proj"] = whole("frontend_proj", L.dense_init(
+            k_fe, cfg.frontend_dim, cfg.d_model, dt, dev))
     cross = cfg.n_enc_layers > 0
     params["blocks"] = _stack_init(k_blocks, cfg, cfg.n_layers, dev,
-                                   cross=cross)
+                                   cross=cross, put=put, path="blocks")
     if cross:
         params["enc_blocks"] = _stack_init(k_enc, cfg, cfg.n_enc_layers,
-                                           dev)
-        params["enc_norm"] = L.rmsnorm_init(cfg.d_model, dev)
-    if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(k_head, cfg.d_model, cfg.vocab_size,
-                                         dt, dev)
-    if cfg.frontend:
-        params["frontend_proj"] = L.dense_init(k_fe, cfg.frontend_dim,
-                                               cfg.d_model, dt, dev)
+                                           dev, put=put, path="enc_blocks")
+        params["enc_norm"] = whole("enc_norm",
+                                   L.rmsnorm_init(cfg.d_model, dev))
     return params
 
 
+def block_params(key, cfg: ModelConfig, i: int, device=None) -> dict:
+    """Layer ``i`` of the decoder stack of ``init_params(key, cfg)``,
+    drawn alone on ``device`` (default CUDA): the same bits as row ``i``
+    of every stacked leaf that :func:`init_params` draws on that device.
+    A model larger than one card runs unsharded with each layer drawn
+    when it is reached (:func:`_run_blocks` takes a sequence of layers)."""
+    k_blocks = _device.split(_device.as_key(key), 5)[1]
+    return _block_init(_device.fold(k_blocks, i), cfg,
+                       _device.resolve(device), cross=cfg.n_enc_layers > 0)
+
+
 def _stack_init(key, cfg: ModelConfig, n: int, device, *,
-                cross: bool = False) -> dict:
-    """``n`` layers drawn from ``fold(key, i)``, stacked (L-leading)."""
+                cross: bool = False, put=None, path: str = "blocks"
+                ) -> dict:
+    """``n`` layers drawn from ``fold(key, i)``, stacked (L-leading); with
+    ``put`` (a ``sharding.ParamPlacer``) this rank's blocks of the stacks,
+    each layer's leaves placed under ``path``."""
     layer = _block_init(_device.fold(key, 0), cfg, device, cross=cross)
-    blocks = _map(lambda t: t.new_empty((n,) + t.shape), layer)
+    if put is None:
+        blocks = _map(lambda t: t.new_empty((n,) + t.shape), layer)
+
+        def row(stack, i, t):
+            stack[i].copy_(t)
+    else:
+        blocks = _tree.unflatten(layer, [
+            put.stack(f"{path}/{p}", n, t)
+            for p, t in _tree.leaves_with_paths(layer)])
+        row = put.row
     for i in range(n):
         if i:
             layer = _block_init(_device.fold(key, i), cfg, device,
                                 cross=cross)
-        _copy_layer(blocks, i, layer)
+        _copy_layer(blocks, i, layer, row)
+        layer = None                    # dropped before the next draw
     return blocks
 
 
@@ -190,12 +242,13 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _copy_layer(stack: dict, i: int, layer: dict) -> None:
+def _copy_layer(stack: dict, i: int, layer: dict, row) -> None:
+    """``row(stacked leaf, i, layer's leaf)`` over the tree."""
     for k, v in layer.items():
         if isinstance(v, dict):
-            _copy_layer(stack[k], i, v)
+            _copy_layer(stack[k], i, v, row)
         else:
-            stack[k][i].copy_(v)
+            row(stack[k], i, v)
 
 
 def _layers(blocks: dict, n: int) -> List[dict]:
@@ -330,13 +383,17 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: Tensor, *,
                 enc_out: Optional[Tensor] = None) -> Tensor:
     """The decoder blocks in order; with ``cfg.remat``, a training forward
     under autograd checkpoints each block (its activations are recomputed
-    in the backward pass)."""
+    in the backward pass). ``blocks`` is the stacked tree, or a sequence
+    of layer trees indexed once a layer in order (one that draws layer
+    ``i`` with :func:`block_params` when indexed runs a model larger than
+    the card, a layer at a time)."""
     inv_freq = _device.replicate_like(L.rope_freqs(
         cfg.resolved_head_dim if cfg.attn_type != "mla"
         else cfg.qk_rope_head_dim,
         cfg.rope_fraction, cfg.rope_theta, x.device), x)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
-    layers = _layers(blocks, cfg.n_layers)
+    layers = (_layers(blocks, cfg.n_layers) if isinstance(blocks, dict)
+              else blocks)
     for i, win in enumerate(layer_windows(cfg)):
         block = functools.partial(
             _block_apply, cfg, layers[i], positions=positions,

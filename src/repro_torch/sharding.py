@@ -33,8 +33,11 @@ stand-in (``axis_names``, ``shape[axis]``) or a ``torch.distributed``
 :class:`NamedSharding` a leaf: the spec bound to the mesh, whose
 ``placements`` (:func:`placements`) are one ``Shard(d)`` or
 ``Replicate()`` a mesh dim; :func:`distribute` puts a tree there as
-``DTensor``s, each rank holding only its own block. On a grid or a
-stand-in, which has no ranks to place on, it returns the specs.
+``DTensor``s, each rank holding only its own block, and
+:class:`ParamPlacer` places the parameters as they are drawn
+(``models.lm.init_params(mesh=)``), so that no rank holds the whole tree.
+On a grid or a stand-in, which has no ranks to place on, it returns the
+specs.
 """
 from __future__ import annotations
 
@@ -268,20 +271,25 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def block_device(device, mesh) -> torch.device:
+    """Where this rank keeps its block of a tensor that lies on
+    ``device``: there when it is of the mesh's device type (or meta), else
+    on :func:`mesh_device`."""
+    device = torch.device(device)
+    if device.type in (mesh.device_type, "meta"):
+        return device
+    return mesh_device(mesh)
+
+
 def place(t: torch.Tensor, mesh, pls, device=None) -> torch.Tensor:
     """A whole tensor ``t`` (on any device, the host included) -> the
     ``DTensor`` of ``pls`` on ``mesh``: this rank keeps a copy of its own
-    block, on ``device`` (default ``t``'s when it lies on the mesh's
-    device type, else :func:`mesh_device`), and moves no byte to another
-    rank (every rank holds ``t``)."""
+    block of ``t``, on ``device`` (default :func:`block_device` of
+    ``t``'s), and moves no byte to another rank."""
     from torch.distributed.tensor import DTensor
     block = t[local_block(t.shape, mesh, pls)]
-    if device is not None:
-        dev = torch.device(device)
-    elif t.device.type in (mesh.device_type, "meta"):
-        dev = t.device
-    else:
-        dev = mesh_device(mesh)
+    dev = (torch.device(device) if device is not None
+           else block_device(t.device, mesh))
     local = block.to(dev, copy=True).contiguous()
     return DTensor.from_local(local, mesh, pls, run_check=False,
                               shape=t.shape,
@@ -299,6 +307,41 @@ def zeros_placed(shape, dtype, mesh, spec: Spec, device) -> torch.Tensor:
     return DTensor.from_local(local, mesh, pls, run_check=False,
                               shape=torch.Size(shape),
                               stride=_device.contiguous_strides(shape))
+
+
+class ParamPlacer:
+    """The parameters of ``cfg`` placed on ``mesh`` one leaf at a time, as
+    :func:`distribute` places a whole tree by :func:`param_shardings`, so
+    that ``models.lm.init_params(mesh=)`` never holds a whole stack of
+    layers: :meth:`whole` places a drawn leaf (this rank copies its block,
+    and the leaf can be dropped), :meth:`stack` allocates this rank's zero
+    block of ``n`` layers of a layer's leaf, and :meth:`row` copies this
+    rank's block of layer ``i``'s leaf into it. ``device`` is where the
+    leaves are drawn; the blocks go to :func:`block_device` of it, as
+    :func:`place` puts them. A path names a leaf as
+    ``_tree.leaves_with_paths`` does (``"blocks/attn/wq"``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, device):
+        self.div = Divisibility(cfg, mesh)
+        self.mesh = mesh
+        self.device = block_device(device, mesh)
+
+    def spec(self, path: str, ndim: int) -> Spec:
+        return _param_rule(path.split("/"), ndim, self.div)
+
+    def whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        return place(t, self.mesh, placements(self.spec(path, t.ndim),
+                                              self.mesh), self.device)
+
+    def stack(self, path: str, n: int, layer: torch.Tensor) -> torch.Tensor:
+        shape = (n,) + tuple(layer.shape)
+        return zeros_placed(shape, layer.dtype, self.mesh,
+                            self.spec(path, len(shape)), self.device)
+
+    def row(self, stack: torch.Tensor, i: int, layer: torch.Tensor) -> None:
+        block = local_block(stack.shape, self.mesh, stack.placements)
+        if block[0].start <= i < block[0].stop:
+            stack.to_local()[i - block[0].start].copy_(layer[block[1:]])
 
 
 def distribute(tree, mesh, specs) -> Any:

@@ -1,10 +1,13 @@
-"""The rank side of ``tests/test_torch_production_mesh.py``.
+"""The rank side of ``tests/test_torch_production_mesh.py`` and
+``tests/test_torch_placed_init.py``.
 
-Each of the test's gloo ranks runs :func:`run`: it starts the process
-group from a ``file://`` store under the test's ``tmp_path``, runs every
-scenario on ``DTensor``s over CPU meshes, and rank 0 saves what the test
-compares (whole tensors, gathered) to ``result.pt``. This module imports
-torch and the port only: the ranks never load JAX.
+Each of the first test's gloo ranks runs :func:`run`: it starts the
+process group from a ``file://`` store under the test's ``tmp_path``,
+runs every scenario on ``DTensor``s over CPU meshes, and rank 0 saves
+what the test compares (whole tensors, gathered) to ``result.pt``. Each
+of the second's runs :func:`placed_init` and saves its own comparisons
+of the placed init to ``placed<rank>.pt``. This module imports torch and
+the port only: the ranks never load JAX.
 """
 import dataclasses
 import datetime
@@ -13,6 +16,7 @@ import traceback
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import _tree, configs, sharding
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
@@ -262,6 +266,154 @@ def _launcher(inp, mesh, out):
     ck = os.path.join(inp["root"], "launch_ckpt")
     out["launch_loss"] = ltrain.main(inp["launch_argv"] + ["--ckpt-dir", ck],
                                      mesh=mesh)
+
+
+#: the placed init's cases (``tests/test_torch_placed_init.py``): every
+#: architecture's smoke configuration on each grid, in each dtype
+PLACED_GRIDS = ((1, 4), (2, 2))
+PLACED_DTYPES = ("bfloat16", "float32")
+PLACED_SEED = 7
+#: the allocation cases' fields: a vocabulary small enough and a stack
+#: deep enough that a whole stack of any leaf of one layer holds more
+#: elements than the bound (at the smoke configurations the table's
+#: 256 x 64 is as large as a stack of two layers' widest leaf)
+PLACED_ALLOC_FIELDS = dict(vocab_size=64, n_layers=4)
+
+
+def _bits(t):
+    """``t``'s elements as integers of its width (floats bit for bit)."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _placed_differences(placed, want):
+    """-> the paths at which ``placed`` differs from ``want`` (trees of
+    DTensors): the paths, or a leaf's local block bit for bit, its global
+    shape, strides, dtype or placements, or its block's shape or
+    strides."""
+    got, ref = (_tree.leaves_with_paths(t) for t in (placed, want))
+    got, ref = list(got), list(ref)
+    if [p for p, _ in got] != [p for p, _ in ref]:
+        return ["paths"]
+    bad = []
+    for (path, a), (_, b) in zip(got, ref):
+        la, lb = a.to_local(), b.to_local()
+        if not (type(a) is type(b) and a.shape == b.shape
+                and a.stride() == b.stride() and a.dtype == b.dtype
+                and list(a.placements) == list(b.placements)
+                and la.shape == lb.shape and la.stride() == lb.stride()
+                and la.device == lb.device
+                and torch.equal(_bits(la), _bits(lb))):
+            bad.append(path)
+    return bad
+
+
+class _Allocations(TorchDispatchMode):
+    """Every tensor an op makes in new storage: (op, shape, elements of
+    the storage)."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_leaves
+        out = func(*args, **(kwargs or {}))
+
+        def plain(xs):
+            return [x for x in tree_leaves(xs) if type(x) is torch.Tensor]
+
+        old = {x.untyped_storage().data_ptr()
+               for x in plain((args, kwargs or {}))}
+        for x in plain(out):
+            if x.untyped_storage().data_ptr() not in old:
+                self.made.append((str(func), tuple(x.shape),
+                                  x.untyped_storage().nbytes()
+                                  // x.element_size()))
+        return out
+
+
+def _allocation_bound(whole, n_of):
+    """-> (the most elements of one layer's leaf or of one leaf outside
+    the stacks of the whole tree ``whole``, the stacked paths)."""
+    most, stacked = 0, set()
+    for path, t in _tree.leaves_with_paths(whole):
+        n = n_of(path)
+        if n:
+            stacked.add(path)
+            most = max(most, t.numel() // n)
+        else:
+            most = max(most, t.numel())
+    return most, stacked
+
+
+def _placed_allocations(cfg, mesh, whole):
+    """The placed init under :class:`_Allocations` -> (the bound, the
+    allocations over it that are not this rank's zero block of a stack
+    (the shape of its block of ``whole`` distributed), the largest
+    allocation that is not such a block)."""
+    from repro_torch.models.lm import init_params
+
+    def n_of(path):
+        top = path.split("/")[0]
+        return {"blocks": cfg.n_layers,
+                "enc_blocks": cfg.n_enc_layers}.get(top, 0)
+
+    bound, stacked = _allocation_bound(whole, n_of)
+    placed = sharding.distribute(whole, mesh,
+                                 sharding.param_shardings(cfg, mesh, whole))
+    rows = {tuple(t.to_local().shape)
+            for path, t in _tree.leaves_with_paths(placed) if path in stacked}
+    with _Allocations() as rec:
+        init_params(PLACED_SEED, cfg, device="cpu", mesh=mesh)
+    own = [m for m in rec.made if m[1] in rows
+           and any(k in m[0] for k in ("zeros", "empty"))]
+    rest = [m for m in rec.made if m not in own]
+    return (bound, [m for m in rest if m[2] > bound],
+            max((m[2] for m in rest), default=0))
+
+
+def placed_init(rank: int, world: int, root: str) -> None:
+    """Every case of PLACED_GRIDS x PLACED_DTYPES x the architectures:
+    ``init_params(mesh=)`` against ``distribute(init_params(...))``; and
+    on each grid the allocations of the bfloat16 placed init with
+    PLACED_ALLOC_FIELDS. Each rank saves its own ``placed<rank>.pt``."""
+    from repro_torch.models.lm import init_params
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{root}/init",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {"equal": {}, "alloc": {}}
+    try:
+        meshes = {s: lmesh.make_mesh(s, AXES, device_type="cpu")
+                  for s in PLACED_GRIDS}
+        for arch in configs.ARCH_IDS:
+            for dtype in PLACED_DTYPES:
+                cfg = dataclasses.replace(configs.smoke(arch), dtype=dtype)
+                whole = init_params(PLACED_SEED, cfg, device="cpu")
+                for shape, mesh in meshes.items():
+                    case = f"{arch}-{shape[0]}x{shape[1]}-{dtype}"
+                    want = sharding.distribute(
+                        whole, mesh,
+                        sharding.param_shardings(cfg, mesh, whole))
+                    got = init_params(PLACED_SEED, cfg, device="cpu",
+                                      mesh=mesh)
+                    out["equal"][case] = _placed_differences(got, want)
+            cfg = dataclasses.replace(
+                configs.smoke(arch), dtype="bfloat16",
+                **PLACED_ALLOC_FIELDS,
+                n_enc_layers=configs.smoke(arch).n_enc_layers and 4)
+            whole = init_params(PLACED_SEED, cfg, device="cpu")
+            for shape, mesh in meshes.items():
+                out["alloc"][f"{arch}-{shape[0]}x{shape[1]}-bfloat16"] = \
+                    _placed_allocations(cfg, mesh, whole)
+    except Exception:           # the test reads the traceback
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(out, os.path.join(root, f"placed{rank}.pt"))
+        dist.destroy_process_group()
 
 
 def run(rank: int, world: int, root: str) -> None:
