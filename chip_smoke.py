@@ -176,7 +176,26 @@ Phases, any failure exits non-zero:
    gives the uninterrupted run's losses, and the restored tensors equal
    the saved ones bit for bit (the smoke config, checkpoints under
    ``build/``).
-   Slice 13 (after slice 10): the production mesh, a
+   Slice 23 (after slice 10, on a freed card): training for every other
+   family whose training state one card holds, each at its full published
+   configuration (every layer, bf16, remat) on synthetic weights from
+   ``--seed``, one after another: Gemma3-1B, MiniCPM3-4B, Mamba2-2.7B,
+   Hymba-1.5B and SeamlessM4T-medium. Each runs slice 10's t1 (4 steps of
+   4 x 512 tokens through ``launch.train.main``; SeamlessM4T-medium
+   through ``make_train_step``, 640 audio frames a sequence beside the
+   tokens, which the launcher's batches do not carry), its float32 check
+   (2 layers, 2 + 2 for the encoder-decoder; Gemma3-1B at 640 tokens, past
+   its 512-token windows) and t2 (2 private-embedding steps, each exactly
+   one ``share_onehot`` and one general ``ss_matmul`` on the card, the
+   embeddings equal to the dequantized rows, times sqrt(d_model) for
+   Gemma3-1B, and ``embed`` on the AdamW rule of its moments: an untied
+   table gets no gradient, Gemma3-1B's tied one the head's), then both
+   kernels at the family's shape (M = 2,048, K = V, N = d, c = 4) against
+   their plain versions. A ``slice-23 <family> summary`` line gives ms a
+   step, tokens/s, the peak beside its reckoning, the idle share, device
+   ms by kernel kind, the float32 differences and the kernels' ms beside
+   their bounds.
+   Slice 13 (after slice 23): the production mesh, a
    (1, 1) ``DeviceMesh`` of one NCCL rank started by
    ``launch.mesh.init_ranks`` from ``torchrun``'s environment variables
    (a free localhost port). 3 steps of ``launch.train.main(mesh=)`` at
@@ -2998,13 +3017,92 @@ def train_kernel_kind(name: str) -> str:
     return "other"
 
 
-def train_t1(torch, args, cfg):
-    """t1: ``launch.train.main`` for T1_STEPS steps at full width. Checks
-    finite losses, grad_norm > 0, ``lr`` = ``schedule(step + 1)``, the
-    final norm moved off its zero init and a layer's weights moved
-    between the first and last step. Times steps 1 and 3 (host clock
-    between synchronizes), profiles step 2 (``torch.profiler`` device
-    time) for the idle share, and reads the peak memory."""
+def train_batch(cfg, stream, i, frontend=None, seed=0):
+    """Batch ``i`` of ``stream`` (a ``TokenStream``) as the reference's
+    smoke test builds a training batch (``tests/test_arch_smoke.py``
+    ``make_batch``): tokens and labels int64 (B, T), the integers of
+    ``jax.random.randint`` under the reference's 64-bit mode, and, for a
+    family with a frontend, its input beside them: ``frontend`` = (name,
+    n), ``frames`` or ``patches`` float32 (B, n, frontend_dim), standard
+    normal, drawn with numpy from (``seed``, ``i``)."""
+    out = {k: a.astype(np.int64) for k, a in stream.batch_at(i).items()}
+    if frontend is not None:
+        name, n = frontend
+        rng = np.random.default_rng((seed, 23, i))
+        out[name] = rng.standard_normal(
+            (stream.batch, n, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def frontend_train(torch, args, cfg, steps, frontend, on_step):
+    """``launch.train.main``'s loop for a family whose batches carry a
+    frontend input, which the launcher's token batches do not (nor the
+    reference's): its AdamW settings, weights and token stream from
+    ``--seed``, each batch from :func:`train_batch`, through
+    ``make_train_step``, ``on_step(step, params, opt_state, metrics)``
+    after each step. Returns the last step's loss."""
+    from repro_torch.data import make_lm_batches
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, steps // 10),
+                      total_steps=steps)
+    step_fn = make_train_step(cfg, opt)
+    params = lm.init_params(args.seed, cfg)
+    state = init_state(params)
+    stream = make_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=args.seed)
+    dev = params["final_norm"].device
+    metrics = None
+    for step in range(steps):
+        batch = to_device(train_batch(cfg, stream, step, frontend,
+                                      args.seed), dev)
+        params, state, metrics = step_fn(params, state, batch)
+        on_step(step, params, state, metrics)
+    return float(metrics["loss"])
+
+
+def train_peak(cfg, frontend=None, private=False) -> dict:
+    """A full-width training step's peak device memory (GB), reckoned from
+    the shapes before it runs: the state (bf16 parameters and gradients,
+    float32 AdamW m and v: 12 B a parameter), the checkpoints remat keeps
+    (each decoder layer's bf16 input, and each encoder layer's over the
+    frames), three float32 copies of the (B, T, V) logits (the logits,
+    their exponentials, their gradient) and, with the private lookup, its
+    int32 one-hot shares (c, B·T, V) and a1 (B·T, V) and the table's
+    shares (c, V, d)."""
+    m, v, d = TRAIN_BATCH * TRAIN_SEQ, cfg.vocab_size, cfg.d_model
+    enc = TRAIN_BATCH * frontend[1] if cfg.n_enc_layers else 0
+    out = {"state": 12 * cfg.param_count(),
+           "remat": 2 * d * (cfg.n_layers * m + cfg.n_enc_layers * enc),
+           "logits": 3 * 4 * m * v,
+           "lookup": (4 * ((EMBED_SHARES + 1) * m * v + EMBED_SHARES * v * d)
+                      if private else 0)}
+    out = {k: n / 1e9 for k, n in out.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def layer_probe(params):
+    """(path, layer 0's corner) of the decoder stack's first matrix (its
+    first stacked leaf of three or more dims): a view, moved by a step."""
+    from repro_torch import _tree
+    path, w = next((p, t) for p, t in _tree.leaves_with_paths(
+        params["blocks"]) if t.ndim >= 3)
+    return path, w[0, :8, :64]
+
+
+def train_t1(torch, args, cfg, arch=TRAIN_ARCH, tag="slice-10",
+             frontend=None, price=True):
+    """t1: ``launch.train.main`` for T1_STEPS steps of ``arch`` at full
+    width (with ``frontend``, :func:`frontend_train`, the launcher's loop
+    over batches that carry the frontend's input). Checks finite losses,
+    grad_norm > 0, ``lr`` = ``schedule(step + 1)``, the final norm moved
+    off its zero init and layer 0's first matrix moved between the first
+    and last step. Times steps 1 and 3 (host clock between synchronizes),
+    profiles step 2 (``torch.profiler`` device time) for the idle share,
+    and reads the peak memory beside :func:`train_peak`'s reckoning. With
+    ``price``, slice 12 prices one more step of the model."""
     from repro_torch.launch import train as train_launcher
     from repro_torch.train import AdamWConfig
     from repro_torch.train.optim import schedule
@@ -3017,39 +3115,45 @@ def train_t1(torch, args, cfg):
     def on_step(step, params, opt_state, metrics):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        if step == T1_STEPS - 1:         # kept for slice 12
+        if price and step == T1_STEPS - 1:         # kept for slice 12
             snap["state"] = (params, opt_state)
         m = {k: float(v) for k, v in metrics.items()}
         want_lr = float(schedule(opt, step + 1))
         rec.append(m)
         check(math.isfinite(m["loss"]) and m["grad_norm"] > 0
               and abs(m["lr"] - want_lr) <= 1e-6 * want_lr,
-              f"slice 10 t1 step {step}: {m} (lr should be {want_lr})")
-        w = params["blocks"]["mlp"]["w_up"][0, :8, :64]
+              f"{tag} t1 step {step}: {m} (lr should be {want_lr})")
+        path, w = layer_probe(params)
         if step == 0:
-            snap["w_up"] = w.clone()
+            snap["w"] = w.clone()
             check(bool((params["final_norm"] != 0).any()),
-                  "slice 10 t1: final_norm did not move off its init")
+                  f"{tag} t1: final_norm did not move off its init")
         if step == 1:
             prof["p"] = profile(activities=[ProfilerActivity.CUDA])
             prof["p"].__enter__()
         if step == 2:
             prof["p"].__exit__(None, None, None)
         if step == T1_STEPS - 1:
-            check(not torch.equal(w, snap["w_up"]),
-                  "slice 10 t1: layer 0's w_up did not move")
+            check(not torch.equal(w, snap["w"]),
+                  f"{tag} t1: layer 0's {path} did not move")
 
+    reckoned = train_peak(cfg, frontend)
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    final = train_launcher.main(
-        ["--arch", TRAIN_ARCH, "--steps", str(T1_STEPS), "--batch",
-         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
-         "--log-every", "1", "--seed", str(args.seed)], on_step=on_step)
+    if frontend is None:
+        final = train_launcher.main(
+            ["--arch", arch, "--steps", str(T1_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr",
+             str(TRAIN_LR), "--log-every", "1", "--seed", str(args.seed)],
+            on_step=on_step)
+    else:
+        final = frontend_train(torch, args, cfg, T1_STEPS, frontend,
+                               on_step)
     total_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(len(rec) == T1_STEPS and final == rec[-1]["loss"],
-          "slice 10 t1: main did not run every step")
+          f"{tag} t1: the loop did not run every step")
     step_s = [b - a for a, b in zip(marks, marks[1:])]   # steps 1..3
     plain_ms = 1e3 * (step_s[0] + step_s[2]) / 2         # 2 is profiled
     kinds, launches = collections.Counter(), 0
@@ -3070,12 +3174,17 @@ def train_t1(torch, args, cfg):
            "ms_per_step": plain_ms, "step_ms": [1e3 * s for s in step_s],
            "first_step_and_init_s": marks[0] - t0, "main_s": total_s,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (plain_ms / 1e3),
-           "peak_gb": peak, "profiled_step_device_ms": device_ms,
+           "peak_gb": peak, "reckoned_peak_gb": reckoned,
+           "profiled_step_device_ms": device_ms,
            "idle_share": 1.0 - device_ms / plain_ms,
            "profiled_step_kernels": launches,
            "device_ms_by_kind": dict(kinds),
            "slowest_kernels_ms": top}
-    log("slice-10 t1 (launch.train.main, plaintext) " + json.dumps(out))
+    route = "launch.train.main" if frontend is None \
+        else f"make_train_step, {frontend[1]} {frontend[0]} a sequence"
+    log(f"{tag} t1 ({route}, plaintext) " + json.dumps(out))
+    if not price:
+        return out
     # slice 12: one more step of t1's model and optimizer state, priced
     from repro_torch.data import make_lm_batches
     from repro_torch.data.pipeline import to_device
@@ -3085,19 +3194,22 @@ def train_t1(torch, args, cfg):
     batch = to_device(make_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ,
                                       seed=args.seed).batch_at(T1_STEPS),
                       params["final_norm"].device)
-    price_step(torch, f"slice-10 t1 {TRAIN_ARCH} train step "
+    price_step(torch, f"slice-10 t1 {arch} train step "
                f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
                lambda: step_fn(params, opt_state, batch))
     del params, opt_state, batch, step_fn
     return out
 
 
-def f32_train_check(torch, args, cfg):
-    """t1's float32 check: F32_TRAIN_LAYERS layers at full width, one
-    step's loss and gradients on the card against the same port code on
-    the CPU (weights drawn on the card, copied to the host): loss within
-    F32_TRAIN_TOL, each leaf's gradient within a relative F32_TRAIN_TOL.
-    Returns the largest differences."""
+def f32_train_check(torch, args, cfg, tag="slice-10",
+                    tokens=F32_TRAIN_TOKENS, frontend=None):
+    """t1's float32 check: F32_TRAIN_LAYERS layers (and as many encoder
+    layers) at full width, one step's loss and gradients on the card
+    against the same port code on the CPU (weights drawn on the card,
+    copied to the host; ``tokens`` = (B, T), with ``frontend`` its input
+    from :func:`train_batch`): loss within F32_TRAIN_TOL, each leaf's
+    gradient within a relative F32_TRAIN_TOL. Returns the largest
+    differences."""
     import dataclasses
 
     from repro_torch import _tree
@@ -3106,14 +3218,17 @@ def f32_train_check(torch, args, cfg):
     from repro_torch.train import step as tstep
 
     check(not torch.backends.cuda.matmul.allow_tf32,
-          "slice 10: TF32 matmuls are on; the float32 check needs them off")
-    f32 = dataclasses.replace(cfg, n_layers=F32_TRAIN_LAYERS,
-                              dtype="float32")
+          f"{tag}: TF32 matmuls are on; the float32 check needs them off")
+    f32 = dataclasses.replace(
+        cfg, n_layers=F32_TRAIN_LAYERS, dtype="float32",
+        n_enc_layers=min(cfg.n_enc_layers, F32_TRAIN_LAYERS))
     _free(torch)
     params = lm.init_params(args.seed, f32)
     host = _tree.map_leaves(lambda t: t.cpu(), params)
-    b, t = F32_TRAIN_TOKENS
-    batch = TokenStream(f32.vocab_size, b, t, seed=args.seed).batch_at(7)
+    b, t = tokens
+    batch = train_batch(f32, TokenStream(f32.vocab_size, b, t,
+                                         seed=args.seed), 7, frontend,
+                        args.seed)
     out = {}
     for name, p in (("card", params), ("cpu", host)):
         dev = p["final_norm"].device
@@ -3131,31 +3246,50 @@ def f32_train_check(torch, args, cfg):
         rel[n] = float((gc_ - gh).norm()) / den
     worst = max(rel, key=rel.get)
     check(loss_err <= F32_TRAIN_TOL and rel[worst] <= F32_TRAIN_TOL,
-          f"slice 10: float32 step on the card differs from the CPU: loss "
+          f"{tag}: float32 step on the card differs from the CPU: loss "
           f"{out['card'][0]} vs {out['cpu'][0]}, gradient {worst} relative "
           f"{rel[worst]} (tolerance {F32_TRAIN_TOL})")
-    res = {"layers": F32_TRAIN_LAYERS, "tokens": [b, t],
+    res = {"layers": F32_TRAIN_LAYERS, "enc_layers": f32.n_enc_layers,
+           "tokens": [b, t], "frontend": frontend,
            "loss_card": out["card"][0], "loss_cpu": out["cpu"][0],
            "loss_abs_err": loss_err, "worst_grad": worst,
            "worst_grad_rel_err": rel[worst],
            "card_s": out["card"][2], "cpu_s": out["cpu"][2]}
-    log("slice-10 float32 card vs CPU " + json.dumps(res))
+    log(f"{tag} float32 card vs CPU " + json.dumps(res))
     del params, host, out
     _free(torch)
     return res
 
 
-def train_t2(torch, args, cfg, errs):
+def adamw_replay(torch, opt, before, m, v, step, lr):
+    """A decayed matrix's values after an AdamW update, from ``before``
+    (its values before the step), its moments ``m`` and ``v`` after it,
+    the step counter after it and the step's ``lr`` (a tensor), by the
+    operations of ``train.optim._update_slice``: so bit for bit."""
+    step = step.to(torch.float32)
+    bc1 = 1.0 - opt.beta1 ** step
+    bc2 = 1.0 - opt.beta2 ** step
+    denom = (v / bc2).sqrt_().add_(opt.eps)
+    delta = (m / bc1).div_(denom)
+    pf = before.to(torch.float32)
+    delta.add_(pf, alpha=opt.weight_decay)
+    return (pf - lr * delta).to(before.dtype)
+
+
+def train_t2(torch, args, cfg, errs, tag="slice-10", frontend=None):
     """t2: ``private_embed=True`` through ``make_train_step``, T2_STEPS
-    steps at full width. Each step's forward re-shares the table (c = 4)
-    and launches one ``share_onehot`` and one ``ss_matmul`` (2,048 rows:
-    not tall), counted from zero just before the step and read after a
-    synchronize. One step's embeddings must equal the dequantized table's
-    rows exactly, and the untied ``embed`` (no gradient) must decay by
-    the AdamW rule on a zero gradient. Then, on a freed card, both kernels
-    at these shapes against their plain versions (the contraction
-    PLAIN_COLS columns at a time), and timed. Returns (launches,
-    summary)."""
+    steps at full width (with ``frontend``, batches from
+    :func:`train_batch`). Each step's forward re-shares the table (c = 4)
+    and launches one ``share_onehot`` and one general ``ss_matmul``
+    (2,048 rows: not tall) on the card, counted by card from zero just
+    before the step and read after a synchronize. One step's embeddings
+    must equal the dequantized table's rows exactly (times
+    sqrt(d_model) where ``embed_scale`` is set), with no gradient path,
+    and ``embed`` must follow the AdamW rule on its moments: an untied one
+    gets no gradient (m stays zero, so it only decays), a tied one gets
+    the head's. Then, on a freed card, both kernels at these shapes
+    against their plain versions (the contraction PLAIN_COLS columns at a
+    time), and timed. Returns (launches, summary)."""
     import dataclasses
 
     from repro_torch.core.queries import embed as eq
@@ -3164,11 +3298,11 @@ def train_t2(torch, args, cfg, errs):
     from repro_torch.kernels import ops
     from repro_torch.kernels import ss_matmul as ssm
     from repro_torch.models import lm
-    from repro_torch.models import private_embed as pe
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
     pcfg = dataclasses.replace(cfg, private_embed=True)
     opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=T2_STEPS)
+    reckoned = train_peak(cfg, frontend, private=True)
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     params = lm.init_params((args.seed, 10, 2), pcfg)
@@ -3176,20 +3310,22 @@ def train_t2(torch, args, cfg, errs):
     step_fn = make_train_step(pcfg, opt)
     stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
                          seed=args.seed)
+    card = params["embed"].device.index
     seen = {}
-    inner = pe.private_lookup_inline
+    inner = lm._embed_tokens
 
-    def recording(p, c, tokens, **kw):
-        out = inner(p, c, tokens, **kw)
+    def recording(*a, **kw):
+        out = inner(*a, **kw)
         seen["emb"] = out.clone()
+        seen["grad"] = out.requires_grad
         return out
 
     total = collections.Counter()
     rec = []
-    pe.private_lookup_inline = recording
+    lm._embed_tokens = recording
     try:
         for i in range(T2_STEPS):
-            batch = stream.batch_at(i)
+            batch = train_batch(cfg, stream, i, frontend, args.seed)
             dev_batch = to_device(batch, params["embed"].device)
             toks = dev_batch["tokens"].long()
             rows = params["embed"][toks].clone()
@@ -3197,53 +3333,69 @@ def train_t2(torch, args, cfg, errs):
             _free(torch)
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            params, state, m = step_fn(params, state, dev_batch)
+            params, state, mt = step_fn(params, state, dev_batch)
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
-            got = ops.launch_counts()
-            total.update(got)
-            check_onehot_quad(ops, f"slice 10 t2 step {i}")
-            want = {k: (1 if k in SLICE10_KERNELS else 0) for k in got}
-            check(got == want, f"slice 10 t2 step {i}: launched {got}, "
-                  f"one lookup a step wants {want}")
-            m = {k: float(v) for k, v in m.items()}
+            got = ops.card_launch_counts()
+            total.update({k: sum(n.values()) for k, n in got.items()})
+            check_onehot_quad(ops, f"{tag} t2 step {i}")
+            want = {k: ({card: 1} if k in SLICE10_KERNELS else {})
+                    for k in got}
+            check(got == want, f"{tag} t2 step {i}: launched {got} by "
+                  f"card, one lookup a step wants {want}")
+            m = {k: float(v) for k, v in mt.items()}
             check(math.isfinite(m["loss"]) and m["grad_norm"] > 0,
-                  f"slice 10 t2 step {i}: {m}")
+                  f"{tag} t2 step {i}: {m}")
             want_emb = eq.dequantize_from_field(eq.quantize_to_field(
                 rows, device=rows.device)).to(rows.dtype)
-            check(torch.equal(seen["emb"], want_emb),
-                  f"slice 10 t2 step {i}: the private embeddings differ "
-                  f"from the dequantized table's rows")
-            pf = probe.float()
-            delta = torch.zeros_like(pf).add_(pf, alpha=opt.weight_decay)
-            decayed = (pf - torch.tensor(m["lr"], device=pf.device)
-                       * delta).to(probe.dtype)
-            # in bf16 a decay of lr·wd ~ 3e-5 mostly rounds back to the
-            # stored value; the rule, not a visible change, is checked
-            check(torch.equal(params["embed"][:64], decayed)
-                  and not bool(state.m["embed"].any()),
-                  f"slice 10 t2 step {i}: the untied embed got a gradient "
-                  f"or did not decay as a zero-gradient AdamW leaf")
+            if cfg.embed_scale:
+                want_emb = want_emb * torch.tensor(
+                    math.sqrt(cfg.d_model), dtype=want_emb.dtype,
+                    device=want_emb.device)
+            check(torch.equal(seen["emb"], want_emb) and not seen["grad"],
+                  f"{tag} t2 step {i}: the private embeddings differ "
+                  f"from the dequantized table's rows"
+                  f"{' times sqrt(d_model)' if cfg.embed_scale else ''}, "
+                  f"or a gradient reaches the table through them")
+            after = adamw_replay(torch, opt, probe,
+                                 state.m["embed"][:64],
+                                 state.v["embed"][:64], state.step,
+                                 mt["lr"])
+            # the lookup passes no gradient: an untied embed gets none (in
+            # bf16 its decay of lr·wd ~ 3e-5 mostly rounds back to the
+            # stored value; the rule, not a visible change, is checked), a
+            # tied one gets the head's
+            got_grad = bool(state.m["embed"].any())
+            check(torch.equal(params["embed"][:64], after)
+                  and got_grad == cfg.tie_embeddings,
+                  f"{tag} t2 step {i}: embed "
+                  f"{'got' if got_grad else 'got no'} gradient (tied: "
+                  f"{cfg.tie_embeddings}) or did not follow the AdamW "
+                  f"rule on its moments")
             moved = int((params["embed"][:64] != probe).sum())
             rec.append(dict(m, step_s=step_s, embed_probe_moved=moved))
     finally:
-        pe.private_lookup_inline = inner
+        lm._embed_tokens = inner
     peak = torch.cuda.max_memory_allocated() / 1e9
-    probe_dev = probe.device
+    dev = probe.device
     del params, state, seen, rows, probe
     _free(torch)
 
     # the kernels at t2's shapes, on a freed card
-    dev = probe_dev
     gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
     c, v, d = EMBED_SHARES, cfg.vocab_size, cfg.d_model
     mrows = TRAIN_BATCH * TRAIN_SEQ
     toks = torch.randint(0, v, (mrows,), generator=gen, device=dev)
     a1 = rand_field(torch, gen, (mrows, v), dev)
     shared = ops.share_onehot(toks, a1, n_shares=c)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     want_sh = ssm.share_onehot_plain(toks, a1, n_shares=c)
+    stop.record()
     torch.cuda.synchronize()
-    check(torch.equal(shared, want_sh), "slice 10: share_onehot at "
+    onehot_plain_ms = start.elapsed_time(stop)
+    check(torch.equal(shared, want_sh), f"{tag}: share_onehot at "
           f"{(c, mrows, v)} differs from its plain version")
     errs["share_onehot"] = max(errs["share_onehot"],
                                max_err(torch, shared, want_sh))
@@ -3253,19 +3405,17 @@ def train_t2(torch, args, cfg, errs):
     del a1
     table = rand_field(torch, gen, (c, v, d), dev)
     check(not ssm.is_tall_skinny(mrows, v, d),
-          "slice 10: the train lookup should not be tall")
+          f"{tag}: the train lookup should not be tall")
     got_mm = ops.ss_matmul(shared, table)
     plain_ms = 0.0
     for lo in range(0, d, PLAIN_COLS):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
         start.record()
         want_mm = ssm.ss_matmul_plain(shared, table[..., lo:lo + PLAIN_COLS])
         stop.record()
         torch.cuda.synchronize()
         plain_ms += start.elapsed_time(stop)
         check(torch.equal(got_mm[..., lo:lo + PLAIN_COLS], want_mm),
-              f"slice 10: ss_matmul at M = {mrows}, columns {lo}.. differs "
+              f"{tag}: ss_matmul at M = {mrows}, columns {lo}.. differs "
               f"from its plain version")
         errs["ss_matmul"] = max(errs["ss_matmul"],
                                 max_err(torch, got_mm[..., lo:lo + PLAIN_COLS],
@@ -3276,9 +3426,10 @@ def train_t2(torch, args, cfg, errs):
     mm_bytes = 4 * (c * mrows * v + c * v * d + c * mrows * d)
     mm_ops = 32 * c * mrows * v * d
     summary = {
-        "steps": rec, "peak_gb": peak,
+        "steps": rec, "peak_gb": peak, "reckoned_peak_gb": reckoned,
         "launches": dict(total),
         "share_onehot": {"shape": [c, mrows, v], "ms": onehot_ms,
+                         "plain_ms": onehot_plain_ms,
                          "bound": bound(4 * (mrows * v + mrows
                                              + c * mrows * v),
                                         (c + 1) * mrows * v)},
@@ -3286,7 +3437,7 @@ def train_t2(torch, args, cfg, errs):
                       "plain_ms": plain_ms,
                       "bound": bound(mm_bytes, mm_ops,
                                      INT8_TENSOR_OPS_PER_S)}}
-    log("slice-10 t2 (private embedding, make_train_step) "
+    log(f"{tag} t2 (private embedding, make_train_step) "
         + json.dumps(summary))
     del shared, table
     _free(torch)
@@ -3484,6 +3635,87 @@ def train_path(torch, args, errs):
                "launches": launches, "phase_s": phases}
     log("slice-10 summary " + json.dumps(summary))
     return launches
+
+
+#: slice 23 trains, on one card, every family besides slice 10's whose
+#: training state a card holds (12 B a parameter: bf16 parameters and
+#: gradients, float32 AdamW m and v), each at its full published
+#: configuration (FAMILY_SERVE's fields, every layer, bf16, remat), the
+#: likeliest trouble first: Gemma3-1B (12.0 GB of state; sliding windows,
+#: QK-norm, a tied 262,144-row table), MiniCPM3-4B (51.1; MLA over 62
+#: layers), Mamba2-2.7B (34.0; the chunked scan over 64 layers),
+#: Hymba-1.5B (19.7; attention beside the SSM; V 32,001 leaves the
+#: lookup's matmul a last K stage of one column, d 1,600 is 25 column
+#: tiles of 64) and
+#: SeamlessM4T-medium (11.7; the encoder and its cross-attention over 640
+#: frames). ChatGLM3-6B (74.9 GB), Moonlight (347) and InternVL2-76B (847)
+#: need more than one card.
+SLICE23_FAMILIES = ("gemma3_1b", "minicpm3_4b", "mamba2_2_7b", "hymba_1_5b",
+                    "seamless_m4t_medium")
+#: the float32 check's tokens where F32_TRAIN_TOKENS would leave a path
+#: unrun: Gemma3's 512-token windows mask only keys 512 or more positions
+#: back (t1's 512 tokens mask none), and 640 take two 512-key blocks
+F32_TRAIN_TOKENS_OF = {"gemma3_1b": (1, 640)}
+
+
+def slice23_family(torch, args, errs, arch):
+    """Slice 23, one family: t1 (T1_STEPS plaintext steps), the float32
+    card-against-CPU check and t2 (the private embedding and its kernels
+    at the family's shapes), each on a freed card. Returns (t2's
+    launches, the family's summary)."""
+    t0 = time.perf_counter()
+    cfg, _, frontend = family_cfg(arch)
+    check(cfg.remat, f"slice 23: {arch} trains without remat")
+    tag = f"slice-23 {arch}"
+    t1 = train_t1(torch, args, cfg, arch=arch, tag=tag, frontend=frontend,
+                  price=False)
+    f32 = f32_train_check(torch, args, cfg, tag=tag, frontend=frontend,
+                          tokens=F32_TRAIN_TOKENS_OF.get(arch,
+                                                         F32_TRAIN_TOKENS))
+    launches, t2 = train_t2(torch, args, cfg, errs, tag=tag,
+                            frontend=frontend)
+    summary = {
+        "card": smi("name,power.limit"), "layers": cfg.n_layers,
+        "enc_layers": cfg.n_enc_layers, "parameters": cfg.param_count(),
+        "ms_per_step": t1["ms_per_step"],
+        "tokens_per_s": t1["tokens_per_s"], "peak_gb": t1["peak_gb"],
+        "reckoned_peak_gb": t1["reckoned_peak_gb"]["total"],
+        "idle_share": t1["idle_share"],
+        "device_ms_by_kind": t1["device_ms_by_kind"],
+        "losses": t1["losses"],
+        "f32_loss_abs_err": f32["loss_abs_err"],
+        "f32_worst_grad": f32["worst_grad"],
+        "f32_worst_grad_rel_err": f32["worst_grad_rel_err"],
+        "t2_step_s": [s["step_s"] for s in t2["steps"]],
+        "t2_peak_gb": t2["peak_gb"],
+        "t2_reckoned_peak_gb": t2["reckoned_peak_gb"]["total"],
+        "share_onehot_ms": t2["share_onehot"]["ms"],
+        "share_onehot_bound": t2["share_onehot"]["bound"],
+        "ss_matmul_ms": t2["ss_matmul"]["ms"],
+        "ss_matmul_plain_ms": t2["ss_matmul"]["plain_ms"],
+        "ss_matmul_bound": t2["ss_matmul"]["bound"],
+        "launches": launches, "seconds": time.perf_counter() - t0}
+    log(f"{tag} summary " + json.dumps(summary))
+    return launches, summary
+
+
+def slice23_path(torch, args, errs):
+    """Phase 3, slice 23 (after slice 10, on a freed card): training at
+    the full published configuration of each family of SLICE23_FAMILIES,
+    one after another (:func:`slice23_family`). Returns the launches of
+    the t2 step windows, summed over the families."""
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    for arch in SLICE23_FAMILIES:
+        got, _ = slice23_family(torch, args, errs, arch)
+        total.update(got)
+        _free(torch)
+    for name in SLICE10_KERNELS:
+        check(total[name] == T2_STEPS * len(SLICE23_FAMILIES),
+              f"slice 23 launched {total[name]} {name}, not one a t2 step")
+    log(f"slice-23 launches {dict(total)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(total)
 
 
 #: slice 13: the production-mesh path (DTensor parameters over a
@@ -6878,6 +7110,13 @@ def main() -> int:
     log("slice-10 path: training at full Qwen1.5-4B width through the "
         "launcher, the private embedding, accumulation with compression "
         "and a restart all pass")
+    gc.collect()
+    torch.cuda.empty_cache()
+    path23 = slice23_path(torch, args, errs)
+    log("slice-23 path: Gemma3-1B, MiniCPM3-4B, Mamba2-2.7B, Hymba-1.5B "
+        "and SeamlessM4T-medium train at full width and depth, each "
+        "float32 step equal to the CPU's and each private step's kernels "
+        "equal to their plain versions")
     log("slice-12 summary " + json.dumps({
         "seconds": sum(r["seconds"] for r in SLICE12),
         "measured_over_roofline": {r["step"]: r["measured_over_roofline"]
@@ -6910,7 +7149,8 @@ def main() -> int:
     for entry in kernels:
         name = entry["name"].split("[")[0]
         entry["launches"] += sum(p.get(name, 0) for p in (
-            path7, path8, path9, path10, path13, path14, path15))
+            path7, path8, path9, path10, path13, path14, path15,
+            path23))
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[name])
 
     print(json.dumps({"kernels": kernels}), flush=True)

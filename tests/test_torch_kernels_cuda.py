@@ -981,16 +981,26 @@ def test_ranks_end_after_meshes_on_four_cards(four_cards, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# training (slice 10)
+# training (slices 10 and 23)
 # ---------------------------------------------------------------------------
 
-def test_private_embed_train_shapes_equal_plain(cuda):
-    """A private-embedding train step of 4 x 512 tokens at Qwen1.5-4B's
-    width: ``share_onehot`` at M = 2,048, V = 151,936, c = 4, and the
-    general ``ss_matmul`` (M = 2,048 is not tall) against the (4, 151,936,
-    2,560) table, each equal to its plain version (the contraction a
+#: (vocabulary, d_model) of each family a card trains (``chip_smoke.py``
+#: slices 10 and 23): Qwen1.5-4B, Gemma3-1B (K = 262,144), MiniCPM3-4B,
+#: Mamba2-2.7B, Hymba-1.5B (K = 32,001: a last 64-wide K stage of one
+#: column; N = 1,600, 25 column tiles) and SeamlessM4T-medium (K =
+#: 256,206: a last stage of 14)
+TRAIN_TABLES = [(151936, 2560), (262144, 1152), (73448, 2560),
+                (50280, 2560), (32001, 1600), (256206, 1024)]
+
+
+@pytest.mark.parametrize("v,d", TRAIN_TABLES)
+def test_private_embed_train_shapes_equal_plain(cuda, v, d):
+    """A private-embedding train step of 4 x 512 tokens at a family's
+    width: ``share_onehot`` at M = 2,048, V, c = 4, and the general
+    ``ss_matmul`` (M = 2,048 is not tall) against the (4, V, d) table,
+    each launched once and equal to its plain version (the contraction a
     1,024-column block at a time)."""
-    m, v, d, c = 2048, 151936, 2560, 4
+    m, c = 2048, 4
     g = torch.Generator(device=cuda).manual_seed(10)
     toks = torch.randint(0, v, (m,), generator=g, device=cuda)
     a1 = _field((m, v), 11, cuda)

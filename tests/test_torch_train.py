@@ -7,9 +7,13 @@ masked position, frontend inputs) at float32 smoke configs:
 
 * ``train_loss`` within 1e-5 and every parameter's gradient within a
   relative 1e-4 (``‖Δg‖ / ‖g‖``) for every architecture, MoE on both
-  dispatches, and the private embedding on a dense one (the lookup is
-  detached in both: the untied ``embed`` gets no gradient in the port and
-  zeros in the reference);
+  dispatches, and the private embedding on every family one card trains
+  in ``chip_smoke.py`` (the lookup is detached in both: an untied
+  ``embed`` gets no gradient in the port and zeros in the reference, a
+  tied one the head's alone);
+* ``chip_smoke.train_batch``, the batches the card trains a family with a
+  frontend on, has the keys, shapes and dtypes of the reference's
+  smoke-test batch;
 * remat changes no loss or gradient; fully masked labels give loss 0;
 * ``schedule`` and ``apply_updates`` on identical gradients within 1e-6,
   a zero gradient (``None`` in the port) included, and the update in
@@ -53,7 +57,9 @@ CASES = [(a, a, {}) for a in jconfigs.ARCH_IDS] + [
     ("moonshot_v1_16b_a3b-sort", "moonshot_v1_16b_a3b",
      {"moe_dispatch": "sort"}),
     ("qwen1_5_4b-private", "qwen1_5_4b", {"private_embed": True}),
-]
+] + [(f"{a}-private", a, {"private_embed": True}) for a in (
+    "gemma3_1b", "minicpm3_4b", "mamba2_2_7b", "hymba_1_5b",
+    "seamless_m4t_medium")]
 
 
 def _cfgs(arch, **over):
@@ -303,3 +309,37 @@ def test_make_serve_steps_runs_prefill_and_decode():
     out, _ = decode_fn(tp, cache_big, T, {"tokens": nxt})
     full = tlm.forward(tp, tcfg, {"tokens": torch.cat([toks, nxt], 1)})
     torch.testing.assert_close(out[:, 0], full[:, T], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["seamless_m4t_medium", "internvl2_76b",
+                                  "qwen1_5_4b"])
+def test_chip_smoke_train_batch_matches_reference_make_batch(arch):
+    """``chip_smoke.train_batch`` (the batches the card trains
+    SeamlessM4T-medium on, its frames beside the launcher's tokens) has
+    the keys, shapes and dtypes of the reference's smoke-test batch
+    (``tests/test_arch_smoke.py`` ``make_batch``: tokens and labels (2,
+    16), 8 frames or ``n_prefix`` patches) at the smoke configuration,
+    and the port trains on it."""
+    import importlib
+    import pathlib
+    import sys
+
+    from test_arch_smoke import B as MB, T as MT, make_batch
+
+    from repro_torch.data import TokenStream
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    chip_smoke = importlib.import_module("chip_smoke")
+    jcfg, tcfg = jconfigs.smoke(arch), tconfigs.smoke(arch)
+    want = make_batch(jcfg, jax.random.PRNGKey(0))
+    frontend = {"audio": ("frames", 8),
+                "vit": ("patches", tcfg.n_prefix)}.get(tcfg.frontend)
+    got = chip_smoke.train_batch(
+        tcfg, TokenStream(tcfg.vocab_size, MB, MT, seed=3), 5, frontend,
+        seed=3)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].shape == tuple(w.shape), k
+        assert got[k].dtype == np.dtype(w.dtype), k
+    loss, _ = tlm.train_loss(tlm.init_params(0, tcfg, device="cpu"), tcfg,
+                             _t(got))
+    assert np.isfinite(float(loss))
