@@ -9,6 +9,7 @@
     python3 chip_smoke.py --onehot-times SRC  # only the share_onehot times
     python3 chip_smoke.py --mesh-only         # only t1, slices 13 to 15
     python3 chip_smoke.py --grids             # only the multi-card phases
+    python3 chip_smoke.py --grids-train       # only training on 4 cards
 
 Phases, any failure exits non-zero:
 
@@ -323,6 +324,24 @@ cards in strict mode, equal to the 1 x 1 grid, group 0's clouds
 unmoved, every kernel launched on each card. Logs ms a step or a decode
 step, each rank's peak and rank 0's idle share; every failed check is
 gathered and fails the run at its end.
+
+``--grids-train`` trains, on one world of four NCCL ranks over four
+cards, the families whose training state no card holds, at their full
+published width in bf16 with remat, 4 sequences a step, each rank drawing
+only its own blocks: ChatGLM3-6B's 28 layers at (1, 4) and (2, 2)
+through ``launch.train.main(mesh=)``, Moonlight at 38 of 48 layers and
+InternVL2-76B at 24 of 80 (each sequence 256 patches and 256 tokens) at
+(1, 4) through the launcher's loop. Each trained run: three steps (finite
+losses, grad_norm > 0, the scheduled lr, layer 0 moved), step 0's loss
+within 2e-3 of an unsharded forward on rank 0's card that draws each
+layer when it reaches it; at 2 layers in float32 every gradient leaf
+within 1e-4 relative of one card's; at a depth one card holds (16, 4
+and 2 layers) three steps within 2e-3 of one card's; ChatGLM3-6B's two
+grids within 2e-3 of each other; a private-embedding step at (1, 4) with
+one ``share_onehot`` and one ``ss_matmul`` over each rank's vocabulary
+block, each equal to its plain version. Logs ms a step, tokens/s, each
+rank's peak beside the dry-run's, rank 0's idle share, device ms by
+kernel kind and NCCL's ms by collective.
 
 Prints the kernels JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
@@ -3034,13 +3053,19 @@ def train_batch(cfg, stream, i, frontend=None, seed=0):
     return out
 
 
-def frontend_train(torch, args, cfg, steps, frontend, on_step):
+def frontend_train(torch, args, cfg, steps, frontend, on_step, mesh=None,
+                   seq=None):
     """``launch.train.main``'s loop for a family whose batches carry a
     frontend input, which the launcher's token batches do not (nor the
-    reference's): its AdamW settings, weights and token stream from
-    ``--seed``, each batch from :func:`train_batch`, through
-    ``make_train_step``, ``on_step(step, params, opt_state, metrics)``
-    after each step. Returns the last step's loss."""
+    reference's), or for a depth the launcher does not take (it trains
+    ``configs.full``'s): its AdamW settings, weights and token stream from
+    ``--seed`` (``seq`` tokens a sequence, default TRAIN_SEQ), each batch
+    from :func:`train_batch`, through ``make_train_step``,
+    ``on_step(step, params, opt_state, metrics)`` after each step. On
+    ``mesh`` each rank draws its own blocks (``init_params(mesh=)``) and
+    uploads its data-axis rows of every batch entry, as the launcher
+    does. Returns the last step's loss."""
+    from repro_torch import sharding
     from repro_torch.data import make_lm_batches
     from repro_torch.data.pipeline import to_device
     from repro_torch.models import lm
@@ -3049,14 +3074,19 @@ def frontend_train(torch, args, cfg, steps, frontend, on_step):
     opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, steps // 10),
                       total_steps=steps)
     step_fn = make_train_step(cfg, opt)
-    params = lm.init_params(args.seed, cfg)
+    params = lm.init_params(args.seed, cfg, mesh=mesh)
     state = init_state(params)
-    stream = make_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=args.seed)
-    dev = params["final_norm"].device
+    stream = make_lm_batches(cfg, TRAIN_BATCH, seq or TRAIN_SEQ,
+                             seed=args.seed)
+    dev = (params["final_norm"].device if mesh is None
+           else sharding.mesh_device(mesh))
+    dp = None if mesh is None else sharding.dp_entry(mesh)
     metrics = None
     for step in range(steps):
-        batch = to_device(train_batch(cfg, stream, step, frontend,
-                                      args.seed), dev)
+        b = train_batch(cfg, stream, step, frontend, args.seed)
+        specs = None if mesh is None else {
+            k: (dp,) + (None,) * (a.ndim - 1) for k, a in b.items()}
+        batch = to_device(b, dev, mesh=mesh, specs=specs)
         params, state, metrics = step_fn(params, state, batch)
         on_step(step, params, state, metrics)
     return float(metrics["loss"])
@@ -3085,11 +3115,12 @@ def train_peak(cfg, frontend=None, private=False) -> dict:
 
 def layer_probe(params):
     """(path, layer 0's corner) of the decoder stack's first matrix (its
-    first stacked leaf of three or more dims): a view, moved by a step."""
-    from repro_torch import _tree
+    first stacked leaf of three or more dims; on a mesh, of this rank's
+    block of it): a view, moved by a step."""
+    from repro_torch import _device, _tree
     path, w = next((p, t) for p, t in _tree.leaves_with_paths(
         params["blocks"]) if t.ndim >= 3)
-    return path, w[0, :8, :64]
+    return path, _device.local(w)[0, :8, :64]
 
 
 def train_t1(torch, args, cfg, arch=TRAIN_ARCH, tag="slice-10",
@@ -3296,7 +3327,6 @@ def train_t2(torch, args, cfg, errs, tag="slice-10", frontend=None):
     from repro_torch.data import TokenStream
     from repro_torch.data.pipeline import to_device
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ss_matmul as ssm
     from repro_torch.models import lm
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
@@ -3382,9 +3412,28 @@ def train_t2(torch, args, cfg, errs, tag="slice-10", frontend=None):
     _free(torch)
 
     # the kernels at t2's shapes, on a freed card
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
-    c, v, d = EMBED_SHARES, cfg.vocab_size, cfg.d_model
-    mrows = TRAIN_BATCH * TRAIN_SEQ
+    summary = {"steps": rec, "peak_gb": peak, "reckoned_peak_gb": reckoned,
+               "launches": dict(total)}
+    summary.update(lookup_kernel_times(
+        torch, args.seed + 10, dev, cfg.vocab_size, cfg.d_model, errs, tag))
+    log(f"{tag} t2 (private embedding, make_train_step) "
+        + json.dumps(summary))
+    return dict(total), summary
+
+
+def lookup_kernel_times(torch, seed, dev, v, d, errs, tag):
+    """The private lookup's two kernels at a training step's shapes on
+    ``dev``: ``share_onehot`` of TRAIN_BATCH x TRAIN_SEQ random tokens over
+    ``v`` rows into EMBED_SHARES shares, then ``ss_matmul`` of those shares
+    with a random (EMBED_SHARES, v, d) table, each held to its plain
+    version bit for bit (the contraction PLAIN_COLS columns at a time;
+    the largest difference into ``errs``) and timed beside it (CUDA
+    events) and its bound -> {kernel: shape, ms, plain_ms, bound}."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ss_matmul as ssm
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, mrows = EMBED_SHARES, TRAIN_BATCH * TRAIN_SEQ
     toks = torch.randint(0, v, (mrows,), generator=gen, device=dev)
     a1 = rand_field(torch, gen, (mrows, v), dev)
     shared = ops.share_onehot(toks, a1, n_shares=c)
@@ -3425,23 +3474,18 @@ def train_t2(torch, args, cfg, errs, tag="slice-10", frontend=None):
     mm_ms = time_ms(torch, lambda: ops.ss_matmul(shared, table), 3)
     mm_bytes = 4 * (c * mrows * v + c * v * d + c * mrows * d)
     mm_ops = 32 * c * mrows * v * d
-    summary = {
-        "steps": rec, "peak_gb": peak, "reckoned_peak_gb": reckoned,
-        "launches": dict(total),
-        "share_onehot": {"shape": [c, mrows, v], "ms": onehot_ms,
-                         "plain_ms": onehot_plain_ms,
-                         "bound": bound(4 * (mrows * v + mrows
-                                             + c * mrows * v),
-                                        (c + 1) * mrows * v)},
-        "ss_matmul": {"shape": [c, mrows, v, d], "ms": mm_ms,
-                      "plain_ms": plain_ms,
-                      "bound": bound(mm_bytes, mm_ops,
-                                     INT8_TENSOR_OPS_PER_S)}}
-    log(f"{tag} t2 (private embedding, make_train_step) "
-        + json.dumps(summary))
+    out = {"share_onehot": {"shape": [c, mrows, v], "ms": onehot_ms,
+                            "plain_ms": onehot_plain_ms,
+                            "bound": bound(4 * (mrows * v + mrows
+                                                + c * mrows * v),
+                                           (c + 1) * mrows * v)},
+           "ss_matmul": {"shape": [c, mrows, v, d], "ms": mm_ms,
+                         "plain_ms": plain_ms,
+                         "bound": bound(mm_bytes, mm_ops,
+                                        INT8_TENSOR_OPS_PER_S)}}
     del shared, table
     _free(torch)
-    return dict(total), summary
+    return out
 
 
 def train_t3(torch, args, cfg):
@@ -4637,7 +4681,8 @@ def spawn_ranks(world, fn, *fn_args, deadline_s=None):
 
 
 def grid_phases():
-    """(phase, grid, the cards it needs) of every multi-card phase."""
+    """(phase, grid, the cards it needs, the entry that runs it) of every
+    multi-card phase: ``--grids``' and ``--grids-train``'s."""
     out = [("qwen1.5-4b training", s, math.prod(s)) for s in QWEN_GRIDS]
     out += [("granite-3.0-3b-a800m training", s, math.prod(s))
             for s in GRANITE_GRIDS]
@@ -4651,21 +4696,27 @@ def grid_phases():
             for k, s in PROFILED_GRID.items()]
     out += [("MeshDispatcher slice 11 (b)", f"{k} cards", k)
             for k in DISPATCH_CARDS]
+    out = [p + ("--grids",) for p in out]
+    out += [(name, s, math.prod(s), "--grids-train")
+            for name, s in train4_phases()]
     return [p for p in out if p[2] > 1]
 
 
-def log_grids_not_run(cards: int, default_run: bool = False) -> None:
+def log_grids_not_run(cards: int, entry: str = "default") -> None:
     """One line for each multi-card phase that does not run: in the
     default run all of them but slice 11 (b) over every card of the host,
-    which slice 11 runs; under ``--grids`` those needing more cards than
-    the host has."""
-    for phase, grid, need in grid_phases():
-        if default_run and phase.startswith("MeshDispatcher") \
+    which slice 11 runs; under ``--grids`` or ``--grids-train`` the other
+    entry's and this entry's that need more cards than the host has."""
+    for phase, grid, need, runs_it in grid_phases():
+        if entry == "default" and phase.startswith("MeshDispatcher") \
                 and need == cards:
             continue
-        if default_run:
+        if entry == "default":
             log(f"grids {phase} {grid}: not run, the default run takes one "
-                f"card; `chip_smoke.py --grids` runs it on {need} cards")
+                f"card; `chip_smoke.py {runs_it}` runs it on {need} cards")
+        elif runs_it != entry:
+            log(f"grids {phase} {grid}: not run here; `chip_smoke.py "
+                f"{runs_it}` runs it on {need} cards")
         elif need > cards:
             log(f"grids {phase} {grid}: not run, needs {need} cards, this "
                 f"host has {cards}")
@@ -4701,25 +4752,32 @@ def nccl_kind(name: str):
     return "other"
 
 
-def mesh_train(torch, argv, mesh):
-    """``launch.train.main(argv, mesh=)`` -> its losses and grad norms, ms
-    a step (host clock between synchronizes, step 2), over a profiled step
-    1 the device ms by kernel kind, NCCL's kernels' ms by collective and
-    the idle share, the ``w_up`` placements and this rank's peak."""
+def mesh_train(torch, argv, mesh, run=None):
+    """``launch.train.main(argv, mesh=)`` (or ``run(on_step)``, a loop of
+    its own that calls ``on_step(step, params, opt_state, metrics)`` after
+    each step) -> its losses, grad norms and lrs, ms a step (host clock
+    between synchronizes, step 2), over a profiled step 1 the device ms by
+    kernel kind, NCCL's kernels' ms by collective and the idle share, the
+    ``w_up`` placements, whether this rank's block of layer 0's first
+    matrix (:func:`layer_probe`) moved from step 0 to the last, and this
+    rank's peak."""
     from repro_torch import _tree
     from repro_torch.launch import train as train_launcher
     from torch.profiler import ProfilerActivity, profile
 
-    marks, rec, prof, seen = [], [], {}, {}
+    marks, rec, prof, seen, probe = [], [], {}, {}, {}
 
     def on_step(step, params, opt_state, metrics):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         rec.append({k: float(v) for k, v in metrics.items()})
+        _, w = layer_probe(params)
+        probe.setdefault("first", w.clone())
+        probe["moved"] = not torch.equal(w, probe["first"])
         if step == 0:
             seen.update({p: [repr(x) for x in t.placements] for p, t in
                          _tree.leaves_with_paths(params)
-                         if p.endswith("w_up")})
+                         if p.endswith("w_up") and hasattr(t, "placements")})
             prof["p"] = profile(activities=[ProfilerActivity.CUDA])
             prof["p"].__enter__()
         if step == 1:
@@ -4728,7 +4786,10 @@ def mesh_train(torch, argv, mesh):
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    train_launcher.main(argv, mesh=mesh, on_step=on_step)
+    if run is None:
+        train_launcher.main(argv, mesh=mesh, on_step=on_step)
+    else:
+        run(on_step)
     kinds, nccl = collections.Counter(), collections.Counter()
     for e in prof["p"].key_averages():
         us = getattr(e, "self_device_time_total",
@@ -4740,6 +4801,8 @@ def mesh_train(torch, argv, mesh):
     step_ms = 1e3 * (marks[1] - marks[0])
     out = {"losses": [r["loss"] for r in rec],
            "grad_norms": [r["grad_norm"] for r in rec],
+           "lrs": [r["lr"] for r in rec],
+           "layer0_moved": probe.get("moved", False),
            "ms_per_step": 1e3 * (marks[2] - marks[1]),
            "profiled_step_ms": step_ms,
            "device_ms_by_kind": dict(kinds), "nccl_ms_by_kind": dict(nccl),
@@ -5492,8 +5555,10 @@ def grid_units(world: int):
     return units
 
 
-def grids_rank(torch, seed, out_dir):
-    """One rank of ``--grids``: every unit of :func:`grid_units` in turn,
+def grids_rank(torch, seed, out_dir, units_of=None):
+    """One rank of ``--grids`` (or of ``--grids-train``: ``units_of`` =
+    :func:`train4_units`): every unit of ``units_of(world)`` (default
+    :func:`grid_units`) in turn,
     each on every rank of the world (a unit of no grid on rank 0 alone),
     a world barrier after each. A failed check is recorded and the rank
     goes on to the next unit (every check follows the unit's collectives,
@@ -5503,7 +5568,8 @@ def grids_rank(torch, seed, out_dir):
     ``done`` after the last. An error every rank meets alike (DTensor's
     refusal of an op, say) is recorded as a failed check is; one that
     leaves another rank waiting in a collective ends the world at its
-    deadline."""
+    deadline. An out-of-memory error ends the rank (and the world) where
+    it happens: no later unit runs on what it left behind."""
     import torch.distributed as dist
 
     args = argparse.Namespace(seed=seed)
@@ -5512,7 +5578,7 @@ def grids_rank(torch, seed, out_dir):
         MESH_DEVICE, torch.cuda.current_device())), "units": {},
         "failed": {}}
     keep = {}
-    units = grid_units(world)
+    units = (units_of or grid_units)(world)
     for i, (name, shape, fn) in enumerate(units):
         mesh = grid_mesh(torch, shape) if shape else None
         if shape or rank == 0:
@@ -5523,6 +5589,8 @@ def grids_rank(torch, seed, out_dir):
                 res = fn(torch, args, mesh, keep)
             except Exception as e:
                 import traceback
+                if isinstance(e, torch.cuda.OutOfMemoryError):
+                    raise
                 out["failed"][name] = (
                     str(e) if isinstance(e, AssertionError)
                     else traceback.format_exc()[-4000:])
@@ -5746,7 +5814,7 @@ def grids_path(torch, args) -> int:
     worlds = [w for w in GRID_WORLDS if w <= cards] if cards >= 2 else []
     log(f"grids: {cards} cards ({smi('name,power.limit')}), worlds of "
         f"{worlds} ranks")
-    log_grids_not_run(cards)
+    log_grids_not_run(cards, "--grids")
     failed, units = {}, {}
     for world in worlds:
         t1 = time.perf_counter()
@@ -5796,6 +5864,497 @@ def grids_path(torch, args) -> int:
         "dispatch": list(dispatch), "failed": failed,
         "seconds": time.perf_counter() - t0}, default=str))
     check(not failed, f"--grids: {len(failed)} checks failed: "
+          + json.dumps(failed, default=str))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# --grids-train: training across four cards for the families no card holds
+# ---------------------------------------------------------------------------
+
+#: --grids-train trains each family whose training state (12 B a
+#: parameter) no card holds across the four cards of one host, on the
+#: production mesh, each rank drawing its own blocks only: (arch, trained
+#: depth or None for every layer, trained grids, held depth, tokens a
+#: sequence, frontend input and its length or None), at full published
+#: width (FAMILY_SERVE's fields), bf16, remat, TRAIN_BATCH sequences a
+#: step. Parameters split over ``model`` only, so (2, 2) doubles a rank's
+#: state: only (1, 4) holds Moonlight at 38 of 48 layers and InternVL2-76B
+#: at 24 of 80 (the port's dry-run: 72.44 and 70.33 GB a rank; 91.02 at
+#: Moonlight's 48). ChatGLM3-6B's 28 layers (20.34 GB a rank at (1, 4),
+#: 44.75 at (2, 2)) go through ``launch.train.main(mesh=)``, the cut
+#: depths through its loop (:func:`frontend_train`), InternVL2's
+#: sequences 256 patches before 256 tokens (the dry-run's train_4k). The
+#: held depth is what one card trains too (ChatGLM3-6B at 16 layers,
+#: 46.83 GB; Moonlight at 4, 39.23; InternVL2-76B at 2, 49.84)
+TRAIN4_FAMILIES = (
+    ("chatglm3_6b", None, ((1, 4), (2, 2)), 16, TRAIN_SEQ, None),
+    ("internvl2_76b", 24, ((1, 4),), 2, 256, ("patches", 256)),
+    ("moonshot_v1_16b_a3b", 38, ((1, 4),), 4, TRAIN_SEQ, None),
+)
+TRAIN4_WORLD, TRAIN4_STEPS, TRAIN4_DEADLINE_S = 4, 3, 1500
+#: the grid of every family's private-embedding step (at its held depth:
+#: at the trained depth a rank has no room for the table's shares); its
+#: table splits over the vocabulary, K = V / 4 rows a rank
+TRAIN4_PRIVATE_GRID = (1, 4)
+#: each trained run's peak a rank (GB), predicted before the first
+#: four-card run by the port's dry-run (``launch.dryrun.price_cell`` on
+#: meta, 4 x 512 positions, no accumulation: bf16 parameters, float32
+#: AdamW moments, temporaries with the bf16 gradients); logged beside the
+#: measured peaks, not checked
+TRAIN4_PEAK_GB = {("chatglm3_6b", (1, 4)): 20.34,
+                  ("chatglm3_6b", (2, 2)): 44.75,
+                  ("internvl2_76b", (1, 4)): 70.33,
+                  ("moonshot_v1_16b_a3b", (1, 4)): 72.44}
+#: the float32 step's loss on a grid against one card's (relative)
+TRAIN4_F32_LOSS_RTOL = 1e-5
+#: the ranks' CUDA caching allocator: the trained runs hold 70-72 GB a
+#: rank of the card's 79.18 GiB, and with the default fixed segments
+#: Moonlight's backward at 38 layers ran out asking for its 3.27 GiB
+#: stack of expert gradients with 9.95 GiB reserved but unallocated
+#: (fragmented) beside 64.28 GiB in use; expandable segments grow in
+#: place instead
+TRAIN4_ALLOC_CONF = "expandable_segments:True"
+
+
+def train4_row(arch):
+    return next(r for r in TRAIN4_FAMILIES if r[0] == arch)
+
+
+def train4_cfg(arch, layers=None):
+    """``arch``'s configuration (its published fields checked,
+    :func:`family_cfg`) at ``layers`` (default its trained depth), its
+    tokens a sequence and its frontend input."""
+    import dataclasses
+    _, depth, _, _, seq, frontend = train4_row(arch)
+    cfg, _, _ = family_cfg(arch)
+    check(cfg.remat, f"grids-train: {arch} trains without remat")
+    n = layers or depth
+    if n is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n)
+    return cfg, seq, frontend
+
+
+def train4_phases():
+    """(phase, grid) of every multi-card phase of ``--grids-train``."""
+    out = []
+    for arch, _, grids, held, _, frontend in TRAIN4_FAMILIES:
+        n = train4_cfg(arch)[0].n_layers
+        with_ = f", {frontend[1]} {frontend[0]}" if frontend else ""
+        out += [(f"{arch} training, {n} layers{with_}", s) for s in grids]
+        out += [(f"{arch} float32 gradients, {F32_TRAIN_LAYERS} layers", s)
+                for s in grids]
+        out += [(f"{arch} training, {held} layers against one card", s)
+                for s in grids]
+        out += [(f"{arch} private step, {held} layers", TRAIN4_PRIVATE_GRID)]
+    return out
+
+
+def train4_units(world: int):
+    """(name, grid or None for rank 0 alone, function) of every unit of
+    ``--grids-train``'s world, in order: family by family the float32
+    gradients on one card and on each grid, three bf16 steps at the held
+    depth on one card and on each grid, the private step at the held
+    depth and the unsharded forward at the trained depth (each layer
+    drawn when it is reached); then, last, the trained runs, whose peaks
+    are the largest (an out-of-memory error ends the world)."""
+    import functools
+    p = functools.partial
+    units, trained = [], []
+    for arch, _, grids, held, _, _ in TRAIN4_FAMILIES:
+        if any(math.prod(s) != world for s in grids):
+            continue
+        n = train4_cfg(arch)[0].n_layers
+        units.append((f"{arch} float32 one card", None,
+                      p(train4_f32, arch=arch)))
+        units += [(f"{arch} float32 {s}", s, p(train4_f32, arch=arch))
+                  for s in grids]
+        units += [(f"{arch} {where}, {held} layers", s,
+                   p(train4_steps, arch=arch, layers=held))
+                  for where, s in [("one card", None)]
+                  + [(str(s), s) for s in grids]]
+        units.append((f"{arch} private {TRAIN4_PRIVATE_GRID}, {held} layers",
+                      TRAIN4_PRIVATE_GRID, p(train4_private, arch=arch)))
+        units.append((f"{arch} streamed step 0, {n} layers", None,
+                      p(train4_streamed, arch=arch)))
+        trained += [(f"{arch} {s}, {n} layers", s, p(train4_steps, arch=arch))
+                    for s in grids]
+    return units + trained
+
+
+def train4_steps(torch, args, mesh, keep, arch, layers=None):
+    """TRAIN4_STEPS bf16 steps of ``arch`` at ``layers`` (default its
+    trained depth) on ``mesh`` or, without one, on this rank's card
+    (:func:`mesh_train`): ``launch.train.main(mesh=)`` at the full
+    configuration's depth for a family without a frontend input, else its
+    loop (:func:`frontend_train`). Also records the lr each step should
+    have (``schedule(step + 1)``) and the tokens a step."""
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.optim import schedule
+
+    cfg, seq, frontend = train4_cfg(arch, layers)
+    full = family_cfg(arch)[0].n_layers
+    if mesh is not None and frontend is None and cfg.n_layers == full \
+            and seq == TRAIN_SEQ:
+        argv = ["--arch", arch, "--steps", str(TRAIN4_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(seq), "--lr", str(TRAIN_LR),
+                "--log-every", "1", "--seed", str(args.seed)]
+        out = mesh_train(torch, argv, mesh)
+        out["route"] = "launch.train.main"
+    else:
+        out = mesh_train(torch, None, mesh, run=lambda on_step:
+                         frontend_train(torch, args, cfg, TRAIN4_STEPS,
+                                        frontend, on_step, mesh=mesh,
+                                        seq=seq))
+        out["route"] = "make_train_step (the launcher's loop)"
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, TRAIN4_STEPS // 10),
+                      total_steps=TRAIN4_STEPS)
+    out.update(layers=cfg.n_layers, tokens_a_step=TRAIN_BATCH * seq,
+               positions_a_step=TRAIN_BATCH * (
+                   seq + (frontend[1] if frontend else 0)),
+               want_lrs=[float(schedule(opt, i + 1))
+                         for i in range(TRAIN4_STEPS)])
+    return out
+
+
+def train4_streamed(torch, args, mesh, keep, arch):
+    """Rank 0: step 0's loss at ``arch``'s trained depth, unsharded on this
+    card, forward only (``no_grad``), each layer drawn when the block
+    loop reaches it (:class:`DrawnLayers`: the bits of the grids' blocks)
+    and dropped before the next, on the batch step 0 of the trained runs
+    takes."""
+    import dataclasses
+
+    from repro_torch.data import make_lm_batches
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import lm
+
+    cfg, seq, frontend = train4_cfg(arch)
+    params = lm.init_params(args.seed, dataclasses.replace(cfg, n_layers=0))
+    dev = params["final_norm"].device
+    params["blocks"] = DrawnLayers(args.seed, cfg, dev)
+    stream = make_lm_batches(cfg, TRAIN_BATCH, seq, seed=args.seed)
+    batch = to_device(train_batch(cfg, stream, 0, frontend, args.seed), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = lm.train_loss(params, cfg, batch)
+    loss = float(loss)
+    out = {"layers": cfg.n_layers, "loss": loss,
+           "layer_draws": params["blocks"].draws,
+           "forward_s": time.perf_counter() - t0}
+    del params, batch
+    check(out["layer_draws"] == cfg.n_layers and math.isfinite(loss),
+          f"grids-train {arch}: the streamed forward drew "
+          f"{out['layer_draws']} of {cfg.n_layers} layers, loss {loss}")
+    return out
+
+
+def train4_f32(torch, args, mesh, keep, arch):
+    """``arch`` at F32_TRAIN_LAYERS layers, full width, in float32: one
+    step's loss and every leaf's gradient (``train.step._grads``) on
+    F32_TRAIN_TOKENS tokens (with the family's frontend input, from
+    :func:`train_batch`). Without ``mesh`` (rank 0, first) they are kept
+    on the host; on ``mesh`` each gradient is gathered whole, one leaf at
+    a time (every rank), and rank 0 holds it to the kept one -> the loss's
+    relative difference, the worst leaf and its relative difference
+    (norm of the difference over the norm)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import _tree, sharding
+    from repro_torch.data import TokenStream
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "grids-train: TF32 matmuls are on; the float32 check needs them "
+          "off")
+    cfg, _, frontend = train4_cfg(arch)
+    f32 = dataclasses.replace(cfg, n_layers=F32_TRAIN_LAYERS,
+                              dtype="float32")
+    b, t = F32_TRAIN_TOKENS
+    batch = train_batch(f32, TokenStream(f32.vocab_size, b, t,
+                                         seed=args.seed), 7, frontend,
+                        args.seed)
+    if mesh is None:
+        keep.pop("f32", None)
+    _free(torch)
+    params = lm.init_params(args.seed, f32, mesh=mesh)
+    names = [n for n, x in _tree.leaves_with_paths(params)
+             if x.is_floating_point()]
+    if mesh is None:
+        dev = params["final_norm"].device
+        dbatch = to_device(batch, dev)
+    else:
+        dev = sharding.mesh_device(mesh)
+        dp = sharding.dp_entry(mesh)
+        dbatch = to_device(batch, dev, mesh=mesh, specs={
+            k: (dp,) + (None,) * (a.ndim - 1) for k, a in batch.items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = tstep._grads(f32, params, tstep._trainable(params), dbatch)
+    loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                 else loss)
+    out = {"layers": F32_TRAIN_LAYERS, "tokens": [b, t],
+           "frontend": frontend, "loss": loss, "leaves": len(grads),
+           "grads_s": time.perf_counter() - t0}
+    del params, dbatch
+    if mesh is None:
+        keep["f32"] = (arch, loss, [None if g is None else g.cpu()
+                                    for g in grads])
+        del grads
+        _free(torch)
+        return out
+    lead = dist.get_rank() == 0
+    want = keep.get("f32", (None,)) if lead else (None,)
+    rel = {}
+    for i, name in enumerate(names):
+        g = grads[i]
+        whole = None if g is None else (
+            g.full_tensor() if hasattr(g, "full_tensor") else g)
+        grads[i] = None
+        if lead and want[0] == arch:
+            w = want[2][i]
+            if whole is None or w is None:
+                rel[name] = 0.0 if whole is None and w is None \
+                    else math.inf
+            else:
+                w = w.to(dev)
+                rel[name] = float((whole - w).norm()) / (
+                    float(w.norm()) or 1.0)
+            del w
+        del whole
+    del grads
+    if lead:
+        check(want[0] == arch, f"grids-train {arch}: no one-card float32 "
+              "gradients to hold the grid's to")
+        worst = max(rel, key=rel.get)
+        out.update(one_card_loss=want[1],
+                   loss_rel_diff=abs(loss - want[1]) / abs(want[1]),
+                   worst_grad=worst, worst_grad_rel_err=rel[worst])
+    _free(torch)
+    return out
+
+
+def train4_private(torch, args, mesh, keep, arch):
+    """One private-embedding step of ``arch`` at its held depth on
+    TRAIN4_PRIVATE_GRID (:func:`slice13_private`: one ``share_onehot`` and
+    one ``ss_matmul`` on this rank's card over its vocabulary block of the
+    table, each equal to its plain version; the opened rows the unsharded
+    lookup's bit for bit); then, on rank 0, both kernels at a rank's
+    shapes (M = TRAIN_BATCH x TRAIN_SEQ, K = V / 4, N = d) timed beside
+    their plain versions and bounds (:func:`lookup_kernel_times`)."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    cfg, _, _ = train4_cfg(arch, train4_row(arch)[3])
+    tag = f"grids-train {arch} {tuple(mesh.shape)}"
+    errs = collections.Counter()
+    launches = slice13_private(torch, args, mesh, errs, cfg=cfg, tag=tag)
+    out = {"layers": cfg.n_layers,
+           "private_launches": {k: launches[k] for k in SLICE13_KERNELS}}
+    if dist.get_rank() == 0:
+        rows = cfg.vocab_size // math.prod(TRAIN4_PRIVATE_GRID)
+        check(rows * math.prod(TRAIN4_PRIVATE_GRID) == cfg.vocab_size,
+              f"{tag}: the vocabulary does not split evenly")
+        out["kernels"] = lookup_kernel_times(
+            torch, args.seed + 34, sharding.mesh_device(mesh), rows,
+            cfg.d_model, errs, tag)
+    out["private_errs"] = {k: v for k, v in errs.items() if v}
+    return out
+
+
+def train4_check(units, failed):
+    """Hold ``--grids-train``'s units (by name, each its ranks' results,
+    rank 0 first) to what the slice asks, recording each failure in
+    ``failed`` -> the summary by family: for each trained run TRAIN4_STEPS
+    finite losses with grad_norm > 0, each lr ``schedule(step + 1)`` and
+    layer 0's block moved on every rank; step 0's loss within
+    SLICE13_LOSS_RTOL of the streamed unsharded forward's; the float32
+    loss within TRAIN4_F32_LOSS_RTOL and every gradient leaf within
+    F32_TRAIN_TOL of one card's; the held depth's losses within
+    SLICE13_LOSS_RTOL of one card's, step 0 included; two grids' trained
+    losses within SLICE13_LOSS_RTOL of each other; the private step's
+    kernels once each on every rank, equal to their plain versions."""
+    out = {}
+
+    def get(name):
+        ranks = units.get(name, [])
+        if not ranks or not ranks[0].get("losses", ranks[0].get("loss")):
+            failed.setdefault(name, "did not run")
+            return None
+        return ranks
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    def steps_ok(name, r0, ranks):
+        got = r0["losses"]
+        ok = (len(got) == TRAIN4_STEPS
+              and all(math.isfinite(x) for x in got)
+              and all(g > 0 for g in r0["grad_norms"])
+              and all(abs(a - b) <= 1e-6 * b for a, b in
+                      zip(r0["lrs"], r0["want_lrs"]))
+              and all(r.get("layer0_moved") for r in ranks))
+        if not ok:
+            failed[f"{name} steps"] = json.dumps(
+                {k: r0.get(k) for k in ("losses", "grad_norms", "lrs",
+                                        "want_lrs")}
+                | {"layer0_moved": [r.get("layer0_moved") for r in ranks]})
+
+    for arch, _, grids, held, seq, frontend in TRAIN4_FAMILIES:
+        n = train4_cfg(arch)[0].n_layers
+        fam = {"layers": n, "held_layers": held, "tokens_a_sequence": seq,
+               "frontend": frontend, "grids": {}}
+        streamed = get(f"{arch} streamed step 0, {n} layers")
+        one32 = get(f"{arch} float32 one card")
+        one = get(f"{arch} one card, {held} layers")
+        trained = {}
+        for s in grids:
+            row = {}
+            name = f"{arch} {s}, {n} layers"
+            ranks = get(name)
+            if ranks:
+                r0 = ranks[0]
+                steps_ok(name, r0, ranks)
+                trained[s] = r0["losses"]
+                ms = r0["ms_per_step"]
+                row.update(
+                    route=r0.get("route"), losses=r0["losses"],
+                    ms_per_step=ms,
+                    tokens_per_s=r0["tokens_a_step"] / (ms / 1e3),
+                    positions_per_s=r0["positions_a_step"] / (ms / 1e3),
+                    peak_gb_by_rank=[r.get("peak_gb") for r in ranks],
+                    predicted_peak_gb=TRAIN4_PEAK_GB.get((arch, s)),
+                    idle_share_rank0=r0["idle_share"],
+                    device_ms_by_kind_rank0=r0["device_ms_by_kind"],
+                    nccl_ms_by_kind_rank0=r0["nccl_ms_by_kind"],
+                    profiled_step_ms=r0["profiled_step_ms"],
+                    first_step_and_init_s=r0["first_step_and_init_s"],
+                    seconds=r0.get("seconds"))
+                if streamed:
+                    want = streamed[0]["loss"]
+                    d = rel([r0["losses"][0]], [want])[0]
+                    row.update(streamed_step0_loss=want, step0_rel_diff=d)
+                    if not d <= SLICE13_LOSS_RTOL:
+                        failed[f"{name} step 0"] = (
+                            f"{r0['losses'][0]} against the streamed "
+                            f"unsharded {want} (rtol {SLICE13_LOSS_RTOL})")
+            g32 = get(f"{arch} float32 {s}")
+            if g32 and one32:
+                f = g32[0]
+                row["float32"] = {k: f.get(k) for k in (
+                    "loss", "one_card_loss", "loss_rel_diff", "worst_grad",
+                    "worst_grad_rel_err", "leaves")}
+                if not (f.get("loss_rel_diff", math.inf)
+                        <= TRAIN4_F32_LOSS_RTOL
+                        and f.get("worst_grad_rel_err", math.inf)
+                        <= F32_TRAIN_TOL):
+                    failed[f"{arch} float32 {s}"] = json.dumps(
+                        row["float32"])
+            hname = f"{arch} {s}, {held} layers"
+            hg = get(hname)
+            if hg and one:
+                steps_ok(hname, hg[0], hg)
+                d = rel(hg[0]["losses"], one[0]["losses"])
+                row["held"] = {"losses": hg[0]["losses"],
+                               "one_card_losses": one[0]["losses"],
+                               "loss_rel_diff": d,
+                               "ms_per_step": hg[0]["ms_per_step"],
+                               "one_card_ms_per_step":
+                                   one[0]["ms_per_step"],
+                               "peak_gb_by_rank": [r.get("peak_gb")
+                                                   for r in hg],
+                               "one_card_peak_gb": one[0].get("peak_gb")}
+                if len(d) != TRAIN4_STEPS or max(d) > SLICE13_LOSS_RTOL:
+                    failed[f"{hname} against one card"] = json.dumps(
+                        row["held"])
+            fam["grids"][str(s)] = row
+        if one:
+            steps_ok(f"{arch} one card, {held} layers", one[0], one)
+        if len(trained) == 2:
+            a, b = trained.values()
+            d = rel(a, b)
+            fam["grids_loss_rel_diff"] = d
+            if len(d) != TRAIN4_STEPS or max(d) > SLICE13_LOSS_RTOL:
+                failed[f"{arch} grids against each other"] = json.dumps(
+                    {str(k): v for k, v in trained.items()})
+        pname = f"{arch} private {TRAIN4_PRIVATE_GRID}, {held} layers"
+        priv = units.get(pname, [])
+        fam["private_launches_by_rank"] = [r.get("private_launches")
+                                           for r in priv]
+        if len(priv) != math.prod(TRAIN4_PRIVATE_GRID) or any(
+                r.get("private_launches") != {k: 1 for k in SLICE13_KERNELS}
+                or r.get("private_errs") for r in priv):
+            failed.setdefault(pname, json.dumps(
+                [{k: r.get(k) for k in ("private_launches", "private_errs")}
+                 for r in priv]))
+        if priv:
+            fam["kernels"] = priv[0].get("kernels")
+        if streamed:
+            fam["streamed_forward_s"] = streamed[0].get("forward_s")
+        out[arch] = fam
+    return out
+
+
+def grids_train_path(torch, args) -> int:
+    """``--grids-train``: TRAIN4_FAMILIES trained across the four cards of
+    one host. One world of TRAIN4_WORLD ranks (:func:`spawn_ranks`, each
+    :func:`rank_main`: ``init_ranks``, NCCL) runs :func:`grids_rank` over
+    :func:`train4_units` within TRAIN4_DEADLINE_S, each rank writing its
+    results to ``build/grids/train4/rank<r>.json`` after each unit; then
+    :func:`train4_check` holds them. Every failure is gathered and the run
+    fails at its end; a host with fewer cards fails at once."""
+    import shutil
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    card = smi("name,power.limit")
+    log(f"grids-train: {cards} cards ({card}), a world of {TRAIN4_WORLD} "
+        "ranks")
+    log_grids_not_run(cards, "--grids-train")
+    check(cards >= TRAIN4_WORLD, f"--grids-train needs {TRAIN4_WORLD} "
+          f"cards; this host has {cards}")
+    failed, units = {}, {}
+    out_dir = os.path.join(ROOT, "build", "grids", "train4")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TRAIN4_ALLOC_CONF  # the ranks'
+    try:
+        spawn_ranks(TRAIN4_WORLD, grids_rank, args.seed, out_dir,
+                    train4_units, deadline_s=TRAIN4_DEADLINE_S)
+    except Exception as e:                   # a rank's error: reported
+        failed[f"world of {TRAIN4_WORLD}"] = repr(e)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    res = []
+    for r in range(TRAIN4_WORLD):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                res.append(json.load(f))
+    for r in res:
+        failed.update({f"rank {r['rank']} {k}": v
+                       for k, v in r["failed"].items()})
+        for name, v in r["units"].items():
+            units.setdefault(name, []).append(v)
+    world_s = time.perf_counter() - t0
+    log(f"grids-train world of {TRAIN4_WORLD} ranks took {world_s:.1f} s; "
+        f"every rank ran every unit: "
+        f"{len(res) == TRAIN4_WORLD and all(r['done'] for r in res)}")
+    families = train4_check(units, failed)
+    log("grids-train summary " + json.dumps({
+        "card": card, "cards": cards, "families": families,
+        "failed": failed, "seconds": time.perf_counter() - t0},
+        default=str))
+    check(not failed, f"--grids-train: {len(failed)} checks failed: "
           + json.dumps(failed, default=str))
     return 0
 
@@ -6977,6 +7536,12 @@ def main() -> int:
                          "4 cards, the collectives against the walker, and "
                          "MeshDispatcher over distinct cards (a host with 4 "
                          "or more cards runs them all)")
+    ap.add_argument("--grids-train", action="store_true",
+                    help="only build the kernels and train the families "
+                         "whose training state no card holds (ChatGLM3-6B, "
+                         "Moonlight, InternVL2-76B) across four cards of "
+                         "this host on NCCL ranks, each held to one card "
+                         "where one holds it")
     ap.add_argument("--decode-times", metavar="SRC",
                     help="only time prefill and decode steps and count a "
                          "decode step's aten calls for slices 7, 8 and 9's "
@@ -7022,8 +7587,8 @@ def main() -> int:
                                  "ss_matmul", "ss_matmul_tall",
                                  "ripple_segment", "ripple_carry",
                                  "share_onehot")}
-    if args.grids:
-        grids_path(torch, args)
+    if args.grids or args.grids_train:
+        (grids_train_path if args.grids_train else grids_path)(torch, args)
         print(smi("name,power.limit"), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7145,7 +7710,7 @@ def main() -> int:
     log("slice-15 path: full ChatGLM3-6B and Gemma3-1B generate the same "
         "tokens privately and in plaintext, and ChatGLM3-6B the same on a "
         "(1, 1) NCCL mesh")
-    log_grids_not_run(torch.cuda.device_count(), default_run=True)
+    log_grids_not_run(torch.cuda.device_count())
     for entry in kernels:
         name = entry["name"].split("[")[0]
         entry["launches"] += sum(p.get(name, 0) for p in (

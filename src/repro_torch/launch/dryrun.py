@@ -48,6 +48,8 @@ Usage (from the repository root):
 
 ``--mesh one`` (the default) prices ``one_card_1x1``; ``single``,
 ``multi`` and ``both`` the reference's production meshes.
+``price_cell(..., grid="cards_1x4")`` (or ``"cards_2x2"``) prices the
+four cards of one host.
 """
 from __future__ import annotations
 
@@ -78,10 +80,15 @@ RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "build", "dryrun_results.json")
 
 GRID = "one_card_1x1"
-#: grid name -> (mesh shape, axes); the reference's production meshes
+#: grid name -> (mesh shape, axes): one card, the reference's production
+#: meshes and the four cards of one host
 GRIDS = {GRID: ((1, 1), ("data", "model")),
          "single_pod_256": ((16, 16), ("data", "model")),
-         "multi_pod_512": ((2, 16, 16), ("pod", "data", "model"))}
+         "multi_pod_512": ((2, 16, 16), ("pod", "data", "model")),
+         # the four cards of one host, as chip_smoke.py --grids-train
+         # lays them out
+         "cards_1x4": ((1, 4), ("data", "model")),
+         "cards_2x2": ((2, 2), ("data", "model"))}
 MESH_CHOICES = {"one": [GRID], "single": ["single_pod_256"],
                 "multi": ["multi_pod_512"],
                 "both": ["single_pod_256", "multi_pod_512"]}
@@ -211,11 +218,14 @@ def _record(arch, shape_name, cost, args_b, temp_b, mf, t0, *,
 
 
 def price_cell(arch: str, shape: ShapeConfig, *, smoke: bool = False,
-               grid: str = GRID, **over) -> dict:
+               grid: str = GRID, grad_accum: Optional[int] = None,
+               **over) -> dict:
     """One cell's record: the arch's full configuration (``smoke`` for its
     reduced sibling; ``over`` replaces fields of it, e.g.
     ``moe_dispatch="sort"``) at ``shape``, its step on meta under the
-    walker, on ``grid`` (rank 0's share of it)."""
+    walker, on ``grid`` (rank 0's share of it). A train cell accumulates
+    ``grad_accum`` microbatches (default :func:`grad_accum_for`'s, at most
+    the global batch over the data axes)."""
     cfg = configs.smoke(arch) if smoke else configs.full(arch)
     if over:
         cfg = dataclasses.replace(cfg, **over)
@@ -225,7 +235,8 @@ def price_cell(arch: str, shape: ShapeConfig, *, smoke: bool = False,
         dp = 1 if mesh is None else shd.dp_size(mesh)
         if shape.kind == "train":
             # the microbatch must stay divisible over the data axes
-            ga = min(grad_accum_for(cfg), max(1, shape.global_batch // dp))
+            ga = grad_accum or min(grad_accum_for(cfg),
+                                   max(1, shape.global_batch // dp))
             cost, args_b, temp_b, scaled = _price_train(cfg, shape, ga,
                                                         mesh)
             extra = {"grad_accum": ga, "accum_scaled": scaled}

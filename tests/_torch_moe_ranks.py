@@ -46,6 +46,13 @@ SERVE = [("granite-einsum", "granite_moe_3b_a800m", "einsum"),
 SERVE_PROMPT, SERVE_STEPS = 6, 2
 #: an expert d_ff that 4 model ranks do not divide
 SHARED_WHOLE_FF = 30
+#: (tag, arch, heads, KV heads) of the dense training layouts at (1, 4)
+#: that the four-card runs take at full width: ChatGLM3's query heads
+#: split while its 2 KV heads (and their biases) stay whole on every
+#: rank, and InternVL2's query and KV heads both split (G = 2), with its
+#: patches on the data axis
+LAYOUTS_1X4 = [("chatglm3", "chatglm3_6b", 4, 2),
+               ("internvl2", "internvl2_76b", 8, 4)]
 
 
 def cfg_of(arch, **over):
@@ -99,7 +106,7 @@ def _steps(cfg, mesh, params, batches, router=False):
     out["params"] = _whole(params)
     out["placements"] = {p: [repr(x) for x in t.placements]
                          for p, t in _tree.leaves_with_paths(params)
-                         if "moe" in p}
+                         if "moe" in p or "attn" in p}
     return out
 
 
@@ -124,11 +131,10 @@ def _variants(inp, mesh, out):
                 cfg, mesh, params, inp["moe_batches"], router=True)
 
 
-def _one_expert_a_rank(inp, out):
+def _one_expert_a_rank(inp, mesh, out):
     """(3) Moonlight at (1, 4): one expert a rank; and with an expert
     d_ff of 30, which 4 does not divide, the shared expert whole on every
     model rank beside the split experts."""
-    mesh = lmesh.make_mesh((1, 4), AXES, device_type="cpu")
     arch = "moonshot_v1_16b_a3b"
     for d, cf in (("einsum", 1.25), ("sort", 0.5)):
         cfg = variant_cfg(arch, 4, d, cf)
@@ -140,6 +146,20 @@ def _one_expert_a_rank(inp, out):
     out["1x4/shared-whole"] = _steps(
         cfg, mesh, init_params(inp["seed"], cfg, device="cpu"),
         inp["moe_batches"])
+
+
+def layout_cfg(arch, heads, kv):
+    return cfg_of(arch, n_heads=heads, n_kv_heads=kv)
+
+
+def _layouts_1x4(inp, mesh, out):
+    """(6) two steps of each dense layout of LAYOUTS_1X4 at (1, 4) from
+    the reference's weights."""
+    for tag, arch, heads, kv in LAYOUTS_1X4:
+        cfg = layout_cfg(arch, heads, kv)
+        params = params_from_arrays(inp["layout_params"][tag], device="cpu")
+        out[f"1x4-train/{tag}"] = _steps(cfg, mesh, params,
+                                         inp["layout_batches"][tag])
 
 
 def _serve(inp, mesh, out):
@@ -196,7 +216,9 @@ def run(rank: int, world: int, root: str) -> None:
         inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
         mesh = lmesh.make_mesh((2, 2), AXES, device_type="cpu")
         _variants(inp, mesh, out)
-        _one_expert_a_rank(inp, out)
+        row = lmesh.make_mesh((1, 4), AXES, device_type="cpu")
+        _one_expert_a_rank(inp, row, out)
+        _layouts_1x4(inp, row, out)
         _serve(inp, mesh, out)
         _private(inp, mesh, out)
         _families(inp, mesh, out)

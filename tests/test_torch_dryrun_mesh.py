@@ -22,6 +22,11 @@ process never starts one) prices, with ``launch.dryrun`` and the walker:
   ``single_pod_256``, with the published configuration's divisibility by
   16 (heads, KV heads, experts, SSM heads, vocabulary): status ok and no
   unpriced op;
+* the three families trained across the four cards of one host
+  (``chip_smoke.py --grids-train``) at ``cards_1x4`` and ``cards_2x2``
+  with 1 and 2 microbatches: status ok, no unpriced op, the accumulation
+  asked for, and a rank's arguments larger at (2, 2), where only the
+  model axis splits the parameters;
 * ``hlo_analysis.analyze(fn, n_chips=)`` and ``collective_bytes(cost)``,
   the counterparts of the reference's, on a walk in this process.
 """
@@ -132,6 +137,15 @@ for arch in configs.ARCH_IDS:
                  "unpriced": {}}
         out["families"][f"{arch}/{shape.kind}"] = {
             "status": r["status"], "unpriced": r.get("unpriced", {})}
+out["cards"] = {}
+for arch in ("chatglm3_6b", "internvl2_76b", "moonshot_v1_16b_a3b"):
+    for grid in ("cards_1x4", "cards_2x2"):
+        for ga in (1, 2):
+            r = dryrun.price_cell(arch, ShapeConfig("t1", 32, 4, "train"),
+                                  smoke=True, grid=grid, grad_accum=ga)
+            out["cards"][f"{arch}/{grid}/{ga}"] = {
+                k: r[k] for k in ("status", "n_chips", "grad_accum",
+                                  "accum_scaled", "unpriced", "memory")}
 print("RESULT " + json.dumps(out))
 '''
 
@@ -286,3 +300,19 @@ def test_analyze_and_collective_bytes_read_a_walk():
     cost = hlo_cost.analyze(torch.mm, a, b)
     assert hlo_analysis.collective_bytes(cost) == dict(
         {k: 0.0 for k in hlo_analysis.COLLECTIVES}, count=0, total=0.0)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "internvl2_76b",
+                                  "moonshot_v1_16b_a3b"])
+def test_four_card_grids_price_training(priced, arch):
+    cells = priced["cards"]
+    for grid in ("cards_1x4", "cards_2x2"):
+        for ga in (1, 2):
+            r = cells[f"{arch}/{grid}/{ga}"]
+            assert r["status"] == "ok" and not r["unpriced"], r
+            assert r["n_chips"] == 4 and r["grad_accum"] == ga
+            assert r["accum_scaled"] == (ga > 1)
+    for ga in (1, 2):
+        row = cells[f"{arch}/cards_1x4/{ga}"]["memory"]["argument_gb"]
+        both = cells[f"{arch}/cards_2x2/{ga}"]["memory"]["argument_gb"]
+        assert both > row

@@ -22,7 +22,11 @@ read what rank 0 saved. Smoke configurations in float32:
 * a MoE prefill and two greedy decode steps at (2, 2): logits within
   1e-5 of one device's, the greedy tokens equal;
 * Granite's private-embedding step at (2, 2): the opened rows equal the
-  unsharded lookup's bit for bit.
+  unsharded lookup's bit for bit;
+* two steps at (1, 4) of ChatGLM3 (4 query heads split, its 2 KV heads
+  whole) and of InternVL2 at 8 query heads over 4 KV heads (both split)
+  with its patches, from the reference's weights: within 1e-5 of the
+  port's unsharded steps and of the reference's.
 """
 import dataclasses
 
@@ -66,6 +70,11 @@ def _batches(vocab, seed, n=2, b=B, t=T, cfg=None):
                 (b, cfg.n_prefix, cfg.frontend_dim)).astype(np.float32)
         out.append(one)
     return out
+
+
+def _layout_jcfg(arch, heads, kv):
+    return dataclasses.replace(jconfigs.smoke(arch), dtype="float32",
+                               n_heads=heads, n_kv_heads=kv)
 
 
 def _jcfg(arch, e, dispatch, cf):
@@ -175,6 +184,15 @@ def _unsharded(inp):
         cfg = ranks.cfg_of(arch, moe_dispatch=d)
         want[f"serve/{tag}"] = _serve_unsharded(
             cfg, init_params(SEED, cfg, device="cpu"), inp["serve_tokens"])
+    for tag, arch, heads, kv in ranks.LAYOUTS_1X4:
+        arrays = inp["layout_params"][tag]
+        key = f"1x4-train/{tag}"
+        want[key] = _port_steps(ranks.layout_cfg(arch, heads, kv),
+                                params_from_arrays(arrays, device="cpu"),
+                                inp["layout_batches"][tag])
+        want[key]["reference"] = _reference_steps(
+            _layout_jcfg(arch, heads, kv), jax.tree.map(jnp.asarray, arrays),
+            inp["layout_batches"][tag])
     cfg = ranks.cfg_of("granite_moe_3b_a800m", private_embed=True)
     want["private"] = pe.private_lookup_inline(
         init_params(SEED, cfg, device="cpu"), cfg,
@@ -194,7 +212,13 @@ def run(tmp_path_factory):
            "moe_batches": _batches(256, 3),
            "serve_tokens": torch.from_numpy(np.random.default_rng(5)
                                             .integers(0, 256, (B, 6))),
-           "variant_params": {}}
+           "variant_params": {}, "layout_params": {},
+           "layout_batches": {}}
+    for tag, arch, heads, kv in ranks.LAYOUTS_1X4:
+        jcfg = _layout_jcfg(arch, heads, kv)
+        jp = jlm.init_params(jax.random.PRNGKey(1), jcfg)
+        inp["layout_params"][tag] = jax.tree.map(np.asarray, jp)
+        inp["layout_batches"][tag] = _batches(256, 11, cfg=jcfg)
     for arch in ranks.MOE:
         for e in (4, 3):
             jp = jlm.init_params(jax.random.PRNGKey(0),
@@ -334,3 +358,29 @@ def test_private_step_rows_equal_the_unsharded_lookup(run):
     assert torch.equal(got["rows"], want["private"])
     assert got["placements"] == ["Shard(dim=0)", "Replicate()"]
     assert np.isfinite(got["metrics"][0]["loss"])
+
+
+@pytest.mark.parametrize("tag", [t for t, *_ in ranks.LAYOUTS_1X4])
+def test_one_by_four_training_matches_port_and_reference(run, tag):
+    """ChatGLM3's ``wq``/``bq``/``wo`` split over the 4 model ranks and its
+    ``wk``/``wv``/``bk``/``bv`` whole (their gradients partial, reduced);
+    InternVL2's query and KV projections both split, its patches' rows on
+    the data axis."""
+    out, want = run
+    key = f"1x4-train/{tag}"
+    got, w = out[key], want[key]
+    pls = got["placements"]
+    attn = {p.rsplit("/", 1)[1]: v for p, v in pls.items()
+            if p.startswith("blocks/attn/")}
+    assert attn["wq"] == ["Replicate()", "Shard(dim=2)"]
+    assert attn["wo"] == ["Replicate()", "Shard(dim=1)"]
+    kv = "Replicate()" if tag == "chatglm3" else "Shard(dim=2)"
+    assert attn["wk"] == attn["wv"] == ["Replicate()", kv]
+    if tag == "chatglm3":
+        assert attn["bk"] == attn["bv"] == ["Replicate()", "Replicate()"]
+        assert attn["bq"] == ["Replicate()", "Shard(dim=1)"]
+    assert len(got["metrics"]) == 2
+    _close(got, w, key)
+    _close(got, w["reference"], key)
+    _params_close(got["params"], w["params"], key)
+    _params_close(got["params"], w["reference"]["params"], key)
